@@ -1,0 +1,449 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one line (any failure raises and exits non-zero;
+nothing falls back to the CPU):
+  1. the card (``nvidia-smi`` name and power limit), torch and CUDA;
+  2. build the four hand-written attention kernels from ``csrc/``;
+  3. each kernel against its plain PyTorch version on the card: at the
+     main path's shapes in bf16, where every element must satisfy
+     |kernel - plain| <= 0.05 * rms(plain) + 2**-7 * |plain| (one bf16 ulp
+     of the output's own rounding beside a twentieth of a typical output
+     value), and at one GQA G = 4, D = 128, unaligned case in fp32 (max
+     abs error 1e-4). To show the bf16 limit can see a wrong tile, the
+     plain version with one 64-key tile of V zeroed must break it;
+  4. each kernel's time at the main path's shapes (median of CUDA-event
+     timings) beside its plain version, one PyTorch library call as a
+     yardstick (scaled_dot_product_attention, which the port never calls)
+     and the least time the card could take (bytes at 3.35 TB/s or bf16
+     operations at 989 TFLOP/s, whichever is larger);
+  5. phi3-mini at full width, depth cut to 2 layers, fp32: the same
+     weights served on cuda (kernels) and on cpu (plain versions), a
+     2304-token prompt > sink + local, chunk 512, 8 greedy tokens; routing
+     and tokens identical, first-step logits within 2e-3;
+  6. the main path: phi3-mini-3.8b at full width and depth, bf16, seeded
+     weights, 4 requests of 4096 tokens, 32 new tokens, chunk 512, once
+     router-driven and once with a mixed FA/SA override, through
+     ``serve_batch_finished``; every logit finite, every kernel launched.
+Then one JSON line of per-kernel numbers, and the last line
+``{"ok": true, "device": {...}}``.
+"""
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
+ARCH = "phi3-mini-3.8b"
+REQUESTS, PROMPT, GEN, CHUNK = 4, 4096, 32, 512
+
+REPLACES = {  # kernel → the Pallas TPU kernel it replaces
+    "flash_attention": "src/repro/kernels/flash_attention.py:75",
+    "streaming_attention": "src/repro/kernels/streaming_attention.py:90",
+    "block_sparse_attention": "src/repro/kernels/block_sparse_attention.py:86",
+    "decode_attention": "src/repro/kernels/decode_attention.py:107",
+}
+BF16_ATOL_RMS = 0.05  # bf16 limit's absolute part, as a share of rms(plain)
+BF16_RTOL = 2.0 ** -7  # one bf16 ulp: kernel and plain round their outputs
+FP32_TOL = 1e-4
+TILE = slice(64, 128)  # the 64-key tile zeroed for the sensitivity check
+
+
+def say(phase, msg, t0=None):
+    extra = "" if t0 is None else f" [{time.perf_counter() - t0:.1f} s]"
+    print(f"phase {phase}: {msg}{extra}", flush=True)
+
+
+def time_ms(fn, reps=15, warmup=3):
+    """Median over ``reps`` CUDA-event timings of one call of ``fn``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def max_err(a, b):
+    torch.cuda.synchronize()
+    return float((a.float() - b.float()).abs().max())
+
+
+def bf16_ratio(out, plain):
+    """max over elements of |out - plain| / (atol + BF16_RTOL * |plain|),
+    atol = BF16_ATOL_RMS * rms(plain): below 1 passes the bf16 limit."""
+    p = plain.float()
+    atol = BF16_ATOL_RMS * float(p.square().mean().sqrt())
+    return float(((out.float() - p).abs() / (atol + BF16_RTOL * p.abs()))
+                 .max())
+
+
+def zero_tile(x):
+    """x with keys TILE of every row zeroed: a kernel that misreads one
+    key tile of V."""
+    x = x.clone()
+    x[:, TILE] = 0
+    return x
+
+
+def bound(n_bytes, flops):
+    """(least ms, what bounds it) for this many bytes and operations."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attn_work(BH, BHkv, Sq, D, keys_read, pairs, itemsize):
+    """Bytes (q read, o written, the needed keys of k and v read once)
+    and operations (QK^T and PV: 4·D per visible (query, key) pair)."""
+    return (itemsize * (2 * BH * Sq * D + 2 * BHkv * keys_read * D),
+            4 * D * pairs)
+
+
+def streaming_pairs(q_pos, sink, local):
+    """Visible keys per query position under sink + local (causal)."""
+    p = np.asarray(q_pos, np.int64)
+    n_sink = np.minimum(sink, p + 1)
+    lo = np.maximum(sink, p - local + 1)
+    return int((n_sink + np.maximum(p - lo + 1, 0)).sum())
+
+
+def kernel_cases(dev, dtype, main):
+    """(name → (kernel call, plain call, plain call with one V tile zeroed,
+    library call, bytes, flops)) on random inputs; ``main`` picks the main
+    path's shapes, else the small G = 4, D = 128, unaligned case."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.modes import causal_selection
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_sparse_attention import (
+        KERNEL_BLOCK, block_sparse_attention_bh)
+    from repro_torch.kernels.decode_attention import decode_attention_bh
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+    from repro_torch.kernels.streaming_attention import \
+        streaming_attention_bh
+    from repro_torch.serve.engine import _ring_src
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(0)
+    cfg = get_config(ARCH)
+    sink, local = cfg.flux.sink, cfg.flux.local
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    if main:
+        BH = BHkv = REQUESTS * cfg.num_heads
+        D, S, L = cfg.head_dim, CHUNK, PROMPT + GEN
+        start, cur = PROMPT - CHUNK, PROMPT + GEN // 2 - 1
+    else:
+        BH, BHkv, D, S, L = 8, 2, 128, 200, 300
+        start, cur, sink, local = 150, 250, 16, 48
+    it = torch.tensor([], dtype=dtype).element_size()
+    B4 = (BH // BHkv, BHkv)  # the (G, Hkv) split the library call takes
+
+    def q4(x):  # (BH, S, D) → (Hkv, G, S, D) for the library call
+        return x.view(B4[1], B4[0], *x.shape[1:]).transpose(0, 1)
+
+    def kv4(x):
+        return x[None].expand(B4[0], *x.shape)
+
+    cases = {}
+    q, k, v = rnd(BH, S, D), rnd(BHkv, S, D), rnd(BHkv, S, D)
+    pairs = BH * S * (S + 1) // 2
+    cases["flash_attention"] = (
+        lambda: flash_attention_bh(q, k, v),
+        lambda: ref.flash_attention_ref(q, k, v),
+        lambda: ref.flash_attention_ref(q, k, zero_tile(v)),
+        lambda: F.scaled_dot_product_attention(q4(q), kv4(k), kv4(v),
+                                               is_causal=True),
+        *attn_work(BH, BHkv, S, D, S, pairs, it))
+    pos = torch.arange(S, device=dev)
+    smask = (pos[None] <= pos[:, None]) & (
+        (pos[None] < sink) | (pos[:, None] - pos[None] < local))
+    cases["streaming_attention"] = (
+        lambda: streaming_attention_bh(q, k, v, sink=sink, local=local),
+        lambda: ref.streaming_attention_ref(q, k, v, sink=sink, local=local),
+        lambda: ref.streaming_attention_ref(q, k, zero_tile(v), sink=sink,
+                                            local=local),
+        lambda: F.scaled_dot_product_attention(q4(q), kv4(k), kv4(v),
+                                               attn_mask=smask),
+        *attn_work(BH, BHkv, S, D, S,
+                   BH * streaming_pairs(range(S), sink, local), it))
+    # a streamed chunk of S queries at ``start`` over an L-slot FullKV
+    Sq = S if main else 100
+    qc, kc, vc = rnd(BH, Sq, D), rnd(BHkv, L, D), rnd(BHkv, L, D)
+    sel = causal_selection(start, Sq, L, BH, dev)
+    kpos = torch.arange(L, device=dev)
+    cmask = kpos[None] <= start + torch.arange(Sq, device=dev)[:, None]
+    live = start + Sq
+    cases["block_sparse_attention"] = (
+        lambda: block_sparse_attention_bh(qc, kc, vc, sel, q_offset=start),
+        lambda: ref.block_sparse_attention_ref(qc, kc, vc, sel,
+                                               block=KERNEL_BLOCK,
+                                               q_offset=start),
+        lambda: ref.block_sparse_attention_ref(qc, kc, zero_tile(vc), sel,
+                                               block=KERNEL_BLOCK,
+                                               q_offset=start),
+        lambda: F.scaled_dot_product_attention(q4(qc), kv4(kc), kv4(vc),
+                                               attn_mask=cmask),
+        *attn_work(BH, BHkv, Sq, D, live,
+                   BH * (Sq * start + Sq * (Sq + 1) // 2), it))
+    # one decode token over a FullKV (positions = arange; main) or over a
+    # ring whose slots hold a permutation of positions (the small case)
+    qd, kd, vd = rnd(BH, 1, D), rnd(BHkv, L, D), rnd(BHkv, L, D)
+    if main:
+        dpos = torch.arange(L, dtype=torch.int32, device=dev)
+    else:
+        src = _ring_src(cur + 1, 40, L - 40, L)
+        perm = torch.randperm(L, generator=g, device=dev)
+        dpos = torch.as_tensor(src, dtype=torch.int32, device=dev)[perm]
+    valid = (dpos >= 0) & (dpos <= cur)
+    n_valid = int(valid.sum())
+    cases["decode_attention"] = (
+        lambda: decode_attention_bh(qd, kd, vd, dpos, cur),
+        lambda: ref.decode_attention_ref(qd, kd, vd, dpos, cur),
+        lambda: ref.decode_attention_ref(qd, kd, zero_tile(vd), dpos, cur),
+        lambda: F.scaled_dot_product_attention(q4(qd), kv4(kd), kv4(vd),
+                                               attn_mask=valid[None]),
+        *attn_work(BH, BHkv, 1, D, n_valid, BH * n_valid, it))
+    return cases
+
+
+def ring_decode_check(dev):
+    """The decode kernel over a sink + local RingKV at the main path's
+    shapes (bf16), the SA layers' decode: (max abs error, bf16 ratio of
+    the kernel, bf16 ratio of the plain version with one V tile
+    zeroed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_bh
+    from repro_torch.serve.engine import _ring_src
+    cfg = get_config(ARCH)
+    sink, local = cfg.flux.sink, cfg.flux.local
+    ring, BH, D = sink + local, REQUESTS * cfg.num_heads, cfg.head_dim
+    cur = PROMPT + GEN // 2 - 1
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn(BH, n, D, generator=g, device=dev).to(
+        torch.bfloat16) for n in (1, ring, ring))
+    pos = torch.as_tensor(_ring_src(cur + 1, sink, local, ring),
+                          dtype=torch.int32, device=dev)
+    out = decode_attention_bh(q, k, v, pos, cur)
+    plain = ref.decode_attention_ref(q, k, v, pos, cur)
+    return (max_err(out, plain), bf16_ratio(out, plain),
+            bf16_ratio(ref.decode_attention_ref(q, k, zero_tile(v), pos,
+                                                cur), plain))
+
+
+def path_parity(dev):
+    """Phase 5: the same 2-layer full-width fp32 weights on cuda and cpu.
+
+    The hard decision is mean(p_fa) > 0.5 (strict), so a layer whose
+    p_fa sits within rounding of 0.5 could route differently on the two
+    devices. The prompt seed is the first whose router margins all exceed
+    1e-3, found on the card; the CPU run must agree with it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import routing_pattern
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config(ARCH).replace(num_layers=2, dtype=torch.float32,
+                                   param_dtype=torch.float32)
+    params = MD.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    S, N = 2304, 8
+    assert S > cfg.flux.sink + cfg.flux.local
+    engines = {d.type: ServeEngine(params, cfg, max_len=S + N,
+                                   prefill_chunk=CHUNK, device=d)
+               for d in (dev, torch.device("cpu"))}
+    for seed in range(32):
+        toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                    (1, S))
+        pf = MD.prefill(engines["cuda"].params, cfg,
+                        torch.as_tensor(toks[:, :CHUNK],
+                                        device=engines["cuda"].device),
+                        routing_ctx="hard_prefix", want_cache=False)
+        if float(np.abs(pf.p_fa.numpy() - 0.5).min()) > 1e-3:
+            break
+    else:
+        raise AssertionError("no prompt seed with router margins > 1e-3")
+    out = [f"prompt_seed={seed}"]
+    for override in (None, routing_pattern(cfg, "mixed")):
+        res = {d: e.generate(toks, N, routing_override=override)
+               for d, e in engines.items()}
+        g, c = res["cuda"], res["cpu"]
+        err = float((g.logits.cpu() - c.logits).abs().max())
+        assert g.routing == c.routing, (g.routing, c.routing)
+        assert np.array_equal(g.tokens, c.tokens), (g.tokens, c.tokens)
+        assert err < 2e-3, err  # fp32 both; summation order only
+        if override is None:
+            margin = float(np.abs(c.p_fa - 0.5).min())
+            assert margin > 1e-3, c.p_fa
+            out.append(f"p_fa={np.round(c.p_fa, 5).tolist()}")
+        out.append(f"{'router' if override is None else 'mixed'} "
+                   f"routing={''.join(p[0] for p in g.routing)} "
+                   f"logits_err={err:.2e} tokens={g.tokens[0].tolist()}")
+    return "; ".join(out)
+
+
+def main_path(dev):
+    """Phase 6: full phi3-mini in bf16 through the user's entry points."""
+    import repro_torch.kernels as KN
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import routing_pattern
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import (Request, ServeEngine,
+                                          serve_batch_finished)
+    cfg = get_config(ARCH)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    eng = ServeEngine(params, cfg, max_len=PROMPT + GEN, prefill_chunk=CHUNK,
+                      device=dev)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (REQUESTS, PROMPT))
+    mixed = routing_pattern(cfg, "mixed")
+    lines = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    KN.reset_launch_counts()
+    for name, override in (("router", None), ("mixed", mixed)):
+        before = KN.launch_counts()
+        reqs = [Request(rid=i, tokens=prompts[i], n_steps=GEN,
+                        routing_override=override)
+                for i in range(REQUESTS)]
+        done = serve_batch_finished(eng, reqs)
+        gen = done[0].result
+        assert all(len(done[i].tokens) == GEN for i in range(REQUESTS))
+        assert gen.logits.shape == (REQUESTS, cfg.vocab_size)
+        assert bool(torch.isfinite(gen.logits).all()), "first logits"
+        assert bool(torch.isfinite(gen.final_logits).all()), "last logits"
+        delta = {k: v - before[k] for k, v in KN.launch_counts().items()}
+        n_fa = sum(p == "fa" for p in gen.routing)
+        n_sa = cfg.num_layers - n_fa
+        n_chunks = PROMPT // CHUNK
+        want = {"flash_attention": n_fa, "streaming_attention": n_sa,
+                "block_sparse_attention": n_fa * (n_chunks - 1),
+                "decode_attention": GEN * cfg.num_layers}
+        assert delta == want, (delta, want)
+        lines.append(
+            f"{name}: routing={''.join(p[0] for p in gen.routing)} "
+            f"msr={gen.msr:.3f} kv_bytes={gen.kv_bytes} "
+            f"prefill_s={gen.prefill_s:.3f} "
+            f"prefill_tok_s={REQUESTS * PROMPT / gen.prefill_s:.0f} "
+            f"decode_s={gen.decode_s:.3f} "
+            f"decode_tok_s={REQUESTS * GEN / gen.decode_s:.1f} "
+            f"launches={delta} tokens0={done[0].tokens[:8].tolist()}")
+    counts = KN.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for k, n in counts.items():
+        assert n > 0, f"{k} was never launched on the main path"
+    lines.append(f"peak_mem_bytes={peak} card={torch.cuda.get_device_name(0)}")
+    return counts, lines
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
+                         "is_available() is False); it runs on an NVIDIA "
+                         "GPU only")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build  # fails outside the repo
+    dev = torch.device("cuda")
+    t_all = time.perf_counter()
+
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    card = smi.splitlines()[0]
+    print(card, flush=True)
+    say(1, f"torch {torch.__version__} cuda {torch.version.cuda} "
+           f"device {torch.cuda.get_device_name(0)} "
+           f"count {torch.cuda.device_count()}", t0)
+
+    t0 = time.perf_counter()
+    built = _build.build()
+    say(2, "built " + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()),
+        t0)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    errs = {}
+    for name, (kern, plain, mutant, *_rest) in kernel_cases(
+            dev, torch.bfloat16, True).items():
+        out, want = kern(), plain()
+        errs[name] = max_err(out, want)
+        r, r_mut = bf16_ratio(out, want), bf16_ratio(mutant(), want)
+        assert r < 1, f"{name} bf16: error {r:.3f} of the limit"
+        assert r_mut > 1, f"{name} bf16: a zeroed tile is within the limit"
+        say(3, f"{name} bfloat16 main shapes max_abs_err={errs[name]:.3e} "
+               f"limit_ratio={r:.3f} zeroed_tile_ratio={r_mut:.2f}")
+    for name, (kern, plain, *_rest) in kernel_cases(
+            dev, torch.float32, False).items():
+        e = max_err(kern(), plain())
+        assert e < FP32_TOL, f"{name} fp32: max abs err {e} >= {FP32_TOL}"
+        say(3, f"{name} float32 G=4 D=128 unaligned max_abs_err={e:.3e} "
+               f"tol={FP32_TOL}")
+    e, r, r_mut = ring_decode_check(dev)
+    assert r < 1, f"ring decode bf16: error {r:.3f} of the limit"
+    assert r_mut > 1, "ring decode bf16: a zeroed tile is within the limit"
+    say(3, f"decode_attention bfloat16 ring main shapes max_abs_err={e:.3e} "
+           f"limit_ratio={r:.3f} zeroed_tile_ratio={r_mut:.2f}", t0)
+
+    t0 = time.perf_counter()
+    rows = {}
+    for name, (kern, plain, _, lib, n_bytes, flops) in kernel_cases(
+            dev, torch.bfloat16, True).items():
+        b_ms, b_by = bound(n_bytes, flops)
+        rows[name] = dict(ms=time_ms(kern), plain_ms=time_ms(plain),
+                          library_ms=time_ms(lib), bound_ms=b_ms,
+                          bound_by=b_by)
+        r = rows[name]
+        say(4, f"{name} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+               f"library_ms={r['library_ms']:.4f} bound_ms={b_ms:.4f} "
+               f"({b_by}; {n_bytes} bytes, {flops} flops) "
+               f"roofline_share={b_ms / r['ms']:.3f}")
+    torch.cuda.empty_cache()
+    say(4, f"timed at {card}", t0)
+
+    t0 = time.perf_counter()
+    say(5, path_parity(dev), t0)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    counts, lines = main_path(dev)
+    for line in lines:
+        say(6, line)
+    say(6, "main path done", t0)
+
+    import repro_torch.kernels as KN
+    kernels = []
+    for name, replaces in REPLACES.items():
+        src = _build.CSRC / f"{KN.KERNELS[name].source}.cu"
+        kernels.append(dict(name=name, route="cuda",
+                            source=str(src.relative_to(ROOT)),
+                            replaces=replaces, launches=counts[name],
+                            max_abs_err=errs[name], **rows[name]))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,45 @@
+"""Flash-attention forward (causal or bidirectional).
+
+Port of ``repro/kernels/flash_attention.py::flash_attention_bh``. On CUDA
+tensors the entry launches the hand-written kernel
+``csrc/flash_attention.cu`` or raises; on CPU tensors it runs the plain
+version, the dense masked softmax of ``ref.flash_attention_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import \
+    flash_attention_ref as flash_attention_plain  # noqa: F401
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# q, k, v, o, BH, BHkv, Sq, Skv, D, dtype, causal, q_offset, scale
+KERNEL = _build.CudaKernel("flash_attention", "flash_attention_fwd",
+                           [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _F])
+
+
+def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, scale: Optional[float] = None,
+                       q_offset: int = 0) -> torch.Tensor:
+    """q (BH, Sq, D); k/v (BHkv, Skv, D) with BH = BHkv·G; query row r
+    sits at position ``q_offset + r``. Returns (BH, Sq, D) in q's dtype."""
+    name = "flash_attention_bh"
+    _build.check_operands(name, q, k, v)
+    if q_offset < 0:
+        raise ValueError(f"{name}: q_offset={q_offset} must be >= 0")
+    if _build.on_cpu(name, q):
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=q_offset, scale=scale)
+    code = _build.check_cuda(name, q, k, v)
+    BH, Sq, D = q.shape
+    BHkv, Skv = k.shape[0], k.shape[1]
+    out = torch.empty_like(q)
+    KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), BH, BHkv, Sq, Skv, D, code, int(causal),
+                  int(q_offset), _build.default_scale(D, scale))
+    return out

@@ -1,0 +1,88 @@
+"""Plain PyTorch oracles for every kernel (port of repro/kernels/ref.py).
+
+Each builds the full (Sq, Skv) mask and does a dense masked softmax in
+float32: O(S^2) memory. They are the plain versions the kernel wrappers
+run on CPU tensors, and what the kernels are held against on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _masked_attention(q, k, v, mask, scale=None):
+    """q (BH,Sq,D); k/v (BHkv,Skv,D); mask (Sq,Skv) or (BH,Sq,Skv).
+
+    The kernels' arithmetic in one dense pass: f32 scores, the -1e30
+    mask, p = exp(s - rowmax) rounded to v's dtype before the PV product
+    (a no-op in float32), and the sum divided by max(l, 1e-20) at the end,
+    where l sums the unrounded p."""
+    BH, Sq, D = q.shape
+    BHkv = k.shape[0]
+    G = BH // BHkv
+    scale = D ** -0.5 if scale is None else scale
+    q4 = q.reshape(BHkv, G, Sq, D).float()
+    s = torch.einsum("hgqd,hkd->hgqk", q4, k.float()) * scale
+    if mask.dim() == 3:
+        mask = mask.reshape(BHkv, G, *mask.shape[1:])
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("hgqk,hkd->hgqd", p.to(v.dtype).float(), v.float())
+    o = o / torch.clamp(l, min=1e-20)
+    return o.reshape(BH, Sq, v.shape[-1]).to(q.dtype)
+
+
+def _positions(n: int, offset: int, device) -> torch.Tensor:
+    return offset + torch.arange(n, device=device)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, q_offset=0, scale=None):
+    Sq, Skv = q.shape[1], k.shape[1]
+    qp = _positions(Sq, q_offset, q.device)
+    kp = _positions(Skv, 0, q.device)
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = kp[None, :] <= qp[:, None]
+    return _masked_attention(q, k, v, mask, scale)
+
+
+def streaming_attention_ref(q, k, v, *, sink, local, q_offset=0,
+                            scale=None):
+    Sq, Skv = q.shape[1], k.shape[1]
+    qp = _positions(Sq, q_offset, q.device)
+    kp = _positions(Skv, 0, q.device)
+    causal = kp[None, :] <= qp[:, None]
+    window = (qp[:, None] - kp[None, :]) < local
+    sink_m = kp[None, :] < sink
+    return _masked_attention(q, k, v, causal & (window | sink_m), scale)
+
+
+def decode_attention_ref(q, k, v, positions, cur_pos, scale=None):
+    """q (BH,1,D); k/v (BHkv,L,D); positions (L,)."""
+    valid = (positions >= 0) & (positions <= cur_pos)
+    return _masked_attention(q, k, v, valid[None, :], scale)
+
+
+def block_sparse_attention_ref(q, k, v, sel, *, block, q_offset=0,
+                               scale=None):
+    """sel (BH, nqb, K) expanded to a dense mask. ``q_offset`` shifts the
+    causal comparison (query row r sees keys <= q_offset + r), as the
+    kernel's runtime offset does for streamed prompt chunks."""
+    BH, Sq, D = q.shape
+    Skv = k.shape[1]
+    nqb = sel.shape[1]
+    nkb = -(-Skv // block)
+    # (BH, nqb, nkb) block visibility; -1 and out-of-range entries are
+    # parked at a pad column and dropped
+    sel_c = torch.where((sel >= 0) & (sel < nkb), sel, nkb).long()
+    blk_mask = torch.zeros((BH, nqb, nkb + 1), dtype=torch.bool,
+                           device=q.device)
+    blk_mask.scatter_(2, sel_c, True)
+    mask = blk_mask[:, :, :nkb].repeat_interleave(block, 1)
+    mask = mask.repeat_interleave(block, 2)[:, :Sq, :Skv]
+    qp = _positions(Sq, q_offset, q.device)
+    kp = _positions(Skv, 0, q.device)
+    mask = mask & (kp[None, :] <= qp[:, None])[None]
+    return _masked_attention(q, k, v, mask, scale)
