@@ -8,13 +8,15 @@ or raises; a CPU tensor goes to the plain version.
 from typing import Dict
 
 from repro_torch.kernels import (block_sparse_attention, decode_attention,
-                                 flash_attention, streaming_attention)
+                                 decode_attention_pooled, flash_attention,
+                                 streaming_attention)
 
 KERNELS = {
     "flash_attention": flash_attention.KERNEL,
     "streaming_attention": streaming_attention.KERNEL,
     "block_sparse_attention": block_sparse_attention.KERNEL,
     "decode_attention": decode_attention.KERNEL,
+    "decode_attention_pooled": decode_attention_pooled.KERNEL,
 }
 
 

@@ -29,7 +29,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 COMMON_HEADER = CSRC / "attention_common.cuh"
 SOURCES = ("flash_attention", "streaming_attention",
-           "block_sparse_attention", "decode_attention")
+           "block_sparse_attention", "decode_attention",
+           "decode_attention_pooled")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -138,31 +139,71 @@ class CudaKernel:
         self.launches += 1
 
 
+def _check_common(name: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, *others: torch.Tensor) -> None:
+    """Rank, emptiness, one device (also for ``others``) and one dtype of
+    q, k, v."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"{name}: q, k, v must be 3-D (rows, seq, dim); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if 0 in q.shape or 0 in k.shape or 0 in v.shape:
+        raise ValueError(f"{name}: empty operand: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    devices = [t.device for t in (q, k, v, *others)]
+    if any(d != q.device for d in devices):
+        raise ValueError(f"{name}: operands on different devices "
+                         f"({', '.join(map(str, devices))})")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"{name}: q, k, v of different dtypes "
+                         f"({q.dtype}, {k.dtype}, {v.dtype})")
+
+
 def check_operands(name: str, q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor) -> None:
     """The checks every attention entry makes, on any device:
     q (BH, Sq, D), k / v (BHkv, Skv, D), BH a multiple of BHkv, one
     device and one dtype."""
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
-        raise ValueError(f"{name}: q, k, v must be 3-D (rows, seq, dim); "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    _check_common(name, q, k, v)
     if k.shape != v.shape or q.shape[2] != k.shape[2]:
         raise ValueError(f"{name}: k and v must both be (BHkv, Skv, D) "
                          f"with q's D; got q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if 0 in q.shape or 0 in k.shape:
-        raise ValueError(f"{name}: empty operand: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}")
     if q.shape[0] % k.shape[0]:
         raise ValueError(f"{name}: q rows {q.shape[0]} are not a multiple "
                          f"of kv rows {k.shape[0]}")
-    if not (q.device == k.device == v.device):
-        raise ValueError(f"{name}: q, k, v on different devices "
-                         f"({q.device}, {k.device}, {v.device})")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise ValueError(f"{name}: q, k, v of different dtypes "
-                         f"({q.dtype}, {k.dtype}, {v.dtype})")
+
+
+def check_pooled_operands(name: str, q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, positions, lengths: torch.Tensor,
+                          n_heads: int) -> None:
+    """The checks the pooled decode entry makes, on any device: q
+    (B·n_heads, 1, Dk), k (BHkv, L, Dk), v (BHkv, L, Dv) with Dv free,
+    BHkv a multiple of B dividing B·n_heads, positions None or (B, L)
+    int32, lengths (B,) int32; one device, and one dtype for q, k, v."""
+    _check_common(name, q, k, v, lengths,
+                  *(() if positions is None else (positions,)))
+    BH, Sq, Dk = q.shape
+    BHkv, L = k.shape[0], k.shape[1]
+    if Sq != 1 or k.shape[2] != Dk or v.shape[:2] != k.shape[:2]:
+        raise ValueError(f"{name}: want q (BH, 1, Dk), k (BHkv, L, Dk), v "
+                         f"(BHkv, L, Dv); got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if n_heads < 1 or BH % n_heads:
+        raise ValueError(f"{name}: q rows {BH} are not a multiple of "
+                         f"n_heads={n_heads}")
+    B = BH // n_heads
+    if BH % BHkv or BHkv % B:
+        raise ValueError(f"{name}: kv rows {BHkv} must divide q rows {BH} "
+                         f"and be a multiple of the {B} slots")
+    if lengths.shape != (B,) or lengths.dtype != torch.int32:
+        raise ValueError(f"{name}: lengths must be ({B},) int32; got "
+                         f"{tuple(lengths.shape)} {lengths.dtype}")
+    if positions is not None and (positions.shape != (B, L)
+                                  or positions.dtype != torch.int32):
+        raise ValueError(f"{name}: positions must be None or ({B}, {L}) "
+                         f"int32; got {tuple(positions.shape)} "
+                         f"{positions.dtype}")
 
 
 def on_cpu(name: str, t: torch.Tensor) -> bool:

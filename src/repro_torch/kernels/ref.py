@@ -86,3 +86,23 @@ def block_sparse_attention_ref(q, k, v, sel, *, block, q_offset=0,
     kp = _positions(Skv, 0, q.device)
     mask = mask & (kp[None, :] <= qp[:, None])[None]
     return _masked_attention(q, k, v, mask, scale)
+
+
+def decode_attention_pooled_ref(q, k, v, positions, lengths, *, n_heads,
+                                scale=None):
+    """q (B·n_heads,1,Dk); k (BHkv,L,Dk); v (BHkv,L,Dv); positions (B,L)
+    int32 (-1 empty) or None (column j holds position j); lengths (B,).
+
+    Row b belongs to slot b // n_heads and sees column j iff
+    j < min(lengths[slot], L) and positions[slot, j] >= 0. A row that sees
+    no column gives zeros, as the kernel's acc / max(l, 1e-20) does for an
+    empty slot; the dense -1e30 softmax would give the mean of V instead."""
+    L = k.shape[1]
+    col = torch.arange(L, device=q.device)
+    valid = col[None, :] < lengths.clamp(0, L)[:, None]  # (B, L)
+    if positions is not None:
+        valid = valid & (positions >= 0)
+    rows = valid.repeat_interleave(n_heads, dim=0)  # (B·n_heads, L)
+    o = _masked_attention(q, k, v, rows[:, None, :], scale)
+    return torch.where(rows.any(dim=-1)[:, None, None], o,
+                       torch.zeros_like(o))

@@ -1,5 +1,5 @@
-"""Serving launcher: a batch of requests through the port's engine
-(port of the batch half of ``repro/launch/serve.py``).
+"""Serving launcher: batched or continuous requests through the port's
+engine (port of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch phi3-mini-3.8b --smoke --requests 2 --prompt-len 96 \\
@@ -10,15 +10,23 @@
         --arch phi3-mini-3.8b --requests 4 --prompt-len 4096 \\
         --gen-len 32 --prefill-chunk 512
 
+    # continuous batching: Poisson arrivals into the slot pool, prompt
+    # lengths prompt_len // (1 + rid % 3)
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch phi3-mini-3.8b --continuous --requests 8 \\
+        --prompt-len 4096 --gen-len 32 --slots 4 --chunk 8
+
 Prompts are random tokens from a numpy generator seeded with 0; weights
 are drawn from a ``torch.Generator`` seeded with 0. The decode caches hold
-prompt + generated tokens. Prints each request's tokens,
-routing and wall time, then each kernel's launch count (0 on the CPU,
-where the kernels' plain versions run). ``--profile`` then runs the first
-bucket's admission alone and the whole batch again under
-``torch.profiler`` and prints where the time went: the device's busy
-share of the wall time and the operators with the most device (or, on
-the CPU, host) time.
+prompt + generated tokens. Prints one JSON line per request (tokens,
+routing and times), then each kernel's launch count (0 on the CPU, where
+the kernels' plain versions run); ``--continuous`` adds TTFT, queue
+delay, decode tokens/s and preemptions per request, and a totals line
+with the number of cache geometries. ``--profile`` then serves the
+requests again under ``torch.profiler`` (batch mode: the first bucket's
+admission alone, then the whole batch) and prints where the time went:
+the device's busy share of the wall time and the operators with the most
+device (or, on the CPU, host) time.
 """
 from __future__ import annotations
 
@@ -31,10 +39,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ALL_ARCHS, get_config, smoke_variant
-from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 from repro_torch.models.model import init_params
 from repro_torch.serve.engine import (Request, ServeEngine,
                                       serve_batch_finished)
+from repro_torch.serve.scheduler import STATUS_OK, ContinuousScheduler
 
 ROUTINGS = ("router", "fa", "sa", "mixed")
 
@@ -53,13 +62,13 @@ def routing_pattern(cfg, routing: str):
 def _profiled(fn, device, top: int) -> dict:
     """Run ``fn`` under torch.profiler. On cuda: the device's busy time
     (the sum of its kernels' times; one stream, so they never overlap)
-    and the kernels with the most time. On the CPU: the operators with
-    the most host time."""
+    and the kernels with the most time; only device activity is traced,
+    which keeps the profiler's own host cost off the host-bound decode
+    loop. On the CPU: the operators with the most host time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cuda = device.type == "cuda"
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
-                                     else [])
+    acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
@@ -99,6 +108,40 @@ def profile_batch(engine, reqs, device, top: int = 15) -> dict:
     return out
 
 
+# prefill chunks streamed per tick: with 1, a prompt of several chunks
+# takes as many ticks to stream while a resident request leaves after
+# gen_len / chunk ticks, so at 4096-token prompts, 32 new tokens and
+# chunks of 8 a pool of 4 never fills
+PREFILL_CHUNKS_PER_TICK = 16
+
+
+def serve_continuous(engine, reqs, *, slots: int, chunk: int,
+                     mean_gap: float):
+    """Submit ``reqs`` to a fresh slot-pool scheduler at Poisson arrival
+    times (mean gap ``mean_gap`` s, numpy generator seeded with 1) and
+    tick until all have retired. Returns (finished by rid, wall s,
+    scheduler)."""
+    # a scheduler registers with its engine: engine.submit / step use it
+    sched = ContinuousScheduler(
+        engine, slots_per_bucket=slots, chunk=chunk,
+        prefill_chunks_per_tick=PREFILL_CHUNKS_PER_TICK)
+    arrivals = np.cumsum(np.random.default_rng(1).exponential(
+        mean_gap, len(reqs)))
+    t0 = time.monotonic()
+    pending, done = list(reqs), {}
+    while pending or sched.waiting or sched.n_active():
+        now = time.monotonic() - t0
+        while pending and arrivals[len(reqs) - len(pending)] <= now:
+            engine.submit(pending.pop(0))
+        if sched.waiting or sched.n_active():
+            for f in engine.step():
+                done[f.rid] = f
+        elif pending:  # idle until the next arrival
+            time.sleep(min(max(arrivals[len(reqs) - len(pending)] - now,
+                               0.0), 0.05))
+    return done, time.monotonic() - t0, sched
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="phi3-mini-3.8b", choices=ALL_ARCHS)
@@ -113,11 +156,23 @@ def main(argv=None) -> None:
                     help="router-driven, or a forced FA/SA/mixed pattern")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--continuous", action="store_true",
+                    help="slot-pool continuous batching instead of "
+                         "bucketed batches")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="slots per geometry pool (--continuous)")
+    ap.add_argument("--chunk", type=int, default=8,
+                    help="decode steps per tick (--continuous)")
+    ap.add_argument("--mean-gap", type=float, default=0.02,
+                    help="mean Poisson inter-arrival gap in seconds "
+                         "(--continuous)")
     ap.add_argument("--profile", action="store_true",
-                    help="serve the batch again under torch.profiler")
+                    help="serve the requests again under torch.profiler")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        _build.build()  # every kernel now, one nvcc each, side by side
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
@@ -129,11 +184,15 @@ def main(argv=None) -> None:
                          device=device)
     rng = np.random.default_rng(0)
     override = routing_pattern(cfg, args.routing)
-    reqs = [Request(rid=i,
-                    tokens=rng.integers(0, cfg.vocab_size, args.prompt_len),
+    lens = [args.prompt_len // (1 + i % 3) if args.continuous
+            else args.prompt_len for i in range(args.requests)]
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size, n),
                     n_steps=args.gen_len, routing_override=override)
-            for i in range(args.requests)]
+            for i, n in enumerate(lens)]
     reset_launch_counts()
+    if args.continuous:
+        _continuous_main(engine, reqs, args, device)
+        return
     done = serve_batch_finished(engine, reqs)
     for rid in sorted(done):
         f = done[rid]
@@ -147,6 +206,36 @@ def main(argv=None) -> None:
     print(json.dumps({"device": str(device), "launches": launch_counts()}))
     if args.profile:
         print(json.dumps({"profile": profile_batch(engine, reqs, device)}))
+
+
+def _continuous_main(engine, reqs, args, device) -> None:
+    def run():
+        return serve_continuous(engine, reqs, slots=args.slots,
+                                chunk=args.chunk, mean_gap=args.mean_gap)
+
+    done, wall, sched = run()
+    total = 0
+    for rid in sorted(done):
+        f, m = done[rid], done[rid].metrics
+        total += m.n_generated
+        print(json.dumps({
+            "rid": rid, "status": f.status, "prompt_len": m.prompt_len,
+            "tokens": f.tokens.tolist(),
+            "routing": "".join(p[0] for p in f.routing),
+            "ttft_s": round(m.ttft, 4),
+            "queue_delay_s": round(m.queue_delay, 4),
+            "decode_tok_s": round(m.decode_tps, 2),
+            "preemptions": m.preemptions}))
+    n_ok = sum(f.status == STATUS_OK for f in done.values())
+    print(json.dumps({
+        "device": str(device), "requests": len(done), "ok": n_ok,
+        "tokens": total, "wall_s": round(wall, 3),
+        "tok_s": round(total / wall, 2),
+        "geometries": sched.n_geometries(), "ticks": sched.ticks,
+        "launches": launch_counts()}))
+    if args.profile:
+        print(json.dumps({"profile": {"continuous": _profiled(
+            run, device, 15)}}))
 
 
 if __name__ == "__main__":

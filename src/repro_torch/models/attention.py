@@ -27,8 +27,9 @@ def gqa_qkv(params, cfg: ModelConfig, x: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B,S,d) → q (B,H,S,hd), k/v (B,Hkv,S,hd), x_Q (B,S,q_dim).
 
-    q and k carry RoPE at ``positions`` (S,); x_Q is the pre-RoPE query
-    projection the Layer Router reads. q, k, v are contiguous."""
+    q and k carry RoPE at ``positions`` ((S,) or per row (B, S)); x_Q is
+    the pre-RoPE query projection the Layer Router reads. q, k, v are
+    contiguous."""
     B, S, _ = x.shape
     x_q = x @ params["wq"]
     q = x_q.reshape(B, S, cfg.num_heads, cfg.head_dim).transpose(1, 2)

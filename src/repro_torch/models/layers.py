@@ -58,10 +58,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """Rotate ``x`` (B, H, S, D) by position-dependent angles.
 
-    ``positions`` (S,) int: absolute position of each sequence entry."""
+    ``positions``: the absolute position of each sequence entry, (S,)
+    shared by every batch row or (B, S) one row per batch row (the slot
+    pool's decode, where each row is its own request)."""
     d = x.shape[-1]
     inv_freq = rope_frequencies(d, theta, x.device)
-    angles = positions.float()[:, None] * inv_freq  # (S, d/2)
+    angles = positions.float()[..., None] * inv_freq  # (S | B,S, d/2)
+    if angles.dim() == 3:
+        angles = angles[:, None]  # (B, 1, S, d/2): the same for every head
     sin, cos = torch.sin(angles), torch.cos(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -28,6 +28,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import modes as M
 from repro_torch.core import router as R
 from repro_torch.kernels.decode_attention import decode_attention_bh
+from repro_torch.kernels.decode_attention_pooled import \
+    decode_attention_pooled_bh
 from repro_torch.models import attention as A
 from repro_torch.models.layers import (dense_init, embed_init, ffn_apply,
                                        ffn_init, rms_norm, rms_norm_init)
@@ -227,6 +229,12 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 # ---------------------------------------------------------------------------
 # Decode (dispatched on cache type: ring ⇒ sink+local, full ⇒ causal)
+#
+# ``pos`` is a Python int — every row at one position, single-request
+# serving, on the decode kernel — or a (B,) int32 device tensor — one
+# position per row, the continuous-batching slot pool, where every row is
+# its own request with its own RoPE angles, cache slot and live length, on
+# the pooled decode kernel.
 # ---------------------------------------------------------------------------
 
 def _dot_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -243,31 +251,65 @@ def _dot_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Hq, 1, out.shape[-1])
 
 
-def _decode_attn_full(bp, cfg, x, pos: int, rope_pos, cache: KC.FullKV,
+def _dot_decode_pooled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       positions: Optional[torch.Tensor],
+                       lengths: torch.Tensor) -> torch.Tensor:
+    """q (B,H,1,D), k/v (B,Hkv,L,D), positions (B,L) int32 (-1 = not
+    visible) or None (slot j holds position j), lengths (B,) live slots
+    per row → (B,H,1,D). Runs the pooled decode kernel on CUDA tensors
+    (its plain version on CPU)."""
+    B, Hq, _, D = q.shape
+    Hkv, L = k.shape[1], k.shape[2]
+    out = decode_attention_pooled_bh(q.reshape(B * Hq, 1, D),
+                                     k.reshape(B * Hkv, L, D),
+                                     v.reshape(B * Hkv, L, v.shape[-1]),
+                                     positions, lengths, n_heads=Hq)
+    return out.reshape(B, Hq, 1, out.shape[-1])
+
+
+def _decode_attn_full(bp, cfg, x, pos, rope_pos, cache: KC.FullKV,
                       slot_positions):
     q, k, v, _ = A.gqa_qkv(bp["attn"], cfg, x, rope_pos)
     cache = KC.full_insert(cache, k, v, pos)
-    o = _dot_decode(q, cache.k, cache.v, slot_positions, pos)
+    if isinstance(pos, torch.Tensor):
+        # per row: slots [0, length) are live and slot j holds position j
+        o = _dot_decode_pooled(q, cache.k, cache.v, None, cache.length)
+    else:
+        o = _dot_decode(q, cache.k, cache.v, slot_positions, pos)
     return A.gqa_out(bp["attn"], cfg, o), cache
 
 
-def _decode_attn_ring(bp, cfg, x, pos: int, rope_pos, cache: KC.RingKV,
+def _decode_attn_ring(bp, cfg, x, pos, rope_pos, cache: KC.RingKV,
                       sink: int, local: int):
     q, k, v, _ = A.gqa_qkv(bp["attn"], cfg, x, rope_pos)
     cache = KC.ring_insert(cache, k, v, pos, sink, local)
-    # uniform positions keep every row of cache.positions identical, so
-    # row 0 is the shared (L,) slot-position vector the kernel takes
-    o = _dot_decode(q, cache.k, cache.v, cache.positions[0], pos)
+    if isinstance(pos, torch.Tensor):
+        # per row: the ring's occupied slots are a prefix of
+        # min(length, ring) entries; entries the row must not see (past
+        # its position: a free row parked at 0 over a stale ring) are
+        # re-marked -1, so the kernel's test equals the causal mask
+        ring = cache.positions.shape[1]
+        vis = (cache.positions >= 0) & (cache.positions <= pos[:, None])
+        o = _dot_decode_pooled(q, cache.k, cache.v,
+                               torch.where(vis, cache.positions, -1),
+                               torch.clamp(cache.length, max=ring))
+    else:
+        # uniform positions keep every row of cache.positions identical,
+        # so row 0 is the shared (L,) slot-position vector the kernel
+        # takes
+        o = _dot_decode(q, cache.k, cache.v, cache.positions[0], pos)
     return A.gqa_out(bp["attn"], cfg, o), cache
 
 
 def decode_core(params, cfg: ModelConfig, token: torch.Tensor,
-                caches: List, pos: int):
-    """One autoregressive step at position ``pos`` (shared by all rows).
-    token (B,1). Updates ``caches`` in place. Returns (logits (B,V),
-    caches)."""
+                caches: List, pos):
+    """One autoregressive step at position ``pos``: an int shared by all
+    rows, or a (B,) int32 device tensor, one per row. token (B,1).
+    Updates ``caches`` in place. Returns (logits (B,V), caches)."""
     h = embed_tokens(params, cfg, token)
-    rope_pos = torch.full((1,), pos, device=h.device)
+    pooled = isinstance(pos, torch.Tensor)
+    rope_pos = (pos[:, None] if pooled
+                else torch.full((1,), pos, device=h.device))
     slot_positions: Dict[int, torch.Tensor] = {}  # FullKV capacity → arange
     flux = cfg.flux
     for i, bp in enumerate(params["layers"]):
@@ -279,11 +321,11 @@ def decode_core(params, cfg: ModelConfig, token: torch.Tensor,
                                          flux.sink, ring - flux.sink)
         else:
             L = cache.k.shape[2]
-            if L not in slot_positions:
+            if not pooled and L not in slot_positions:
                 slot_positions[L] = torch.arange(L, dtype=torch.int32,
                                                  device=h.device)
             y, cache = _decode_attn_full(bp, cfg, x, pos, rope_pos, cache,
-                                         slot_positions[L])
+                                         slot_positions.get(L))
         h = h + y
         x2 = rms_norm(bp["norm2"], h, cfg.norm_eps)
         h = h + ffn_apply(bp["ffn"], x2)
@@ -292,12 +334,13 @@ def decode_core(params, cfg: ModelConfig, token: torch.Tensor,
 
 
 def decode_many(params, cfg: ModelConfig, logits: torch.Tensor,
-                caches: List, pos: int, *, n_steps: int,
+                caches: List, pos, *, n_steps: int,
                 greedy: bool = True):
     """Greedy generation for ``n_steps``: token i is the argmax of the
     logits before decode step i. ``pos`` is the absolute position of the
-    first generated token. Returns (tokens (B, n_steps) int64, last
-    logits (B, V), caches)."""
+    first generated token: an int, or a (B,) int32 device tensor, one per
+    row, advanced on the device (no step reads it back). Returns (tokens
+    (B, n_steps) int64, last logits (B, V), caches)."""
     if not greedy:
         raise NotImplementedError(
             "sampled decoding (greedy=False) waits for ROADMAP Queue 1 "

@@ -18,9 +18,13 @@ Admission is the chunked, cache-resident pipeline of the JAX engine:
 ``prefill_route_repack`` (full prefill → repack) is the fallback for
 prompts the chunked path excludes (``chunked_eligible``).
 
-Not ported in this slice: telemetry, SLO guardrails, the prefix cache,
-device meshes and continuous batching (ROADMAP Queue 1 items 8-10
-and 16).
+Two frontends: ``serve_batch`` buckets requests and runs each bucket
+through ``generate``; ``submit`` / ``step`` / ``drain`` feed the
+continuous-batching slot pool (``serve/scheduler.py``), whose decode runs
+one position per slot on the pooled decode kernel.
+
+Not ported yet: telemetry, SLO guardrails, the prefix cache and device
+meshes (ROADMAP Queue 1 items 9, 10 and 16).
 """
 from __future__ import annotations
 
@@ -161,6 +165,10 @@ class ChunkedPrefill:
     p_fa: Optional[np.ndarray] = None
 
     @property
+    def seq_len(self) -> int:
+        return self.tokens.shape[1]
+
+    @property
     def done(self) -> bool:
         return self.idx >= len(self.plan)
 
@@ -234,6 +242,7 @@ class ServeEngine:
         self.routing_override = routing_override
         self.prefill_chunk = int(prefill_chunk) if prefill_chunk else 0
         self.routing_pooling = routing_pooling
+        self._scheduler = None  # ContinuousScheduler, created by scheduler()
 
     # -- routing pattern ---------------------------------------------------
     def _pattern(self, decisions: Optional[np.ndarray],
@@ -320,15 +329,22 @@ class ServeEngine:
         return torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                                device=self.device)
 
-    def prefill_chunked(self, tokens, override=None) -> ChunkedPrefill:
-        """The chunked admission run to completion. Returns the finished
-        job (``pattern``/``caches``/``logits``/``p_fa``)."""
+    def start_chunked_prefill(self, tokens, override=None
+                              ) -> ChunkedPrefill:
+        """Begin a route-then-stream admission; the caller drives
+        ``job.step()`` (the continuous scheduler interleaves steps with
+        decode ticks; ``prefill_chunked`` runs them back to back)."""
         tokens = self._tokens(tokens)
-        job = ChunkedPrefill(
+        return ChunkedPrefill(
             engine=self, tokens=tokens,
             override=(override if override is not None
                       else self.routing_override),
             plan=chunk_plan(tokens.shape[1], self.prefill_chunk))
+
+    def prefill_chunked(self, tokens, override=None) -> ChunkedPrefill:
+        """The chunked admission run to completion. Returns the finished
+        job (``pattern``/``caches``/``logits``/``p_fa``)."""
+        job = self.start_chunked_prefill(tokens, override)
         while not job.done:
             job.step()
         return job
@@ -411,6 +427,43 @@ class ServeEngine:
                                 prefill_s=t1 - t0,
                                 decode_s=t2 - t1)
 
+    # -- continuous-batching frontend --------------------------------------
+    def scheduler(self, **kw):
+        """The engine's ``ContinuousScheduler``, created on first use;
+        kwargs configure it then (slots_per_bucket, chunk,
+        prefill_chunks_per_tick, clock)."""
+        if self._scheduler is None:
+            from repro_torch.serve.scheduler import ContinuousScheduler
+            self._scheduler = ContinuousScheduler(self, **kw)
+        elif kw:
+            raise ValueError(
+                "scheduler already created; configure it on first call")
+        return self._scheduler
+
+    def submit(self, req: "Request") -> int:
+        """Queue a request for continuous batching; returns its rid."""
+        return self.scheduler().submit(req)
+
+    def step(self):
+        """One scheduling tick: stream prefill, admit, decode one chunk per
+        geometry pool, retire. Returns the requests finished this tick."""
+        return self.scheduler().tick()
+
+    def drain(self) -> "DrainResult":
+        """Tick until every submitted request finished. Returns the
+        {rid: FinishedRequest} mapping with a ``.summary``."""
+        sched = self.scheduler()
+        finished = sched.drain()
+        return DrainResult(finished, sched.summary(finished))
+
+
+class DrainResult(dict):
+    """``{rid: FinishedRequest}`` plus an aggregate ``summary`` dict."""
+
+    def __init__(self, finished, summary: Dict[str, Any]):
+        super().__init__(finished)
+        self.summary = summary
+
 
 # ---------------------------------------------------------------------------
 # Batch frontend
@@ -422,6 +475,9 @@ class Request:
     tokens: np.ndarray  # (S,)
     n_steps: int        # max new tokens
     eos_id: Optional[int] = None   # stop early on this token
+    # higher preempts lower when continuous-batching pools fill;
+    # meaningless under serve_batch (no slot contention there)
+    priority: int = 0
     routing_override: Optional[Tuple[Any, ...]] = None
 
 

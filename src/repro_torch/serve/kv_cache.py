@@ -9,8 +9,10 @@ positions.
 Unlike the JAX package, whose arrays are immutable, every insert here
 writes into the cache's own buffers in place and returns the same cache:
 a copy of a multi-GB decode cache per token would cost more than the
-step itself. Positions and chunk starts are Python ints, so no insert
-reads the device.
+step itself. A single-token insert takes its position as a Python int
+(every row at one position) or, in the continuous-batching slot pool, as
+a (B,) int32 device tensor (one position per row, written by a scatter
+at (arange(B), slot)). Neither reads the device.
 """
 from __future__ import annotations
 
@@ -44,14 +46,27 @@ class RingKV:
     length: torch.Tensor  # (B,) int32 — absolute position of next token
 
 
-def ring_slot(pos: int, sink: int, local: int) -> int:
-    """Absolute position → ring slot."""
+def ring_slot(pos, sink: int, local: int):
+    """Absolute position → ring slot: for an int, or elementwise for a
+    (B,) tensor."""
+    if isinstance(pos, torch.Tensor):
+        return torch.where(pos < sink, pos,
+                           sink + torch.remainder(pos - sink, local))
     return pos if pos < sink else sink + (pos - sink) % local
 
 
 def ring_insert(cache: RingKV, k_new: torch.Tensor, v_new: torch.Tensor,
-                pos: int, sink: int, local: int) -> RingKV:
-    """Insert one token (k_new/v_new (B, Hkv, 1, D)) at position ``pos``."""
+                pos, sink: int, local: int) -> RingKV:
+    """Insert one token (k_new/v_new (B, Hkv, 1, D)) at position ``pos``:
+    an int shared by every row, or (B,) int32, one per row."""
+    if isinstance(pos, torch.Tensor):  # per row: each writes its own slot
+        b = torch.arange(k_new.shape[0], device=pos.device)
+        slot = ring_slot(pos, sink, local).long()
+        cache.k[b, :, slot] = k_new[:, :, 0]
+        cache.v[b, :, slot] = v_new[:, :, 0]
+        cache.positions[b, slot] = pos
+        cache.length.copy_(pos + 1)
+        return cache
     slot = ring_slot(pos, sink, local)
     cache.k[:, :, slot] = k_new[:, :, 0]
     cache.v[:, :, slot] = v_new[:, :, 0]
@@ -61,10 +76,28 @@ def ring_insert(cache: RingKV, k_new: torch.Tensor, v_new: torch.Tensor,
 
 
 def full_insert(cache: FullKV, k_new: torch.Tensor, v_new: torch.Tensor,
-                pos: int) -> FullKV:
-    """Insert one token at position ``pos``; raises past the capacity
-    (torch indexing does not clamp as ``dynamic_update_slice`` does)."""
+                pos) -> FullKV:
+    """Insert one token at position ``pos``.
+
+    An int position is shared by every row and raises past the capacity
+    (torch indexing does not clamp as ``dynamic_update_slice`` does). A
+    (B,) int32 position is per row, and a row at or past the capacity
+    keeps its buffers as they were, as JAX's scatter drops such a write:
+    the slot pool decodes whole chunks, so a request that finishes
+    inside its last chunk runs a few steps past the cache it was sized
+    for, and nobody reads those steps. ``length`` records ``pos + 1``
+    either way."""
     cap = cache.k.shape[2]
+    if isinstance(pos, torch.Tensor):
+        b = torch.arange(k_new.shape[0], device=pos.device)
+        idx = pos.clamp(0, cap - 1).long()
+        drop = ((pos < 0) | (pos >= cap))[:, None, None]
+        cache.k[b, :, idx] = torch.where(drop, cache.k[b, :, idx],
+                                         k_new[:, :, 0])
+        cache.v[b, :, idx] = torch.where(drop, cache.v[b, :, idx],
+                                         v_new[:, :, 0])
+        cache.length.copy_(pos + 1)
+        return cache
     if not 0 <= pos < cap:
         raise IndexError(f"full_insert: position {pos} outside the cache "
                          f"capacity {cap}")
@@ -131,18 +164,29 @@ def full_insert_chunk(cache: FullKV, k_new: torch.Tensor,
 # Construction
 # ---------------------------------------------------------------------------
 
-def cache_geometry(caches: Sequence) -> Tuple:
+def cache_fields(cache) -> Tuple[torch.Tensor, ...]:
+    """A cache's buffers in the JAX package's leaf order."""
+    if isinstance(cache, RingKV):
+        return cache.k, cache.v, cache.positions, cache.length
+    return cache.k, cache.v, cache.length
+
+
+def cache_geometry(caches: Sequence, lead: int = 0) -> Tuple:
     """Hashable per-layer geometry signature of a decode-cache list: the
-    cache type and each buffer's shape and dtype name, spelled as the JAX
-    package spells them (so the two packages' signatures compare)."""
-    sig = []
-    for c in caches:
-        fields = ((c.k, c.v, c.positions, c.length) if isinstance(c, RingKV)
-                  else (c.k, c.v, c.length))
-        sig.append((type(c).__name__,)
-                   + tuple((tuple(a.shape), str(a.dtype).split(".")[-1])
-                           for a in fields))
-    return tuple(sig)
+    cache type and each buffer's shape (from axis ``lead`` on) and dtype
+    name, spelled as the JAX package spells them (so the two packages'
+    signatures compare)."""
+    return tuple((type(c).__name__,)
+                 + tuple((tuple(a.shape[lead:]), str(a.dtype).split(".")[-1])
+                         for a in cache_fields(c))
+                 for c in caches)
+
+
+def slot_geometry(caches: Sequence) -> Tuple:
+    """``cache_geometry`` without the leading batch/slot axis: a B = 1
+    request and a slot pool that can hold it have the same slot
+    geometry. The scheduler keys its pools on it."""
+    return cache_geometry(caches, lead=1)
 
 
 def kv_cache_bytes(caches: Sequence) -> int:
