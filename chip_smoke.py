@@ -6,7 +6,10 @@
 Phases, each printing one line (any failure raises and exits non-zero;
 nothing falls back to the CPU):
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA;
-  2. build the five hand-written attention kernels from ``csrc/``;
+  2. build the five hand-written attention kernels from ``csrc/``, and
+     print the compiler's report (registers, spills, shared memory) of
+     the bf16 tensor-core (wgmma) engine in the flash and block-sparse
+     kernels at each head dim;
   3. each kernel against its plain PyTorch version on the card: at the
      main paths' shapes in bf16 (the pooled decode kernel at the slot
      pool's: 4 slots of ragged live lengths, over a FullKV and over a
@@ -20,12 +23,20 @@ nothing falls back to the CPU):
      a length-0 slot, whose rows must be zeros). To show the bf16 limit can
      see a wrong tile, the plain version with one 64-key tile of V zeroed
      must break it (the pooled kernel's: in every slot, the last full tile
-     of that slot's live keys);
-  4. each kernel's time at the main path's shapes (median of CUDA-event
-     timings) beside its plain version, one PyTorch library call as a
-     yardstick (scaled_dot_product_attention, which the port never calls)
-     and the least time the card could take (bytes at 3.35 TB/s or bf16
-     operations at 989 TFLOP/s, whichever is larger);
+     of that slot's live keys). The flash and block-sparse kernels run bf16
+     on their wgmma engine and fp32 on the CUDA cores, so the wgmma engine
+     is also held to the bf16 limit (and its zeroed tile must break it) at
+     each head dim 32 / 64 / 96 / 128 with G = 4, Sq = 200 queries at
+     offset 100 over Skv = 300 keys: flash causal and bidirectional, and
+     block-sparse over a selection with holes, tiles past the diagonal
+     and past Skv, and a duplicate removed by ``dedupe_selection``;
+  4. each kernel's time at the main path's shapes (device time: CUDA
+     events around back-to-back calls queued behind a device sleep, so the
+     host's enqueue is off the clock; ``call_ms`` is one call on an idle
+     card, host enqueue included) beside its plain version, one PyTorch
+     library call as a yardstick (scaled_dot_product_attention, which the
+     port never calls) and the least time the card could take (bytes at
+     3.35 TB/s or bf16 operations at 989 TFLOP/s, whichever is larger);
   5. phi3-mini at full width, depth cut to 2 layers, fp32: the same
      weights served on cuda (kernels) and on cpu (plain versions), a
      2304-token prompt > sink + local, chunk 512, 8 greedy tokens; routing
@@ -52,7 +63,9 @@ nothing falls back to the CPU):
 Then one JSON line of per-kernel numbers, and the last line
 ``{"ok": true, "device": {...}}``.
 """
+import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -79,6 +92,7 @@ REPLACES = {  # kernel → the Pallas TPU kernel it replaces
 BF16_ATOL_RMS = 0.05  # bf16 limit's absolute part, as a share of rms(plain)
 BF16_RTOL = 2.0 ** -7  # one bf16 ulp: kernel and plain round their outputs
 FP32_TOL = 1e-4
+SLEEP_CYCLES = 20_000_000  # ≈ 10 ms of device sleep before a timed run
 TILE = slice(64, 128)  # the 64-key tile zeroed for the sensitivity check
 
 
@@ -87,8 +101,10 @@ def say(phase, msg, t0=None):
     print(f"phase {phase}: {msg}{extra}", flush=True)
 
 
-def time_ms(fn, reps=15, warmup=3):
-    """Median over ``reps`` CUDA-event timings of one call of ``fn``."""
+def call_ms(fn, reps=15, warmup=3):
+    """Median over ``reps`` CUDA-event timings of one call of ``fn`` on an
+    idle card: the device time, or the host's enqueue of the call where
+    that takes longer."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -101,6 +117,28 @@ def time_ms(fn, reps=15, warmup=3):
         b.record()
         b.synchronize()
         ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def time_ms(fn, reps=10, rounds=5, warmup=3):
+    """Device time of one call of ``fn``: the median over ``rounds`` of the
+    mean of ``reps`` back-to-back calls between two CUDA events, queued
+    behind a device-side sleep of SLEEP_CYCLES so that the host's enqueue
+    of the calls stays off the clock."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / reps)
     return statistics.median(ts)
 
 
@@ -318,6 +356,123 @@ def ring_positions(rng, lens, L, hole=0.1):
         cut[rng.integers(m)] = False
         pos[b, :m][cut] = -1
     return pos
+
+
+WGMMA_SEL = (  # the small block-sparse case's selection, one row a query
+    # block (queries at 100 + 64 i ..); before dedupe_selection
+    (0, -1, 2, 4, 0, 1),    # tile 4 past the diagonal, a duplicate 0
+    (4, 3, -1, 1, 1, 0),    # an invisible tile first, a duplicate 1
+    (2, -1, 4, 1, -1, 3),   # tile 4 crosses the diagonal and Skv
+    (-1, 1, 4, 3, 4, 0),    # tile 2 left out, a duplicate 4
+)
+
+
+def wgmma_cases(dev):
+    """The bf16 small cases of the flash and block-sparse wgmma engine:
+    [(label, kernel call, plain call, plain call with one V tile zeroed)]
+    at each head dim, G = 4, 200 queries at offset 100 over 300 keys."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels._build import HEAD_DIMS
+    from repro_torch.kernels.block_sparse_attention import (
+        KERNEL_BLOCK, block_sparse_attention_bh, dedupe_selection)
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+    g = torch.Generator(device=dev).manual_seed(3)
+    BH, BHkv, Sq, Skv, off = 8, 2, 200, 300, 100
+    sel = dedupe_selection(torch.tensor(WGMMA_SEL, dtype=torch.int32,
+                                        device=dev))
+    sel = sel[None].expand(BH, *sel.shape).contiguous()
+    cases = []
+    for D in HEAD_DIMS:
+        q, k, v = (torch.randn(n, s, D, generator=g, device=dev).to(
+            torch.bfloat16) for n, s in ((BH, Sq), (BHkv, Skv), (BHkv, Skv)))
+        for causal in (True, False):
+            kw = dict(causal=causal, q_offset=off if causal else 0)
+            mode = "causal q_offset=100" if causal else "bidirectional"
+            cases.append((
+                f"flash D={D} {mode}",
+                lambda q=q, k=k, v=v, kw=kw: flash_attention_bh(q, k, v,
+                                                                **kw),
+                lambda q=q, k=k, v=v, kw=kw: ref.flash_attention_ref(
+                    q, k, v, **kw),
+                lambda q=q, k=k, v=v, kw=kw: ref.flash_attention_ref(
+                    q, k, zero_tile(v), **kw)))
+        cases.append((
+            f"block_sparse D={D} q_offset=100 holes/out-of-causal/deduped",
+            lambda q=q, k=k, v=v: block_sparse_attention_bh(
+                q, k, v, sel, q_offset=off),
+            lambda q=q, k=k, v=v: ref.block_sparse_attention_ref(
+                q, k, v, sel, block=KERNEL_BLOCK, q_offset=off),
+            lambda q=q, k=k, v=v: ref.block_sparse_attention_ref(
+                q, k, zero_tile(v), sel, block=KERNEL_BLOCK, q_offset=off)))
+    return cases
+
+
+def sass_counts(lib):
+    """{kernel symbol: (HGMMA count, UTMALDG count, HGMMA shapes)} for the
+    wgmma kernels of a library, from ``cuobjdump -sass`` of the CUDA
+    toolkit; {} when it has no cuobjdump."""
+    import os
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120).stdout
+    out = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = body.split(None, 1)[0]
+        if "wgmma_kernel" in name:
+            out[name] = (body.count("HGMMA."), body.count("UTMALDG."),
+                         sorted(set(re.findall(r"HGMMA\.(\d+x\d+x\d+)",
+                                               body))))
+    return out
+
+
+def wgmma_report(n_sel):
+    """One line per wgmma kernel instance of the flash and block-sparse
+    libraries: registers, spill bytes and static shared memory from the
+    compiler's report (``<library>.log``), the dynamic shared memory a CTA
+    asks for (the block-sparse one with an n_sel-entry selection), and the
+    tensor-core (HGMMA) and TMA-load (UTMALDG) instructions in its SASS."""
+    from repro_torch.kernels import _build
+    lines = []
+    for source in ("flash_attention", "block_sparse_attention"):
+        lib = _build.library_path(source)
+        sass = sass_counts(lib)
+        smem = ctypes.CDLL(str(lib)).flux_wgmma_smem_bytes
+        smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], \
+            ctypes.c_int
+        log = Path(f"{lib}.log")
+        report, name = {}, None
+        for line in log.read_text().splitlines() if log.exists() else ():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+                continue
+            if name is None or "wgmma_kernel" not in name:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                report.setdefault(name, {})["spill"] = f"{m[1]}/{m[2]}"
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                s = re.search(r"(\d+) bytes smem", line)
+                report.setdefault(name, {}).update(
+                    registers=int(m[1]), smem=int(s[1]) if s else 0)
+        if not report:
+            lines.append(f"{source}: no compiler report at {log.name}")
+        for name, r in sorted(report.items()):
+            D = int(re.search(r"ILi(\d+)E", name)[1])
+            n = 0 if source == "flash_attention" else n_sel
+            hgmma, tma, shapes = sass.get(name, (None, None, None))
+            lines.append(
+                f"{source} wgmma D={D}: registers={r.get('registers')} "
+                f"spill_stores/loads={r.get('spill')} bytes "
+                f"static_smem={r.get('smem')} dynamic_smem={smem(D, n)} "
+                f"(n_sel={n}) sass HGMMA={hgmma} {shapes} UTMALDG={tma}")
+    return lines
 
 
 def ring_decode_check(dev):
@@ -674,6 +829,8 @@ def main() -> int:
     built = _build.build()
     say(2, "built " + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()),
         t0)
+    for line in wgmma_report(-(-(PROMPT + GEN) // 64)):
+        say(2, line)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -712,6 +869,16 @@ def main() -> int:
         say(3, f"{name} bfloat16 ring main shapes max_abs_err={e:.3e} "
                f"limit_ratio={ratio_text(r)} "
                f"zeroed_tile_ratio={ratio_text(r_mut)}")
+    for label, kern, plain, mutant in wgmma_cases(dev):
+        out, want = kern(), plain()
+        e, r = max_err(out, want), bf16_ratios(out, want)
+        r_mut = bf16_ratios(mutant(), want)
+        assert max(r) < 1, f"{label} bf16: error {r} of the limit"
+        assert min(r_mut) > 1, f"{label} bf16: a zeroed tile is within " \
+            f"the limit {r_mut}"
+        say(3, f"{label} G=4 Sq=200 Skv=300 bfloat16 max_abs_err={e:.3e} "
+               f"limit_ratio={ratio_text(r)} "
+               f"zeroed_tile_ratio={ratio_text(r_mut)}")
     say(3, "kernels agree with their plain versions", t0)
 
     t0 = time.perf_counter()
@@ -721,9 +888,10 @@ def main() -> int:
         b_ms, b_by = bound(n_bytes, flops)
         rows[name] = dict(ms=time_ms(kern), plain_ms=time_ms(plain),
                           library_ms=time_ms(lib), bound_ms=b_ms,
-                          bound_by=b_by)
+                          bound_by=b_by, call_ms=call_ms(kern))
         r = rows[name]
-        say(4, f"{name} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+        say(4, f"{name} ms={r['ms']:.4f} call_ms={r['call_ms']:.4f} "
+               f"plain_ms={r['plain_ms']:.4f} "
                f"library_ms={r['library_ms']:.4f} bound_ms={b_ms:.4f} "
                f"({b_by}; {n_bytes} bytes, {flops} flops) "
                f"roofline_share={b_ms / r['ms']:.3f}")

@@ -27,7 +27,6 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-COMMON_HEADER = CSRC / "attention_common.cuh"
 SOURCES = ("flash_attention", "streaming_attention",
            "block_sparse_attention", "decode_attention",
            "decode_attention_pooled")
@@ -53,8 +52,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``, named by a hash of that source,
+    every ``csrc/*.cuh`` header (sorted by name) and the flags."""
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", COMMON_HEADER):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -106,7 +108,7 @@ class CudaKernel:
                  argtypes: Sequence[type]):
         self.source = source
         self.symbol = symbol
-        self._argtypes = list(argtypes) + [ctypes.c_void_p]  # + stream
+        self.argtypes = list(argtypes) + [ctypes.c_void_p]  # + stream
         self._lib = None
         self._fn = None
         self.launches = 0
@@ -120,7 +122,7 @@ class CudaKernel:
             build((self.source,))
         lib = ctypes.CDLL(str(path))
         fn = getattr(lib, self.symbol)
-        fn.argtypes = self._argtypes
+        fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
         lib.flux_error_string.argtypes = [ctypes.c_int]
         lib.flux_error_string.restype = ctypes.c_char_p
@@ -232,6 +234,16 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> int:
         raise ValueError(f"{name}: head dim {d} not supported by the "
                          f"kernel {HEAD_DIMS}")
     return DTYPE_CODES[dtype]
+
+
+def check_tma_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """The bf16 prefill kernels load their operands with TMA, which needs a
+    16-byte aligned base (csrc/prefill_wgmma.cuh: make_map)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operand of shape {tuple(t.shape)} "
+                             f"starts at {t.data_ptr():#x}, not 16-byte "
+                             f"aligned; the bf16 kernel loads it with TMA")
 
 
 def default_scale(d: int, scale) -> float:

@@ -3,9 +3,11 @@
 Port of ``repro/kernels/block_sparse_attention.py``
 (``block_sparse_attention_bh`` and ``dedupe_selection``). On CUDA tensors
 the entry launches the hand-written kernel
-``csrc/block_sparse_attention.cu`` or raises; on CPU tensors it runs the
-plain version, the dense masked softmax of
-``ref.block_sparse_attention_ref``.
+``csrc/block_sparse_attention.cu`` or raises: bf16 operands run on its
+tensor-core engine (``csrc/prefill_wgmma.cuh``, TMA + wgmma over the
+selection's live tiles; their bases must be 16-byte aligned), fp32
+operands on its CUDA-core loop. On CPU tensors it runs the plain version,
+the dense masked softmax of ``ref.block_sparse_attention_ref``.
 """
 from __future__ import annotations
 
@@ -66,6 +68,8 @@ def block_sparse_attention_bh(q: torch.Tensor, k: torch.Tensor,
                                             block=KERNEL_BLOCK,
                                             q_offset=q_offset, scale=scale)
     code = _build.check_cuda(name, q, k, v, sel)
+    if q.dtype == torch.bfloat16:
+        _build.check_tma_aligned(name, q, k, v)
     BHkv, Skv = k.shape[0], k.shape[1]
     out = torch.empty_like(q)
     KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -221,16 +221,25 @@ cudaError_t dispatch_head_dim(int D, A... a) {
   return cudaErrorInvalidValue;
 }
 
-template <template <typename, int> class Launcher, typename... A>
-int dispatch(int dtype, int D, A... a) {
+// dtype x head-dim dispatch with one launcher per dtype: fp32 operands go
+// to F32Launcher<float, D>, bf16 operands to BF16Launcher<__nv_bfloat16, D>.
+template <template <typename, int> class F32Launcher,
+          template <typename, int> class BF16Launcher, typename... A>
+int dispatch_by_dtype(int dtype, int D, A... a) {
   cudaError_t e = cudaErrorInvalidValue;
-  if (dtype == kF32) e = dispatch_head_dim<Launcher, float>(D, a...);
-  if (dtype == kBF16) e = dispatch_head_dim<Launcher, __nv_bfloat16>(D, a...);
+  if (dtype == kF32) e = dispatch_head_dim<F32Launcher, float>(D, a...);
+  if (dtype == kBF16)
+    e = dispatch_head_dim<BF16Launcher, __nv_bfloat16>(D, a...);
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next call reports its own
     return (int)e;
   }
   return (int)cudaGetLastError();
+}
+
+template <template <typename, int> class Launcher, typename... A>
+int dispatch(int dtype, int D, A... a) {
+  return dispatch_by_dtype<Launcher, Launcher>(dtype, D, a...);
 }
 
 }  // namespace flux

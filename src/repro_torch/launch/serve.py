@@ -91,7 +91,7 @@ def _profiled(fn, device, top: int) -> dict:
     }
 
 
-def profile_batch(engine, reqs, device, top: int = 15) -> dict:
+def profile_batch(engine, reqs, device, top: int = 40) -> dict:
     """Profile the batch's admission alone (the chunked prefill of the
     first bucket's prompts) and then the whole ``serve_batch``; the
     difference is the decode."""
@@ -235,7 +235,7 @@ def _continuous_main(engine, reqs, args, device) -> None:
         "launches": launch_counts()}))
     if args.profile:
         print(json.dumps({"profile": {"continuous": _profiled(
-            run, device, 15)}}))
+            run, device, 40)}}))
 
 
 if __name__ == "__main__":

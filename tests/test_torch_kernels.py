@@ -5,6 +5,9 @@ Tolerance 2e-5 in float32: both sides compute the same masked softmax in
 float32 and differ only in summation order (the Pallas kernels sum
 online over key blocks, the plain versions in one dense pass).
 """
+import re
+import shutil
+
 import numpy as np
 import pytest
 
@@ -20,7 +23,7 @@ from repro.kernels import ops  # noqa: E402
 from repro.kernels.block_sparse_attention import \
     dedupe_selection as jax_dedupe  # noqa: E402
 from repro_torch.core import modes as TM  # noqa: E402
-from repro_torch.kernels import launch_counts  # noqa: E402
+from repro_torch.kernels import KERNELS, _build, launch_counts  # noqa: E402
 from repro_torch.kernels.block_sparse_attention import (  # noqa: E402
     KERNEL_BLOCK, block_sparse_attention_bh, dedupe_selection)
 from repro_torch.kernels.decode_attention import \
@@ -223,3 +226,51 @@ def test_entries_reject_bad_operands():
     with pytest.raises(ValueError):
         block_sparse_attention_bh(fl(q), fl(k), fl(v),
                                   torch.zeros((2, 5, 1), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("change", ["edit", "add"])
+def test_library_name_tracks_every_header(tmp_path, monkeypatch, change):
+    """A library's name hashes its .cu and every csrc/*.cuh, so editing a
+    byte of any header (here the wgmma engine's, which attention_common.cuh
+    does not name) or adding one renames every library and a stale build
+    is never loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.library_path(n).name for n in _build.SOURCES}
+    assert before == {n: _build.library_path(n).name
+                      for n in _build.SOURCES}  # deterministic
+    if change == "edit":
+        hdr = csrc / "prefill_wgmma.cuh"
+        data = bytearray(hdr.read_bytes())
+        data[len(data) // 2] ^= 1
+        hdr.write_bytes(bytes(data))
+    else:
+        (csrc / "zz_extra.cuh").write_text("#pragma once\n")
+    after = {n: _build.library_path(n).name for n in _build.SOURCES}
+    assert all(after[n] != before[n] for n in _build.SOURCES)
+
+
+_CTYPE = {"void*": "c_void_p", "int": "c_int", "float": "c_float"}
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_entry_argtypes_match_c_signature(name):
+    """Each binding's ctypes argtypes (the stream included) match its
+    extern "C" entry point's parameters in number and kind, parsed from
+    the .cu source: a mismatch would cut or shift arguments silently."""
+    kern = KERNELS[name]
+    src = (_build.CSRC / f"{kern.source}.cu").read_text()
+    m = re.search(r'extern "C" int ' + kern.symbol + r"\(([^)]*)\)", src)
+    assert m, f"no extern \"C\" entry {kern.symbol} in {kern.source}.cu"
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    kinds = [_CTYPE["void*" if "*" in p else p.split()[-2]] for p in params]
+    assert len(kern.argtypes) == len(params)
+    assert [t.__name__ for t in kern.argtypes] == kinds
+
+
+def test_tma_alignment_is_checked():
+    x = torch.zeros(64, dtype=torch.bfloat16)
+    _build.check_tma_aligned("t", x)
+    with pytest.raises(ValueError, match="16-byte"):
+        _build.check_tma_aligned("t", x[1:])  # 2 bytes past an aligned base
