@@ -7,9 +7,10 @@ Phases, each printing one line (any failure raises and exits non-zero;
 nothing falls back to the CPU):
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA;
   2. build the five hand-written attention kernels from ``csrc/``, and
-     print the compiler's report (registers, spills, shared memory) of
-     the bf16 tensor-core (wgmma) engine in the flash and block-sparse
-     kernels at each head dim;
+     print the compiler's report (registers, spills, shared memory) and
+     the SASS's HGMMA / UTMALDG counts of the bf16 tensor-core (wgmma)
+     engine in the flash, block-sparse and streaming kernels at each head
+     dim, and the report of the split decode and merge kernels;
   3. each kernel against its plain PyTorch version on the card: at the
      main paths' shapes in bf16 (the pooled decode kernel at the slot
      pool's: 4 slots of ragged live lengths, over a FullKV and over a
@@ -23,13 +24,20 @@ nothing falls back to the CPU):
      a length-0 slot, whose rows must be zeros). To show the bf16 limit can
      see a wrong tile, the plain version with one 64-key tile of V zeroed
      must break it (the pooled kernel's: in every slot, the last full tile
-     of that slot's live keys). The flash and block-sparse kernels run bf16
-     on their wgmma engine and fp32 on the CUDA cores, so the wgmma engine
+     of that slot's live keys). The flash, block-sparse and streaming
+     kernels run bf16 on their wgmma engine and fp32 on the CUDA cores,
+     so the wgmma engine
      is also held to the bf16 limit (and its zeroed tile must break it) at
      each head dim 32 / 64 / 96 / 128 with G = 4, Sq = 200 queries at
-     offset 100 over Skv = 300 keys: flash causal and bidirectional, and
+     offset 100 over Skv = 300 keys: flash causal and bidirectional,
      block-sparse over a selection with holes, tiles past the diagonal
-     and past Skv, and a duplicate removed by ``dedupe_selection``;
+     and past Skv, and a duplicate removed by ``dedupe_selection``, and
+     streaming at sink 0 / 16 / 100 and local 48 / 130; the split decode
+     kernel at n_split 1, 2, 7 and the plan's (bf16, main shapes), with
+     splits that hold no live key (cur_pos 1000) and a row with none
+     (cur_pos -1), and over a shuffled, partly empty ring of 300 slots at
+     each of those counts, at each head dim with G = 1 and G = 4: bf16
+     under the bf16 limit (its zeroed tile above it), fp32 within 1e-4;
   4. each kernel's time at the main path's shapes (device time: CUDA
      events around back-to-back calls queued behind a device sleep, so the
      host's enqueue is off the clock; ``call_ms`` is one call on an idle
@@ -37,6 +45,9 @@ nothing falls back to the CPU):
      library call as a yardstick (scaled_dot_product_attention, which the
      port never calls) and the least time the card could take (bytes at
      3.35 TB/s or bf16 operations at 989 TFLOP/s, whichever is larger);
+     a second decode row over the sink + local ring (L = 2176), and the
+     decode kernel's device time against n_split over the main path's
+     FullKV at 32, 64 and 128 rows (1, 2 and 4 requests);
   5. phi3-mini at full width, depth cut to 2 layers, fp32: the same
      weights served on cuda (kernels) and on cpu (plain versions), a
      2304-token prompt > sink + local, chunk 512, 8 greedy tokens; routing
@@ -367,15 +378,24 @@ WGMMA_SEL = (  # the small block-sparse case's selection, one row a query
 )
 
 
+STREAM_SMALL = ((0, 48), (0, 130), (16, 48), (16, 130), (100, 48),
+                (100, 130))  # (sink, local) of the small streaming cases
+
+
 def wgmma_cases(dev):
-    """The bf16 small cases of the flash and block-sparse wgmma engine:
-    [(label, kernel call, plain call, plain call with one V tile zeroed)]
-    at each head dim, G = 4, 200 queries at offset 100 over 300 keys."""
+    """The bf16 small cases of the flash, block-sparse and streaming wgmma
+    engine: [(label, kernel call, plain call, plain call with one V tile
+    zeroed)] at each head dim, G = 4, 200 queries at offset 100 over 300
+    keys; streaming at each (sink, local) of STREAM_SMALL (a sink tile
+    walked in both passes at sink 16 and 100, windows narrower than a
+    query block and wider than a tile)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels._build import HEAD_DIMS
     from repro_torch.kernels.block_sparse_attention import (
         KERNEL_BLOCK, block_sparse_attention_bh, dedupe_selection)
     from repro_torch.kernels.flash_attention import flash_attention_bh
+    from repro_torch.kernels.streaming_attention import \
+        streaming_attention_bh
     g = torch.Generator(device=dev).manual_seed(3)
     BH, BHkv, Sq, Skv, off = 8, 2, 200, 300, 100
     sel = dedupe_selection(torch.tensor(WGMMA_SEL, dtype=torch.int32,
@@ -404,6 +424,16 @@ def wgmma_cases(dev):
                 q, k, v, sel, block=KERNEL_BLOCK, q_offset=off),
             lambda q=q, k=k, v=v: ref.block_sparse_attention_ref(
                 q, k, zero_tile(v), sel, block=KERNEL_BLOCK, q_offset=off)))
+        for sink, local in STREAM_SMALL:
+            kw = dict(sink=sink, local=local, q_offset=off)
+            cases.append((
+                f"streaming D={D} q_offset=100 sink={sink} local={local}",
+                lambda q=q, k=k, v=v, kw=kw: streaming_attention_bh(
+                    q, k, v, **kw),
+                lambda q=q, k=k, v=v, kw=kw: ref.streaming_attention_ref(
+                    q, k, v, **kw),
+                lambda q=q, k=k, v=v, kw=kw: ref.streaming_attention_ref(
+                    q, k, zero_tile(v), **kw)))
     return cases
 
 
@@ -429,43 +459,53 @@ def sass_counts(lib):
     return out
 
 
+def compiler_report(lib, want):
+    """{kernel symbol: {registers, smem, spill, stack}} of the kernels whose
+    symbol holds ``want``, from the compiler's report beside the library
+    (``<library>.log``, ``nvcc -Xptxas=-v``)."""
+    log = Path(f"{lib}.log")
+    report, name = {}, None
+    for line in log.read_text().splitlines() if log.exists() else ():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or want not in name:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            report.setdefault(name, {}).update(stack=int(m[1]),
+                                               spill=f"{m[2]}/{m[3]}")
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", line)
+            report.setdefault(name, {}).update(
+                registers=int(m[1]), smem=int(sm[1]) if sm else 0)
+    return report
+
+
 def wgmma_report(n_sel):
-    """One line per wgmma kernel instance of the flash and block-sparse
-    libraries: registers, spill bytes and static shared memory from the
-    compiler's report (``<library>.log``), the dynamic shared memory a CTA
-    asks for (the block-sparse one with an n_sel-entry selection), and the
+    """One line per wgmma kernel instance of the flash, block-sparse and
+    streaming libraries: registers, spill bytes and static shared memory
+    from the compiler's report, the dynamic shared memory a CTA asks for
+    (the block-sparse one with an n_sel-entry selection), and the
     tensor-core (HGMMA) and TMA-load (UTMALDG) instructions in its SASS."""
     from repro_torch.kernels import _build
     lines = []
-    for source in ("flash_attention", "block_sparse_attention"):
+    for source in ("flash_attention", "block_sparse_attention",
+                   "streaming_attention"):
         lib = _build.library_path(source)
         sass = sass_counts(lib)
         smem = ctypes.CDLL(str(lib)).flux_wgmma_smem_bytes
         smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], \
             ctypes.c_int
-        log = Path(f"{lib}.log")
-        report, name = {}, None
-        for line in log.read_text().splitlines() if log.exists() else ():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                name = m.group(1)
-                continue
-            if name is None or "wgmma_kernel" not in name:
-                continue
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            if m:
-                report.setdefault(name, {})["spill"] = f"{m[1]}/{m[2]}"
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                s = re.search(r"(\d+) bytes smem", line)
-                report.setdefault(name, {}).update(
-                    registers=int(m[1]), smem=int(s[1]) if s else 0)
+        report = compiler_report(lib, "wgmma_kernel")
         if not report:
-            lines.append(f"{source}: no compiler report at {log.name}")
+            lines.append(f"{source}: no compiler report at {lib.name}.log")
         for name, r in sorted(report.items()):
             D = int(re.search(r"ILi(\d+)E", name)[1])
-            n = 0 if source == "flash_attention" else n_sel
+            n = n_sel if source == "block_sparse_attention" else 0
             hgmma, tma, shapes = sass.get(name, (None, None, None))
             lines.append(
                 f"{source} wgmma D={D}: registers={r.get('registers')} "
@@ -475,11 +515,33 @@ def wgmma_report(n_sel):
     return lines
 
 
-def ring_decode_check(dev):
+def decode_report():
+    """One line per (kernel, dtype, rows a CTA) of the split decode
+    library: registers / spill stores / spill loads / stack bytes of each
+    head dim's instance."""
+    from repro_torch.kernels import _build
+    report = compiler_report(_build.library_path("decode_attention"),
+                             "decode_")
+    if not report:
+        return ["decode_attention: no compiler report"]
+    groups = {}
+    for name, r in report.items():
+        kind = "split" if "decode_split_kernel" in name else "merge"
+        args = [int(x) for x in re.findall(r"Li(\d+)E", name)]
+        dtype = "bf16" if "bfloat16" in name else "fp32"
+        key = f"decode_{kind} {dtype}" + (f" kG={args[1]}"
+                                          if kind == "split" else "")
+        groups.setdefault(key, []).append(
+            (args[0], f"D={args[0]}: {r.get('registers')} regs "
+                      f"spill {r.get('spill')} stack {r.get('stack')}"))
+    return [f"{k}: " + ", ".join(t for _, t in sorted(v))
+            for k, v in sorted(groups.items())]
+
+
+def ring_decode_case(dev):
     """The decode kernel over a sink + local RingKV at the main path's
-    shapes (bf16), the SA layers' decode: (max abs error, bf16 ratio of
-    the kernel, bf16 ratio of the plain version with one V tile
-    zeroed)."""
+    shapes (bf16), the SA layers' decode: (kernel call, plain call, plain
+    call with one V tile zeroed, library call, bytes, flops)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_bh
@@ -493,11 +555,119 @@ def ring_decode_check(dev):
         torch.bfloat16) for n in (1, ring, ring))
     pos = torch.as_tensor(_ring_src(cur + 1, sink, local, ring),
                           dtype=torch.int32, device=dev)
-    out = decode_attention_bh(q, k, v, pos, cur)
-    plain = ref.decode_attention_ref(q, k, v, pos, cur)
-    return (max_err(out, plain), bf16_ratios(out, plain),
-            bf16_ratios(ref.decode_attention_ref(q, k, zero_tile(v), pos,
-                                                 cur), plain))
+    valid = (pos >= 0) & (pos <= cur)
+    n_valid = int(valid.sum())
+    return (lambda: decode_attention_bh(q, k, v, pos, cur),
+            lambda: ref.decode_attention_ref(q, k, v, pos, cur),
+            lambda: ref.decode_attention_ref(q, k, zero_tile(v), pos, cur),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[None], k[None], v[None], attn_mask=valid[None]),
+            *attn_work(BH, BH, 1, D, n_valid, BH * n_valid, 2))
+
+
+def ring_decode_check(dev):
+    """(max abs error, bf16 ratio of the kernel, bf16 ratio of the plain
+    version with one V tile zeroed) of ``ring_decode_case``."""
+    kern, plain, mutant, *_ = ring_decode_case(dev)
+    out, want = kern(), plain()
+    return (max_err(out, want), bf16_ratios(out, want),
+            bf16_ratios(mutant(), want))
+
+
+SWEEP_REQUESTS = (1, 2, 4)  # batch buckets of the sweep: 32, 64, 128 rows
+SWEEP_SPLITS = (1, 2, 3, 4, 6, 8, 16, 33, 65)
+
+
+def decode_split_sweep(dev):
+    """{rows: {n_split: (device ms, whether it is the plan's)}} of the
+    decode kernel over the main path's FullKV (bf16, L 4128) at the batch
+    buckets of 1, 2 and 4 requests."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (decode_attention_bh,
+                                                      decode_split_plan,
+                                                      sm_count)
+    cfg = get_config(ARCH)
+    D, L = cfg.head_dim, PROMPT + GEN
+    g = torch.Generator(device=dev).manual_seed(5)
+    pos = torch.arange(L, dtype=torch.int32, device=dev)
+    out = {}
+    for n_req in SWEEP_REQUESTS:
+        BH = n_req * cfg.num_heads
+        q, k, v = (torch.randn(BH, n, D, generator=g, device=dev).to(
+            torch.bfloat16) for n in (1, L, L))
+        plan = decode_split_plan(BH, 1, L, sm_count(dev.index or 0))
+        out[BH] = {n: (time_ms(lambda n=n: decode_attention_bh(
+                       q, k, v, pos, L - 17, n_split=n)), n == plan)
+                   for n in sorted(set(SWEEP_SPLITS) | {plan})}
+        del q, k, v
+    return out
+
+
+def decode_split_cases(dev):
+    """The split-KV decode kernel at forced and planned split counts:
+    [(label, kernel call, plain call, plain call with one V tile zeroed or
+    None, fp32 tolerance or None for the bf16 limit)]. At the main path's
+    shapes (bf16, FullKV) n_split 1, 2, 7 and the plan's; at 7 and the
+    plan's with cur_pos 1000, so that the splits past key 1000 hold no
+    live key, and with cur_pos -1, a row with no live key (the plain
+    version's uniform weights: the mean of V). Then small cases over a
+    ring permutation of 300 slots (cur_pos 250, 49 slots empty) at
+    n_split 1, 2, 7 (5 run) and the plan's, at each head dim with G = 1
+    and G = 4 (every instance of the kernel): bf16 under the bf16 limit
+    with its zeroed tile above it, fp32 within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels._build import HEAD_DIMS
+    from repro_torch.kernels.decode_attention import (decode_attention_bh,
+                                                      decode_split_plan,
+                                                      normalize_split,
+                                                      sm_count,
+                                                      split_ranges)
+    from repro_torch.serve.engine import _ring_src
+    sms = sm_count(dev.index or 0)
+    cfg = get_config(ARCH)
+    BH, D, L = REQUESTS * cfg.num_heads, cfg.head_dim, PROMPT + GEN
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(BH, n, D, generator=g, device=dev).to(
+        torch.bfloat16) for n in (1, L, L))
+    pos = torch.arange(L, dtype=torch.int32, device=dev)
+    plan = decode_split_plan(BH, 1, L, sms)
+    cases = []
+    for n, cur in sorted({(n, L - 17) for n in (1, 2, 7, plan)}
+                         | {(n, c) for n in (7, plan) for c in (1000, -1)}):
+        dead = sum(s > cur for s, _ in split_ranges(L, normalize_split(L, n)))
+        cases.append((
+            f"decode bf16 main shapes cur_pos={cur} n_split={n}"
+            f"{' (plan)' if n == plan else ''} all_masked_splits={dead}",
+            lambda n=n, cur=cur: decode_attention_bh(q, k, v, pos, cur,
+                                                     n_split=n),
+            lambda cur=cur: ref.decode_attention_ref(q, k, v, pos, cur),
+            lambda cur=cur: ref.decode_attention_ref(q, k, zero_tile(v), pos,
+                                                     cur),
+            None))
+    BH, L, cur = 8, 300, 250
+    perm = torch.randperm(L, generator=g, device=dev)
+    rpos = torch.as_tensor(_ring_src(cur + 1, 40, L - 40, L),
+                           dtype=torch.int32, device=dev)[perm]
+    for dtype, D, G in [(t, D, G) for t in (torch.bfloat16, torch.float32)
+                        for D in HEAD_DIMS for G in (1, 4)]:
+        qs, ks, vs = (torch.randn(n, s, D, generator=g, device=dev).to(dtype)
+                      for n, s in ((BH, 1), (BH // G, L), (BH // G, L)))
+        plan = decode_split_plan(BH // G, G, L, sms)
+        bf16 = dtype == torch.bfloat16
+        for n in sorted({1, 2, 7, plan}):
+            cases.append((
+                f"decode {'bf16' if bf16 else 'fp32'} G={G} D={D} ring "
+                f"L=300 n_split={n} (runs {normalize_split(L, n, G)})"
+                f"{' (plan)' if n == plan else ''}",
+                lambda qs=qs, ks=ks, vs=vs, n=n: decode_attention_bh(
+                    qs, ks, vs, rpos, cur, n_split=n),
+                lambda qs=qs, ks=ks, vs=vs: ref.decode_attention_ref(
+                    qs, ks, vs, rpos, cur),
+                (lambda qs=qs, ks=ks, vs=vs: ref.decode_attention_ref(
+                    qs, ks, zero_tile(vs), rpos, cur)) if bf16 else None,
+                None if bf16 else FP32_TOL))
+    return cases
 
 
 def pooled_ring_check(dev):
@@ -829,7 +999,7 @@ def main() -> int:
     built = _build.build()
     say(2, "built " + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()),
         t0)
-    for line in wgmma_report(-(-(PROMPT + GEN) // 64)):
+    for line in wgmma_report(-(-(PROMPT + GEN) // 64)) + decode_report():
         say(2, line)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -879,6 +1049,19 @@ def main() -> int:
         say(3, f"{label} G=4 Sq=200 Skv=300 bfloat16 max_abs_err={e:.3e} "
                f"limit_ratio={ratio_text(r)} "
                f"zeroed_tile_ratio={ratio_text(r_mut)}")
+    for label, kern, plain, mutant, tol in decode_split_cases(dev):
+        out, want = kern(), plain()
+        e = max_err(out, want)
+        if tol is not None:
+            assert e < tol, f"{label}: max abs err {e} >= {tol}"
+            say(3, f"{label} max_abs_err={e:.3e} tol={tol}")
+            continue
+        r, r_mut = bf16_ratios(out, want), bf16_ratios(mutant(), want)
+        assert max(r) < 1, f"{label}: error {r} of the limit"
+        assert min(r_mut) > 1, f"{label}: a zeroed tile is within the " \
+            f"limit {r_mut}"
+        say(3, f"{label} max_abs_err={e:.3e} limit_ratio={ratio_text(r)} "
+               f"zeroed_tile_ratio={ratio_text(r_mut)}")
     say(3, "kernels agree with their plain versions", t0)
 
     t0 = time.perf_counter()
@@ -895,6 +1078,26 @@ def main() -> int:
                f"library_ms={r['library_ms']:.4f} bound_ms={b_ms:.4f} "
                f"({b_by}; {n_bytes} bytes, {flops} flops) "
                f"roofline_share={b_ms / r['ms']:.3f}")
+    kern, plain, _, lib, n_bytes, flops = ring_decode_case(dev)
+    b_ms, b_by = bound(n_bytes, flops)
+    ring = dict(ms=time_ms(kern), plain_ms=time_ms(plain),
+                library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+                call_ms=call_ms(kern))
+    rows["decode_attention"]["ring"] = ring
+    say(4, f"decode_attention ring L=2176 ms={ring['ms']:.4f} "
+           f"call_ms={ring['call_ms']:.4f} plain_ms={ring['plain_ms']:.4f} "
+           f"library_ms={ring['library_ms']:.4f} bound_ms={b_ms:.4f} "
+           f"({b_by}; {n_bytes} bytes, {flops} flops) "
+           f"roofline_share={b_ms / ring['ms']:.3f}")
+    sweep = decode_split_sweep(dev)
+    rows["decode_attention"].update(
+        n_split=next(n for n, (_, plan) in sweep[max(sweep)].items() if plan),
+        ms_by_rows_and_n_split={bh: {n: ms for n, (ms, _) in by_n.items()}
+                                for bh, by_n in sweep.items()})
+    for bh, by_n in sweep.items():
+        say(4, f"decode_attention ms by n_split ({bh} rows, L 4128): "
+            + " ".join(f"{n}{'*' if plan else ''}={ms:.4f}"
+                       for n, (ms, plan) in by_n.items()) + " (* the plan's)")
     torch.cuda.empty_cache()
     say(4, f"timed at {card}", t0)
 

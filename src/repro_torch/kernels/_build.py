@@ -236,14 +236,20 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> int:
     return DTYPE_CODES[dtype]
 
 
-def check_tma_aligned(name: str, *tensors: torch.Tensor) -> None:
-    """The bf16 prefill kernels load their operands with TMA, which needs a
-    16-byte aligned base (csrc/prefill_wgmma.cuh: make_map)."""
+def check_aligned16(name: str, why: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor's base is 16-byte aligned (``why``: the
+    loads that need it)."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: operand of shape {tuple(t.shape)} "
                              f"starts at {t.data_ptr():#x}, not 16-byte "
-                             f"aligned; the bf16 kernel loads it with TMA")
+                             f"aligned; the kernel needs it for {why}")
+
+
+def check_tma_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """The bf16 prefill kernels load their operands with TMA, which needs a
+    16-byte aligned base (csrc/prefill_wgmma.cuh: make_map)."""
+    check_aligned16(name, "its TMA loads", *tensors)
 
 
 def default_scale(d: int, scale) -> float:

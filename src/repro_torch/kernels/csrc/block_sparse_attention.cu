@@ -117,7 +117,7 @@ template <typename T, int D> struct BlockSparseWgmmaLaunch {
     kernel<<<grid, wgmma::kThreads, bytes, stream>>>(
         maps.q, maps.k, maps.v, static_cast<const int*>(sel),
         static_cast<__nv_bfloat16*>(o), Sq, Skv, BH / BHkv, n_sel, q_offset,
-        scale * wgmma::kLog2e);
+        scale * kLog2e);
     return cudaSuccess;
   }
 };

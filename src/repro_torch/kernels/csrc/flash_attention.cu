@@ -111,7 +111,7 @@ template <typename T, int D> struct FlashWgmmaLaunch {
     dim3 grid((Sq + kBQ - 1) / kBQ, BH);
     kernel<<<grid, wgmma::kThreads, bytes, stream>>>(
         maps.q, maps.k, maps.v, static_cast<__nv_bfloat16*>(o), Sq, Skv,
-        BH / BHkv, causal, q_offset, scale * wgmma::kLog2e);
+        BH / BHkv, causal, q_offset, scale * kLog2e);
     return cudaSuccess;
   }
 };

@@ -1,15 +1,18 @@
 // Tensor-core prefill engine for bf16 operands on Hopper (sm_90a).
 //
 // The bf16 counterpart of PrefillBlock (attention_common.cuh), used by the
-// flash and block-sparse kernels. One CTA of one warpgroup (128 threads)
-// owns 64 query rows of one (b, h) row and walks a caller-chosen list of
-// 64-key tiles with the online softmax. It computes what PrefillBlock and
-// the TPU kernels compute: fp32 scores, the mask value -1e30, p rounded to
-// bf16 before the PV product while l sums the unrounded p, and
-// acc / max(l, 1e-20). The scores are kept in log2 units (scale * log2 e
-// folded into one multiply, the SFU's exp2 in place of exp); the mask and the
-// running max follow them, so a fully masked row behaves as it does on the
-// TPU (p = 1 until a live key erases it through alpha = 0).
+// flash, block-sparse and streaming kernels. One CTA of one warpgroup (128
+// threads) owns 64 query rows of one (b, h) row and walks a caller-chosen
+// list of 64-key tiles with the online softmax, masking keys past Skv, past
+// the diagonal when causal, and those of a compile-time extra policy
+// (StreamingMask), only on the tiles that need it. It computes what
+// PrefillBlock and the TPU kernels compute: fp32 scores, the mask value
+// -1e30, p rounded to bf16 before the PV product while l sums the
+// unrounded p, and acc / max(l, 1e-20). The scores are kept in log2 units
+// (scale * log2 e folded into one multiply, the SFU's exp2 in place of
+// exp); the mask and the running max follow them, so a fully masked row
+// behaves as it does on the TPU (p = 1 until a live key erases it through
+// alpha = 0).
 //
 // The machine underneath:
 // - TMA. Q is loaded once, K and V tiles into kStages slots each, every
@@ -35,6 +38,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "attention_common.cuh"
 
 namespace flux {
@@ -45,42 +49,6 @@ constexpr int kPanelCols = 32;  // bf16 columns of one 64-byte panel
 constexpr uint32_t kPanelBytes = kBK * kPanelCols * 2;  // 4096
 constexpr uint32_t kGroupBytes = 8 * kPanelCols * 2;  // 8 rows of a panel
 constexpr int kStages = 2;  // K / V slots: 3 CTAs share an SM at D = 96
-constexpr float kLog2e = 1.4426950408889634f;
-// polls of an mbarrier before the kernel traps: a load that never lands
-// (a fault in this file) ends the launch with an error instead of hanging
-constexpr uint32_t kSpinLimit = 1u << 24;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n == kSpinLimit) __trap();
-  }
-}
 
 // One box of a 3-D tensor map into shared memory at dst, completing on bar.
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
@@ -142,14 +110,6 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
 // the 8-key groups are 512 bytes apart (stride offset).
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
   return sw64_desc(tile + kk * 2 * kGroupBytes, kPanelBytes, kGroupBytes);
-}
-
-// 2^x on the SFU (ex2.approx.ftz: results below 2^-126 flush to 0, far
-// below what a bf16 p or the fp32 sum l can hold next to the row's max).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -275,6 +235,39 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
   if constexpr (D == 128) wgmma_rs_n128(o, a, b);
 }
 
+// Extra mask policies of Engine::run, on top of its Skv and causal tests.
+// Each gives, for step j of the walk, the keys a query position does not
+// see (hidden) and whether a 64-key tile at kv0 holds any such key for
+// some row of the 64-query block at row0 (needs_mask); a tile that needs
+// no mask runs the softmax without one.
+
+// Flash and block-sparse: nothing beyond Skv and the diagonal. Both tests
+// fold to false, and with the policy passed by value these kernels compile
+// to the SASS they had without one (a const reference did not).
+struct NoExtraMask {
+  __device__ bool hidden(int, int, int) const { return false; }
+  __device__ bool needs_mask(int, int, int) const { return false; }
+};
+
+// Streaming (sink + local), with causal = true: position p sees key c iff
+// c < Skv, c <= p and, in the sink pass (steps j < n_sink), c < sink; in
+// the window pass, c >= sink and p - c < local. A tile that straddles
+// `sink` is walked once in each pass, with disjoint masks. last_q is the
+// block's last stored query position, whose window starts highest.
+struct StreamingMask {
+  int sink;
+  int local;
+  int n_sink;
+  int last_q;
+  __device__ bool hidden(int j, int key, int pos) const {
+    return j < n_sink ? key >= sink : key < sink || pos - key >= local;
+  }
+  __device__ bool needs_mask(int j, int kv0, int) const {
+    return j < n_sink ? kv0 + kBK > sink
+                      : kv0 < sink || kv0 < last_q - (local - 1);
+  }
+};
+
 // Byte offsets inside the CTA's shared memory, from a 1024-byte aligned
 // base: Q, kStages K tiles, kStages V tiles, the mbarriers (Q's, then one
 // per K slot and one per V slot), the live-tile count and the list of live
@@ -387,17 +380,18 @@ template <int D> struct Engine {
     for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(o, pa[kk], mnmajor_desc(vs, kk));
   }
 
-  // The online softmax of one score tile of keys [kv0, kv0 + 64): scales s
-  // to log2 units, masks it when kMask (a tile that crosses the diagonal or
-  // Skv), updates m and l (l sums the unrounded p) and packs p to bf16 into
-  // pa, the A fragments of the PV product; alpha rescales O's rows.
+  // The online softmax of one score tile of keys [kv0, kv0 + 64), step j
+  // of the walk: scales s to log2 units, masks it when kMask (a tile that
+  // crosses the diagonal or Skv, or one the extra policy says needs it),
+  // updates m and l (l sums the unrounded p) and packs p to bf16 into pa,
+  // the A fragments of the PV product; alpha rescales O's rows.
   // Register i of s holds row 16 warp + lane / 4 + 8 ((i >> 1) & 1), key
   // kv0 + 8 (i >> 2) + 2 (lane & 3) + (i & 1); the A fragment of k16 step
   // kk is registers 8 kk .. 8 kk + 7 in pairs.
-  template <bool kMask>
-  __device__ void softmax(float (&s)[32], int kv0, int pos0, int Skv,
-                          bool causal, float scale_log2, uint32_t (&pa)[4][4],
-                          float (&alpha)[2]) {
+  template <bool kMask, class Extra>
+  __device__ void softmax(float (&s)[32], int j, int kv0, int pos0, int Skv,
+                          bool causal, Extra extra, float scale_log2,
+                          uint32_t (&pa)[4][4], float (&alpha)[2]) {
     const int lane = threadIdx.x % 32;
     float mx[4] = {kNegInf, kNegInf, kNegInf, kNegInf};  // row r: 2 chains
 #pragma unroll
@@ -406,7 +400,8 @@ template <int D> struct Engine {
       if constexpr (kMask) {
         const int key = kv0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
         const int pos = pos0 + 8 * ((i >> 1) & 1);
-        if (key >= Skv || (causal && key > pos)) x = kNegInf;
+        if (key >= Skv || (causal && key > pos) || extra.hidden(j, key, pos))
+          x = kNegInf;
       }
       s[i] = x;
       mx[((i >> 1) & 1) + 2 * (i & 1)] =
@@ -439,16 +434,18 @@ template <int D> struct Engine {
 
   // Query rows [row0, row0 + 64) of q row `head_q` over n_tiles key tiles
   // of k / v row `head_kv`, tile_of(j) the j-th. Query row r sits at
-  // position q_offset + r and sees key c iff c < Skv and, when causal,
-  // c <= q_offset + r. Rows past Sq are never stored, so they go unmasked.
+  // position q_offset + r and sees key c of step j iff c < Skv, when
+  // causal c <= q_offset + r, and extra.hidden(j, c, q_offset + r) is
+  // false. Rows past Sq are never stored, so they may go unmasked.
   // Each tile: S = Q K^T, the softmax, O += P V, each product waited for;
   // the next kStages - 1 tiles' loads are in flight meanwhile, and the
   // CTA's neighbours on the SM fill the tensor cores during its softmax.
-  template <class TileOf>
+  template <class TileOf, class Extra = NoExtraMask>
   __device__ void run(const CUtensorMap* qmap, const CUtensorMap* kmap,
                       const CUtensorMap* vmap, int head_q, int head_kv,
                       int row0, int n_tiles, TileOf tile_of, int Skv,
-                      bool causal, int q_offset, float scale_log2) {
+                      bool causal, int q_offset, float scale_log2,
+                      Extra extra = Extra()) {
     if (n_tiles == 0) return;  // nothing loaded: o and l stay 0
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int pos0 = q_offset + row0 + 16 * warp + lane / 4;
@@ -479,11 +476,14 @@ template <int D> struct Engine {
       fence_regs(s);
 
       const bool edge = kv0 + kBK > Skv ||
-                        (causal && kv0 + kBK - 1 > q_offset + row0);
+                        (causal && kv0 + kBK - 1 > q_offset + row0) ||
+                        extra.needs_mask(j, kv0, row0);
       if (edge)
-        softmax<true>(s, kv0, pos0, Skv, causal, scale_log2, pa, alpha);
+        softmax<true>(s, j, kv0, pos0, Skv, causal, extra, scale_log2, pa,
+                      alpha);
       else
-        softmax<false>(s, kv0, pos0, Skv, causal, scale_log2, pa, alpha);
+        softmax<false>(s, j, kv0, pos0, Skv, causal, extra, scale_log2, pa,
+                       alpha);
       // alpha is 1 once a row's max has settled: skip the rescale when it
       // is 1 for all the warp's rows (bit-identical, and 64-key tiles deep
       // into a long prefix mostly leave the max where it was)

@@ -65,6 +65,41 @@ def decode_attention_ref(q, k, v, positions, cur_pos, scale=None):
     return _masked_attention(q, k, v, valid[None, :], scale)
 
 
+def decode_attention_split_ref(q, k, v, positions, cur_pos, n_split,
+                               scale=None):
+    """The split-KV decode kernel's arithmetic, for tests only: keys in
+    ``n_split`` ranges of whole 64-key tiles (split s takes tiles
+    [s·n // n_split, (s + 1)·n // n_split) of n = ceil(L / 64)), each with
+    one softmax over its keys (the -1e30 mask, m the range's max, p
+    rounded to v's dtype before PV, l summing the unrounded p), then the
+    ranges' (acc, m, l) merged by their log-sum-exp:
+    o = Σ w_s acc_s / max(Σ w_s l_s, 1e-20), w_s = exp(m_s - max m)."""
+    BH, _, D = q.shape
+    BHkv, L = k.shape[0], k.shape[1]
+    G = BH // BHkv
+    scale = D ** -0.5 if scale is None else scale
+    n = -(-L // 64)
+    qf = q.reshape(BHkv, G, D).float()
+    valid = (positions >= 0) & (positions <= cur_pos)
+    parts = []
+    for s in range(n_split):
+        keys = slice(s * n // n_split * 64, min((s + 1) * n // n_split * 64,
+                                                  L))
+        sc = torch.einsum("hgd,hkd->hgk", qf, k[:, keys].float()) * scale
+        sc = torch.where(valid[keys], sc, NEG_INF)
+        m = sc.amax(-1)
+        p = torch.exp(sc - m[..., None])
+        acc = torch.einsum("hgk,hkd->hgd", p.to(v.dtype).float(),
+                           v[:, keys].float())
+        parts.append((m, p.sum(-1), acc))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp(m - mx) for m, _, _ in parts]
+    l = sum(wi * li for wi, (_, li, _) in zip(w, parts))
+    acc = sum(wi[..., None] * a for wi, (_, _, a) in zip(w, parts))
+    o = acc / torch.clamp(l, min=1e-20)[..., None]
+    return o.reshape(BH, 1, v.shape[-1]).to(q.dtype)
+
+
 def block_sparse_attention_ref(q, k, v, sel, *, block, q_offset=0,
                                scale=None):
     """sel (BH, nqb, K) expanded to a dense mask. ``q_offset`` shifts the

@@ -2,8 +2,10 @@
 
 Port of ``repro/kernels/streaming_attention.py::streaming_attention_bh``.
 On CUDA tensors the entry launches the hand-written kernel
-``csrc/streaming_attention.cu`` or raises; on CPU tensors it runs the
-plain version, the dense masked softmax of
+``csrc/streaming_attention.cu`` or raises: bf16 operands run on the
+tensor-core engine (``csrc/prefill_wgmma.cuh``, TMA + wgmma; their bases
+must be 16-byte aligned), fp32 operands on its CUDA-core loop. On CPU
+tensors it runs the plain version, the dense masked softmax of
 ``ref.streaming_attention_ref``.
 """
 from __future__ import annotations
@@ -40,6 +42,8 @@ def streaming_attention_bh(q: torch.Tensor, k: torch.Tensor,
         return streaming_attention_plain(q, k, v, sink=sink, local=local,
                                          q_offset=q_offset, scale=scale)
     code = _build.check_cuda(name, q, k, v)
+    if q.dtype == torch.bfloat16:
+        _build.check_tma_aligned(name, q, k, v)
     BH, Sq, D = q.shape
     BHkv, Skv = k.shape[0], k.shape[1]
     out = torch.empty_like(q)

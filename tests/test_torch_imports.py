@@ -90,6 +90,8 @@ def test_a_cuda_operand_goes_to_the_kernel(monkeypatch):
     mods = (flash_attention, streaming_attention, block_sparse_attention,
             decode_attention)
     monkeypatch.setattr(_build, "on_cpu", lambda name, t: False)
+    # the faked card's multiprocessors, which the decode plan reads
+    monkeypatch.setattr(decode_attention, "sm_count", lambda index: 132)
     for m in mods:
         monkeypatch.setattr(m.KERNEL, "launch",
                             lambda dev, *a, _m=m: launched.append(
