@@ -10,7 +10,8 @@ nothing falls back to the CPU):
      print the compiler's report (registers, spills, shared memory) and
      the SASS's HGMMA / UTMALDG counts of the bf16 tensor-core (wgmma)
      engine in the flash, block-sparse and streaming kernels at each head
-     dim, and the report of the split decode and merge kernels;
+     dim, and the report of the batch and slot-pool split decode kernels
+     and their merge kernels;
   3. each kernel against its plain PyTorch version on the card: at the
      main paths' shapes in bf16 (the pooled decode kernel at the slot
      pool's: 4 slots of ragged live lengths, over a FullKV and over a
@@ -38,6 +39,14 @@ nothing falls back to the CPU):
      (cur_pos -1), and over a shuffled, partly empty ring of 300 slots at
      each of those counts, at each head dim with G = 1 and G = 4: bf16
      under the bf16 limit (its zeroed tile above it), fp32 within 1e-4;
+     the split pooled decode kernel at 1, 4 and 16 tiles a range and the
+     plan's over the main path's FullKV pool (ranges past the shallow
+     slots' lengths skipped), and over 4 slots of lengths 0 / 1 / 137 /
+     300 at L 300, FullKV and a shuffled ring with holes (one 64-key range
+     wholly masked), at 1, 2 and 5 tiles a range and the plan's, at each
+     head dim with G = 1 and G = 4: bf16 under the limit per live slot
+     (its zeroed tile above it), fp32 within 1e-4, and the length-0
+     slot's rows zeros;
   4. each kernel's time at the main path's shapes (device time: CUDA
      events around back-to-back calls queued behind a device sleep, so the
      host's enqueue is off the clock; ``call_ms`` is one call on an idle
@@ -45,9 +54,12 @@ nothing falls back to the CPU):
      library call as a yardstick (scaled_dot_product_attention, which the
      port never calls) and the least time the card could take (bytes at
      3.35 TB/s or bf16 operations at 989 TFLOP/s, whichever is larger);
-     a second decode row over the sink + local ring (L = 2176), and the
-     decode kernel's device time against n_split over the main path's
-     FullKV at 32, 64 and 128 rows (1, 2 and 4 requests);
+     a second decode row and a second pooled decode row over the sink +
+     local ring (L = 2176), the decode kernel's device time against
+     n_split over the main path's FullKV at 32, 64 and 128 rows (1, 2 and
+     4 requests), and the pooled decode kernel's device time and call_ms
+     against its tiles a range over the FullKV pool at 4, 8 and 16 slots
+     (POOL_LENS cycled);
   5. phi3-mini at full width, depth cut to 2 layers, fp32: the same
      weights served on cuda (kernels) and on cpu (plain versions), a
      2304-token prompt > sink + local, chunk 512, 8 greedy tokens; routing
@@ -333,7 +345,6 @@ def kernel_cases(dev, dtype, main):
     def kv_slots(x):  # (B·Hkv, L, D) → (B, Hq, L, D) for the library call
         return x.view(Bp, Hkv, L, D).repeat_interleave(Hq // Hkv, 1)
 
-    live = sum(min(n, L) for n in lens)
     cases["decode_attention_pooled"] = (
         lambda: decode_attention_pooled_bh(qp, kp, vp, ppos, plens,
                                            n_heads=Hq),
@@ -345,11 +356,8 @@ def kernel_cases(dev, dtype, main):
         lambda: F.scaled_dot_product_attention(
             qp.view(Bp, Hq, 1, D), kv_slots(kp), kv_slots(vp),
             attn_mask=pvis[:, None, None]),
-        # the live prefixes of K and V, q and o, lengths (and the live
-        # positions when there are any) each moved once
-        it * (2 * Bp * Hq * D + 2 * Hkv * live * D) + 4 * Bp
-        + (0 if ppos is None else 4 * live),
-        4 * D * Hq * int(pvis.sum()))
+        *pooled_work(Bp, Hq, Hkv, D, [min(n, L) for n in lens],
+                     ppos is not None, int(pvis.sum()), it))
     return cases
 
 
@@ -517,25 +525,28 @@ def wgmma_report(n_sel):
 
 def decode_report():
     """One line per (kernel, dtype, rows a CTA) of the split decode
-    library: registers / spill stores / spill loads / stack bytes of each
-    head dim's instance."""
+    libraries, batch (decode_*) and slot pool (pooled_*), which build the
+    one split kernel of ``csrc/decode_split.cuh`` under their own masks:
+    registers / spill stores / spill loads / stack bytes of each head
+    dim's instance."""
     from repro_torch.kernels import _build
-    report = compiler_report(_build.library_path("decode_attention"),
-                             "decode_")
-    if not report:
-        return ["decode_attention: no compiler report"]
-    groups = {}
-    for name, r in report.items():
-        kind = "split" if "decode_split_kernel" in name else "merge"
-        args = [int(x) for x in re.findall(r"Li(\d+)E", name)]
-        dtype = "bf16" if "bfloat16" in name else "fp32"
-        key = f"decode_{kind} {dtype}" + (f" kG={args[1]}"
-                                          if kind == "split" else "")
-        groups.setdefault(key, []).append(
-            (args[0], f"D={args[0]}: {r.get('registers')} regs "
-                      f"spill {r.get('spill')} stack {r.get('stack')}"))
-    return [f"{k}: " + ", ".join(t for _, t in sorted(v))
-            for k, v in sorted(groups.items())]
+    lines, groups = [], {}
+    for source, prefix in (("decode_attention", "decode"),
+                           ("decode_attention_pooled", "pooled")):
+        report = compiler_report(_build.library_path(source), "_kernel")
+        if not report:
+            lines.append(f"{source}: no compiler report")
+        for name, r in report.items():
+            kind = "split" if "split_kernel" in name else "merge"
+            args = [int(x) for x in re.findall(r"Li(\d+)E", name)]
+            dtype = "bf16" if "bfloat16" in name else "fp32"
+            key = f"{prefix}_{kind} {dtype}" + (f" kG={args[1]}"
+                                                if kind == "split" else "")
+            groups.setdefault(key, []).append(
+                (args[0], f"D={args[0]}: {r.get('registers')} regs "
+                          f"spill {r.get('spill')} stack {r.get('stack')}"))
+    return lines + [f"{k}: " + ", ".join(t for _, t in sorted(v))
+                    for k, v in sorted(groups.items())]
 
 
 def ring_decode_case(dev):
@@ -601,6 +612,42 @@ def decode_split_sweep(dev):
                    for n in sorted(set(SWEEP_SPLITS) | {plan})}
         del q, k, v
     return out
+
+
+POOL_SWEEP_SLOTS = (4, 8, 16)  # pools of POOL_LENS cycled
+POOL_SWEEP_TILES = (1, 2, 4, 8, 16, 33, 65)
+
+
+def pooled_tiles_sweep(dev):
+    """{slots: {tiles: (device ms, call ms, whether it is the plan's)}} of
+    the pooled decode kernel over the main path's FullKV (bf16, L 4128)
+    at 4, 8 and 16 slots of POOL_LENS cycled, and {slots: bound ms}."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import pooled_split_plan
+    from repro_torch.kernels.decode_attention_pooled import \
+        decode_attention_pooled_bh
+    cfg = get_config(ARCH)
+    H, D, L = cfg.num_heads, cfg.head_dim, PROMPT + GEN
+    g = torch.Generator(device=dev).manual_seed(7)
+    plan = pooled_split_plan(L)
+    out, bounds = {}, {}
+    for B in POOL_SWEEP_SLOTS:
+        lens = [POOL_LENS[i % len(POOL_LENS)] for i in range(B)]
+        q, k, v = (torch.randn(B * H, n, D, generator=g, device=dev).to(
+            torch.bfloat16) for n in (1, L, L))
+        n = torch.tensor(lens, dtype=torch.int32, device=dev)
+        live = [min(x, L) for x in lens]
+        bounds[B] = bound(*pooled_work(B, H, H, D, live, False,
+                                       H * sum(live)))[0]
+
+        def call(t):
+            return decode_attention_pooled_bh(q, k, v, None, n, n_heads=H,
+                                              tiles=t)
+        out[B] = {t: (time_ms(lambda t=t: call(t)),
+                      call_ms(lambda t=t: call(t)), t == plan)
+                  for t in sorted(set(POOL_SWEEP_TILES) | {plan})}
+        del q, k, v
+    return out, bounds
 
 
 def decode_split_cases(dev):
@@ -670,34 +717,178 @@ def decode_split_cases(dev):
     return cases
 
 
-def pooled_ring_check(dev):
-    """The pooled decode kernel over sink + local rings at the slot
-    pool's shapes (bf16), the SA layers' pooled decode: 4 slots at
-    different depths, lengths min(len, ring), entries shuffled with a
-    tenth re-marked -1. Returns (max abs error, bf16 ratio of the kernel
-    per slot, that of the plain version with one live V tile of every
-    slot zeroed)."""
+RING_POOL_LENS = (4112, 2080, 1400, 100)  # depths of the timed ring pool
+
+
+def pooled_ring_case(dev):
+    """The pooled decode kernel over sink + local rings at the slot pool's
+    shapes (bf16), the SA layers' pooled decode: 4 slots at different
+    depths, lengths min(len, ring), entries shuffled with a tenth
+    re-marked -1: (kernel call, plain call, plain call with one live V
+    tile of every slot zeroed, library call, bytes, flops)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention_pooled import \
         decode_attention_pooled_bh
     cfg = get_config(ARCH)
     ring, H, D = cfg.flux.sink + cfg.flux.local, cfg.num_heads, cfg.head_dim
-    lens = (4112, 2080, 1400, 100)
+    B = len(RING_POOL_LENS)
     g = torch.Generator(device=dev).manual_seed(2)
-    q, k, v = (torch.randn(len(lens) * H, n, D, generator=g,
+    q, k, v = (torch.randn(B * H, n, D, generator=g,
                            device=dev).to(torch.bfloat16)
                for n in (1, ring, ring))
-    pos = torch.as_tensor(ring_positions(np.random.default_rng(2), lens,
-                                         ring), device=dev)
-    live = [min(x, ring) for x in lens]
+    pos = torch.as_tensor(ring_positions(np.random.default_rng(2),
+                                         RING_POOL_LENS, ring), device=dev)
+    live = [min(x, ring) for x in RING_POOL_LENS]
     n = torch.tensor(live, dtype=torch.int32, device=dev)
-    out = decode_attention_pooled_bh(q, k, v, pos, n, n_heads=H)
-    plain = ref.decode_attention_pooled_ref(q, k, v, pos, n, n_heads=H)
-    mut = ref.decode_attention_pooled_ref(q, k, zero_slot_tiles(v, live),
-                                          pos, n, n_heads=H)
-    return (max_err(out, plain), bf16_ratios(out, plain, len(lens)),
-            bf16_ratios(mut, plain, len(lens)))
+    vis = (torch.arange(ring, device=dev)[None] < n[:, None]) & (pos >= 0)
+    return (lambda: decode_attention_pooled_bh(q, k, v, pos, n, n_heads=H),
+            lambda: ref.decode_attention_pooled_ref(q, k, v, pos, n,
+                                                    n_heads=H),
+            lambda: ref.decode_attention_pooled_ref(
+                q, k, zero_slot_tiles(v, live), pos, n, n_heads=H),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q.view(B, H, 1, D), k.view(B, H, ring, D),
+                v.view(B, H, ring, D), attn_mask=vis[:, None, None]),
+            *pooled_work(B, H, H, D, live, True, int(vis.sum())))
+
+
+def pooled_work(B, Hq, Hkv, D, live, ring, visible, itemsize=2):
+    """Bytes and operations of one pooled decode call: the live prefixes
+    of K and V, q and o, lengths and (over a ring) the live positions
+    each moved once; QK^T and PV (4·D per query row) for the visible
+    (slot, key) pairs."""
+    n = sum(live)
+    return (itemsize * (2 * B * Hq * D + 2 * Hkv * n * D) + 4 * B
+            + (4 * n if ring else 0), 4 * D * Hq * visible)
+
+
+def pooled_ring_check(dev):
+    """(max abs error, bf16 ratio of the kernel per slot, that of the
+    plain version with one live V tile of every slot zeroed) of
+    ``pooled_ring_case``."""
+    kern, plain, mutant, *_ = pooled_ring_case(dev)
+    out, want = kern(), plain()
+    B = len(RING_POOL_LENS)
+    return (max_err(out, want), bf16_ratios(out, want, B),
+            bf16_ratios(mutant(), want, B))
+
+
+SMALL_POOL_LENS = (0, 1, 137, 300)  # the small pooled cases' slots, L 300
+SMALL_POOL_TILES = (1, 2, 5)  # forced tiles a range; 5: one range a row
+
+
+def pooled_split_cases(dev):
+    """The split pooled decode kernel at forced and planned tiles a range:
+    [(label, slot lengths, L, [(tiles, kernel call)], plain call, plain
+    call with one live V tile of every slot zeroed or None, fp32 tolerance
+    or None for the bf16 limit)]. At the main path's shapes (bf16, FullKV, POOL_LENS)
+    1, 4 and 16 tiles a range and the plan's, where whole ranges lie past
+    the shallow slots' lengths. Then small cases, 4 slots of lengths
+    SMALL_POOL_LENS (one empty) over L = 300, FullKV and a shuffled ring
+    with holes whose slot 3 has keys 64-127 all -1 (a 1-tile range there
+    sees nothing), at 1, 2 and 5 tiles a range (5: one range a row, no
+    merge) and the plan's, at each head dim with G = 1 and G = 4 (every instance
+    of the kernel): bf16 under the bf16 limit per live slot with its
+    zeroed tile above it, fp32 within 1e-4, the empty slot's rows zeros."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels._build import HEAD_DIMS
+    from repro_torch.kernels.decode_attention import (normalize_tiles,
+                                                      pooled_split_plan)
+    from repro_torch.kernels.decode_attention_pooled import \
+        decode_attention_pooled_bh
+    cfg = get_config(ARCH)
+    H, D, L = cfg.num_heads, cfg.head_dim, PROMPT + GEN
+    B = len(POOL_LENS)
+    g = torch.Generator(device=dev).manual_seed(6)
+    qm, km, vm = (torch.randn(B * H, n, D, generator=g, device=dev).to(
+        torch.bfloat16) for n in (1, L, L))
+    lm = torch.tensor(POOL_LENS, dtype=torch.int32, device=dev)
+    cases = [(
+        f"decode_attention_pooled bf16 main shapes FullKV lens={POOL_LENS}",
+        POOL_LENS, L,
+        [(t, lambda t=t: decode_attention_pooled_bh(qm, km, vm, None, lm,
+                                                    n_heads=H, tiles=t))
+         for t in sorted({1, 4, 16, pooled_split_plan(L)})],
+        lambda: ref.decode_attention_pooled_ref(qm, km, vm, None, lm,
+                                                n_heads=H),
+        lambda: ref.decode_attention_pooled_ref(
+            qm, km, zero_slot_tiles(vm, POOL_LENS), None, lm, n_heads=H),
+        None)]
+    L, Hq = 300, 8
+    B = len(SMALL_POOL_LENS)
+    lens = torch.tensor(SMALL_POOL_LENS, dtype=torch.int32, device=dev)
+    rpos = ring_positions(np.random.default_rng(6), SMALL_POOL_LENS, L)
+    rpos[3, 64:128] = -1
+    rpos = torch.as_tensor(rpos, device=dev)
+    for dtype, D, G, ring in [(t, D, G, r)
+                              for t in (torch.bfloat16, torch.float32)
+                              for D in HEAD_DIMS for G in (1, 4)
+                              for r in (False, True)]:
+        Hkv = Hq // G
+        q, k, v = (torch.randn(B * h, n, D, generator=g, device=dev).to(
+            dtype) for h, n in ((Hq, 1), (Hkv, L), (Hkv, L)))
+        pos = rpos if ring else None
+        bf16 = dtype == torch.bfloat16
+        plan = pooled_split_plan(L, G)
+        tiles = sorted({normalize_tiles(L, t, G)
+                        for t in SMALL_POOL_TILES} | {plan})
+        cases.append((
+            f"decode_attention_pooled {'bf16' if bf16 else 'fp32'} G={G} "
+            f"D={D} {'ring, slot 3 keys 64-127 -1' if ring else 'FullKV'} "
+            f"L=300 lens={SMALL_POOL_LENS}", SMALL_POOL_LENS, L,
+            [(t, lambda q=q, k=k, v=v, pos=pos, t=t:
+              decode_attention_pooled_bh(q, k, v, pos, lens, n_heads=Hq,
+                                         tiles=t)) for t in tiles],
+            lambda q=q, k=k, v=v, pos=pos: ref.decode_attention_pooled_ref(
+                q, k, v, pos, lens, n_heads=Hq),
+            (lambda q=q, k=k, v=v, pos=pos: ref.decode_attention_pooled_ref(
+                q, k, zero_slot_tiles(v, SMALL_POOL_LENS), pos, lens,
+                n_heads=Hq)) if bf16 else None,
+            None if bf16 else FP32_TOL))
+    return cases
+
+
+def pooled_split_check(dev):
+    """Phase 3's lines for ``pooled_split_cases``: each case's max abs
+    error (err) at each tiles a range, against its limit (bf16: the ratio
+    to the limit per live slot, the zeroed tile's above it; fp32: 1e-4),
+    the capacity's ranges skipped past the slots' lengths, and zeros in
+    every length-0 slot's rows."""
+    from repro_torch.kernels.decode_attention import pooled_ranges
+    lines = []
+    for label, lens, L, calls, plain, mutant, tol in pooled_split_cases(dev):
+        want = plain()
+        slots = sum(n > 0 for n in lens)  # rms per live slot
+        live = torch.tensor([n > 0 for n in lens], device=dev)
+        live = live.repeat_interleave(want.shape[0] // len(lens))
+        parts = []
+        for t, kern in calls:
+            out = kern()
+            e = max_err(out, want)
+            skipped = sum(-(-L // (64 * t)) - len(pooled_ranges(n, L, t))
+                          for n in lens)
+            assert not bool(out[~live].any()), \
+                f"{label} tiles={t}: a length-0 slot is not zeros"
+            text = f"tiles={t} skipped={skipped} err={e:.2e}"
+            if tol is not None:
+                assert e < tol, f"{label} tiles={t}: max abs err {e} >= {tol}"
+            else:
+                r = bf16_ratios(out[live], want[live], slots)
+                assert max(r) < 1, f"{label} tiles={t}: error {r} of limit"
+                text += f" ratio={ratio_text(r)}"
+            parts.append(text)
+        if mutant is None:
+            parts.append(f"tol={tol}")
+        else:
+            r_mut = bf16_ratios(mutant()[live], want[live], slots)
+            assert min(r_mut) > 1, f"{label}: a zeroed tile is within the " \
+                f"limit {r_mut}"
+            parts.append(f"zeroed_tile_ratio={ratio_text(r_mut)}")
+        zero = " length-0 slot rows all zero" if slots < len(lens) else ""
+        lines.append(f"{label}: " + "; ".join(parts) + zero)
+    return lines
 
 
 def path_parity(dev):
@@ -1062,6 +1253,8 @@ def main() -> int:
             f"limit {r_mut}"
         say(3, f"{label} max_abs_err={e:.3e} limit_ratio={ratio_text(r)} "
                f"zeroed_tile_ratio={ratio_text(r_mut)}")
+    for line in pooled_split_check(dev):
+        say(3, line)
     say(3, "kernels agree with their plain versions", t0)
 
     t0 = time.perf_counter()
@@ -1089,6 +1282,31 @@ def main() -> int:
            f"library_ms={ring['library_ms']:.4f} bound_ms={b_ms:.4f} "
            f"({b_by}; {n_bytes} bytes, {flops} flops) "
            f"roofline_share={b_ms / ring['ms']:.3f}")
+    kern, plain, _, lib, n_bytes, flops = pooled_ring_case(dev)
+    b_ms, b_by = bound(n_bytes, flops)
+    ring = dict(ms=time_ms(kern), plain_ms=time_ms(plain),
+                library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+                call_ms=call_ms(kern))
+    rows["decode_attention_pooled"]["ring"] = ring
+    say(4, f"decode_attention_pooled ring L=2176 lens={RING_POOL_LENS} "
+           f"ms={ring['ms']:.4f} call_ms={ring['call_ms']:.4f} "
+           f"plain_ms={ring['plain_ms']:.4f} "
+           f"library_ms={ring['library_ms']:.4f} bound_ms={b_ms:.4f} "
+           f"({b_by}; {n_bytes} bytes, {flops} flops) "
+           f"roofline_share={b_ms / ring['ms']:.3f}")
+    pool_sweep, pool_bounds = pooled_tiles_sweep(dev)
+    rows["decode_attention_pooled"].update(
+        tiles=next(t for t, (*_, plan) in pool_sweep[POOL_SWEEP_SLOTS[0]]
+                   .items() if plan),
+        ms_by_slots_and_tiles={b: {t: ms for t, (ms, _, _) in by_t.items()}
+                               for b, by_t in pool_sweep.items()})
+    for b, by_t in pool_sweep.items():
+        say(4, f"decode_attention_pooled ms (call_ms) by tiles a range "
+            f"({b} slots of {POOL_LENS} cycled, L 4128, bound_ms "
+            f"{pool_bounds[b]:.4f}): "
+            + " ".join(f"{t}{'*' if plan else ''}={ms:.4f} ({c:.4f})"
+                       for t, (ms, c, plan) in by_t.items())
+            + " (* the plan's)")
     sweep = decode_split_sweep(dev)
     rows["decode_attention"].update(
         n_split=next(n for n, (_, plan) in sweep[max(sweep)].items() if plan),

@@ -73,6 +73,42 @@ def split_ranges(L: int, n_split: int) -> List[Tuple[int, int]]:
             for s in range(n_split)]
 
 
+POOL_TILES = 8   # tiles a range of the pooled decode holds (its plan)
+
+
+def normalize_tiles(L: int, tiles: int, G: int = 1) -> int:
+    """The tiles a range of the pooled decode kernel holds for ``tiles``
+    asked over an L-slot buffer, with G query rows per KV row: at least
+    one, at most the buffer's and MAX_SPLIT_TILES."""
+    cap = MAX_SPLIT_TILES[1 if G == 1 else MAX_G]
+    return max(1, min(int(tiles), _tiles(L), cap))
+
+
+def pooled_split_plan(L: int, G: int = 1) -> int:
+    """How many whole 64-key tiles each range of the pooled decode kernel
+    holds over an L-slot buffer (csrc/decode_attention_pooled.cu): the
+    grid is built from the capacity, ceil(ceil(L / 64) / tiles) ranges a
+    KV row, and a range past its slot's live length returns at once.
+
+    POOL_TILES = 8 whatever the pool's size: ranges of a fixed size give
+    every working CTA the same bytes (8 K and 8 V tiles), so the number of
+    working CTAs follows the pool's live tiles, and four CTAs fit on a
+    multiprocessor. On an H100 it is the fastest of 1 to 65 tiles at 4, 8
+    and 16 slots of phi3-mini's ragged pool (PERF.md, pooled decode by
+    tiles): fewer tiles add CTA set-up and merge traffic, more leave the
+    deepest slot's ranges running alone at the end."""
+    return normalize_tiles(L, POOL_TILES, G)
+
+
+def pooled_ranges(n: int, L: int, tiles: int) -> List[Tuple[int, int]]:
+    """The [start, end) keys of each range of ``tiles`` tiles that runs
+    for a slot of live length n (clamped to [0, L]), as the kernel cuts
+    them: ranges start every tiles·64 keys below n, the last cut at n; the
+    ranges past it read nothing."""
+    n, span = min(max(int(n), 0), L), tiles * TILE
+    return [(s, min(s + span, n)) for s in range(0, n, span)]
+
+
 def decode_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         positions: torch.Tensor, cur_pos: int, *,
                         scale: Optional[float] = None,

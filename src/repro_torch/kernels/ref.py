@@ -141,3 +141,45 @@ def decode_attention_pooled_ref(q, k, v, positions, lengths, *, n_heads,
     o = _masked_attention(q, k, v, rows[:, None, :], scale)
     return torch.where(rows.any(dim=-1)[:, None, None], o,
                        torch.zeros_like(o))
+
+
+def decode_attention_pooled_split_ref(q, k, v, positions, lengths, *,
+                                      n_heads, tiles, scale=None):
+    """The split pooled decode kernel's arithmetic, for tests only: each
+    row's live keys [0, n), n = min(lengths[slot], L), in ranges of
+    ``tiles`` whole 64-key tiles (range s takes keys [s·tiles·64,
+    min((s + 1)·tiles·64, n)); the ranges past n do not run), each with one
+    softmax over its keys (the -1e30 mask on positions < 0, m the range's
+    max, p rounded to v's dtype before PV, l summing the unrounded p), then
+    the ranges' (acc, m, l) merged by their log-sum-exp:
+    o = Σ w_s acc_s / max(Σ w_s l_s, 1e-20), w_s = exp(m_s - max m); a row
+    with no range or no live key gives zeros."""
+    BH, _, Dk = q.shape
+    BHkv, L, Dv = v.shape
+    G = BH // BHkv
+    scale = Dk ** -0.5 if scale is None else scale
+    span = tiles * 64
+    out = torch.zeros((BH, 1, Dv), dtype=torch.float32, device=q.device)
+    for b in range(BH):
+        slot, kv = b // n_heads, b // G
+        n = min(max(int(lengths[slot]), 0), L)
+        parts = []
+        for s0 in range(0, n, span):
+            keys = slice(s0, min(s0 + span, n))
+            sc = (k[kv, keys].float() @ q[b, 0].float()) * scale
+            if positions is not None:
+                sc = torch.where(positions[slot, keys] >= 0, sc, NEG_INF)
+            m = sc.max()
+            p = torch.exp(sc - m)
+            parts.append((m, p.sum(), p.to(v.dtype).float()
+                          @ v[kv, keys].float()))
+        if not parts:
+            continue
+        mx = torch.stack([m for m, _, _ in parts]).max()
+        if mx <= NEG_INF:
+            continue  # no live key
+        w = [torch.exp(m - mx) for m, _, _ in parts]
+        l = sum(wi * li for wi, (_, li, _) in zip(w, parts))
+        acc = sum(wi * a for wi, (_, _, a) in zip(w, parts))
+        out[b, 0] = acc / torch.clamp(l, min=1e-20)
+    return out.to(q.dtype)

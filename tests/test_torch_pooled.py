@@ -323,9 +323,11 @@ def test_pooled_entry_rejects_bad_operands():
 
 def test_pooled_cuda_operands_go_to_the_kernel(monkeypatch):
     """A CUDA operand launches the kernel with the operands' pointers (a
-    null positions pointer for the FullKV layout) and never the plain
-    version; a (Dk, Dv) the kernel is not built for, an unsupported dtype
-    and a non-contiguous operand raise before any launch."""
+    null positions pointer for the FullKV layout), the plan's tiles a range
+    and, when a KV row holds more than one range, fp32 scratch for the
+    ranges' (acc, m, l), and never the plain version; a (Dk, Dv) the kernel
+    is not built for, an unsupported dtype, a non-contiguous operand and a
+    k / v base off 16 bytes raise before any launch."""
     launched = []
     monkeypatch.setattr(_build, "on_cpu", lambda name, t: False)
     monkeypatch.setattr(TP.KERNEL, "launch",
@@ -333,12 +335,17 @@ def test_pooled_cuda_operands_go_to_the_kernel(monkeypatch):
     monkeypatch.setattr(TP, "decode_attention_pooled_plain", None)
     q, k, v, pos, lens = _ops()
     out = TP.decode_attention_pooled_bh(q, k, v, None, lens, n_heads=4)
-    TP.decode_attention_pooled_bh(q, k, v, pos, lens, n_heads=4)
+    TP.decode_attention_pooled_bh(q, k, v, pos, lens, n_heads=4, tiles=1)
     assert out.shape == (8, 1, 32) and len(launched) == 2
     assert launched[0][:5] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                None, lens.data_ptr())
     assert launched[1][3] == pos.data_ptr()
-    assert launched[0][6:12] == (8, 4, 70, 32, 32, 4)
+    # L = 70 is 2 tiles: the plan's range holds both (no scratch), a
+    # forced 1-tile range gives 2 ranges a row and scratch for them
+    assert launched[0][6:9] == (0, 0, 0)
+    assert all(launched[1][6:9])
+    assert launched[0][9:17] == (8, 4, 70, 32, 32, 4, 0, 2)
+    assert launched[1][16] == 1
     with pytest.raises(NotImplementedError, match="item 11"):
         TP.decode_attention_pooled_bh(*_ops(Dv=16)[:3], pos, lens,
                                       n_heads=4)
@@ -352,4 +359,7 @@ def test_pooled_cuda_operands_go_to_the_kernel(monkeypatch):
     with pytest.raises(ValueError, match="dtype"):
         TP.decode_attention_pooled_bh(q.half(), k.half(), v.half(), pos,
                                       lens, n_heads=4)
+    off = torch.zeros(k.numel() + 1)[1:].view(k.shape)  # 4 bytes past
+    with pytest.raises(ValueError, match="16-byte"):
+        TP.decode_attention_pooled_bh(q, off, v, pos, lens, n_heads=4)
     assert len(launched) == 2
