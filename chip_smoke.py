@@ -82,11 +82,30 @@ nothing falls back to the CPU):
      mixed pool is full, so it preempts), 2 all-FA and 1 router-driven;
      every request finishes ok with 32 tokens, exact launch counts (the
      pooled decode kernel once per layer per pool decode step, the batch
-     decode kernel never).
+     decode kernel never);
+  8. the prefix path: the same model with the shared-prefix snapshot
+     store. Batch: prompts A and B of 4096 tokens share a 3072-token
+     preamble; an engine with a 4096 MB device tier and a 6144 MB pinned
+     host tier serves A (cold, publishing 8 boundary snapshots), then
+     ``offload_all``, A again (a full-cover hit from the host tier) and B
+     (a 3072-token hit, 2 chunks streamed); tokens and first logits must
+     be bitwise equal to an engine without a store, the store must
+     demote, promote and drop, and the launch counts are exact (no flash
+     or streaming launch on a hit). Continuous: 8 requests of a shared
+     2048-token preamble and tails of 2048 / 1024 / 512 tokens through
+     the slot pool with an 8192 MB store; every request after the first
+     hits, tokens bitwise equal a drain without a store, exact launch
+     counts; the step where each stream first departs from ``generate``
+     of that request alone (the batch decode kernel, whose other splits
+     round differently in bf16) is printed. Prints the snapshot bytes,
+     the device time of a publish copy, the host time of a demotion and
+     of a host-tier restore (GB/s), cold and warm prefill seconds and
+     TTFT p50, and the store's stats.
 Then one JSON line of per-kernel numbers, and the last line
 ``{"ok": true, "device": {...}}``.
 """
 import ctypes
+import collections
 import json
 import re
 import statistics
@@ -104,6 +123,13 @@ BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 ARCH = "phi3-mini-3.8b"
 REQUESTS, PROMPT, GEN, CHUNK = 4, 4096, 32, 512
 POOL_LENS = (4112, 2080, 1400, 1)  # live lengths of the timed slot pool
+PREAMBLE = 3072  # phase 8 batch: A and B share it, 1024-token tails
+CONT_PREAMBLE, CONT_TAILS = 2048, (2048, 1024, 512)  # phase 8 continuous
+# phase 8's store budgets (MB): at ≈ 1.19 GB a snapshot (14 FA / 18 SA
+# layers at max_len 4128) the batch store's tiers hold 3 and 5, so A's 8
+# boundaries fill both and offload_all makes it drop; the continuous store
+# holds 6, so the 2048-token boundary, touched by every hit, survives
+BATCH_STORE_MB, CONT_STORE_MB = (4096, 6144), 8192
 
 REPLACES = {  # kernel → the Pallas TPU kernel it replaces
     "flash_attention": "src/repro/kernels/flash_attention.py:75",
@@ -941,19 +967,23 @@ def path_parity(dev):
 
 
 def prefill_launches(cfg, admissions):
-    """Each prefill kernel's launches for these (pattern, prompt length)
-    admissions through the chunked prefill: flash (FA layers) and
-    streaming (SA layers) once per layer on the routing chunk,
-    block-sparse once per FA layer on every later chunk."""
+    """Each prefill kernel's launches for these (pattern, prompt length,
+    prefix hit boundary) admissions through the chunked prefill. Cold
+    (hit 0): flash (FA layers) and streaming (SA layers) once per layer
+    on the routing chunk, block-sparse once per FA layer on every later
+    chunk. A hit skips the routing chunk and the chunks it covers:
+    block-sparse once per FA layer on each chunk past the boundary."""
     from repro_torch.serve.engine import chunk_plan
     want = {"flash_attention": 0, "streaming_attention": 0,
             "block_sparse_attention": 0}
-    for pattern, n in admissions:
+    for pattern, n, hit in admissions:
         n_fa = sum(p == "fa" for p in pattern)
-        want["flash_attention"] += n_fa
-        want["streaming_attention"] += cfg.num_layers - n_fa
+        covered = hit // CHUNK if hit else 1  # a cold one: the route chunk
+        if not hit:
+            want["flash_attention"] += n_fa
+            want["streaming_attention"] += cfg.num_layers - n_fa
         want["block_sparse_attention"] += n_fa * (len(chunk_plan(n, CHUNK))
-                                                  - 1)
+                                                  - covered)
     return want
 
 
@@ -1166,6 +1196,155 @@ def continuous_path(dev, params):
     return counts, lines
 
 
+def copy_times(eng, state):
+    """Times of the prefix store's three copies of one boundary state:
+    a publish (``snapshot_state``, device time), a demotion to pinned
+    host memory and a host-tier restore to the card (host clock, median
+    of 5; both are synchronous). Returns (bytes, {name: (ms, GB/s)})."""
+    from repro_torch.models import model as MD
+    from repro_torch.serve import kv_cache as KC
+    from repro_torch.serve import prefix_cache as PXC
+    caches, logits = state
+    n = PXC.state_bytes(caches, logits)
+
+    def host_ms(fn):
+        out = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    host = PXC.host_state(caches, logits)
+    assert all(t.is_pinned() for c in host[0] for t in KC.cache_fields(c))
+    ms = {"publish": time_ms(lambda: MD.snapshot_state(caches, logits),
+                             reps=3, rounds=3, warmup=1),
+          "demote": host_ms(lambda: PXC.host_state(caches, logits)),
+          "restore": host_ms(lambda: PXC.device_state(*host, eng.device))}
+    return n, {k: (v, n / v / 1e6) for k, v in ms.items()}
+
+
+def prefix_path(dev, params):
+    """Phase 8: the shared-prefix snapshot store on both frontends.
+    Returns (launch counts of the warm runs, report lines)."""
+    import repro_torch.kernels as KN
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import PREFILL_CHUNKS_PER_TICK
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import STATUS_OK, ContinuousScheduler
+    cfg = get_config(ARCH)
+    V, L = cfg.vocab_size, cfg.num_layers
+    kw = dict(max_len=PROMPT + GEN, prefill_chunk=CHUNK, device=dev)
+    rng = np.random.default_rng(3)
+    pre = rng.integers(0, V, PREAMBLE)
+    A, B = (np.concatenate([pre, rng.integers(0, V, PROMPT - PREAMBLE)])
+            [None] for _ in range(2))
+    cold = ServeEngine(params, cfg, **kw)
+    ref = {"A": cold.generate(A, GEN), "B": cold.generate(B, GEN)}
+    warm = ServeEngine(params, cfg, prefix_cache_mb=BATCH_STORE_MB[0],
+                       prefix_cache_host_mb=BATCH_STORE_MB[1], **kw)
+    store = warm.prefix_store
+    events = collections.Counter()
+    store.on_event = lambda name: events.update([name])
+    torch.cuda.synchronize()
+    KN.reset_launch_counts()
+    runs = [("A cold", "A", warm.generate(A, GEN))]
+    t_off = time.perf_counter()
+    offloaded = store.offload_all()
+    t_off = time.perf_counter() - t_off
+    runs.append(("A host hit", "A", warm.generate(A, GEN)))
+    runs.append(("B hit", "B", warm.generate(B, GEN)))
+    torch.cuda.synchronize()
+    counts = KN.launch_counts()
+    pattern = ref["A"].routing
+    lines = []
+    for name, key, gen in runs:
+        assert gen.routing == pattern == ref[key].routing, name
+        assert np.array_equal(gen.tokens, ref[key].tokens), name
+        assert torch.equal(gen.logits, ref[key].logits), name
+        lines.append(f"batch {name}: prefix_hit_tokens="
+                     f"{gen.prefix_hit_tokens} prefill_s={gen.prefill_s:.4f}"
+                     f" (cold {ref[key].prefill_s:.4f}) tokens_equal=True "
+                     f"first_logits_equal=True")
+    assert [g.prefix_hit_tokens for *_, g in runs] == [0, PROMPT, PREAMBLE]
+    want = prefill_launches(cfg, [(pattern, PROMPT, 0),
+                                  (pattern, PROMPT, PROMPT),
+                                  (pattern, PROMPT, PREAMBLE)])
+    want.update(decode_attention=3 * GEN * L, decode_attention_pooled=0)
+    assert counts == want, (counts, want)
+    s = store.stats()
+    assert min(s.demotions, events["promotion"], s.drops) >= 1, (s, events)
+    job = cold.prefill_chunked(A)
+    n, ms = copy_times(cold, (job.caches, job.logits))
+    lines.append(
+        f"batch routing={''.join(p[0] for p in pattern)} snapshot_bytes={n} "
+        f"offloaded={offloaded} offload_all_s={t_off:.4f} "
+        f"promotions={events['promotion']} "
+        f"store={s.as_dict()} launches={counts}")
+    lines.append("copy of one snapshot: " + " ".join(
+        f"{k}_ms={v:.3f} ({gbs:.1f} GB/s copied)"
+        for k, (v, gbs) in ms.items()))
+    del warm, store, cold, job
+    torch.cuda.empty_cache()
+
+    pre = rng.integers(0, V, CONT_PREAMBLE)
+    prompts = [np.concatenate([pre, rng.integers(
+        0, V, CONT_TAILS[rid % len(CONT_TAILS)])]) for rid in range(8)]
+
+    def drain(**store_kw):
+        eng = ServeEngine(params, cfg, **kw, **store_kw)
+        sched = ContinuousScheduler(
+            eng, slots_per_bucket=4, chunk=8,
+            prefill_chunks_per_tick=PREFILL_CHUNKS_PER_TICK)
+        for rid, toks in enumerate(prompts):
+            eng.submit(Request(rid=rid, tokens=toks, n_steps=GEN))
+        t0 = time.perf_counter()
+        done = eng.drain()
+        torch.cuda.synchronize()
+        return eng, sched, done, time.perf_counter() - t0
+
+    _, _, cold_done, cold_wall = drain()
+    torch.cuda.empty_cache()
+    KN.reset_launch_counts()
+    eng, sched, done, wall = drain(prefix_cache_mb=CONT_STORE_MB)
+    cont = KN.launch_counts()
+    hits = [done[r].metrics.prefix_hit_tokens for r in range(8)]
+    for rid in range(8):
+        assert done[rid].status == cold_done[rid].status == STATUS_OK, rid
+        assert len(done[rid].tokens) == GEN, rid
+        assert np.array_equal(done[rid].tokens, cold_done[rid].tokens), rid
+    assert hits[0] == 0 and all(h > 0 for h in hits[1:]), hits
+    want = prefill_launches(cfg, sched.admissions)
+    want.update(decode_attention=0, decode_attention_pooled=sum(
+        p.steps for p in sched.pools.values()) * L)
+    assert cont == want, (cont, want)
+    # generate alone decodes on the batch kernel, whose splits differ
+    # from the pooled kernel's, so in bf16 a near-tied greedy step can
+    # flip: report the first step where each stream departs (GEN = same)
+    alone = []
+    for rid in range(8):
+        ref_toks = eng.generate(prompts[rid][None], GEN,
+                                prefix_reuse=False).tokens[0]
+        diff = np.flatnonzero(ref_toks != done[rid].tokens)
+        alone.append(int(diff[0]) if diff.size else GEN)
+    summ, csum = done.summary, cold_done.summary
+    lines.append(
+        f"continuous: prompt_lens={[len(p) for p in prompts]} "
+        f"prefix_hit_tokens={hits} hit_fraction="
+        f"{summ['prefix_hit_fraction']:.3f} tokens_equal_cold_drain=True "
+        f"first_step_departing_from_generate_alone={alone} "
+        f"wall_s={wall:.3f} (cold {cold_wall:.3f}) ttft_p50_s="
+        f"{summ['ttft_p50_s']:.3f} (cold {csum['ttft_p50_s']:.3f}) "
+        f"prefill_time_p50_s={summ['prefill_time_p50_s']:.4f} (cold "
+        f"{csum['prefill_time_p50_s']:.4f})")
+    lines.append(f"continuous store={summ['prefix_store'].as_dict()} "
+                 f"launches={cont}")
+    total = {k: counts[k] + cont[k] for k in counts}
+    return total, lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -1341,6 +1520,13 @@ def main() -> int:
     for line in lines:
         say(7, line)
     say(7, "continuous path done", t0)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    prefix_counts, lines = prefix_path(dev, params)
+    for line in lines:
+        say(8, line)
+    say(8, "prefix path done", t0)
 
     import repro_torch.kernels as KN
     kernels = []
@@ -1353,8 +1539,10 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda",
                             source=str(src.relative_to(ROOT)),
                             replaces=replaces, launches=own[name],
-                            launches_by_path={"batch": batch_counts[name],
-                                              "continuous": cont_counts[name]},
+                            launches_by_path={
+                                "batch": batch_counts[name],
+                                "continuous": cont_counts[name],
+                                "prefix": prefix_counts[name]},
                             max_abs_err=errs[name], **rows[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)

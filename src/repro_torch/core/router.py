@@ -79,6 +79,29 @@ def hard_route(params: Dict[str, torch.Tensor], x_q: torch.Tensor,
     return (logits[:, 0] > logits[:, 1]).to(torch.int32), p_fa
 
 
+def prefix_routing_reusable(flux: FluxConfig, prefix_len: int,
+                            seq_len: int, *, pooling: str = "prefix",
+                            routable: bool = True) -> bool:
+    """Can a routing decision taken on one prompt transfer exactly to
+    another prompt sharing its first ``prefix_len`` tokens?
+
+    The routing half of the prefix cache's match check
+    (``serve/prefix_cache.py``). Hard routing with prefix-only pooling
+    reads the first ``pool_size`` tokens of each layer's queries and
+    nothing else, so two prompts agree iff both pool windows lie inside
+    the shared prefix: ``prefix_len >= pool_size`` (the publisher decided
+    on tokens the matcher also has) and ``seq_len >= pool_size`` (a
+    shorter prompt pools ``min(pool_size, S)`` tokens and may decide
+    otherwise). Prefix+suffix pooling reads the prompt's tail, so it
+    never transfers. A model with no routed layers (``routable=False``)
+    has no decision to disagree on."""
+    if not routable:
+        return True
+    if pooling != "prefix":
+        return False
+    return prefix_len >= flux.pool_size and seq_len >= flux.pool_size
+
+
 def sa_biased_threshold(level: int, *, step: float = 0.15,
                         max_level: int = 3) -> float:
     """FA-decision threshold for one rung of the load-adaptive sparsity

@@ -16,17 +16,29 @@ engine (port of ``repro/launch/serve.py``).
         --arch phi3-mini-3.8b --continuous --requests 8 \\
         --prompt-len 4096 --gen-len 32 --slots 4 --chunk 8
 
-Prompts are random tokens from a numpy generator seeded with 0; weights
-are drawn from a ``torch.Generator`` seeded with 0. The decode caches hold
-prompt + generated tokens. Prints one JSON line per request (tokens,
+    # shared-system-prompt traffic through the prefix cache: every
+    # prompt opens with the same 2048 tokens; snapshots up to 8 GiB on
+    # the card and 8 GiB in pinned host memory
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch phi3-mini-3.8b --continuous --requests 8 \\
+        --prompt-len 2048 --gen-len 32 --shared-prefix 2048 \\
+        --prefix-cache-mb 8192 --prefix-cache-host-mb 8192
+
+Prompts are random tokens from a numpy generator seeded with 0
+(``--shared-prefix``'s preamble from one seeded with 2); weights are drawn
+from a ``torch.Generator`` seeded with 0. The decode caches hold shared
+prefix + prompt + generated tokens. Prints one JSON line per request (tokens,
 routing and times), then each kernel's launch count (0 on the CPU, where
 the kernels' plain versions run); ``--continuous`` adds TTFT, queue
 delay, decode tokens/s and preemptions per request, and a totals line
-with the number of cache geometries. ``--profile`` then serves the
-requests again under ``torch.profiler`` (batch mode: the first bucket's
-admission alone, then the whole batch) and prints where the time went:
-the device's busy share of the wall time and the operators with the most
-device (or, on the CPU, host) time.
+with the number of cache geometries. With ``--prefix-cache-mb`` each
+request's line gives its ``prefix_hit_tokens``, and a last line sums up
+the store: hits, misses, the prompt tokens served warm and each tier's
+bytes. ``--profile`` then serves the requests again under
+``torch.profiler`` (batch mode: the first bucket's admission alone, then
+the whole batch) and prints where the time went: the device's busy share
+of the wall time and the operators with the most device (or, on the CPU,
+host) time.
 """
 from __future__ import annotations
 
@@ -142,6 +154,23 @@ def serve_continuous(engine, reqs, *, slots: int, chunk: int,
     return done, time.monotonic() - t0, sched
 
 
+def print_prefix_cache(engine, hits, reqs) -> None:
+    """The prefix store's summary line (nothing without a store): hits
+    and misses, prompt tokens served warm (``hits``: rid → tokens) and
+    each tier's bytes."""
+    store = engine.prefix_store
+    if store is None:
+        return
+    s = store.stats()
+    hit = sum(hits.values())
+    prompt = sum(len(r.tokens) for r in reqs)
+    print(f"prefix cache: {s.hits} hits / {s.misses} misses | "
+          f"{hit}/{prompt} prompt tokens warm ({hit / max(prompt, 1):.0%})"
+          f" | device={s.device_bytes} B host={s.host_bytes} B "
+          f"snapshots={s.snapshots} demotions={s.demotions} "
+          f"drops={s.drops}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="phi3-mini-3.8b", choices=ALL_ARCHS)
@@ -166,6 +195,18 @@ def main(argv=None) -> None:
     ap.add_argument("--mean-gap", type=float, default=0.02,
                     help="mean Poisson inter-arrival gap in seconds "
                          "(--continuous)")
+    ap.add_argument("--prefix-cache-mb", type=float, default=0.0,
+                    help="device budget (MB) of the shared-prefix snapshot "
+                         "store; 0 disables prefix reuse")
+    ap.add_argument("--prefix-cache-host-mb", type=float, default=0.0,
+                    help="pinned host tier budget (MB): evicted snapshots "
+                         "demote to it instead of dropping")
+    ap.add_argument("--no-prefix-reuse", action="store_true",
+                    help="submit requests opted out of prefix reuse (the "
+                         "store stays configured but untouched)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend a shared system prompt of this many "
+                         "tokens to every request")
     ap.add_argument("--profile", action="store_true",
                     help="serve the requests again under torch.profiler")
     args = ap.parse_args(argv)
@@ -178,16 +219,22 @@ def main(argv=None) -> None:
         cfg = smoke_variant(cfg)
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, gen, device)
-    engine = ServeEngine(params, cfg,
-                         max_len=args.prompt_len + args.gen_len,
-                         prefill_chunk=args.prefill_chunk or None,
-                         device=device)
+    engine = ServeEngine(
+        params, cfg,
+        max_len=args.shared_prefix + args.prompt_len + args.gen_len,
+        prefill_chunk=args.prefill_chunk or None,
+        prefix_cache_mb=args.prefix_cache_mb or None,
+        prefix_cache_host_mb=args.prefix_cache_host_mb, device=device)
     rng = np.random.default_rng(0)
+    shared = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                               args.shared_prefix)
     override = routing_pattern(cfg, args.routing)
     lens = [args.prompt_len // (1 + i % 3) if args.continuous
             else args.prompt_len for i in range(args.requests)]
-    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size, n),
-                    n_steps=args.gen_len, routing_override=override)
+    reqs = [Request(rid=i, tokens=np.concatenate(
+                        [shared, rng.integers(0, cfg.vocab_size, n)]),
+                    n_steps=args.gen_len, routing_override=override,
+                    prefix_reuse=not args.no_prefix_reuse)
             for i, n in enumerate(lens)]
     reset_launch_counts()
     if args.continuous:
@@ -202,8 +249,11 @@ def main(argv=None) -> None:
             "msr": f.result.msr, "wall_s": round(f.wall_s, 4),
             "prefill_s": round(f.result.prefill_s, 4),
             "decode_s": round(f.result.decode_s, 4),
-            "kv_bytes": f.result.kv_bytes}))
+            "kv_bytes": f.result.kv_bytes,
+            "prefix_hit_tokens": f.result.prefix_hit_tokens}))
     print(json.dumps({"device": str(device), "launches": launch_counts()}))
+    print_prefix_cache(engine, {rid: f.result.prefix_hit_tokens
+                                for rid, f in done.items()}, reqs)
     if args.profile:
         print(json.dumps({"profile": profile_batch(engine, reqs, device)}))
 
@@ -225,7 +275,8 @@ def _continuous_main(engine, reqs, args, device) -> None:
             "ttft_s": round(m.ttft, 4),
             "queue_delay_s": round(m.queue_delay, 4),
             "decode_tok_s": round(m.decode_tps, 2),
-            "preemptions": m.preemptions}))
+            "preemptions": m.preemptions,
+            "prefix_hit_tokens": m.prefix_hit_tokens}))
     n_ok = sum(f.status == STATUS_OK for f in done.values())
     print(json.dumps({
         "device": str(device), "requests": len(done), "ok": n_ok,
@@ -233,6 +284,8 @@ def _continuous_main(engine, reqs, args, device) -> None:
         "tok_s": round(total / wall, 2),
         "geometries": sched.n_geometries(), "ticks": sched.ticks,
         "launches": launch_counts()}))
+    print_prefix_cache(engine, {rid: f.metrics.prefix_hit_tokens
+                                for rid, f in done.items()}, reqs)
     if args.profile:
         print(json.dumps({"profile": {"continuous": _profiled(
             run, device, 40)}}))

@@ -414,3 +414,15 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
         h = h + ffn_apply(bp["ffn"], x2)
         caches[i] = cache
     return logits_from_hidden(params, cfg, h[:, -1]), caches
+
+
+def snapshot_state(caches: List, logits: torch.Tensor):
+    """Bitwise copy of a chunk-boundary admission state: every buffer of
+    every decode cache (``KC.cache_fields``) and the boundary's last-token
+    logits, into fresh tensors on the same device. This is what the
+    prefix cache (``serve/prefix_cache.py``) stores and restores. Every
+    insert, chunk and decode step writes its caches in place, so a
+    published snapshot must not alias the live admission's buffers, and
+    a restored job must not alias the store's. ``clone`` rather than an
+    arithmetic identity: ``x + 0`` would flip ``-0.0``."""
+    return KC.map_buffers(caches, torch.Tensor.clone), logits.clone()

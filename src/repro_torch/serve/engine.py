@@ -18,17 +18,25 @@ Admission is the chunked, cache-resident pipeline of the JAX engine:
 ``prefill_route_repack`` (full prefill → repack) is the fallback for
 prompts the chunked path excludes (``chunked_eligible``).
 
+Shared-prefix reuse: an engine built with ``prefix_cache_mb`` keeps a
+radix store of chunk-boundary snapshots (``serve/prefix_cache.py``). A
+B = 1 admission restores a copy of the deepest snapshot its prompt
+matches and streams only the uncovered suffix (block-sparse at a
+``q_offset`` equal to the hit boundary, no routing chunk), and publishes
+a copy of its state at every full-chunk boundary it streams.
+
 Two frontends: ``serve_batch`` buckets requests and runs each bucket
 through ``generate``; ``submit`` / ``step`` / ``drain`` feed the
 continuous-batching slot pool (``serve/scheduler.py``), whose decode runs
 one position per slot on the pooled decode kernel.
 
-Not ported yet: telemetry, SLO guardrails, the prefix cache and device
-meshes (ROADMAP Queue 1 items 9, 10 and 16).
+Not ported yet: telemetry, SLO guardrails and device meshes (ROADMAP
+Queue 1 items 10 and 16).
 """
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -38,8 +46,10 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import router as RT
 from repro_torch.models import model as MD
 from repro_torch.serve import kv_cache as KC
+from repro_torch.serve import prefix_cache as PXC
 
 
 # ---------------------------------------------------------------------------
@@ -144,6 +154,41 @@ def repack_caches(cfg: ModelConfig, prefill_caches, routing,
 
 
 # ---------------------------------------------------------------------------
+# Cache accounting: KV payload vs. bookkeeping overhead
+# ---------------------------------------------------------------------------
+
+@dataclass
+class KVStats:
+    """Decode-cache footprint, split the way the paper counts it:
+    ``payload_bytes`` is the k / v tensors the routing decision shrinks,
+    ``overhead_bytes`` the bookkeeping (``positions`` / ``length``) every
+    geometry has. ``prefix_device_bytes`` / ``prefix_host_bytes`` report
+    the prefix store's tiers beside them: the store holds whole boundary
+    states, which are neither payload nor overhead of a live request."""
+    payload_bytes: int
+    overhead_bytes: int
+    prefix_device_bytes: int = 0
+    prefix_host_bytes: int = 0
+
+    @property
+    def total_bytes(self) -> int:
+        return self.payload_bytes + self.overhead_bytes
+
+
+def kv_cache_stats(caches, prefix_store=None) -> KVStats:
+    """``KVStats`` of a list of caches (of one request or several pools)
+    and of the prefix store's tiers."""
+    payload = KC.kv_cache_bytes(caches)
+    total = sum(t.nbytes for c in caches for t in KC.cache_fields(c))
+    return KVStats(
+        payload_bytes=payload, overhead_bytes=total - payload,
+        prefix_device_bytes=(prefix_store.device_bytes
+                             if prefix_store is not None else 0),
+        prefix_host_bytes=(prefix_store.host_bytes
+                           if prefix_store is not None else 0))
+
+
+# ---------------------------------------------------------------------------
 # Engine
 # ---------------------------------------------------------------------------
 
@@ -153,9 +198,15 @@ class ChunkedPrefill:
     chunk: step 0 is the routing chunk (monolithic prefill over the first
     bucket, then seeded decode caches), every later step streams one
     chunk into those caches. After ``done`` the results live in
-    ``pattern`` / ``caches`` / ``logits`` / ``p_fa``."""
+    ``pattern`` / ``caches`` / ``logits`` / ``p_fa``.
+
+    With the engine's prefix store and ``reuse``, the job starts from the
+    deepest matching chunk-boundary snapshot (its ``prefix_hit_tokens``
+    skip straight past their chunks: no prefill work is issued for them)
+    and publishes a snapshot at every full-chunk boundary it streams."""
     engine: "ServeEngine"
-    tokens: torch.Tensor                   # (B, S)
+    tokens: torch.Tensor                   # (B, S) on the engine's device
+    host_tokens: np.ndarray                # the same (B, S), on the host
     override: Optional[Tuple[Any, ...]]
     plan: List[Tuple[int, int]]
     idx: int = 0
@@ -163,6 +214,10 @@ class ChunkedPrefill:
     caches: Any = None
     logits: Optional[torch.Tensor] = None
     p_fa: Optional[np.ndarray] = None
+    reuse: bool = True                     # participate in the prefix store
+    prefix_hit_tokens: int = 0             # prompt tokens seeded from a hit
+    chunks_streamed: int = 0               # chunks actually computed
+    published: int = 0                     # boundary snapshots published
 
     @property
     def seq_len(self) -> int:
@@ -184,7 +239,9 @@ class ChunkedPrefill:
         else:
             self.logits, self.caches = MD.prefill_chunk(
                 eng.params, eng.cfg, chunk, self.caches, start)
+        self.chunks_streamed += 1
         self.idx += 1
+        eng._maybe_publish(self, start, size)
 
     def _route_chunk(self, chunk: torch.Tensor) -> None:
         eng, cfg = self.engine, self.engine.cfg
@@ -211,6 +268,7 @@ class GenerationResult:
     final_logits: Optional[torch.Tensor] = None  # (B, V) after the last step
     prefill_s: float = 0.0        # host clock, admission incl. routing
     decode_s: float = 0.0         # host clock, the n_steps decode
+    prefix_hit_tokens: int = 0    # prompt tokens served from a warm prefix
 
 
 class ServeEngine:
@@ -222,12 +280,16 @@ class ServeEngine:
     (routing then affects prefill only). ``prefill_chunk`` is the chunked
     prefill's largest chunk (None/0 = every admission takes the repack
     fallback). ``device`` defaults to cuda; the weights are moved there.
+    ``prefix_cache_mb`` enables the shared-prefix snapshot store with that
+    device budget (MB), ``prefix_cache_host_mb`` its pinned host tier.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_len: int = 4096,
                  sparse_decode: bool = True, routing_override=None,
                  prefill_chunk: Optional[int] = 512,
-                 routing_pooling: str = "prefix", device=None):
+                 routing_pooling: str = "prefix",
+                 prefix_cache_mb: Optional[float] = None,
+                 prefix_cache_host_mb: float = 0.0, device=None):
         if routing_pooling not in ("prefix", "prefix_suffix"):
             raise ValueError(
                 f"routing_pooling={routing_pooling!r}: expected 'prefix' "
@@ -243,6 +305,49 @@ class ServeEngine:
         self.prefill_chunk = int(prefill_chunk) if prefill_chunk else 0
         self.routing_pooling = routing_pooling
         self._scheduler = None  # ContinuousScheduler, created by scheduler()
+        # geometries whose over-budget publication was already warned of
+        self._snap_skip_warned: set = set()
+        self.prefix_store = self._build_prefix_store(prefix_cache_mb,
+                                                     prefix_cache_host_mb)
+
+    def _build_prefix_store(self, prefix_cache_mb, prefix_cache_host_mb
+                            ) -> Optional[PXC.PrefixStore]:
+        if not prefix_cache_mb:
+            return None
+        cfg = self.cfg
+        if not self.prefill_chunk:
+            raise ValueError(
+                f"prefix_cache_mb={prefix_cache_mb:g} requires the chunked "
+                f"prefill: prefix snapshots are chunk-boundary objects and "
+                f"the monolithic prefill→repack path has no boundaries to "
+                f"snapshot — set prefill_chunk (or drop prefix_cache_mb)")
+        override = self.routing_override
+        budget = int(prefix_cache_mb * 2 ** 20)
+        host_budget = int(prefix_cache_host_mb * 2 ** 20)
+        if override is not None:
+            self._check_override(override)  # duo raises here
+            pattern = self._pattern(None, override)
+            what = "the overridden routing geometry"
+        else:
+            # smallest geometry the router can pick: SA rings wherever a
+            # routed layer may stream — if even that snapshot overflows
+            # the budget, no admission could ever publish
+            can_sa = cfg.flux.enabled and cfg.flux.sa_mode == "ssa"
+            pattern = tuple(
+                ("sa" if can_sa else "fa") if k == "attn" else None
+                for k in cfg.layer_kinds)
+            what = "the smallest routed geometry"
+        need = PXC.snapshot_spec_bytes(cfg, pattern, self.max_len)
+        if budget < need:
+            raise ValueError(
+                f"prefix_cache_mb={prefix_cache_mb:g} ({budget} bytes) "
+                f"cannot hold one chunk-boundary snapshot for {what} "
+                f"({need} bytes at max_len={self.max_len}): raise "
+                f"prefix_cache_mb to at least {need / 2 ** 20:.2f} MB or "
+                f"lower max_len")
+        return PXC.PrefixStore(chunk=self.prefill_chunk,
+                               budget_bytes=budget,
+                               host_budget_bytes=host_budget)
 
     # -- routing pattern ---------------------------------------------------
     def _pattern(self, decisions: Optional[np.ndarray],
@@ -329,25 +434,160 @@ class ServeEngine:
         return torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                                device=self.device)
 
-    def start_chunked_prefill(self, tokens, override=None
-                              ) -> ChunkedPrefill:
+    def start_chunked_prefill(self, tokens, override=None, *,
+                              reuse: bool = True) -> ChunkedPrefill:
         """Begin a route-then-stream admission; the caller drives
         ``job.step()`` (the continuous scheduler interleaves steps with
-        decode ticks; ``prefill_chunked`` runs them back to back)."""
+        decode ticks; ``prefill_chunked`` runs them back to back).
+
+        With a prefix store and ``reuse``, a B = 1 job starts from the
+        deepest matching chunk-boundary snapshot: its covered chunks are
+        skipped (``prefix_hit_tokens``) and only the suffix streams.
+        ``reuse=False`` opts the request out of lookup and publication."""
+        host = (tokens.cpu().numpy() if isinstance(tokens, torch.Tensor)
+                else np.asarray(tokens))
         tokens = self._tokens(tokens)
-        return ChunkedPrefill(
-            engine=self, tokens=tokens,
+        job = ChunkedPrefill(
+            engine=self, tokens=tokens, host_tokens=host,
             override=(override if override is not None
                       else self.routing_override),
-            plan=chunk_plan(tokens.shape[1], self.prefill_chunk))
+            plan=chunk_plan(tokens.shape[1], self.prefill_chunk),
+            reuse=reuse)
+        if (self.prefix_store is not None and reuse
+                and tokens.shape[0] == 1
+                and self.chunked_eligible(tokens.shape[1], job.override)):
+            self._try_prefix_restore(job)
+        return job
 
-    def prefill_chunked(self, tokens, override=None) -> ChunkedPrefill:
+    def prefill_chunked(self, tokens, override=None, *,
+                        reuse: bool = True) -> ChunkedPrefill:
         """The chunked admission run to completion. Returns the finished
         job (``pattern``/``caches``/``logits``/``p_fa``)."""
-        job = self.start_chunked_prefill(tokens, override)
+        job = self.start_chunked_prefill(tokens, override, reuse=reuse)
         while not job.done:
             job.step()
         return job
+
+    # -- shared-prefix snapshot reuse --------------------------------------
+    def _routable(self) -> bool:
+        return bool(self.cfg.flux.enabled and self.cfg.routable_layers())
+
+    def _restore_state(self, node: "PXC._Node"):
+        """Snapshot → fresh buffers on the engine's device that the
+        admission owns (it and its decode write into them in place). A
+        host-tier snapshot is first copied to the device and those copies
+        are promoted into the store (the next hit skips the transfer);
+        either way the job gets a further copy, never a store buffer."""
+        snap = node.snap
+        caches, logits = snap.caches, snap.logits
+        if node.on_host:
+            caches, logits = PXC.device_state(caches, logits, self.device)
+            self.prefix_store.promote(node, caches, logits)
+        return MD.snapshot_state(caches, logits)
+
+    def _try_prefix_restore(self, job: ChunkedPrefill) -> None:
+        """Longest-prefix-match ``job``'s prompt against the store and,
+        on a hit, seed the job from the snapshot: caches / logits /
+        pattern adopted, ``idx`` advanced past every covered chunk."""
+        store = self.prefix_store
+        toks = job.host_tokens[0]
+        node = store.match(toks, PXC.routing_key(job.override))
+        if (node is not None and job.override is None
+                and not RT.prefix_routing_reusable(
+                    self.cfg.flux, node.depth, toks.size,
+                    routable=self._routable())):
+            node = None  # routing not prefix-determined for this pair
+        if node is None:
+            store.misses += 1
+            return
+        store.acquire(node)  # pin against eviction while restoring
+        try:
+            snap = node.snap
+            job.caches, job.logits = self._restore_state(node)
+        finally:
+            store.release(node)
+        store.hits += 1
+        store.hit_tokens += snap.boundary
+        job.pattern = snap.pattern
+        job.p_fa = None if snap.p_fa is None else np.array(snap.p_fa)
+        job.idx = snap.boundary // self.prefill_chunk
+        job.prefix_hit_tokens = snap.boundary
+
+    def _maybe_publish(self, job: ChunkedPrefill, start: int,
+                       size: int) -> None:
+        """Publish the boundary the job just crossed, when canonical:
+        B = 1, a full-chunk boundary (ragged ladder tails differ per
+        prompt length and are never shared), and, router-driven, a prefix
+        the routing decision transfers across."""
+        if (self.prefix_store is None or not job.reuse
+                or job.tokens.shape[0] != 1
+                or size != self.prefill_chunk
+                or not self.chunked_eligible(job.seq_len, job.override)):
+            return
+        if self.publish_prefix(job.host_tokens[0], start + size,
+                               job.caches, job.logits, job.pattern,
+                               p_fa=job.p_fa, override=job.override):
+            job.published += 1
+
+    def publish_prefix(self, tokens, boundary: int, caches, logits,
+                       pattern, p_fa=None, override=None) -> bool:
+        """Insert a snapshot of the state at ``tokens[:boundary]`` into
+        the prefix store. Returns True iff one was copied and inserted
+        (False: a duplicate, routing that does not transfer, or a
+        geometry over the whole budget, skipped with a warning).
+
+        Raises ``ValueError`` for states that are not chunk-boundary
+        snapshots: an admission that takes the repack fallback, or a
+        boundary off the full-chunk grid."""
+        store = self.prefix_store
+        if store is None:
+            raise ValueError(
+                "publish_prefix: engine has no prefix store — construct "
+                "the ServeEngine with prefix_cache_mb")
+        toks = np.asarray(tokens)
+        override = override if override is not None else \
+            self.routing_override
+        if not self.chunked_eligible(toks.size, override):
+            raise ValueError(
+                f"publish_prefix: this admission takes the monolithic "
+                f"repack fallback (chunked_eligible=False for seq_len="
+                f"{toks.size}), which has no chunk-boundary state to "
+                f"snapshot — its caches are a full-sequence repack and "
+                f"its routing may depend on the prompt suffix. Serve the "
+                f"request through the chunked path (prefill_chunk set, "
+                f"prefix-pooled routing) or skip publication for it")
+        if (boundary <= 0 or boundary > toks.size
+                or boundary % self.prefill_chunk):
+            raise ValueError(
+                f"publish_prefix: boundary={boundary} is not a full-chunk "
+                f"plan boundary of a length-{toks.size} prompt (chunk="
+                f"{self.prefill_chunk}) — snapshots are shareable only at "
+                f"multiples of the chunk size")
+        if override is None and not RT.prefix_routing_reusable(
+                self.cfg.flux, boundary, toks.size,
+                routable=self._routable()):
+            return False  # decision pooled from tokens past the boundary
+        key = PXC.routing_key(override)
+        if store.covered(toks, boundary, key):
+            return False  # already published (LRU slot bumped)
+        nbytes = PXC.state_bytes(caches, logits)
+        whole = store.budget_bytes + store.host_budget_bytes
+        if nbytes > whole:
+            geom = KC.cache_geometry(caches)
+            if geom not in self._snap_skip_warned:
+                self._snap_skip_warned.add(geom)
+                warnings.warn(
+                    f"prefix cache: one snapshot of this routed geometry "
+                    f"({nbytes} bytes) exceeds the whole store budget "
+                    f"({whole} bytes); skipping publication — raise "
+                    f"prefix_cache_mb to cache these admissions")
+            return False
+        snap_caches, snap_logits = MD.snapshot_state(caches, logits)
+        store.insert(toks, PXC.Snapshot(
+            caches=snap_caches, logits=snap_logits, pattern=pattern,
+            p_fa=None if p_fa is None else np.array(p_fa),
+            boundary=boundary, nbytes=nbytes), key)
+        return True
 
     def prefill_route_repack(self, tokens, override=None):
         """Monolithic admission FALLBACK: full-sequence prefill (router
@@ -382,8 +622,10 @@ class ServeEngine:
             torch.cuda.synchronize(self.device)
 
     def generate(self, tokens, n_steps: int, *, greedy: bool = True,
-                 routing_override=None) -> GenerationResult:
-        """Admit ``tokens`` (B, S) and decode ``n_steps`` tokens greedily."""
+                 routing_override=None,
+                 prefix_reuse: bool = True) -> GenerationResult:
+        """Admit ``tokens`` (B, S) and decode ``n_steps`` tokens greedily.
+        ``prefix_reuse=False`` keeps the request out of the prefix store."""
         if not greedy:
             raise NotImplementedError(
                 "sampled decoding (greedy=False) waits for ROADMAP Queue 1 "
@@ -396,10 +638,13 @@ class ServeEngine:
                 f"cache capacity max_len={self.max_len}; raise max_len "
                 f"or truncate the prompt")
         t0 = time.perf_counter()
+        prefix_hit = 0
         if self.chunked_eligible(seq_len, routing_override):
-            job = self.prefill_chunked(tokens, routing_override)
+            job = self.prefill_chunked(tokens, routing_override,
+                                       reuse=prefix_reuse)
             pattern, caches = job.pattern, job.caches
             logits, p_fa = job.logits, job.p_fa
+            prefix_hit = job.prefix_hit_tokens
         else:
             pf, pattern, caches, seq_len = self.prefill_route_repack(
                 tokens, routing_override)
@@ -425,7 +670,8 @@ class ServeEngine:
                                 kv_bytes=kv_bytes, p_fa=p_fa,
                                 logits=logits, final_logits=final,
                                 prefill_s=t1 - t0,
-                                decode_s=t2 - t1)
+                                decode_s=t2 - t1,
+                                prefix_hit_tokens=prefix_hit)
 
     # -- continuous-batching frontend --------------------------------------
     def scheduler(self, **kw):
@@ -479,6 +725,9 @@ class Request:
     # meaningless under serve_batch (no slot contention there)
     priority: int = 0
     routing_override: Optional[Tuple[Any, ...]] = None
+    # opt this request out of shared-prefix snapshot reuse: neither
+    # seeded from nor published to the engine's prefix store
+    prefix_reuse: bool = True
 
 
 @dataclass
@@ -500,19 +749,20 @@ def _trim_eos(tokens: np.ndarray, eos_id: Optional[int]) -> np.ndarray:
 
 def serve_batch_finished(engine: ServeEngine, requests: Sequence[Request]
                          ) -> Dict[int, FinishedRequest]:
-    """Bucket requests by (length, n_steps, routing_override), serve each
-    bucket batched (routing is batch consensus inside a bucket; buckets
-    of one request give the paper's per-request routing), and trim each
-    stream after its ``eos_id``."""
+    """Bucket requests by (length, n_steps, routing_override,
+    prefix_reuse), serve each bucket batched (routing is batch consensus
+    inside a bucket; buckets of one request give the paper's per-request
+    routing), and trim each stream after its ``eos_id``."""
     buckets: Dict[Tuple, List[Request]] = {}
     for r in requests:
-        buckets.setdefault((len(r.tokens), r.n_steps, r.routing_override),
-                           []).append(r)
+        buckets.setdefault((len(r.tokens), r.n_steps, r.routing_override,
+                            r.prefix_reuse), []).append(r)
     results: Dict[int, FinishedRequest] = {}
-    for (_, n_steps, override), rs in buckets.items():
+    for (_, n_steps, override, reuse), rs in buckets.items():
         t0 = time.perf_counter()
         gen = engine.generate(np.stack([r.tokens for r in rs]), n_steps,
-                              routing_override=override)
+                              routing_override=override,
+                              prefix_reuse=reuse)
         wall = time.perf_counter() - t0
         for i, r in enumerate(rs):
             results[r.rid] = FinishedRequest(

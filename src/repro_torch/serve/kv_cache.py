@@ -171,6 +171,12 @@ def cache_fields(cache) -> Tuple[torch.Tensor, ...]:
     return cache.k, cache.v, cache.length
 
 
+def map_buffers(caches: Sequence, fn) -> List:
+    """A new cache list whose every buffer is ``fn`` of the old one."""
+    # a cache's constructor takes its fields in cache_fields order
+    return [type(c)(*(fn(t) for t in cache_fields(c))) for c in caches]
+
+
 def cache_geometry(caches: Sequence, lead: int = 0) -> Tuple:
     """Hashable per-layer geometry signature of a decode-cache list: the
     cache type and each buffer's shape (from axis ``lead`` on) and dtype

@@ -12,7 +12,11 @@ keeps a persistent decode batch that requests join and leave per tick:
             ``prefill_chunks_per_tick`` run per tick, interleaved with the
             decode chunks below, so a long prompt cannot stall the
             resident batch. Requests ``chunked_eligible`` excludes admit
-            through the monolithic repack fallback.
+            through the monolithic repack fallback. With the engine's
+            prefix store, an admission starts from the deepest matching
+            chunk-boundary snapshot and streams only the suffix
+            (``RequestMetrics.prefix_hit_tokens``), and publishes the
+            boundaries it streams.
   step    — per tick, one ``decode_many`` chunk of ``chunk`` steps for
             every pool with active slots, with one position per slot, on
             the pooled decode kernel.
@@ -44,7 +48,7 @@ import torch
 
 from repro_torch.models import model as MD
 from repro_torch.serve import kv_cache as KC
-from repro_torch.serve.engine import _trim_eos
+from repro_torch.serve.engine import _trim_eos, kv_cache_stats
 from repro_torch.serve.slots import SlotPool
 
 STATUS_OK = "ok"          # finished: max new tokens or EOS
@@ -66,6 +70,9 @@ class RequestMetrics:
     # the admission that finally landed (reset on preemption)
     prefill_start_t: Optional[float] = None
     prefill_done_t: Optional[float] = None
+    # prompt tokens seeded from a warm prefix snapshot at the admission
+    # that landed (0 on a miss, reset on preemption)
+    prefix_hit_tokens: int = 0
 
     @property
     def queue_delay(self) -> float:
@@ -168,9 +175,10 @@ class ContinuousScheduler:
         self.ticks = 0
         self.tokens_generated = 0
         self.prefill_chunk_ticks = 0  # prefill chunks streamed, lifetime
-        # (pattern, prefill length) of every admission, in order: what
-        # the prefill kernels ran for, preemption recomputes included
-        self.admissions: List[Tuple[Tuple[Any, ...], int]] = []
+        # (pattern, prefill length, prefix hit boundary) of every
+        # admission, in order: what the prefill kernels ran for (the
+        # chunks past the hit), preemption recomputes included
+        self.admissions: List[Tuple[Tuple[Any, ...], int, int]] = []
 
     # -- submission --------------------------------------------------------
     def submit(self, req) -> int:
@@ -240,7 +248,14 @@ class ContinuousScheduler:
                                             inf.req.routing_override):
                     continue  # the monolithic fallback admits in _admit
                 inf.job = eng.start_chunked_prefill(
-                    tokens[None], inf.req.routing_override)
+                    tokens[None], inf.req.routing_override,
+                    reuse=inf.req.prefix_reuse)
+                # clamp to the prompt: a preemption recompute replays
+                # prompt + generated, and its hit may cover tokens this
+                # request generated itself, which are not prompt tokens
+                # served warm
+                inf.metrics.prefix_hit_tokens = min(
+                    inf.job.prefix_hit_tokens, inf.metrics.prompt_len)
                 inf.metrics.prefill_start_t = self.clock()
             while budget > 0 and not inf.job.done:
                 inf.job.step()
@@ -257,6 +272,7 @@ class ContinuousScheduler:
                 return False
             pattern, caches = inf.job.pattern, inf.job.caches
             logits, seq_len = inf.job.logits, inf.job.seq_len
+            hit = inf.job.prefix_hit_tokens
         elif eng.chunked_eligible(len(self._prefill_tokens(inf)),
                                   inf.req.routing_override):
             # eligible, but this tick's prefill budget ran out before its
@@ -270,7 +286,7 @@ class ContinuousScheduler:
                     return False  # pool still full: skip the re-prefill
             pf, pattern, caches, seq_len = eng.prefill_route_repack(
                 self._prefill_tokens(inf)[None], inf.req.routing_override)
-            logits = pf.logits
+            logits, hit = pf.logits, 0
         key = KC.slot_geometry(caches)
         pool = self.pools.get(key)
         if pool is None:
@@ -289,7 +305,7 @@ class ContinuousScheduler:
         inf.pattern, inf.cached_key = pattern, None
         pool.write(slot, caches, logits, seq_len)
         pool.active[slot] = inf
-        self.admissions.append((pattern, seq_len))
+        self.admissions.append((pattern, seq_len, hit))
         inf.job = None
         return True
 
@@ -310,6 +326,7 @@ class ContinuousScheduler:
         victim.cached_key = None  # its tokens grew; routing may change
         victim.job = None         # recompute prefill over prompt+generated
         m.prefill_start_t = m.prefill_done_t = None
+        m.prefix_hit_tokens = 0
         self.waiting.append(victim)
         return slot
 
@@ -386,10 +403,16 @@ class ContinuousScheduler:
     def summary(self, finished: Dict[int, FinishedRequest]
                 ) -> Dict[str, Any]:
         """A drain's aggregates: status counts, the TTFT split medians
-        (seconds, over the requests that produced a token), prompt tokens
-        and the pools' KV payload bytes."""
+        (seconds, over the requests that produced a token), prompt tokens,
+        prefix hit accounting, the pools' KV payload bytes and the prefix
+        store's tiers (``kv_cache_stats``)."""
         ms = [f.metrics for f in finished.values()]
         statuses = [f.status for f in finished.values()]
+        store = self.engine.prefix_store
+        stats = kv_cache_stats([c for p in self.pools.values()
+                                for c in p.caches], store)
+        prompt_tokens = sum(m.prompt_len for m in ms)
+        hit_tokens = sum(m.prefix_hit_tokens for m in ms)
 
         def p50(xs: List[float]) -> float:
             xs = [x for x in xs if np.isfinite(x)]
@@ -401,9 +424,14 @@ class ContinuousScheduler:
             "ttft_p50_s": p50([m.ttft for m in ms]),
             "prefill_time_p50_s": p50([m.prefill_time for m in ms]),
             "slot_wait_p50_s": p50([m.slot_wait for m in ms]),
-            "prompt_tokens": sum(m.prompt_len for m in ms),
-            "kv_payload_bytes": sum(KC.kv_cache_bytes(p.caches)
-                                    for p in self.pools.values()),
+            "prompt_tokens": prompt_tokens,
+            "prefix_hit_tokens": hit_tokens,
+            "prefix_hit_fraction": (hit_tokens / prompt_tokens
+                                    if prompt_tokens else 0.0),
+            "kv_payload_bytes": stats.payload_bytes,
+            "prefix_device_bytes": stats.prefix_device_bytes,
+            "prefix_host_bytes": stats.prefix_host_bytes,
+            "prefix_store": store.stats() if store is not None else None,
         }
 
     # -- introspection ------------------------------------------------------

@@ -143,7 +143,7 @@ def test_preempted_request_output_is_unchanged(models):
     out = eng.drain()
     assert out[0].metrics.preemptions >= 1
     assert out[1].metrics.preemptions == 0
-    assert [p for p, _ in sched.admissions].count(sa) == 3
+    assert [p for p, *_ in sched.admissions].count(sa) == 3
     ref = ServeEngine(tparams, tcfg, max_len=MAX_LEN, device="cpu")
     for rid, toks, n in ((0, t_low, 10), (1, t_high, 4)):
         gen = ref.generate(toks[None], n, routing_override=sa)
