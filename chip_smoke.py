@@ -20,16 +20,19 @@ nothing falls back to the CPU):
      |kernel - plain| <= 0.05 * rms(plain) + 2**-7 * |plain| (one bf16 ulp
      of the output's own rounding beside a twentieth of a typical output
      value; the pooled kernel's rms is taken per slot, since a slot's
-     outputs shrink with its live length), and at one GQA G = 4, D = 128,
-     unaligned case in fp32 (max abs error 1e-4; the pooled kernel's holds
-     a length-0 slot, whose rows must be zeros). To show the bf16 limit can
+     outputs shrink with its live length), and at one GQA G = 4,
+     unaligned case at D = 128 and at D = 160 in fp32 (max abs error
+     1e-4; the pooled kernel's holds a length-0 slot, whose rows must be
+     zeros). To show the bf16 limit can
      see a wrong tile, the plain version with one 64-key tile of V zeroed
      must break it (the pooled kernel's: in every slot, the last full tile
-     of that slot's live keys). The flash, block-sparse and streaming
+     of that slot's live keys); the bf16 main-shape checks run at
+     phi3-mini's shapes (D = 96, G = 1) and at stablelm-12b's (D = 160,
+     G = 4). The flash, block-sparse and streaming
      kernels run bf16 on their wgmma engine and fp32 on the CUDA cores,
      so the wgmma engine
      is also held to the bf16 limit (and its zeroed tile must break it) at
-     each head dim 32 / 64 / 96 / 128 with G = 4, Sq = 200 queries at
+     each head dim 32 / 64 / 96 / 128 / 160 with G = 4, Sq = 200 queries at
      offset 100 over Skv = 300 keys: flash causal and bidirectional,
      block-sparse over a selection with holes, tiles past the diagonal
      and past Skv, and a duplicate removed by ``dedupe_selection``, and
@@ -37,14 +40,16 @@ nothing falls back to the CPU):
      kernel at n_split 1, 2, 7 and the plan's (bf16, main shapes), with
      splits that hold no live key (cur_pos 1000) and a row with none
      (cur_pos -1), and over a shuffled, partly empty ring of 300 slots at
-     each of those counts, at each head dim with G = 1 and G = 4: bf16
-     under the bf16 limit (its zeroed tile above it), fp32 within 1e-4;
+     each of those counts, at each head dim with G = 1 and G = 4 and at
+     D = 128 with G = 12 (command-r): bf16 under the bf16 limit (its
+     zeroed tile above it), fp32 within 1e-4;
      the split pooled decode kernel at 1, 4 and 16 tiles a range and the
      plan's over the main path's FullKV pool (ranges past the shallow
      slots' lengths skipped), and over 4 slots of lengths 0 / 1 / 137 /
      300 at L 300, FullKV and a shuffled ring with holes (one 64-key range
      wholly masked), at 1, 2 and 5 tiles a range and the plan's, at each
-     head dim with G = 1 and G = 4: bf16 under the limit per live slot
+     head dim with G = 1 and G = 4 and at D = 128 with G = 12: bf16 under
+     the limit per live slot
      (its zeroed tile above it), fp32 within 1e-4, and the length-0
      slot's rows zeros;
   4. each kernel's time at the main path's shapes (device time: CUDA
@@ -59,7 +64,8 @@ nothing falls back to the CPU):
      n_split over the main path's FullKV at 32, 64 and 128 rows (1, 2 and
      4 requests), and the pooled decode kernel's device time and call_ms
      against its tiles a range over the FullKV pool at 4, 8 and 16 slots
-     (POOL_LENS cycled);
+     (POOL_LENS cycled); then the five kernels again at stablelm-12b's
+     main shapes (D = 160, G = 4: 128 query rows over 32 KV rows);
   5. phi3-mini at full width, depth cut to 2 layers, fp32: the same
      weights served on cuda (kernels) and on cpu (plain versions), a
      2304-token prompt > sink + local, chunk 512, 8 greedy tokens; routing
@@ -101,11 +107,24 @@ nothing falls back to the CPU):
      the device time of a publish copy, the host time of a demotion and
      of a host-tier restore (GB/s), cold and warm prefill seconds and
      TTFT p50, and the store's stats.
-Then one JSON line of per-kernel numbers, and the last line
+  9. stablelm-12b (head dim 160, G = 4) at full width, depth cut to 2
+     layers, fp32, card against CPU as in phase 5; 9b. the same weights
+     through the slot-pool scheduler as in phase 5b;
+  10. the batch path of stablelm-12b at full width and depth (40
+     layers), bf16, as phase 6 (phi3-mini's weights freed first);
+  11. its continuous path, as phase 7;
+  12. command-r-plus-104b (G = 12, tied embeddings) at full width, depth
+     cut to 8 of its 64 layers (the whole model is 208 GB in bf16), bf16,
+     2 requests of 4096 tokens through the batch path with the mixed
+     override: every logit finite, exact launch counts.
+Then one JSON line of per-kernel numbers (phi3-mini's, and stablelm's
+under ``stablelm_12b``; launches by path), the total seconds, and the
+last line
 ``{"ok": true, "device": {...}}``.
 """
-import ctypes
 import collections
+import ctypes
+import gc
 import json
 import re
 import statistics
@@ -121,6 +140,11 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 ARCH = "phi3-mini-3.8b"
+STABLELM = "stablelm-12b"  # head dim 160, G = 4: phases 9-11
+COMMAND_R = "command-r-plus-104b"  # G = 12, tied embeddings: phase 12
+# command-r at 64 layers is 208 GB in bf16; 8 of them at full width
+# (3.15 B tied embedding + 8 x 1.573 B = 15.7 B parameters, 31.5 GB) fit
+COMMAND_R_LAYERS, COMMAND_R_REQUESTS = 8, 2
 REQUESTS, PROMPT, GEN, CHUNK = 4, 4096, 32, 512
 POOL_LENS = (4112, 2080, 1400, 1)  # live lengths of the timed slot pool
 PREAMBLE = 3072  # phase 8 batch: A and B share it, 1024-token tails
@@ -143,6 +167,14 @@ BF16_RTOL = 2.0 ** -7  # one bf16 ulp: kernel and plain round their outputs
 FP32_TOL = 1e-4
 SLEEP_CYCLES = 20_000_000  # ≈ 10 ms of device sleep before a timed run
 TILE = slice(64, 128)  # the 64-key tile zeroed for the sensitivity check
+
+
+def free_card():
+    """Give the card back the memory of everything dropped. An engine and
+    its scheduler refer to each other, so only the cycle collector frees
+    them (and with them a model's weights and caches)."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def say(phase, msg, t0=None):
@@ -252,10 +284,11 @@ def streaming_pairs(q_pos, sink, local):
     return int((n_sink + np.maximum(p - lo + 1, 0)).sum())
 
 
-def kernel_cases(dev, dtype, main):
+def kernel_cases(dev, dtype, main, arch=ARCH, small_d=128):
     """(name → (kernel call, plain call, plain call with one V tile zeroed,
     library call, bytes, flops)) on random inputs; ``main`` picks the main
-    path's shapes, else the small G = 4, D = 128, unaligned case."""
+    path's shapes of ``arch`` (4 requests of its heads), else the small
+    G = 4, unaligned case at head dim ``small_d``."""
     from repro_torch.configs import get_config
     from repro_torch.core.modes import causal_selection
     from repro_torch.kernels import ref
@@ -270,18 +303,18 @@ def kernel_cases(dev, dtype, main):
     from repro_torch.serve.engine import _ring_src
     F = torch.nn.functional
     g = torch.Generator(device=dev).manual_seed(0)
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     sink, local = cfg.flux.sink, cfg.flux.local
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
     if main:
-        BH = BHkv = REQUESTS * cfg.num_heads
+        BH, BHkv = REQUESTS * cfg.num_heads, REQUESTS * cfg.num_kv_heads
         D, S, L = cfg.head_dim, CHUNK, PROMPT + GEN
         start, cur = PROMPT - CHUNK, PROMPT + GEN // 2 - 1
     else:
-        BH, BHkv, D, S, L = 8, 2, 128, 200, 300
+        BH, BHkv, D, S, L = 8, 2, small_d, 200, 300
         start, cur, sink, local = 150, 250, 16, 48
     it = torch.tensor([], dtype=dtype).element_size()
     B4 = (BH // BHkv, BHkv)  # the (G, Hkv) split the library call takes
@@ -686,8 +719,10 @@ def decode_split_cases(dev):
     version's uniform weights: the mean of V). Then small cases over a
     ring permutation of 300 slots (cur_pos 250, 49 slots empty) at
     n_split 1, 2, 7 (5 run) and the plan's, at each head dim with G = 1
-    and G = 4 (every instance of the kernel): bf16 under the bf16 limit
-    with its zeroed tile above it, fp32 within 1e-4."""
+    and G = 4 (every instance of the kernel), and at D = 128 with G = 12
+    (command-r: two CTAs a KV row, the second holding 4 rows): bf16
+    under the bf16 limit with its zeroed tile above it, fp32 within
+    1e-4."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels._build import HEAD_DIMS
@@ -722,11 +757,14 @@ def decode_split_cases(dev):
     perm = torch.randperm(L, generator=g, device=dev)
     rpos = torch.as_tensor(_ring_src(cur + 1, 40, L - 40, L),
                            dtype=torch.int32, device=dev)[perm]
-    for dtype, D, G in [(t, D, G) for t in (torch.bfloat16, torch.float32)
-                        for D in HEAD_DIMS for G in (1, 4)]:
+    dtypes = (torch.bfloat16, torch.float32)
+    for dtype, D, G in ([(t, D, G) for t in dtypes for D in HEAD_DIMS
+                         for G in (1, 4)] + [(t, 128, 12) for t in dtypes]):
+        rows = 2 * G if G > 4 else BH  # G = 12: two KV rows
         qs, ks, vs = (torch.randn(n, s, D, generator=g, device=dev).to(dtype)
-                      for n, s in ((BH, 1), (BH // G, L), (BH // G, L)))
-        plan = decode_split_plan(BH // G, G, L, sms)
+                      for n, s in ((rows, 1), (rows // G, L),
+                                   (rows // G, L)))
+        plan = decode_split_plan(rows // G, G, L, sms)
         bf16 = dtype == torch.bfloat16
         for n in sorted({1, 2, 7, plan}):
             cases.append((
@@ -815,8 +853,9 @@ def pooled_split_cases(dev):
     with holes whose slot 3 has keys 64-127 all -1 (a 1-tile range there
     sees nothing), at 1, 2 and 5 tiles a range (5: one range a row, no
     merge) and the plan's, at each head dim with G = 1 and G = 4 (every instance
-    of the kernel): bf16 under the bf16 limit per live slot with its
-    zeroed tile above it, fp32 within 1e-4, the empty slot's rows zeros."""
+    of the kernel), and at D = 128 with G = 12 (12 heads a slot): bf16
+    under the bf16 limit per live slot with its zeroed tile above it, fp32
+    within 1e-4, the empty slot's rows zeros."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels._build import HEAD_DIMS
@@ -842,16 +881,18 @@ def pooled_split_cases(dev):
         lambda: ref.decode_attention_pooled_ref(
             qm, km, zero_slot_tiles(vm, POOL_LENS), None, lm, n_heads=H),
         None)]
-    L, Hq = 300, 8
+    L = 300
     B = len(SMALL_POOL_LENS)
     lens = torch.tensor(SMALL_POOL_LENS, dtype=torch.int32, device=dev)
     rpos = ring_positions(np.random.default_rng(6), SMALL_POOL_LENS, L)
     rpos[3, 64:128] = -1
     rpos = torch.as_tensor(rpos, device=dev)
-    for dtype, D, G, ring in [(t, D, G, r)
-                              for t in (torch.bfloat16, torch.float32)
-                              for D in HEAD_DIMS for G in (1, 4)
-                              for r in (False, True)]:
+    dtypes = (torch.bfloat16, torch.float32)
+    for dtype, D, G, ring in (
+            [(t, D, G, r) for t in dtypes for D in HEAD_DIMS
+             for G in (1, 4) for r in (False, True)]
+            + [(t, 128, 12, r) for t in dtypes for r in (False, True)]):
+        Hq = 12 if G == 12 else 8
         Hkv = Hq // G
         q, k, v = (torch.randn(B * h, n, D, generator=g, device=dev).to(
             dtype) for h, n in ((Hq, 1), (Hkv, L), (Hkv, L)))
@@ -864,14 +905,16 @@ def pooled_split_cases(dev):
             f"decode_attention_pooled {'bf16' if bf16 else 'fp32'} G={G} "
             f"D={D} {'ring, slot 3 keys 64-127 -1' if ring else 'FullKV'} "
             f"L=300 lens={SMALL_POOL_LENS}", SMALL_POOL_LENS, L,
-            [(t, lambda q=q, k=k, v=v, pos=pos, t=t:
-              decode_attention_pooled_bh(q, k, v, pos, lens, n_heads=Hq,
+            [(t, lambda q=q, k=k, v=v, pos=pos, t=t, h=Hq:
+              decode_attention_pooled_bh(q, k, v, pos, lens, n_heads=h,
                                          tiles=t)) for t in tiles],
-            lambda q=q, k=k, v=v, pos=pos: ref.decode_attention_pooled_ref(
-                q, k, v, pos, lens, n_heads=Hq),
-            (lambda q=q, k=k, v=v, pos=pos: ref.decode_attention_pooled_ref(
-                q, k, zero_slot_tiles(v, SMALL_POOL_LENS), pos, lens,
-                n_heads=Hq)) if bf16 else None,
+            lambda q=q, k=k, v=v, pos=pos, h=Hq:
+                ref.decode_attention_pooled_ref(q, k, v, pos, lens,
+                                                n_heads=h),
+            (lambda q=q, k=k, v=v, pos=pos, h=Hq:
+                ref.decode_attention_pooled_ref(
+                    q, k, zero_slot_tiles(v, SMALL_POOL_LENS), pos, lens,
+                    n_heads=h)) if bf16 else None,
             None if bf16 else FP32_TOL))
     return cases
 
@@ -917,8 +960,9 @@ def pooled_split_check(dev):
     return lines
 
 
-def path_parity(dev):
-    """Phase 5: the same 2-layer full-width fp32 weights on cuda and cpu.
+def path_parity(dev, arch=ARCH):
+    """Phase 5 (phi3-mini) and 9 (stablelm): the same 2-layer full-width
+    fp32 weights of ``arch`` on cuda and cpu.
 
     The hard decision is mean(p_fa) > 0.5 (strict), so a layer whose
     p_fa sits within rounding of 0.5 could route differently on the two
@@ -928,7 +972,7 @@ def path_parity(dev):
     from repro_torch.launch.serve import routing_pattern
     from repro_torch.models import model as MD
     from repro_torch.serve.engine import ServeEngine
-    cfg = get_config(ARCH).replace(num_layers=2, dtype=torch.float32,
+    cfg = get_config(arch).replace(num_layers=2, dtype=torch.float32,
                                    param_dtype=torch.float32)
     params = MD.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     S, N = 2304, 8
@@ -1009,16 +1053,17 @@ def router_margin_seed(engine, lens, max_seed=32):
     raise AssertionError("no prompt seed with router margins > 1e-3")
 
 
-def pool_parity(dev):
-    """Phase 5b: the slot-pool scheduler on cuda and cpu with the same
-    2-layer full-width fp32 weights. Returns its report line."""
+def pool_parity(dev, arch=ARCH):
+    """Phases 5b (phi3-mini) and 9b (stablelm): the slot-pool scheduler
+    on cuda and cpu with the same 2-layer full-width fp32 weights of
+    ``arch``. Returns its report line."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import (PREFILL_CHUNKS_PER_TICK,
                                           routing_pattern)
     from repro_torch.models import model as MD
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.scheduler import STATUS_OK, ContinuousScheduler
-    cfg = get_config(ARCH).replace(num_layers=2, dtype=torch.float32,
+    cfg = get_config(arch).replace(num_layers=2, dtype=torch.float32,
                                    param_dtype=torch.float32)
     params = MD.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     lens, N = (2304, 1536, 1000, 700, 2304), 8
@@ -1065,32 +1110,33 @@ def pool_parity(dev):
     return "; ".join(out)
 
 
-def main_path(dev, params):
-    """Phase 6: full phi3-mini in bf16 through the batch frontend."""
+def main_path(dev, params, cfg, requests=REQUESTS,
+              routings=("router", "mixed")):
+    """Phases 6 (phi3-mini), 10 (stablelm) and 12 (command-r, depth cut):
+    ``cfg`` in bf16 through the batch frontend, ``requests`` prompts of
+    PROMPT tokens, once per routing (the router, or a forced pattern)."""
     import repro_torch.kernels as KN
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import routing_pattern
     from repro_torch.serve.engine import (Request, ServeEngine,
                                           serve_batch_finished)
-    cfg = get_config(ARCH)
     eng = ServeEngine(params, cfg, max_len=PROMPT + GEN, prefill_chunk=CHUNK,
                       device=dev)
     rng = np.random.default_rng(0)
-    prompts = rng.integers(0, cfg.vocab_size, (REQUESTS, PROMPT))
-    mixed = routing_pattern(cfg, "mixed")
+    prompts = rng.integers(0, cfg.vocab_size, (requests, PROMPT))
     lines = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     KN.reset_launch_counts()
-    for name, override in (("router", None), ("mixed", mixed)):
+    for name in routings:
+        override = routing_pattern(cfg, name)
         before = KN.launch_counts()
         reqs = [Request(rid=i, tokens=prompts[i], n_steps=GEN,
                         routing_override=override)
-                for i in range(REQUESTS)]
+                for i in range(requests)]
         done = serve_batch_finished(eng, reqs)
         gen = done[0].result
-        assert all(len(done[i].tokens) == GEN for i in range(REQUESTS))
-        assert gen.logits.shape == (REQUESTS, cfg.vocab_size)
+        assert all(len(done[i].tokens) == GEN for i in range(requests))
+        assert gen.logits.shape == (requests, cfg.vocab_size)
         assert bool(torch.isfinite(gen.logits).all()), "first logits"
         assert bool(torch.isfinite(gen.final_logits).all()), "last logits"
         delta = {k: v - before[k] for k, v in KN.launch_counts().items()}
@@ -1106,9 +1152,9 @@ def main_path(dev, params):
             f"{name}: routing={''.join(p[0] for p in gen.routing)} "
             f"msr={gen.msr:.3f} kv_bytes={gen.kv_bytes} "
             f"prefill_s={gen.prefill_s:.3f} "
-            f"prefill_tok_s={REQUESTS * PROMPT / gen.prefill_s:.0f} "
+            f"prefill_tok_s={requests * PROMPT / gen.prefill_s:.0f} "
             f"decode_s={gen.decode_s:.3f} "
-            f"decode_tok_s={REQUESTS * GEN / gen.decode_s:.1f} "
+            f"decode_tok_s={requests * GEN / gen.decode_s:.1f} "
             f"launches={delta} tokens0={done[0].tokens[:8].tolist()}")
     counts = KN.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -1119,15 +1165,14 @@ def main_path(dev, params):
     return counts, lines
 
 
-def continuous_path(dev, params):
-    """Phase 7: full phi3-mini in bf16 through the continuous frontend."""
+def continuous_path(dev, params, cfg):
+    """Phases 7 (phi3-mini) and 11 (stablelm): ``cfg`` at full depth in
+    bf16 through the continuous frontend."""
     import repro_torch.kernels as KN
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import (PREFILL_CHUNKS_PER_TICK,
                                           routing_pattern)
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.scheduler import STATUS_OK, ContinuousScheduler
-    cfg = get_config(ARCH)
     eng = ServeEngine(params, cfg, max_len=PROMPT + GEN, prefill_chunk=CHUNK,
                       device=dev)
     rng = np.random.default_rng(1)
@@ -1287,7 +1332,7 @@ def prefix_path(dev, params):
         f"{k}_ms={v:.3f} ({gbs:.1f} GB/s copied)"
         for k, (v, gbs) in ms.items()))
     del warm, store, cold, job
-    torch.cuda.empty_cache()
+    free_card()
 
     pre = rng.integers(0, V, CONT_PREAMBLE)
     prompts = [np.concatenate([pre, rng.integers(
@@ -1306,7 +1351,7 @@ def prefix_path(dev, params):
         return eng, sched, done, time.perf_counter() - t0
 
     _, _, cold_done, cold_wall = drain()
-    torch.cuda.empty_cache()
+    free_card()
     KN.reset_launch_counts()
     eng, sched, done, wall = drain(prefix_cache_mb=CONT_STORE_MB)
     cont = KN.launch_counts()
@@ -1345,61 +1390,43 @@ def prefix_path(dev, params):
     return total, lines
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
-                         "is_available() is False); it runs on an NVIDIA "
-                         "GPU only")
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build  # fails outside the repo
-    dev = torch.device("cuda")
-    t_all = time.perf_counter()
-
-    t0 = time.perf_counter()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-    card = smi.splitlines()[0]
-    print(card, flush=True)
-    say(1, f"torch {torch.__version__} cuda {torch.version.cuda} "
-           f"device {torch.cuda.get_device_name(0)} "
-           f"count {torch.cuda.device_count()}", t0)
-
-    t0 = time.perf_counter()
-    built = _build.build()
-    say(2, "built " + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()),
-        t0)
-    for line in wgmma_report(-(-(PROMPT + GEN) // 64)) + decode_report():
-        say(2, line)
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
+def check_kernels(dev):
+    """Phase 3: every kernel against its plain version on the card.
+    Returns {arch: {kernel: max abs error at that arch's main shapes}}."""
+    from repro_torch.configs import get_config
     errs = {}
-    for name, (kern, plain, mutant, *_rest) in kernel_cases(
-            dev, torch.bfloat16, True).items():
-        out, want = kern(), plain()
-        errs[name] = max_err(out, want)
-        slots = len(POOL_LENS) if name == "decode_attention_pooled" else 1
-        r = bf16_ratios(out, want, slots)
-        r_mut = bf16_ratios(mutant(), want, slots)
-        assert max(r) < 1, f"{name} bf16: error {r} of the limit"
-        assert min(r_mut) > 1, f"{name} bf16: a zeroed tile is within " \
-            f"the limit {r_mut}"
-        say(3, f"{name} bfloat16 main shapes max_abs_err={errs[name]:.3e} "
-               f"limit_ratio={ratio_text(r)} "
-               f"zeroed_tile_ratio={ratio_text(r_mut)}")
-    for name, (kern, plain, *_rest) in kernel_cases(
-            dev, torch.float32, False).items():
-        out = kern()
-        e = max_err(out, plain())
-        assert e < FP32_TOL, f"{name} fp32: max abs err {e} >= {FP32_TOL}"
-        extra = ""
-        if name == "decode_attention_pooled":  # slot 0 holds nothing
-            assert not bool(out[:8].any()), "a length-0 slot is not zeros"
-            extra = " length-0 slot rows all zero"
-        say(3, f"{name} float32 G=4 D=128 unaligned max_abs_err={e:.3e} "
-               f"tol={FP32_TOL}{extra}")
+    for arch in (ARCH, STABLELM):
+        cfg = get_config(arch)
+        errs[arch] = {}
+        for name, (kern, plain, mutant, *_rest) in kernel_cases(
+                dev, torch.bfloat16, True, arch).items():
+            out, want = kern(), plain()
+            errs[arch][name] = e = max_err(out, want)
+            slots = len(POOL_LENS) if name == "decode_attention_pooled" \
+                else 1
+            r = bf16_ratios(out, want, slots)
+            r_mut = bf16_ratios(mutant(), want, slots)
+            assert max(r) < 1, f"{arch} {name} bf16: error {r} of the limit"
+            assert min(r_mut) > 1, f"{arch} {name} bf16: a zeroed tile is " \
+                f"within the limit {r_mut}"
+            say(3, f"{name} bfloat16 {arch} main shapes D={cfg.head_dim} "
+                   f"G={cfg.num_heads // cfg.num_kv_heads} "
+                   f"max_abs_err={e:.3e} limit_ratio={ratio_text(r)} "
+                   f"zeroed_tile_ratio={ratio_text(r_mut)}")
+    for D in (128, 160):
+        for name, (kern, plain, *_rest) in kernel_cases(
+                dev, torch.float32, False, small_d=D).items():
+            out = kern()
+            e = max_err(out, plain())
+            assert e < FP32_TOL, \
+                f"{name} fp32 D={D}: max abs err {e} >= {FP32_TOL}"
+            extra = ""
+            if name == "decode_attention_pooled":  # slot 0 holds nothing
+                assert not bool(out[:8].any()), \
+                    "a length-0 slot is not zeros"
+                extra = " length-0 slot rows all zero"
+            say(3, f"{name} float32 G=4 D={D} unaligned max_abs_err={e:.3e}"
+                   f" tol={FP32_TOL}{extra}")
     for name, check in (("decode_attention", ring_decode_check),
                         ("decode_attention_pooled", pooled_ring_check)):
         e, r, r_mut = check(dev)
@@ -1434,9 +1461,13 @@ def main() -> int:
                f"zeroed_tile_ratio={ratio_text(r_mut)}")
     for line in pooled_split_check(dev):
         say(3, line)
-    say(3, "kernels agree with their plain versions", t0)
+    return errs
 
-    t0 = time.perf_counter()
+
+def time_kernels(dev):
+    """Phase 4: each kernel's times at phi3-mini's main shapes (with the
+    ring rows and the n_split and tiles sweeps) and at stablelm's (D =
+    160, G = 4). Returns {arch: {kernel: row}}."""
     rows = {}
     for name, (kern, plain, _, lib, n_bytes, flops) in kernel_cases(
             dev, torch.bfloat16, True).items():
@@ -1495,38 +1526,138 @@ def main() -> int:
         say(4, f"decode_attention ms by n_split ({bh} rows, L 4128): "
             + " ".join(f"{n}{'*' if plan else ''}={ms:.4f}"
                        for n, (ms, plan) in by_n.items()) + " (* the plan's)")
-    torch.cuda.empty_cache()
+    free_card()
+    out = {ARCH: rows, STABLELM: {}}
+    for name, (kern, plain, _, lib, n_bytes, flops) in kernel_cases(
+            dev, torch.bfloat16, True, STABLELM).items():
+        b_ms, b_by = bound(n_bytes, flops)
+        r = out[STABLELM][name] = dict(
+            ms=time_ms(kern), plain_ms=time_ms(plain),
+            library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+            call_ms=call_ms(kern))
+        say(4, f"{name} {STABLELM} D=160 G=4 ms={r['ms']:.4f} "
+               f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+               f"library_ms={r['library_ms']:.4f} bound_ms={b_ms:.4f} "
+               f"({b_by}; {n_bytes} bytes, {flops} flops) "
+               f"roofline_share={b_ms / r['ms']:.3f}")
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
+                         "is_available() is False); it runs on an NVIDIA "
+                         "GPU only")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build  # fails outside the repo
+    dev = torch.device("cuda")
+    t_all = time.perf_counter()
+
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    card = smi.splitlines()[0]
+    print(card, flush=True)
+    say(1, f"torch {torch.__version__} cuda {torch.version.cuda} "
+           f"device {torch.cuda.get_device_name(0)} "
+           f"count {torch.cuda.device_count()}", t0)
+
+    t0 = time.perf_counter()
+    built = _build.build()
+    say(2, "built " + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()),
+        t0)
+    for line in wgmma_report(-(-(PROMPT + GEN) // 64)) + decode_report():
+        say(2, line)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    errs = check_kernels(dev)
+    say(3, "kernels agree with their plain versions", t0)
+
+    t0 = time.perf_counter()
+    rows = time_kernels(dev)
+    free_card()
     say(4, f"timed at {card}", t0)
 
     t0 = time.perf_counter()
     say(5, path_parity(dev), t0)
     t0 = time.perf_counter()
     say("5b", pool_parity(dev), t0)
-    torch.cuda.empty_cache()
+    free_card()
 
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
-    params = init_params(get_config(ARCH),
-                         torch.Generator(device=dev).manual_seed(0), dev)
+    cfg = get_config(ARCH)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    counts = {}
     t0 = time.perf_counter()
-    batch_counts, lines = main_path(dev, params)
+    counts["batch"], lines = main_path(dev, params, cfg)
     for line in lines:
         say(6, line)
     say(6, "batch path done", t0)
-    torch.cuda.empty_cache()
+    free_card()
 
     t0 = time.perf_counter()
-    cont_counts, lines = continuous_path(dev, params)
+    counts["continuous"], lines = continuous_path(dev, params, cfg)
     for line in lines:
         say(7, line)
     say(7, "continuous path done", t0)
-    torch.cuda.empty_cache()
+    free_card()
 
     t0 = time.perf_counter()
-    prefix_counts, lines = prefix_path(dev, params)
+    counts["prefix"], lines = prefix_path(dev, params)
     for line in lines:
         say(8, line)
     say(8, "prefix path done", t0)
+    del params  # phi3-mini's 7.6 GB leave the card before stablelm's
+    free_card()
+
+    t0 = time.perf_counter()
+    say(9, path_parity(dev, STABLELM), t0)
+    free_card()
+    t0 = time.perf_counter()
+    say("9b", pool_parity(dev, STABLELM), t0)
+    free_card()
+
+    cfg = get_config(STABLELM)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    torch.cuda.synchronize()
+    say(10, f"{STABLELM} full width and depth ({cfg.num_layers} layers), "
+            f"{cfg.param_count()} parameters, "
+            f"{torch.cuda.memory_allocated(dev)} bytes on the card", t0)
+    t0 = time.perf_counter()
+    counts["stablelm_batch"], lines = main_path(dev, params, cfg)
+    for line in lines:
+        say(10, line)
+    say(10, f"{STABLELM} batch path done", t0)
+    free_card()
+
+    t0 = time.perf_counter()
+    counts["stablelm_continuous"], lines = continuous_path(dev, params, cfg)
+    for line in lines:
+        say(11, line)
+    say(11, f"{STABLELM} continuous path done", t0)
+    del params
+    free_card()
+
+    cfg = get_config(COMMAND_R).replace(num_layers=COMMAND_R_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    counts["command_r_batch"], lines = main_path(
+        dev, params, cfg, requests=COMMAND_R_REQUESTS, routings=("mixed",))
+    for line in lines:
+        say(12, line)
+    say(12, f"{COMMAND_R} at full width, depth cut to {COMMAND_R_LAYERS} "
+            f"of {get_config(COMMAND_R).num_layers} layers "
+            f"({cfg.param_count()} parameters): batch path done", t0)
+    del params
+    free_card()
 
     import repro_torch.kernels as KN
     kernels = []
@@ -1534,16 +1665,16 @@ def main() -> int:
         src = _build.CSRC / f"{KN.KERNELS[name].source}.cu"
         # each kernel's count from the path it was ported for: the batch
         # path for the first four, the slot pool for the pooled decode
-        own = cont_counts if name == "decode_attention_pooled" \
-            else batch_counts
-        kernels.append(dict(name=name, route="cuda",
-                            source=str(src.relative_to(ROOT)),
-                            replaces=replaces, launches=own[name],
-                            launches_by_path={
-                                "batch": batch_counts[name],
-                                "continuous": cont_counts[name],
-                                "prefix": prefix_counts[name]},
-                            max_abs_err=errs[name], **rows[name]))
+        own = "continuous" if name == "decode_attention_pooled" \
+            else "batch"
+        kernels.append(dict(
+            name=name, route="cuda", source=str(src.relative_to(ROOT)),
+            replaces=replaces, launches=counts[own][name],
+            launches_by_path={k: c[name] for k, c in counts.items()},
+            max_abs_err=errs[ARCH][name], **rows[ARCH][name],
+            stablelm_12b=dict(launches=counts[f"stablelm_{own}"][name],
+                              max_abs_err=errs[STABLELM][name],
+                              **rows[STABLELM][name])))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Architecture configs (the archs this slice of the port serves)."""
+"""Architecture configs (the archs the port serves)."""
 from repro_torch.configs.base import (  # noqa: F401
     FluxConfig,
     ModelConfig,

@@ -2,9 +2,10 @@
 
 ``FluxConfig`` and ``ModelConfig`` are the JAX package's frozen
 dataclasses with torch dtypes; ``register``/``get_config`` and
-``smoke_variant`` keep their meaning. This slice of the port registers
-phi3-mini-3.8b only; the other architectures come with the slices that
-port their layer kinds (ROADMAP Queue 1 item 14).
+``smoke_variant`` keep their meaning. The port registers the dense GQA
+archs whose every layer is global attention (phi3-mini-3.8b,
+stablelm-12b, command-r-plus-104b); the other architectures come with
+the slices that port their layer kinds (ROADMAP Queue 1 items 11-14).
 """
 from __future__ import annotations
 
@@ -165,8 +166,12 @@ class ModelConfig:
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 
-# arch name -> module registering it (the archs this slice serves)
-ARCH_MODULES = {"phi3-mini-3.8b": "repro_torch.configs.phi3_mini_3_8b"}
+# arch name -> module registering it (the archs the port serves)
+ARCH_MODULES = {
+    "phi3-mini-3.8b": "repro_torch.configs.phi3_mini_3_8b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
+}
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -176,8 +181,9 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def get_config(name: str) -> ModelConfig:
     if name not in ARCH_MODULES:
-        raise KeyError(f"unknown arch {name!r}; this port serves "
-                       f"{sorted(ARCH_MODULES)} (the others wait for "
+        raise KeyError(f"unknown arch {name!r}; the port serves the dense "
+                       f"GQA archs {sorted(ARCH_MODULES)} (MoE, MLA, SSM, "
+                       f"sliding-window and the other layer kinds wait for "
                        f"ROADMAP Queue 1 items 11-14)")
     importlib.import_module(ARCH_MODULES[name])
     return _REGISTRY[name]

@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # dtype codes and head dims the kernels are instantiated for
 # (csrc/attention_common.cuh: kF32, kBF16, dispatch_head_dim)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 96, 128)
+HEAD_DIMS = (32, 64, 96, 128, 160)
 
 
 def nvcc_path() -> str:
@@ -232,7 +232,9 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> int:
                          f"kernel (float32, bfloat16)")
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not supported by the "
-                         f"kernel {HEAD_DIMS}")
+                         f"kernel {HEAD_DIMS}; head dim 256 (gemma3's "
+                         f"global layers) waits for ROADMAP Queue 2 "
+                         f"instances item 2")
     return DTYPE_CODES[dtype]
 
 

@@ -4,7 +4,7 @@
 // fp32 scores and accumulators, the mask value -1e30 (not -inf), p rounded
 // to v's dtype before the PV product, and the final acc / max(l, 1e-20).
 // Inputs are fp32 or bf16 (one template instance each) with head dims 32,
-// 64, 96 and 128. Kernels allocate nothing and launch on the caller's
+// 64, 96, 128 and 160. Kernels allocate nothing and launch on the caller's
 // stream; each C entry point returns cudaGetLastError().
 #pragma once
 
@@ -75,10 +75,13 @@ template <int D> struct PrefillSmem {
   static constexpr int kPLd = kBK + 1;
   static constexpr size_t kBytes =
       sizeof(float) * ((size_t)(kBQ + 2 * kBK) * kLd + (size_t)kBQ * kPLd);
+  // past 48 KB (D >= 64) the launch asks for it (allow_smem); 137 KB at
+  // D = 160 still fits one CTA of an H100 (227 KB)
+  static_assert(kBytes <= 232448, "one CTA's shared memory on an H100");
 };
 
 template <typename T, int D> struct PrefillBlock {
-  static_assert(D % 16 == 0 && D <= 128, "head dim");
+  static_assert(D % 16 == 0 && D <= 160, "head dim");
   static constexpr int kLd = PrefillSmem<D>::kLd;
   static constexpr int kPLd = PrefillSmem<D>::kPLd;
   static constexpr int kCols = D / 16;
@@ -217,6 +220,7 @@ cudaError_t dispatch_head_dim(int D, A... a) {
     case 64: return Launcher<T, 64>::run(a...);
     case 96: return Launcher<T, 96>::run(a...);
     case 128: return Launcher<T, 128>::run(a...);
+    case 160: return Launcher<T, 160>::run(a...);
   }
   return cudaErrorInvalidValue;
 }

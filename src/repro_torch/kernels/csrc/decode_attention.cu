@@ -242,7 +242,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // o[b] from the n_split partial states of row b = blockIdx.x.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(merge_threads<D>())
 decode_merge_kernel(const float* __restrict__ part_acc,
                     const float* __restrict__ part_m,
                     const float* __restrict__ part_l, T* __restrict__ o,
@@ -306,7 +306,8 @@ template <typename T, int D> struct DecodeLaunch {
                      grid, tiles, q, k, v, positions, o, part_acc, part_m,
                      part_l, L, G, cur_pos, scale_log2, stream);
     if (e != cudaSuccess || n_split == 1) return e;
-    split::decode_merge_kernel<T, D><<<BH, split::kThreads, 0, stream>>>(
+    split::decode_merge_kernel<T, D>
+        <<<BH, split::merge_threads<D>(), 0, stream>>>(
         static_cast<const float*>(part_acc),
         static_cast<const float*>(part_m), static_cast<const float*>(part_l),
         static_cast<T*>(o), n_split);

@@ -263,7 +263,7 @@ pooled_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ran: the first ceil(ceil(n / 64) / tiles) of n_split, n its slot's live
 // length.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(merge_threads<D>())
 pooled_merge_kernel(const float* __restrict__ part_acc,
                     const float* __restrict__ part_m,
                     const float* __restrict__ part_l,
@@ -336,7 +336,8 @@ template <typename T, int D> struct PooledLaunch {
                      grid, q, k, v, positions, lengths, o, part_acc, part_m,
                      part_l, L, G, kv_per_slot, tiles, scale_log2, stream);
     if (e != cudaSuccess || n_split == 1) return e;
-    split::pooled_merge_kernel<T, D><<<BH, split::kThreads, 0, stream>>>(
+    split::pooled_merge_kernel<T, D>
+        <<<BH, split::merge_threads<D>(), 0, stream>>>(
         static_cast<const float*>(part_acc),
         static_cast<const float*>(part_m), static_cast<const float*>(part_l),
         static_cast<const int*>(lengths), static_cast<T*>(o), L, n_heads,

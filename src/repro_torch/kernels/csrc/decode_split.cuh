@@ -19,8 +19,9 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxG = 8;  // query rows of one CTA when G > 1
 
 // The most tiles one split may hold, so that its scores and positions fit
-// in shared memory beside the stages (decode_attention.py: MAX_SPLIT_TILES).
-template <int kG> constexpr int max_tiles() { return kG == 1 ? 256 : 64; }
+// in shared memory beside the stages (decode_attention.py: MAX_SPLIT_TILES):
+// with kG = 8 rows, fp32 at D = 160 fits 63 tiles (Plan::bytes).
+template <int kG> constexpr int max_tiles() { return kG == 1 ? 256 : 56; }
 
 // Shared memory of one CTA, from a 128-byte aligned base: kStages slots of
 // one K or V tile each, their mbarriers, q (kG, D) in fp32, the block
@@ -31,7 +32,9 @@ template <typename T, int D, int kG> struct Plan {
   static constexpr int kStages = 4 * kChunk <= 65536 ? 4 : 2;
   static constexpr int kE = 16 / (int)sizeof(T);  // elements of 16 bytes
   static constexpr int kVecs = D / kE;  // 16-byte vectors of a row
-  static constexpr int kGroups = kThreads / kVecs;  // key groups of pass V
+  // key groups of pass V; where kVecs does not divide kThreads (D = 96 and
+  // 160) the last kThreads % kVecs threads take no key
+  static constexpr int kGroups = kThreads / kVecs;
   static constexpr uint32_t kBars = kStages * kChunk;
   static constexpr uint32_t kQ = kBars + 8 * kStages;
   static constexpr uint32_t kRed = kQ + 4 * kG * D;
@@ -40,7 +43,16 @@ template <typename T, int D, int kG> struct Plan {
     return kPos + (size_t)4 * kKeys * tiles * (1 + kG);
   }
   static_assert(kVecs % 2 == 0 && kGroups * D * 4 <= kBars, "layout");
+  static_assert(kPos + (size_t)4 * kKeys * max_tiles<kG>() * (1 + kG) <=
+                    232448,  // bytes(max_tiles), 227 KB on an H100
+                "the longest split does not fit one CTA's shared memory");
 };
+
+// Threads of a merge CTA, one an output column: kThreads up to D = 128
+// (the split kernels' own), twice that at D = 160.
+template <int D> constexpr int merge_threads() {
+  return D <= kThreads ? kThreads : 2 * kThreads;
+}
 
 // 4 bytes from src to shared dst by cp.async.
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {

@@ -22,8 +22,9 @@
 //   tile's loads in flight while the warpgroup computes.
 // - Layout. Every 64-row tile is D / 32 column panels of 64 rows x 32 bf16
 //   (64 bytes a row) under the 64-byte swizzle, one TMA box per panel. A
-//   192-byte row (D = 96) does not fit the 128-byte swizzle atom; 64-byte
-//   panels serve all four head dims with one layout.
+//   192-byte row (D = 96) or a 320-byte one (D = 160) does not fit the
+//   128-byte swizzle atom; 64-byte panels serve all five head dims with one
+//   layout.
 // - wgmma. S = Q K^T is m64n64k16 with Q and K K-major in shared memory:
 //   the descriptors step 32 bytes per k16 inside a panel and a panel's
 //   4096 bytes between panels. O += P V is m64nDk16 with P in registers and
@@ -48,7 +49,9 @@ constexpr int kThreads = 128;  // one warpgroup
 constexpr int kPanelCols = 32;  // bf16 columns of one 64-byte panel
 constexpr uint32_t kPanelBytes = kBK * kPanelCols * 2;  // 4096
 constexpr uint32_t kGroupBytes = 8 * kPanelCols * 2;  // 8 rows of a panel
-constexpr int kStages = 2;  // K / V slots: 3 CTAs share an SM at D = 96
+// K / V slots: Q and 2 K and 2 V tiles let 3 CTAs share an SM at D = 96
+// (60 KB each) and 2 at D = 160 (100 KB each)
+constexpr int kStages = 2;
 
 // One box of a 3-D tensor map into shared memory at dst, completing on bar.
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
@@ -226,6 +229,40 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_n160(float (&d)[80],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
@@ -233,6 +270,7 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
   if constexpr (D == 64) wgmma_rs_n64(o, a, b);
   if constexpr (D == 96) wgmma_rs_n96(o, a, b);
   if constexpr (D == 128) wgmma_rs_n128(o, a, b);
+  if constexpr (D == 160) wgmma_rs_n160(o, a, b);
 }
 
 // Extra mask policies of Engine::run, on top of its Skv and causal tests.
@@ -273,7 +311,7 @@ struct StreamingMask {
 // per K slot and one per V slot), the live-tile count and the list of live
 // tiles.
 template <int D> struct Layout {
-  static_assert(D % kPanelCols == 0 && D <= 128, "head dim");
+  static_assert(D % kPanelCols == 0 && D <= 160, "head dim");
   static constexpr int kPanels = D / kPanelCols;
   static constexpr uint32_t kTile = kPanels * kPanelBytes;
   static constexpr uint32_t kQ = 0;
@@ -613,6 +651,7 @@ extern "C" int flux_wgmma_smem_bytes(int D, int n_list) {
     case 64: return (int)flux::wgmma::Layout<64>::bytes(n_list);
     case 96: return (int)flux::wgmma::Layout<96>::bytes(n_list);
     case 128: return (int)flux::wgmma::Layout<128>::bytes(n_list);
+    case 160: return (int)flux::wgmma::Layout<160>::bytes(n_list);
   }
   return -1;
 }

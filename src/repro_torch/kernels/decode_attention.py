@@ -29,7 +29,9 @@ KERNEL = _build.CudaKernel("decode_attention", "decode_attention_fwd",
 
 TILE = 64        # keys of one tile (csrc/decode_attention.cu: kKeys)
 MAX_G = 8        # query rows of one CTA when G > 1 (kMaxG)
-MAX_SPLIT_TILES = {1: 256, MAX_G: 64}  # tiles a split may hold (max_tiles)
+# tiles a split may hold (max_tiles): its scores fit shared memory at every
+# built (dtype, D), the tightest fp32 at D = 160 with 8 rows a CTA
+MAX_SPLIT_TILES = {1: 256, MAX_G: 56}
 MIN_TILES = 2    # the fewest tiles a split gets when L is cut
 
 

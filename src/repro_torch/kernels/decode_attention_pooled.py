@@ -63,7 +63,8 @@ def decode_attention_pooled_bh(q: torch.Tensor, k: torch.Tensor,
         raise NotImplementedError(
             f"{name}: (Dk, Dv) = ({Dk}, {Dv}): the kernel is built for "
             f"Dk = Dv in {_build.HEAD_DIMS}; MLA's (576, 512) instance "
-            f"waits for ROADMAP Queue 1 item 11")
+            f"waits for ROADMAP Queue 1 item 11, head dim 256 for Queue 2 "
+            f"instances item 2")
     code = _build.check_cuda(name, q, k, v, lengths,
                              *(() if positions is None else (positions,)))
     _build.check_aligned16(name, "its TMA bulk loads", k, v)

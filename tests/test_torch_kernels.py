@@ -63,6 +63,8 @@ def err(port, jax_out):
     (1, 8, 2, 64, 64, 8, 16, 16, 0),      # G = 4
     (1, 2, 1, 100, 100, 96, 32, 32, 0),   # D = 96 (phi3's head dim)
     (1, 4, 2, 40, 104, 32, 16, 32, 64),   # query chunk at an offset
+    (1, 8, 2, 100, 100, 160, 32, 32, 0),  # D = 160, G = 4 (stablelm)
+    (1, 12, 1, 64, 64, 32, 32, 32, 0),    # G = 12 (command-r)
 ])
 def test_flash_attention(B, Hq, Hkv, Sq, Skv, D, bq, bk, q_offset):
     q, k, v = mk(0, B, Hq, Hkv, Sq, Skv, D)
@@ -88,6 +90,7 @@ def test_flash_attention_bidirectional():
     (128, 0, 32, 32, 32, 32),    # pure window
     (256, 32, 32, 64, 32, 32),   # window smaller than q block
     (200, 8, 40, 32, 32, 96),    # D = 96
+    (200, 8, 40, 32, 32, 160),   # D = 160
 ])
 def test_streaming_attention(S, sink, local, bq, bk, D):
     q, k, v = mk(2, 1, 2, 1, S, S, D)
@@ -102,7 +105,8 @@ def test_streaming_attention(S, sink, local, bq, bk, D):
 @pytest.mark.parametrize("L,cur,ring,D", [(96, 63, False, 32),
                                           (96, 39, True, 32),
                                           (130, 100, False, 32),
-                                          (130, 77, True, 96)])
+                                          (130, 77, True, 96),
+                                          (130, 77, True, 160)])
 def test_decode_attention(L, cur, ring, D):
     B, Hq, Hkv = 2, 4, 2
     q, k, v = mk(3, B, Hq, Hkv, 1, L, D)
@@ -111,6 +115,23 @@ def test_decode_attention(L, cur, ring, D):
         pos = np.random.default_rng(4).permutation(perm).astype(np.int32)
     else:
         pos = np.arange(L, dtype=np.int32)
+    want = ops.decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), jnp.asarray(pos),
+                                jnp.int32(cur), block_k=32, interpret=True)
+    got = decode_attention_bh(fl(q), fl(k), fl(v), torch.from_numpy(pos),
+                              cur)
+    assert err(got, want) < TOL
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_decode_attention_g12(ring):
+    """G = 12 (command-r: 12 query heads a KV head) at D = 128."""
+    L, cur = 130, 77
+    q, k, v = mk(12, 2, 12, 1, 1, L, 128)
+    pos = np.arange(L, dtype=np.int32)
+    if ring:
+        perm = np.concatenate([np.arange(cur + 1), -np.ones(L - cur - 1)])
+        pos = np.random.default_rng(13).permutation(perm).astype(np.int32)
     want = ops.decode_attention(jnp.asarray(q), jnp.asarray(k),
                                 jnp.asarray(v), jnp.asarray(pos),
                                 jnp.int32(cur), block_k=32, interpret=True)
@@ -133,7 +154,8 @@ def _random_selection(rng, BH, nqb, K):
 @pytest.mark.parametrize("S,D,blk,q_offset", [(256, 32, 32, 0),
                                               (200, 96, 32, 0),
                                               (128, 32, 32, 64),
-                                              (200, 96, 64, 128)])
+                                              (200, 96, 64, 128),
+                                              (200, 160, 64, 128)])
 def test_block_sparse_attention(S, D, blk, q_offset):
     """At the kernel's block through the entry; at other blocks through
     the plain version the entry runs on the CPU."""

@@ -149,6 +149,29 @@ def test_split_merge_matches_pallas(layout, G, D, tiles):
     assert not got[:HQ].any()  # the length-0 slot's rows are zeros
 
 
+@pytest.mark.parametrize("tiles", [1, 4])
+@pytest.mark.parametrize("layout", ["full", "ring"])
+def test_split_merge_g12_matches_pallas(layout, tiles):
+    """command-r's G = 12: 12 query rows a slot over one KV row, D = 128."""
+    rng = np.random.default_rng(23)
+    Hq, D = 12, 128
+    lens = np.asarray(LENS, np.int32)
+    q = rng.normal(size=(len(LENS) * Hq, 1, D)).astype(np.float32)
+    k, v = (rng.normal(size=(len(LENS), L_POOL, D)).astype(np.float32)
+            for _ in range(2))
+    pos = (_ring_positions(rng) if layout == "ring" else np.broadcast_to(
+        np.arange(L_POOL, dtype=np.int32), (len(LENS), L_POOL)).copy())
+    want = np.asarray(jax_pooled(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), jnp.asarray(pos),
+                                 jnp.asarray(lens), n_heads=Hq,
+                                 interpret=True))
+    got = ref.decode_attention_pooled_split_ref(
+        _t(q), _t(k), _t(v), None if layout == "full" else _t(pos),
+        _t(lens), n_heads=Hq, tiles=tiles)
+    assert float(np.abs(got.numpy() - want).max()) < TOL
+    assert not got[:Hq].any()  # the length-0 slot's rows are zeros
+
+
 def test_no_live_key_gives_zeros():
     """A slot of length 0, and a slot whose live entries are all -1 (the
     Pallas kernel averages its padded block there; no serving ring holds

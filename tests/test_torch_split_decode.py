@@ -132,6 +132,24 @@ def test_split_merge_matches_pallas(n_split, layout):
     assert float(np.abs(got.numpy().reshape(want.shape) - want).max()) < TOL
 
 
+@pytest.mark.parametrize("n_split", [1, 3])
+@pytest.mark.parametrize("D,G", [(160, 4), (128, 12)])
+def test_split_merge_wide_matches_pallas(D, G, n_split):
+    """stablelm's head dim 160 at G = 4, and command-r's G = 12 (two
+    CTAs a KV row on the card, the second holding 4 rows), over a ring."""
+    rng = np.random.default_rng(22)
+    q, k, v = (rng.normal(size=s).astype(np.float32)
+               for s in ((1, G, 1, D), (1, 1, L_DEC, D), (1, 1, L_DEC, D)))
+    pos = _positions("ring")
+    want = np.asarray(ops.decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+        jnp.int32(CUR), block_k=64, interpret=True))
+    got = ref.decode_attention_split_ref(
+        *(torch.from_numpy(x.reshape(-1, *x.shape[2:])) for x in (q, k, v)),
+        torch.from_numpy(pos), CUR, n_split)
+    assert float(np.abs(got.numpy().reshape(want.shape) - want).max()) < TOL
+
+
 @pytest.mark.parametrize("n_split", [1, 3, 10])
 def test_split_merge_no_live_key_matches_plain(n_split):
     """A row with no live key: every split keeps m = -1e30 and weighs its
