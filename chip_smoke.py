@@ -116,10 +116,42 @@ nothing falls back to the CPU):
   12. command-r-plus-104b (G = 12, tied embeddings) at full width, depth
      cut to 8 of its 64 layers (the whole model is 208 GB in bf16), bf16,
      2 requests of 4096 tokens through the batch path with the mixed
-     override: every logit finite, exact launch counts.
+     override: every logit finite, exact launch counts;
+  13. the guarded drain, card against CPU: phase 5's phi3-mini (full
+     width, 2 layers, fp32, its own weights from seed 0) under one SLO
+     config (a queue of 3 shedding the lowest priority, a preemption
+     budget of 1, aging, the sparsity dial), one tick-advanced virtual
+     clock, telemetry and a fidelity probe at every admission: 10
+     requests of 2304 / 1536 / 1000 / 700 tokens, 2 slots a pool, decode
+     chunks of 4, 8 new tokens; one is shed at its submit, one expires
+     queued, one preempts, one is cancelled while resident and one is
+     faulted (``inject_fault``) after its first decode tick. Both devices
+     give the same statuses (all five), routing, tokens, rung after every
+     tick, preemptions and ``metrics_text`` counters (histograms by
+     count), coverage within 1e-4 per routed layer; the faulted
+     request's pool siblings equal, bitwise, the same drain without the
+     fault on the card;
+  14. the guarded drain at full width and depth: phi3-mini-3.8b's seeded
+     bf16 weights (loaded again after phase 12), 12 requests of 4096 //
+     (1 + rid % 3) tokens, 32 new tokens, 4 slots a pool, chunks of 8, 16
+     prefill chunks a tick, on the real clock, with telemetry, the
+     profiler every 4 ticks, the probe every 4 admissions and the memory
+     ledger: every request retires once, all five statuses by
+     construction, the siblings of the faulted request bitwise equal the
+     same drain without the fault, tokens bitwise equal the same drain
+     with every knob off, the rung rises and moves a layer FA -> SA,
+     exact launch counts (flash once per layer per probe beside the
+     routing chunks), ``metrics_text`` parses, the trace validates with
+     one span per request, the ledger equals the pools' tensor bytes
+     after every tick, and the profiler's expressed decode bytes over its
+     device time stay within 1.05 of 3.35 TB/s. Prints the walls and
+     TTFT p50 with telemetry on and off (no limit on either: host-bound
+     walls move 30-40 % between runs), the ledger's peak beside
+     ``torch.cuda.max_memory_allocated``, the coverage per layer and the
+     rung trace.
 Then one JSON line of per-kernel numbers (phi3-mini's, and stablelm's
-under ``stablelm_12b``; launches by path), the total seconds, and the
-last line
+under ``stablelm_12b``; launches by path, phase 14's as ``guardrails``),
+the total seconds, and the last line
 ``{"ok": true, "device": {...}}``.
 """
 import collections
@@ -1031,11 +1063,11 @@ def prefill_launches(cfg, admissions):
     return want
 
 
-def router_margin_seed(engine, lens, max_seed=32):
+def router_margin_seed(engine, lens, max_seed=32, thresholds=(0.5,)):
     """The first prompt seed whose prompts' router decisions all sit more
-    than 1e-3 from the 0.5 threshold on the card (the hard decision is a
-    strict mean(p_fa) > 0.5, so a closer tie could flip on rounding), and
-    its prompts."""
+    than 1e-3 from every one of ``thresholds`` on the card (the hard
+    decision is a strict mean(p_fa) > threshold, so a closer tie could
+    flip on rounding), and its prompts."""
     from repro_torch.models import model as MD
     cfg = engine.cfg
     for seed in range(max_seed):
@@ -1047,7 +1079,9 @@ def router_margin_seed(engine, lens, max_seed=32):
                             torch.as_tensor(toks[None, :CHUNK],
                                             device=engine.device),
                             routing_ctx="hard_prefix", want_cache=False)
-            margins.append(float(np.abs(pf.p_fa.numpy() - 0.5).min()))
+            p_fa = pf.p_fa.numpy()
+            margins.append(min(float(np.abs(p_fa - t).min())
+                               for t in thresholds))
         if min(margins) > 1e-3:
             return seed, prompts, min(margins)
     raise AssertionError("no prompt seed with router margins > 1e-3")
@@ -1390,6 +1424,406 @@ def prefix_path(dev, params):
     return total, lines
 
 
+class VirtualClock:
+    """The tick-advanced clock of phase 13, the same on both devices:
+    arrivals at whole seconds, each tick half a second after them."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def guarded_drain(eng, sched, arrivals, *, cancel_tick, fault, clk=None,
+                  on_tick=None):
+    """Drive ``sched`` to the end through a scripted guarded drain.
+
+    ``arrivals``: (when, request, pause) triples; ``when`` is a tick
+    index or a predicate of the scheduler, tested before each tick, and
+    ``pause`` seconds of real time pass after the submit (a deadline
+    that must expire before the next tick). From tick ``cancel_tick`` on,
+    the first resident request (by rid) that has decoded a chunk is
+    cancelled, once. Once every arrival is in, the first resident (by
+    rid) that has decoded a chunk and shares its pool is the fault
+    target: with ``fault`` it is poisoned (``inject_fault``), without it
+    the drain runs on untouched, so the two runs are tick for tick the
+    same up to there, and its siblings, already routed and with no
+    higher-priority arrival left to preempt them, decode the same
+    chunks in both. Returns (finished by rid, the rung after every tick,
+    (fault tick, target rid, its siblings' rids) or None, the siblings'
+    logits rows after the fault tick, on the host)."""
+    pending, levels, target, sib_rows = list(arrivals), [], None, None
+    sib_logits = cancelled = None
+    k = 0
+    while pending or sched.waiting or sched.n_active():
+        if k > 10_000:
+            raise AssertionError(f"{len(pending)} arrivals never came")
+        for item in list(pending):
+            when, req, pause = item
+            if (when(sched) if callable(when) else when == k):
+                pending.remove(item)
+                sched.submit(req)
+                if pause:
+                    time.sleep(pause)
+        resident = sorted(
+            (inf.req.rid, pool) for pool in sched.pools.values()
+            for inf in pool.active.values() if inf.generated)
+        if k >= cancel_tick and cancelled is None and resident:
+            eng.cancel(resident[0][0])
+            cancelled = True
+            resident = resident[1:]
+        if target is None and not pending:
+            for rid, pool in resident:
+                sibs = sorted((i.req.rid, s) for s, i in pool.active.items()
+                              if i.req.rid != rid)
+                if sibs:
+                    target = (k, rid, [r for r, _ in sibs])
+                    sib_rows = (pool, [s for _, s in sibs])
+                    if fault:
+                        eng.inject_fault(rid)
+                    break
+        if clk is not None:
+            clk.t += 0.5
+        sched.tick()
+        if clk is not None:
+            clk.t += 0.5
+        if sib_rows is not None and sib_logits is None:
+            pool, slots = sib_rows
+            sib_logits = pool.logits[slots].cpu()
+        levels.append(eng.sa_level)
+        if on_tick is not None:
+            on_tick()
+        k += 1
+    return ({f.rid: f for f in sched.finished}, levels, target,
+            sib_logits)
+
+
+def counters(text):
+    """{(name, labels): value} of the counter samples and of every
+    histogram's ``_count`` in a Prometheus text (the port's parser)."""
+    from repro_torch.serve.telemetry import parse_prometheus_text
+    kinds = dict(line.split()[2:4] for line in text.splitlines()
+                 if line.startswith("# TYPE"))
+    return {(name, tuple(sorted(lb.items()))): v
+            for name, rows in parse_prometheus_text(text).items()
+            for lb, v in rows
+            if kinds.get(name) == "counter" or (
+                name.endswith("_count")
+                and kinds.get(name[:-len("_count")]) == "summary")}
+
+
+def probe_log(eng):
+    """Record every fidelity probe's per-layer coverage, in order."""
+    log, probe = [], eng._maybe_fidelity_probe
+
+    def logged(tokens, pattern):
+        cov = probe(tokens, pattern)
+        if cov is not None:
+            log.append(cov)
+        return cov
+    eng._maybe_fidelity_probe = logged
+    return log
+
+
+def rung_text(levels):
+    """The rung trace run-length coded: "0x1 1x3 ..." (rung x ticks)."""
+    runs = []
+    for lv in levels:
+        if runs and runs[-1][0] == lv:
+            runs[-1][1] += 1
+        else:
+            runs.append([lv, 1])
+    return " ".join(f"{lv}x{n}" for lv, n in runs)
+
+
+GUARD_LENS = (2304, 1536, 1000, 700)  # phase 13's prompts, cycled
+
+
+def guarded_parity(dev):
+    """Phase 13: a guarded drain of phase 5's phi3-mini (full width, 2
+    layers, fp32, new weights from seed 0) on cuda and on cpu under one
+    virtual clock. Returns its report line."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (PREFILL_CHUNKS_PER_TICK,
+                                          routing_pattern)
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import ContinuousScheduler
+    from repro_torch.serve.slo import STATUSES, SLOConfig
+    cfg = get_config(ARCH).replace(num_layers=2, dtype=torch.float32,
+                                   param_dtype=torch.float32)
+    params = MD.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    N = 8
+    lens = [GUARD_LENS[i % 4] for i in range(10)]
+    slo = SLOConfig(max_queue=3, shed_policy="drop_lowest_priority",
+                    preemption_budget=1, aging_s=8.0,
+                    adaptive_sparsity=True, pressure_patience=1)
+    engines = {name: ServeEngine(params, cfg, max_len=max(lens) + N,
+                                 prefill_chunk=CHUNK, slo=slo,
+                                 telemetry=True, fidelity_probe_every=1,
+                                 device=d)
+               for name, d in (("card", dev), ("cpu", "cpu"))}
+    # decisions more than 1e-3 from every rung's threshold, so rounding
+    # cannot route the two devices apart
+    ladder = [engines["card"].fa_threshold(lv)
+              for lv in range(slo.sa_level_max + 1)]
+    seed, prompts, margin = router_margin_seed(engines["card"], lens,
+                                               thresholds=ladder)
+    mixed = routing_pattern(cfg, "mixed")
+
+    def arrivals():
+        # (tick, rid, override, priority, deadline): r3 is shed at its
+        # submit, r4 preempts in the mixed pool, r5 expires queued
+        plan = [(0, 0, mixed, 0, None), (0, 1, mixed, 0, None),
+                (0, 2, None, 0, None), (0, 3, None, 0, None),
+                (1, 4, mixed, 5, None), (1, 5, None, 1, 0.25),
+                (2, 6, None, 0, None), (2, 7, None, 1, None),
+                (3, 8, mixed, 0, None), (3, 9, mixed, 0, None)]
+        return [(k, Request(rid=rid, tokens=prompts[rid], n_steps=N,
+                            routing_override=ov, priority=prio,
+                            deadline_s=dl), 0.0)
+                for k, rid, ov, prio, dl in plan]
+
+    res = {}
+    for name, eng in engines.items():
+        log = probe_log(eng)
+        clk = VirtualClock()
+        sched = ContinuousScheduler(
+            eng, slots_per_bucket=2, chunk=4,
+            prefill_chunks_per_tick=PREFILL_CHUNKS_PER_TICK, clock=clk,
+            slo=slo)
+        out, levels, target, rows = guarded_drain(
+            eng, sched, arrivals(), cancel_tick=2, fault=True, clk=clk)
+        res[name] = (out, levels, target, log, counters(eng.metrics_text()),
+                     rows)
+    (g, glev, gtgt, glog, gcnt, rows), (c, clev, ctgt, clog, ccnt, _) = \
+        res["card"], res["cpu"]
+    assert sorted(g) == sorted(c) == list(range(10))
+    for rid in g:
+        assert (g[rid].status, g[rid].routing, g[rid].metrics.preemptions) \
+            == (c[rid].status, c[rid].routing, c[rid].metrics.preemptions), \
+            rid
+        assert np.array_equal(g[rid].tokens, c[rid].tokens), rid
+    assert glev == clev and gtgt == ctgt and gtgt is not None
+    assert {f.status for f in g.values()} == set(STATUSES), \
+        {r: f.status for r, f in g.items()}
+    assert gcnt == ccnt, {k: (v, ccnt.get(k)) for k, v in gcnt.items()
+                          if ccnt.get(k) != v}
+    assert len(glog) == len(clog) > 0
+    cov_err = max(float(np.abs(a - b).max()) for a, b in zip(glog, clog))
+    assert cov_err < 1e-4, cov_err
+    # the same drain without the fault, on the card: the siblings
+    clean_eng = engines["card"]
+    clean_eng.set_sa_level(0)
+    clk = VirtualClock()
+    sched = ContinuousScheduler(
+        clean_eng, slots_per_bucket=2, chunk=4,
+        prefill_chunks_per_tick=PREFILL_CHUNKS_PER_TICK, clock=clk, slo=slo)
+    clean, _, ctarget, clean_rows = guarded_drain(
+        clean_eng, sched, arrivals(), cancel_tick=2, fault=False, clk=clk)
+    tick, rid, sibs = gtgt
+    assert ctarget == gtgt and g[rid].status == "failed"
+    # the siblings' logits after the poisoned tick, bitwise
+    assert torch.equal(rows, clean_rows)
+    for s in sibs:
+        assert g[s].status == clean[s].status == "ok", s
+        assert np.array_equal(g[s].tokens, clean[s].tokens), s
+    statuses = collections.Counter(f.status for f in g.values())
+    return (f"prompt_seed={seed} min_margin={margin:.2e} statuses="
+            f"{dict(statuses)} rungs={rung_text(glev)} "
+            f"preemptions={sum(f.metrics.preemptions for f in g.values())} "
+            f"fault=tick {tick} rid {rid} siblings {sibs} bitwise "
+            f"probes={len(glog)} coverage_err={cov_err:.2e} "
+            f"counters={len(gcnt)} equal routing="
+            + ",".join("".join(p[0] for p in g[r].routing)
+                       if g[r].routing else "-" for r in range(10)))
+
+
+def pool_bytes(sched):
+    """Every tensor byte the scheduler's pools hold (caches, logits, pos)."""
+    from repro_torch.serve import kv_cache as KC
+    return sum(t.nbytes for p in sched.pools.values() for c in p.caches
+               for t in KC.cache_fields(c)) + sum(
+        p.logits.nbytes + p.pos.nbytes for p in sched.pools.values())
+
+
+def guarded_path(dev, params, cfg):
+    """Phase 14: the guarded drain of phi3-mini-3.8b at full width and
+    depth, bf16, on the real clock (phi3-mini's seeded weights, reloaded
+    after phase 12). Returns (launch counts of the drain with telemetry,
+    report lines)."""
+    import repro_torch.kernels as KN
+    from repro_torch.launch.serve import (PREFILL_CHUNKS_PER_TICK,
+                                          routing_pattern)
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import ContinuousScheduler
+    from repro_torch.serve.slo import STATUSES, SLOConfig
+    from repro_torch.serve.telemetry import parse_prometheus_text
+    from repro_torch.serve.tracing import request_spans, validate_trace
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, PROMPT // (1 + rid % 3))
+               for rid in range(12)]
+    mixed, fa = routing_pattern(cfg, "mixed"), routing_pattern(cfg, "fa")
+    slo = SLOConfig(max_queue=4, shed_policy="drop_lowest_priority",
+                    preemption_budget=1, aging_s=30.0,
+                    adaptive_sparsity=True, pressure_patience=1)
+
+    def mixed_full(sched):
+        return any(p.pattern == mixed and not p.free
+                   for p in sched.pools.values())
+
+    # (when, rid, override, priority, deadline): r4 is shed at its submit
+    # (the queue holds 4); r6, priority 9, arrives once the mixed pool is
+    # full and preempts; r7, with a 1 ms deadline, expires queued
+    plan = [(0, 0, mixed, 0, None), (0, 1, mixed, 0, None),
+            (0, 2, mixed, 0, None), (0, 3, None, 0, None),
+            (0, 4, None, 0, None), (1, 5, mixed, 0, None),
+            (mixed_full, 6, mixed, 9, None),
+            (mixed_full, 7, None, 1, 1e-3),
+            (3, 8, fa, 0, None), (3, 9, fa, 0, None),
+            (4, 10, None, 0, None), (4, 11, mixed, 0, None)]
+
+    def arrivals():
+        return [(k, Request(rid=rid, tokens=prompts[rid], n_steps=GEN,
+                            routing_override=ov, priority=prio,
+                            deadline_s=dl), 2e-3 if dl else 0.0)
+                for k, rid, ov, prio, dl in plan]
+
+    def run(telemetry, fault):
+        eng = ServeEngine(
+            params, cfg, max_len=PROMPT + GEN, prefill_chunk=CHUNK,
+            slo=slo, telemetry=telemetry,
+            profile_every=4 if telemetry else 0,
+            fidelity_probe_every=4 if telemetry else 0,
+            memory_ledger=telemetry, device=dev)
+        log = probe_log(eng)
+        sched = ContinuousScheduler(
+            eng, slots_per_bucket=4, chunk=8,
+            prefill_chunks_per_tick=PREFILL_CHUNKS_PER_TICK, slo=slo)
+        ledger = []
+
+        def check_ledger():
+            if eng.ledger is not None:
+                snap = eng.ledger.last()
+                ledger.append((snap.pool_payload_bytes
+                               + snap.pool_overhead_bytes,
+                               pool_bytes(sched)))
+        torch.cuda.synchronize()
+        KN.reset_launch_counts()
+        t0 = time.perf_counter()
+        out, levels, target, rows = guarded_drain(
+            eng, sched, arrivals(), cancel_tick=4, fault=fault,
+            on_tick=check_ledger)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (eng, sched, out, levels, target, log, ledger, wall,
+                KN.launch_counts(), eng._drain_summary(out), rows)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (eng, sched, out, levels, target, log, ledger, wall, counts,
+     summ, rows) = run(telemetry=True, fault=True)
+    peak = torch.cuda.max_memory_allocated(dev)
+    plain = run(telemetry=False, fault=True)
+    clean = run(telemetry=False, fault=False)
+    assert sorted(out) == list(range(12))  # each retired once
+    assert len(sched.finished) == 12
+    assert {f.status for f in out.values()} == set(STATUSES), \
+        {r: f.status for r, f in out.items()}
+    # telemetry and probes change no token; the fault reaches no sibling
+    for rid, f in out.items():
+        p = plain[2][rid]
+        assert (f.status, f.routing) == (p.status, p.routing), rid
+        assert np.array_equal(f.tokens, p.tokens), rid
+    tick, rid, sibs = target
+    assert clean[4] == target and out[rid].status == "failed"
+    # the siblings' logits after the poisoned tick, bitwise
+    assert torch.equal(rows, clean[10]) and torch.equal(rows, plain[10])
+    for s in sibs:
+        assert out[s].status == clean[2][s].status == "ok", s
+        assert np.array_equal(out[s].tokens, clean[2][s].tokens), s
+    # the dial: above rung 0, and an admission that routes a layer SA
+    # its rung-0 decision would route FA
+    assert max(levels) > 0, levels
+    moved = []
+    for (_, r, ov, _, _) in plan:
+        f = out[r]
+        if ov is None and f.routing is not None:
+            pf = MD.prefill(eng.params, cfg,
+                            torch.as_tensor(prompts[r][None, :CHUNK],
+                                            device=dev),
+                            routing_ctx="hard_prefix", want_cache=False)
+            fa0 = pf.p_fa.numpy() > 0.5
+            moved += [r for j, i in enumerate(cfg.routable_layers())
+                      if fa0[j] and f.routing[i] == "sa"]
+    assert moved, "no admission moved a layer FA -> SA"
+    # launches: the routing chunks, the streamed chunks, every probe's
+    # FA-only forward (flash at every layer) and the pool decode steps
+    n_probes = -(-eng._probe_admissions // eng.fidelity_probe_every)
+    assert n_probes == len(log) > 0
+    want = prefill_launches(cfg, sched.admissions)
+    want["flash_attention"] += n_probes * cfg.num_layers
+    want.update(decode_attention=0, decode_attention_pooled=sum(
+        p.steps for p in sched.pools.values()) * cfg.num_layers)
+    assert counts == want, (counts, want)
+    # telemetry surfaces
+    samples = parse_prometheus_text(eng.metrics_text())
+    path = ROOT / "artifacts" / "guarded_trace.json"  # git-ignored
+    path.parent.mkdir(exist_ok=True)
+    eng.export_trace(str(path))
+    trace = json.loads(path.read_text())
+    census = validate_trace(trace)
+    assert sorted(request_spans(trace)) == list(range(12))
+    assert ledger and all(a == b for a, b in ledger), ledger[:3]
+    rep = eng.profiler_report()
+    dec = next(p for p in rep["phases"] if p["phase"] == "decode")
+    hbm_share = dec["achieved_gbytes_per_s"] * 1e9 / HBM_BYTES_PER_S
+    assert 0 < hbm_share <= 1.05, hbm_share
+    led = eng.ledger_report()
+    assert led["reconciliation"]["payload_delta"] == 0
+    # one probe layer's flash: a 4096-token prompt's 32 heads, causal
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((cfg.num_heads, PROMPT, cfg.head_dim),
+                           generator=gen, device=dev, dtype=cfg.dtype)
+               for _ in range(3))
+    flash_ms = time_ms(lambda: flash_attention_bh(q, k, v))
+    flash_bound, by = bound(*attn_work(
+        cfg.num_heads, cfg.num_heads, PROMPT, cfg.head_dim, PROMPT,
+        PROMPT * (PROMPT + 1) // 2 * cfg.num_heads, 2))
+    cov = np.stack(log)
+    statuses = collections.Counter(f.status for f in out.values())
+    ttft_off = plain[9]["ttft_p50_s"]
+    lines = [
+        f"statuses={dict(statuses)} preemptions="
+        f"{sum(f.metrics.preemptions for f in out.values())} "
+        f"fault=tick {tick} rid {rid} siblings {sibs} bitwise; "
+        f"telemetry on = off bitwise; rung FA->SA moves={len(moved)}",
+        f"rungs={rung_text(levels)} ticks={sched.ticks} "
+        f"geometries={sched.n_geometries()}",
+        f"wall_s={wall:.3f} (telemetry off {plain[7]:.3f}) ttft_p50_s="
+        f"{summ['ttft_p50_s']:.3f} (off {ttft_off:.3f}) clean_wall_s="
+        f"{clean[7]:.3f}",
+        f"launches={counts} probes={n_probes}; a probe layer's flash "
+        f"({cfg.num_heads} x {PROMPT} x {cfg.head_dim}, causal) "
+        f"{flash_ms:.4f} ms device, bound {flash_bound:.4f} ms ({by})",
+        f"ledger: {len(ledger)} ticks reconciled, peak "
+        f"{eng.ledger.high_watermark} B (params {eng.ledger.params_bytes} "
+        f"B) vs max_memory_allocated {peak} B",
+        f"profiler: {rep['sampled_ticks']} sampled ticks, decode "
+        f"{dec['expressed_hbm_bytes']:.4g} B over {dec['device_s']:.4f} s "
+        f"= {hbm_share:.4f} of 3.35 TB/s, host {dec['host_s']:.4f} s; "
+        + " ".join(f"{p['phase']} dev {p['device_s']:.4f} s"
+                   for p in rep["phases"] if p["device_s"]),
+        f"coverage per layer (mean of {len(log)} probes): "
+        + " ".join(f"{x:.4f}" for x in cov.mean(0)),
+        f"metrics={len(samples)} names, trace {sum(census.values())} "
+        f"events {census}, card={torch.cuda.get_device_name(0)}"]
+    return counts, lines
+
+
 def check_kernels(dev):
     """Phase 3: every kernel against its plain version on the card.
     Returns {arch: {kernel: max abs error at that arch's main shapes}}."""
@@ -1656,6 +2090,24 @@ def main() -> int:
     say(12, f"{COMMAND_R} at full width, depth cut to {COMMAND_R_LAYERS} "
             f"of {get_config(COMMAND_R).num_layers} layers "
             f"({cfg.param_count()} parameters): batch path done", t0)
+    del params
+    free_card()
+
+    t0 = time.perf_counter()
+    say(13, guarded_parity(dev), t0)
+    free_card()
+
+    # phi3-mini's seeded weights again (phases 6-8 dropped them for
+    # stablelm's and command-r's): the same generator seed, the same
+    # weights
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    counts["guardrails"], lines = guarded_path(dev, params, cfg)
+    for line in lines:
+        say(14, line)
+    say(14, "guarded path done", t0)
     del params
     free_card()
 

@@ -7,16 +7,20 @@ Its attention kernels are written by hand in CUDA C++ for Hopper
 (``kernels/csrc``); entry points run on ``cuda`` unless the caller asks
 for ``device="cpu"``, where every kernel runs its plain PyTorch version.
 """
+from __future__ import annotations
+
 from typing import Optional, Union
 
-import torch
 
-
-def resolve_device(device: Optional[Union[str, torch.device]] = None
-                   ) -> torch.device:
+def resolve_device(device: Optional[Union[str, "torch.device"]] = None
+                   ) -> "torch.device":
     """The device an entry point runs on: ``cuda`` unless the caller
     names another. Raises when CUDA is asked for and there is none, so
-    nothing falls back to the CPU unasked."""
+    nothing falls back to the CPU unasked. (torch is imported here, not
+    with the package, so the host-only validators
+    ``python -m repro_torch.serve.telemetry`` / ``.tracing`` start
+    without it.)"""
+    import torch
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

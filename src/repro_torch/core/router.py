@@ -5,10 +5,13 @@ Prefix(-suffix) pooling over the boundary ``pool_size`` tokens of the
 layer's incoming query tensor → Context-Encoder MLP → Router-Head MLP →
 2 routing logits (π_FA, π_SA); inference takes the argmax (§3.3). Router
 params are float32. Gumbel soft routing waits for the training slice
-(ROADMAP Queue 1 item 15).
+(ROADMAP Queue 1 item 15). The serving telemetry's decision margins and
+their drift per sparsity rung (``decision_margin``,
+``MarginDriftTracker``) are pure host arithmetic.
 """
 from __future__ import annotations
 
+from collections import deque
 from typing import Dict, Tuple
 
 import torch
@@ -109,3 +112,75 @@ def sa_biased_threshold(level: int, *, step: float = 0.15,
     rung, levels clamped to [0, max_level], never reaching 1.0."""
     lv = max(0, min(int(level), int(max_level)))
     return min(0.5 + lv * float(step), 0.999)
+
+
+def decision_margin(p_fa: float, level: int, *, step: float = 0.15,
+                    max_level: int = 3) -> float:
+    """Signed score-vs-threshold margin of one hard routing decision:
+    ``p_fa`` minus the rung's ``sa_biased_threshold`` (positive = the
+    FA side of the cut, level 0 = the paper's 0.5 argmax).
+
+    The serving telemetry observes this per routed layer at admission
+    time (the ``flux_router_margin`` histogram): a margin
+    distribution hugging zero means the router is deciding on a knife
+    edge — exactly the layers a sparsity-rung change will flip.
+    """
+    return float(p_fa) - sa_biased_threshold(level, step=step,
+                                             max_level=max_level)
+
+
+class MarginDriftTracker:
+    """Decision-margin drift over the request stream, keyed by
+    (layer, sa_level) rung.
+
+    Pure-host bookkeeping (no tensors): the serving engine feeds it the
+    same per-layer ``decision_margin`` floats it already observes into
+    the margin histograms.  Per key it keeps a Welford lifetime mean
+    and a bounded window of recent margins; **drift** is
+    ``recent_mean − lifetime_mean`` — positive drift at a rung means
+    the router has been deciding more FA-ward than it historically did
+    there, i.e. the traffic mix shifted under a fixed dial setting.
+    That is the early-warning signal the load-adaptive sparsity dial
+    needs before a rung change starts flipping layers."""
+
+    __slots__ = ("window", "_stats")
+
+    def __init__(self, window: int = 256):
+        if window < 1:
+            raise ValueError(
+                f"MarginDriftTracker: window={window} must be >= 1")
+        self.window = int(window)
+        # (layer, sa_level) -> [count, lifetime_mean, recent deque]
+        self._stats: Dict[Tuple[int, int], list] = {}
+
+    def observe(self, layer: int, sa_level: int, margin: float) -> None:
+        key = (int(layer), int(sa_level))
+        st = self._stats.get(key)
+        if st is None:
+            st = self._stats[key] = [0, 0.0, deque(maxlen=self.window)]
+        st[0] += 1
+        st[1] += (float(margin) - st[1]) / st[0]  # Welford mean
+        st[2].append(float(margin))
+
+    def drift(self, layer: int, sa_level: int) -> float:
+        st = self._stats.get((int(layer), int(sa_level)))
+        if st is None or not st[2]:
+            return 0.0
+        return sum(st[2]) / len(st[2]) - st[1]
+
+    def keys(self) -> Tuple[Tuple[int, int], ...]:
+        return tuple(sorted(self._stats))
+
+    def report(self) -> Dict[str, Dict[str, float]]:
+        """{"layer:level": {count, lifetime_mean, recent_mean, drift}}
+        — JSON-ready for the drain summary / ledger report."""
+        out: Dict[str, Dict[str, float]] = {}
+        for (layer, level), st in sorted(self._stats.items()):
+            recent = (sum(st[2]) / len(st[2])) if st[2] else 0.0
+            out[f"{layer}:{level}"] = {
+                "count": float(st[0]),
+                "lifetime_mean": st[1],
+                "recent_mean": recent,
+                "drift": recent - st[1],
+            }
+        return out

@@ -39,6 +39,19 @@ bytes. ``--profile`` then serves the requests again under
 the whole batch) and prints where the time went: the device's busy share
 of the wall time and the operators with the most device (or, on the CPU,
 host) time.
+
+Guardrails (``serve/slo.py``), all off by default: ``--max-queue`` and
+``--shed-policy`` bound the waiting queue, ``--deadline-s`` gives every
+request a deadline, ``--preemption-budget`` and ``--aging-s`` bound
+preemption and starvation, ``--adaptive-sparsity`` turns the load →
+sparsity dial on. Observability: ``--metrics-out m.prom`` and
+``--trace-out t.json`` write the Prometheus text and the Perfetto trace
+(request spans exist on the ``--continuous`` path); validate them with
+``python -m repro_torch.serve.telemetry m.prom`` and ``python -m
+repro_torch.serve.tracing t.json``. ``--profile-every N`` samples every
+Nth tick for the cost profiler, ``--fidelity-probe-every N`` probes every
+Nth admission's attention-mass coverage, and ``--ledger-out l.json``
+writes the memory ledger's reconciled report.
 """
 from __future__ import annotations
 
@@ -55,7 +68,9 @@ from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 from repro_torch.models.model import init_params
 from repro_torch.serve.engine import (Request, ServeEngine,
                                       serve_batch_finished)
-from repro_torch.serve.scheduler import STATUS_OK, ContinuousScheduler
+from repro_torch.serve.scheduler import ContinuousScheduler
+from repro_torch.serve.slo import (SHED_POLICIES, SHED_REJECT_NEWEST,
+                                   STATUS_OK, SLOConfig)
 
 ROUTINGS = ("router", "fa", "sa", "mixed")
 
@@ -136,7 +151,7 @@ def serve_continuous(engine, reqs, *, slots: int, chunk: int,
     # a scheduler registers with its engine: engine.submit / step use it
     sched = ContinuousScheduler(
         engine, slots_per_bucket=slots, chunk=chunk,
-        prefill_chunks_per_tick=PREFILL_CHUNKS_PER_TICK)
+        prefill_chunks_per_tick=PREFILL_CHUNKS_PER_TICK, slo=engine.slo)
     arrivals = np.cumsum(np.random.default_rng(1).exponential(
         mean_gap, len(reqs)))
     t0 = time.monotonic()
@@ -169,6 +184,46 @@ def print_prefix_cache(engine, hits, reqs) -> None:
           f" | device={s.device_bytes} B host={s.host_bytes} B "
           f"snapshots={s.snapshots} demotions={s.demotions} "
           f"drops={s.drops}")
+
+
+def write_telemetry(engine, args) -> None:
+    """Export the run's telemetry to the paths the flags named, and
+    print the profiler's table (nothing when no flag asked)."""
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(engine.metrics_text())
+        print(f"metrics → {args.metrics_out}")
+    if args.trace_out:
+        engine.export_trace(args.trace_out)
+        print(f"trace   → {args.trace_out} "
+              f"(open in https://ui.perfetto.dev)")
+    if args.profile_every:
+        rep = engine.profiler_report()
+        print(f"profiler on {engine.device}: {rep['sampled_ticks']} "
+              f"sampled ticks (every {rep['every']})")
+        for ph in rep["phases"]:
+            print(f"  {ph['phase']:>14}: host={ph['host_s'] * 1e3:8.2f}ms "
+                  f"device={ph['device_s'] * 1e3:8.2f}ms "
+                  f"achieved={ph['achieved_gflops_per_s']:7.1f} GFLOP/s "
+                  f"{ph['achieved_gbytes_per_s']:6.1f} GB/s "
+                  f"n={ph['count']}")
+    if args.ledger_out:
+        rep = engine.attribution_report()
+        with open(args.ledger_out, "w") as f:
+            json.dump(rep, f, indent=2)
+        snap = rep["ledger"]["snapshot"]
+        if snap is None:
+            print(f"ledger  → {args.ledger_out} (no tick snapshots; use "
+                  f"--continuous for the per-tick ledger)")
+        else:
+            recon = rep["ledger"]["reconciliation"]
+            print(f"ledger  → {args.ledger_out} | "
+                  f"device={snap['device_bytes']} B "
+                  f"hwm={snap['device_high_watermark_bytes']} B "
+                  f"frag={snap['fragmentation_bytes']} B | reconciliation "
+                  f"payload_delta={recon['payload_delta']} "
+                  f"overhead_delta={recon['overhead_delta']} "
+                  f"(aux={rep['ledger']['aux_bytes']})")
 
 
 def main(argv=None) -> None:
@@ -209,6 +264,43 @@ def main(argv=None) -> None:
                          "tokens to every request")
     ap.add_argument("--profile", action="store_true",
                     help="serve the requests again under torch.profiler")
+    # SLO guardrails (serve/slo.py); all off by default
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bound on the waiting queue; overflow is shed "
+                         "per --shed-policy (0 = unbounded)")
+    ap.add_argument("--shed-policy", choices=SHED_POLICIES,
+                    default=SHED_REJECT_NEWEST,
+                    help="whom a full queue rejects")
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help="default per-request deadline in seconds; "
+                         "expired work retires with status 'timeout' "
+                         "(0 = no deadline)")
+    ap.add_argument("--preemption-budget", type=int, default=-1,
+                    help="max recompute preemptions per request before "
+                         "it keeps its slot (-1 = unbudgeted)")
+    ap.add_argument("--aging-s", type=float, default=0.0,
+                    help="waiting seconds per +1 admission priority "
+                         "(0 = no aging)")
+    ap.add_argument("--adaptive-sparsity", action="store_true",
+                    help="bias Layer Router decisions toward SA under "
+                         "queue pressure (load-adaptive sparsity dial)")
+    # telemetry; either flag turns it on
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the run's metrics here as Prometheus text")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the request-span Chrome-trace / Perfetto "
+                         "JSON here (open in https://ui.perfetto.dev)")
+    ap.add_argument("--profile-every", type=int, default=0,
+                    help="sample every Nth scheduler tick for the host / "
+                         "device cost profiler (device syncs on sampled "
+                         "ticks only; 0 = off)")
+    ap.add_argument("--fidelity-probe-every", type=int, default=0,
+                    help="probe every Nth admission's attention-mass "
+                         "coverage per routed layer (0 = off)")
+    ap.add_argument("--ledger-out", default=None,
+                    help="turn the memory ledger on and write its "
+                         "reconciled report (with the profiler table when "
+                         "--profile-every is set) here as JSON")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -224,7 +316,18 @@ def main(argv=None) -> None:
         max_len=args.shared_prefix + args.prompt_len + args.gen_len,
         prefill_chunk=args.prefill_chunk or None,
         prefix_cache_mb=args.prefix_cache_mb or None,
-        prefix_cache_host_mb=args.prefix_cache_host_mb, device=device)
+        prefix_cache_host_mb=args.prefix_cache_host_mb,
+        slo=SLOConfig(
+            max_queue=args.max_queue or None, shed_policy=args.shed_policy,
+            default_deadline_s=args.deadline_s or None,
+            preemption_budget=(None if args.preemption_budget < 0
+                               else args.preemption_budget),
+            aging_s=args.aging_s or None,
+            adaptive_sparsity=args.adaptive_sparsity),
+        telemetry=bool(args.metrics_out or args.trace_out),
+        profile_every=args.profile_every,
+        fidelity_probe_every=args.fidelity_probe_every,
+        memory_ledger=bool(args.ledger_out), device=device)
     rng = np.random.default_rng(0)
     shared = np.random.default_rng(2).integers(0, cfg.vocab_size,
                                                args.shared_prefix)
@@ -239,23 +342,28 @@ def main(argv=None) -> None:
     reset_launch_counts()
     if args.continuous:
         _continuous_main(engine, reqs, args, device)
+        write_telemetry(engine, args)
         return
     done = serve_batch_finished(engine, reqs)
     for rid in sorted(done):
         f = done[rid]
-        print(json.dumps({
-            "rid": rid, "tokens": f.tokens.tolist(),
-            "routing": "".join(p[0] for p in f.routing),
-            "msr": f.result.msr, "wall_s": round(f.wall_s, 4),
-            "prefill_s": round(f.result.prefill_s, 4),
-            "decode_s": round(f.result.decode_s, 4),
-            "kv_bytes": f.result.kv_bytes,
-            "prefix_hit_tokens": f.result.prefix_hit_tokens}))
+        line = {"rid": rid, "status": f.status, "tokens": f.tokens.tolist()}
+        if f.result is not None:  # its bucket ran
+            line.update(
+                routing="".join(p[0] for p in f.routing),
+                msr=f.result.msr, wall_s=round(f.wall_s, 4),
+                prefill_s=round(f.result.prefill_s, 4),
+                decode_s=round(f.result.decode_s, 4),
+                kv_bytes=f.result.kv_bytes,
+                prefix_hit_tokens=f.result.prefix_hit_tokens)
+        print(json.dumps(line))
     print(json.dumps({"device": str(device), "launches": launch_counts()}))
     print_prefix_cache(engine, {rid: f.result.prefix_hit_tokens
-                                for rid, f in done.items()}, reqs)
+                                for rid, f in done.items()
+                                if f.result is not None}, reqs)
     if args.profile:
         print(json.dumps({"profile": profile_batch(engine, reqs, device)}))
+    write_telemetry(engine, args)
 
 
 def _continuous_main(engine, reqs, args, device) -> None:
@@ -271,7 +379,8 @@ def _continuous_main(engine, reqs, args, device) -> None:
         print(json.dumps({
             "rid": rid, "status": f.status, "prompt_len": m.prompt_len,
             "tokens": f.tokens.tolist(),
-            "routing": "".join(p[0] for p in f.routing),
+            "routing": ("".join(p[0] for p in f.routing)
+                        if f.routing is not None else None),
             "ttft_s": round(m.ttft, 4),
             "queue_delay_s": round(m.queue_delay, 4),
             "decode_tok_s": round(m.decode_tps, 2),

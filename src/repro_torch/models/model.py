@@ -426,3 +426,54 @@ def snapshot_state(caches: List, logits: torch.Tensor):
     a restored job must not alias the store's. ``clone`` rather than an
     arithmetic identity: ``x + 0`` would flip ``-0.0``."""
     return KC.map_buffers(caches, torch.Tensor.clone), logits.clone()
+
+
+# ---------------------------------------------------------------------------
+# Routing-fidelity probe
+# ---------------------------------------------------------------------------
+
+def attention_mass_coverage(params, cfg: ModelConfig,
+                            tokens: torch.Tensor) -> torch.Tensor:
+    """Per-routed-layer FA attention mass retained by the SA window: the
+    serving stack's routing-fidelity probe.
+
+    Runs an FA-only forward (every attention layer on the flash kernel
+    on the card) and, at every routed layer, asks: of the full-attention
+    softmax mass the last query spreads over the prompt, what fraction
+    lands on keys the sink+local window keeps? 1.0 means routing the
+    layer to SA loses nothing for the next decoded token. Scores are
+    float32 whatever the model's dtype.
+
+    The JAX package pads the prompt to a power-of-two bucket with a
+    traced length to bound its jit cache; the port compiles nothing, so
+    ``tokens`` (B, S) is the prompt itself. Returns (n_routed,) float32
+    on the CPU, in ``cfg.routable_layers()`` order."""
+    if cfg.use_mla:
+        raise NotImplementedError(
+            "attention_mass_coverage over MLA latents waits for ROADMAP "
+            "Queue 1 item 11")
+    h = embed_tokens(params, cfg, tokens)
+    S = h.shape[1]
+    positions = torch.arange(S, device=h.device)
+    sa = sa_mode(cfg)
+    q_idx = S - 1
+    kv_pos = torch.arange(S, device=h.device)
+    vis = (kv_pos < sa.sink) | (q_idx - kv_pos < sa.local)
+    covs = []
+    for i, bp in enumerate(params["layers"]):
+        if is_routed(cfg, i):
+            # the (cheap) projections again, rather than threading probe
+            # plumbing through block_apply's cache contract
+            x = rms_norm(bp["norm1"], h, cfg.norm_eps)
+            q, k, _, _ = A.gqa_qkv(bp["attn"], cfg, x, positions)
+            G = q.shape[1] // k.shape[1]
+            if G > 1:  # kv-major head order: head j reads kv head j // G
+                k = k.repeat_interleave(G, dim=1)
+            s = torch.einsum("bhd,bhsd->bhs", q[:, :, q_idx].float(),
+                             k.float()) * (q.shape[-1] ** -0.5)
+            p = torch.softmax(s, dim=-1)
+            covs.append((p * vis).sum(dim=-1).mean())
+        h, _, _ = block_apply(bp, cfg, i, h, positions, ("fa_only",))
+    if not covs:
+        return torch.zeros((0,), dtype=torch.float32)
+    return torch.stack(covs).cpu()

@@ -30,15 +30,25 @@ through ``generate``; ``submit`` / ``step`` / ``drain`` feed the
 continuous-batching slot pool (``serve/scheduler.py``), whose decode runs
 one position per slot on the pooled decode kernel.
 
-Not ported yet: telemetry, SLO guardrails and device meshes (ROADMAP
-Queue 1 items 10 and 16).
+Guardrails and observability (``serve/slo.py``, ``serve/telemetry.py``,
+``serve/tracing.py``), all off by default: the SLO config and the
+load-adaptive sparsity rung (``set_sa_level`` raises the router's FA
+threshold for later admissions); a metrics registry, a request-span
+tracer and a tick flight recorder (``metrics_text``, ``export_trace``);
+a sampled tick profiler with the analytic expressed decode cost, a
+memory ledger and routing-fidelity probes (``profiler_report``,
+``ledger_report``, ``attribution_report``); and ``cancel`` /
+``inject_fault`` on the slot pool. Off, the engine runs exactly the
+kernels and device reads it runs without them.
+
+Not ported yet: device meshes (ROADMAP Queue 1 item 16b).
 """
 from __future__ import annotations
 
 import time
 import warnings
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,9 +57,18 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import router as RT
+from repro_torch.kernels import launch_counts
+from repro_torch.launch import hlo_costs as HL
 from repro_torch.models import model as MD
 from repro_torch.serve import kv_cache as KC
 from repro_torch.serve import prefix_cache as PXC
+from repro_torch.serve import slo as SLO
+from repro_torch.serve import telemetry as TM
+from repro_torch.serve import tracing as TR
+
+# the key tile of the pooled decode kernel (``csrc/decode_split.cuh``):
+# the profiler's expressed cost counts a kernel layer's live keys in it
+POOLED_KERNEL_BLOCK_K = 64
 
 
 # ---------------------------------------------------------------------------
@@ -203,7 +222,13 @@ class ChunkedPrefill:
     With the engine's prefix store and ``reuse``, the job starts from the
     deepest matching chunk-boundary snapshot (its ``prefix_hit_tokens``
     skip straight past their chunks: no prefill work is issued for them)
-    and publishes a snapshot at every full-chunk boundary it streams."""
+    and publishes a snapshot at every full-chunk boundary it streams.
+
+    ``sa_level`` is the sparsity rung at the job's start, frozen so that
+    a dial change mid-prefill cannot split one request across two
+    routing regimes. ``dispatches`` counts its engine calls the way the
+    JAX engine counts compiled calls (routing chunk 2, a streamed chunk
+    1, a prefix restore 1, a published snapshot 1)."""
     engine: "ServeEngine"
     tokens: torch.Tensor                   # (B, S) on the engine's device
     host_tokens: np.ndarray                # the same (B, S), on the host
@@ -215,6 +240,8 @@ class ChunkedPrefill:
     logits: Optional[torch.Tensor] = None
     p_fa: Optional[np.ndarray] = None
     reuse: bool = True                     # participate in the prefix store
+    sa_level: int = 0                      # sparsity rung at the start
+    dispatches: int = 0                    # engine calls issued so far
     prefix_hit_tokens: int = 0             # prompt tokens seeded from a hit
     chunks_streamed: int = 0               # chunks actually computed
     published: int = 0                     # boundary snapshots published
@@ -239,6 +266,7 @@ class ChunkedPrefill:
         else:
             self.logits, self.caches = MD.prefill_chunk(
                 eng.params, eng.cfg, chunk, self.caches, start)
+            self.dispatches += 1
         self.chunks_streamed += 1
         self.idx += 1
         eng._maybe_publish(self, start, size)
@@ -247,14 +275,18 @@ class ChunkedPrefill:
         eng, cfg = self.engine, self.engine.cfg
         routing_ctx, fixed = eng._routing_ctx(self.override)
         pf = MD.prefill(eng.params, cfg, chunk, routing_ctx=routing_ctx,
-                        fixed_pattern=fixed)
+                        fixed_pattern=fixed,
+                        fa_threshold=eng._rung_threshold(self.sa_level,
+                                                         routing_ctx))
         decisions = (pf.routing.numpy() if pf.routing is not None
                      else None)
         self.pattern = eng._pattern(decisions, self.override)
         self.p_fa = None if pf.p_fa is None else pf.p_fa.numpy()
+        eng._record_routing(self.pattern, self.p_fa, self.sa_level)
         self.caches = seed_caches(cfg, pf.caches, self.pattern,
                                   chunk.shape[0], eng.max_len, eng.device)
         self.logits = pf.logits
+        self.dispatches += 2  # routing prefill + the seed insert
 
 
 @dataclass
@@ -282,6 +314,15 @@ class ServeEngine:
     fallback). ``device`` defaults to cuda; the weights are moved there.
     ``prefix_cache_mb`` enables the shared-prefix snapshot store with that
     device budget (MB), ``prefix_cache_host_mb`` its pinned host tier.
+
+    Guardrails and observability, all off by default: ``slo`` the
+    guardrail config (``serve/slo.py``); ``telemetry`` a metrics
+    registry, a request-span tracer and a flight recorder of the last
+    ``flight_recorder_ticks`` scheduler ticks; ``profile_every`` > 0
+    samples every Nth tick for the host / device cost profiler;
+    ``fidelity_probe_every`` > 0 probes every Nth admission's attention
+    mass coverage; ``memory_ledger`` the device-byte ledger. Each of the
+    last three turns telemetry on.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_len: int = 4096,
@@ -289,12 +330,22 @@ class ServeEngine:
                  prefill_chunk: Optional[int] = 512,
                  routing_pooling: str = "prefix",
                  prefix_cache_mb: Optional[float] = None,
-                 prefix_cache_host_mb: float = 0.0, device=None):
+                 prefix_cache_host_mb: float = 0.0,
+                 slo: Optional[SLO.SLOConfig] = None,
+                 telemetry: bool = False,
+                 flight_recorder_ticks: int = 512,
+                 profile_every: int = 0,
+                 fidelity_probe_every: int = 0,
+                 memory_ledger: bool = False, device=None):
         if routing_pooling not in ("prefix", "prefix_suffix"):
             raise ValueError(
                 f"routing_pooling={routing_pooling!r}: expected 'prefix' "
                 f"(chunk-invariant serving default) or 'prefix_suffix' "
                 f"(the paper's pooling; forces the monolithic prefill)")
+        if profile_every < 0 or fidelity_probe_every < 0:
+            raise ValueError(
+                f"profile_every={profile_every} / fidelity_probe_every="
+                f"{fidelity_probe_every} must be >= 0 (0 disables)")
         MD.check_supported(cfg)
         self.device = resolve_device(device)
         self.params = MD.params_to(params, self.device)
@@ -309,6 +360,40 @@ class ServeEngine:
         self._snap_skip_warned: set = set()
         self.prefix_store = self._build_prefix_store(prefix_cache_mb,
                                                      prefix_cache_host_mb)
+        # engine calls (prefill, seed, stream chunk, decode chunk, snapshot
+        # copy, probe), counted as the JAX engine counts compiled calls
+        self.dispatch_count = 0
+        # SLO guardrails; ``sa_level`` is the load-adaptive sparsity rung,
+        # 0 (the router's argmax) unless a scheduler's LoadTracker turns it
+        self.slo = slo if slo is not None else SLO.SLOConfig()
+        self.sa_level = 0
+        self.profiler = (TM.TickProfiler(profile_every)
+                         if profile_every else None)
+        self.fidelity_probe_every = int(fidelity_probe_every)
+        self._probe_admissions = 0    # admissions seen by the probe dial
+        self._params_cost_cache: Optional[Tuple[int, int]] = None
+        self._cost_specs: Dict[Tuple, List[Tuple]] = {}
+        telemetry = bool(telemetry or profile_every or fidelity_probe_every
+                         or memory_ledger)
+        # decision-margin drift per (layer, sa_level), fed by
+        # _record_routing from host floats
+        self.margin_drift = (RT.MarginDriftTracker() if telemetry
+                             else None)
+        self.ledger = (TM.MemoryLedger(params_bytes=self._params_cost()[1])
+                       if memory_ledger else None)
+        # off, every instrumented path is one ``is not None`` test, so the
+        # engine launches and reads exactly what it does without telemetry
+        if telemetry:
+            self.telemetry: Optional[TM.MetricsRegistry] = \
+                TM.MetricsRegistry()
+            self.tracer: Optional[TR.SpanTracer] = TR.SpanTracer()
+            self.flight_recorder: Optional[TM.FlightRecorder] = \
+                TM.FlightRecorder(flight_recorder_ticks)
+            self._register_core_metrics()
+        else:
+            self.telemetry = None
+            self.tracer = None
+            self.flight_recorder = None
 
     def _build_prefix_store(self, prefix_cache_mb, prefix_cache_host_mb
                             ) -> Optional[PXC.PrefixStore]:
@@ -386,6 +471,324 @@ class ServeEngine:
         return "fixed", [0 if override[i] == "sa" else 1
                          for i in range(cfg.num_layers)]
 
+    # -- load-adaptive sparsity dial (serve/slo.py) -------------------------
+    def set_sa_level(self, level: int) -> None:
+        """Set the sparsity rung for later admissions (running jobs keep
+        the rung they started with), clamped to the config's ladder."""
+        self.sa_level = max(0, min(int(level), self.slo.sa_level_max))
+
+    def fa_threshold(self, level: Optional[int] = None) -> float:
+        """FA-decision threshold at ``level`` (default: the current rung)
+        on the config's ladder."""
+        lv = self.sa_level if level is None else level
+        return RT.sa_biased_threshold(lv, step=self.slo.sa_threshold_step,
+                                      max_level=self.slo.sa_level_max)
+
+    def _rung_threshold(self, level: int, routing_ctx: str
+                        ) -> Optional[float]:
+        """The router threshold an admission at ``level`` prefills with:
+        None (the 0.5 argmax, as without the dial) at rung 0 or outside
+        the hard routing contexts."""
+        if level > 0 and routing_ctx in ("hard", "hard_prefix"):
+            return self.fa_threshold(level)
+        return None
+
+    # -- telemetry -----------------------------------------------------------
+    def _register_core_metrics(self) -> None:
+        """Pre-register the always-present metrics so ``metrics_text``
+        has a stable schema from the first scrape, and hook the prefix
+        store's events into the registry."""
+        reg = self.telemetry
+        reg.gauge("flux_sa_level",
+                  "load-adaptive sparsity rung (0 = neutral routing)")
+        reg.gauge("flux_load_pressure",
+                  "LoadTracker queue-pressure signal in [0, 1]")
+        reg.gauge("serve_queue_depth", "waiting requests after admission")
+        reg.gauge("serve_slots_active", "resident decode slots, all pools")
+        reg.gauge("serve_slots_capacity", "total decode slots, all pools")
+        reg.counter("serve_ticks_total", "scheduler ticks")
+        reg.counter("serve_tokens_generated_total",
+                    "tokens accepted from decode chunks")
+        reg.counter("serve_requests_submitted_total", "requests submitted")
+        reg.counter("serve_prefill_chunks_total",
+                    "prefill chunks streamed as tick work")
+        reg.counter("serve_preemptions_total", "recompute preemptions")
+        reg.counter("serve_dispatches_total", "engine calls issued")
+        reg.counter("flux_sa_transitions_total",
+                    "sparsity-dial rung changes, either direction")
+        reg.gauge("prefix_store_device_bytes",
+                  "prefix snapshot store occupancy, device tier")
+        reg.gauge("prefix_store_host_bytes",
+                  "prefix snapshot store occupancy, host tier")
+        for status in SLO.STATUSES:
+            reg.counter("serve_requests_finished_total",
+                        "retired requests by terminal status",
+                        status=status)
+        for i in self.cfg.routable_layers():
+            for d in ("fa", "sa"):
+                reg.counter("flux_router_decisions_total",
+                            "hard routing decisions at admission time",
+                            layer=str(i), decision=d)
+        if self.fidelity_probe_every:
+            for i in self.cfg.routable_layers():
+                for d in ("fa", "sa"):
+                    reg.histogram(
+                        "flux_fidelity_coverage",
+                        "fraction of the full-attention mass of the last "
+                        "prompt token retained by the routed SA window, "
+                        "per routed layer (probe admissions only)",
+                        layer=str(i), decision=d)
+        if self.prefix_store is not None:
+            self.prefix_store.on_event = self._prefix_store_event
+
+    def _prefix_store_event(self, event: str) -> None:
+        self.telemetry.counter("prefix_store_events_total",
+                               "prefix store lifecycle events",
+                               event=event).inc()
+
+    def _record_routing(self, pattern, p_fa: Optional[np.ndarray],
+                        sa_level: int) -> None:
+        """Count one admission's per-layer FA/SA decisions and their
+        threshold margins, from host values the admission already read."""
+        reg = self.telemetry
+        if reg is None or pattern is None:
+            return
+        for j, i in enumerate(self.cfg.routable_layers()):
+            d = pattern[i]
+            if d not in ("fa", "sa"):
+                continue
+            reg.counter("flux_router_decisions_total",
+                        layer=str(i), decision=d).inc()
+            if p_fa is not None and j < len(p_fa):
+                margin = RT.decision_margin(
+                    float(p_fa[j]), sa_level,
+                    step=self.slo.sa_threshold_step,
+                    max_level=self.slo.sa_level_max)
+                reg.histogram(
+                    "flux_router_margin",
+                    "router p_fa minus the (possibly SA-biased) decision "
+                    "threshold; positive = FA side",
+                    layer=str(i)).observe(margin)
+                self.margin_drift.observe(i, sa_level, margin)
+
+    def _refresh_gauges(self) -> None:
+        """Point-in-time gauges from host state (scheduler occupancy,
+        prefix store tiers, the dial, the ledger), per tick and at scrape
+        time."""
+        reg = self.telemetry
+        reg.gauge("flux_sa_level").set(self.sa_level)
+        if self.prefix_store is not None:
+            reg.gauge("prefix_store_device_bytes").set(
+                self.prefix_store.device_bytes)
+            reg.gauge("prefix_store_host_bytes").set(
+                self.prefix_store.host_bytes)
+        sched = self._scheduler
+        if sched is not None:
+            reg.gauge("flux_load_pressure").set(sched.load.pressure)
+            reg.gauge("serve_queue_depth").set(len(sched.waiting))
+            reg.gauge("serve_slots_active").set(sched.n_active())
+            reg.gauge("serve_slots_capacity").set(
+                sum(p.capacity for p in sched.pools.values()))
+        md = self.margin_drift
+        for layer, level in md.keys():
+            reg.gauge(
+                "flux_router_margin_drift",
+                "recent-minus-lifetime mean router decision margin, per "
+                "(layer, sparsity rung) — nonzero means the traffic mix "
+                "shifted under a fixed dial setting",
+                layer=str(layer), sa_level=str(level)).set(
+                    md.drift(layer, level))
+        led = self.ledger
+        snap = led.last() if led is not None else None
+        if snap is not None:
+            reg.gauge("serve_ledger_device_bytes",
+                      "memory ledger: tracked device bytes (pools + "
+                      "prefix device tier + params)").set(snap.device_bytes)
+            reg.gauge("serve_ledger_pool_live_bytes",
+                      "memory ledger: payload bytes in occupied slots"
+                      ).set(snap.pool_live_bytes)
+            reg.gauge("serve_ledger_pool_stranded_bytes",
+                      "memory ledger: payload bytes in empty slots"
+                      ).set(snap.pool_stranded_bytes)
+            reg.gauge("serve_ledger_fragmentation_bytes",
+                      "memory ledger: empty-slot bytes in pools whose "
+                      "geometry matches no queued work").set(
+                          snap.fragmentation_bytes)
+            reg.gauge("serve_ledger_device_high_watermark_bytes",
+                      "memory ledger: lifetime peak of tracked device "
+                      "bytes").set(led.high_watermark)
+
+    def metrics_text(self) -> str:
+        """Current metrics as Prometheus text exposition format."""
+        if self.telemetry is None:
+            raise ValueError(
+                "metrics_text: telemetry is disabled — construct the "
+                "ServeEngine with telemetry=True (or pass --metrics-out "
+                "to launch/serve.py)")
+        self._refresh_gauges()
+        return self.telemetry.render()
+
+    def export_trace(self, path: str) -> None:
+        """Write the request-span trace as Chrome-trace / Perfetto JSON
+        (open in chrome://tracing or https://ui.perfetto.dev)."""
+        if self.tracer is None:
+            raise ValueError(
+                "export_trace: telemetry is disabled — construct the "
+                "ServeEngine with telemetry=True (or pass --trace-out "
+                "to launch/serve.py)")
+        self.tracer.export(path)
+
+    # -- cost attribution (profiler / ledger / probes) ----------------------
+    def _params_cost(self) -> Tuple[int, int]:
+        """(parameter count, parameter bytes), from shapes only, walked
+        once (the linear decode cost and the ledger's params line)."""
+        if self._params_cost_cache is None:
+            leaves = []
+
+            def walk(t):
+                if isinstance(t, torch.Tensor):
+                    leaves.append(t)
+                else:
+                    for v in (t.values() if isinstance(t, dict) else t):
+                        walk(v)
+            walk(self.params)
+            self._params_cost_cache = (sum(t.numel() for t in leaves),
+                                       sum(t.nbytes for t in leaves))
+        return self._params_cost_cache
+
+    def device_sync(self) -> None:
+        """The profiler's timed sync boundary, taken on sampled ticks
+        only: wait for the card's queued work (nothing to wait for on
+        the CPU, where every operation has returned)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _pool_layer_specs(self, pool) -> List[Tuple]:
+        """Per-attention-layer (buffer_len, n_q_heads, n_kv_heads, d_k,
+        d_v, dtype_bytes) of one slot pool, from its cache shapes, cached
+        per slot geometry."""
+        key = pool.slot_geometry()
+        specs = self._cost_specs.get(key)
+        if specs is None:
+            hq = self.cfg.num_heads
+            specs = self._cost_specs[key] = [
+                (c.k.shape[2], hq, c.k.shape[1], c.k.shape[-1],
+                 c.v.shape[-1], c.k.element_size()) for c in pool.caches]
+        return specs
+
+    def _expressed_decode_cost(self, pool, n_steps: int) -> Dict[str, Any]:
+        """Analytic expressed FLOPs / HBM bytes of ``n_steps`` pooled
+        decode steps on ``pool`` (``launch/hlo_costs`` conventions), from
+        static shapes and host-known lengths. On the card every attention
+        layer runs the pooled split kernel, which reads each slot's live
+        keys in 64-key tiles; on the CPU the plain version sweeps the
+        whole buffer (all dense)."""
+        specs = self._pool_layer_specs(pool)
+        lengths = [1] * pool.capacity  # free rows park at position 0
+        for slot, inf in pool.active.items():
+            lengths[slot] = max(
+                1, inf.metrics.prompt_len + len(inf.generated))
+        hits = ([True] * len(specs) if pool.logits.is_cuda else None)
+        attn = HL.pooled_decode_tick_cost(lengths, specs, n_steps=n_steps,
+                                          kernel_hits=hits,
+                                          block_k=POOLED_KERNEL_BLOCK_K)
+        n_params, params_bytes = self._params_cost()
+        lin = HL.decode_linear_cost(n_params, params_bytes,
+                                    batch=pool.capacity, n_steps=n_steps)
+        return {
+            "flops": attn["flops"] + lin["flops"],
+            "hbm_bytes": attn["hbm_bytes"] + lin["hbm_bytes"],
+            "kernel_hit": attn["kernel_hit"],
+            "kernel_decline": attn["kernel_decline"],
+        }
+
+    def _maybe_fidelity_probe(self, tokens_1d, pattern
+                              ) -> Optional[np.ndarray]:
+        """Every ``fidelity_probe_every``-th admission is a probe: one
+        extra FA-only forward (``MD.attention_mass_coverage``; flash at
+        every attention layer on the card) gives, per routed layer, the
+        share of the last prompt token's FA attention mass that the SA
+        window keeps. With the dial at 0 this is one int test."""
+        if not self.fidelity_probe_every:
+            return None
+        self._probe_admissions += 1
+        if (self._probe_admissions - 1) % self.fidelity_probe_every:
+            return None
+        routed = self.cfg.routable_layers()
+        toks = np.asarray(tokens_1d).reshape(-1)
+        if not routed or toks.size < 1:
+            return None
+        cov = MD.attention_mass_coverage(self.params, self.cfg,
+                                         self._tokens(toks[None])).numpy()
+        self.dispatch_count += 1
+        reg = self.telemetry
+        for j, i in enumerate(routed):
+            if j < cov.size and pattern[i] in ("fa", "sa"):
+                reg.histogram("flux_fidelity_coverage", layer=str(i),
+                              decision=pattern[i]).observe(float(cov[j]))
+        return cov
+
+    def ledger_report(self) -> Dict[str, Any]:
+        """A fresh ledger snapshot reconciled against an independent
+        ``kv_cache_stats`` walk of the same pools and prefix store: pool
+        payload and prefix tiers agree exactly, and the ledger's overhead
+        exceeds the walk's by the pools' aux buffers (logits, pos)."""
+        if self.ledger is None:
+            raise ValueError(
+                "ledger_report: the memory ledger is disabled — construct "
+                "the ServeEngine with memory_ledger=True (or pass "
+                "--ledger-out to launch/serve.py)")
+        sched = self._scheduler
+        snap = (sched.ledger_snapshot() if sched is not None
+                else self.ledger.last())
+        pools = list(sched.pools.values()) if sched is not None else []
+        stats = kv_cache_stats([c for p in pools for c in p.caches],
+                               self.prefix_store)
+        out: Dict[str, Any] = {
+            "snapshot": snap.as_dict() if snap is not None else None,
+            "kv_cache_stats": {
+                "payload_bytes": stats.payload_bytes,
+                "overhead_bytes": stats.overhead_bytes,
+                "prefix_device_bytes": stats.prefix_device_bytes,
+                "prefix_host_bytes": stats.prefix_host_bytes,
+            },
+            "reconciliation": None,
+            "aux_bytes": 0,
+        }
+        if snap is not None:
+            out["reconciliation"] = snap.reconcile(
+                stats.payload_bytes, stats.overhead_bytes,
+                stats.prefix_device_bytes, stats.prefix_host_bytes)
+            out["aux_bytes"] = sum(p.aux_bytes for p in snap.pools)
+        if self.prefix_store is not None:
+            out["prefix_store"] = self.prefix_store.stats().as_dict()
+        return out
+
+    def profiler_report(self) -> Dict[str, Any]:
+        """The sampled cost profiler's achieved-vs-expressed table."""
+        if self.profiler is None:
+            raise ValueError(
+                "profiler_report: the tick profiler is disabled — "
+                "construct the ServeEngine with profile_every=N (or pass "
+                "--profile-every to launch/serve.py)")
+        return self.profiler.report()
+
+    def attribution_report(self) -> Dict[str, Any]:
+        """Everything the attribution layer knows, JSON-ready: the
+        profiler table, the reconciled ledger, decision-margin drift and
+        the kernels' launch counts. Disabled parts report None."""
+        return {
+            "profiler": (self.profiler.report()
+                         if self.profiler is not None else None),
+            "ledger": (self.ledger_report()
+                       if self.ledger is not None else None),
+            "margin_drift": (self.margin_drift.report()
+                             if self.margin_drift is not None else None),
+            "kernel_launches": launch_counts(),
+            "fidelity_probe_every": self.fidelity_probe_every,
+            "probe_admissions": self._probe_admissions,
+        }
+
     def _check_override(self, override) -> None:
         """Raise on what this slice does not serve: duo head-split
         overrides and the xa/ta sparse modes."""
@@ -452,7 +855,7 @@ class ServeEngine:
             override=(override if override is not None
                       else self.routing_override),
             plan=chunk_plan(tokens.shape[1], self.prefill_chunk),
-            reuse=reuse)
+            reuse=reuse, sa_level=self.sa_level)
         if (self.prefix_store is not None and reuse
                 and tokens.shape[0] == 1
                 and self.chunked_eligible(tokens.shape[1], job.override)):
@@ -491,7 +894,8 @@ class ServeEngine:
         pattern adopted, ``idx`` advanced past every covered chunk."""
         store = self.prefix_store
         toks = job.host_tokens[0]
-        node = store.match(toks, PXC.routing_key(job.override))
+        node = store.match(toks, PXC.routing_key(job.override,
+                                                 job.sa_level))
         if (node is not None and job.override is None
                 and not RT.prefix_routing_reusable(
                     self.cfg.flux, node.depth, toks.size,
@@ -499,6 +903,8 @@ class ServeEngine:
             node = None  # routing not prefix-determined for this pair
         if node is None:
             store.misses += 1
+            if self.telemetry is not None:
+                self._prefix_store_event("miss")
             return
         store.acquire(node)  # pin against eviction while restoring
         try:
@@ -508,10 +914,13 @@ class ServeEngine:
             store.release(node)
         store.hits += 1
         store.hit_tokens += snap.boundary
+        if self.telemetry is not None:
+            self._prefix_store_event("hit")
         job.pattern = snap.pattern
         job.p_fa = None if snap.p_fa is None else np.array(snap.p_fa)
         job.idx = snap.boundary // self.prefill_chunk
         job.prefix_hit_tokens = snap.boundary
+        job.dispatches += 1  # the restore copy
 
     def _maybe_publish(self, job: ChunkedPrefill, start: int,
                        size: int) -> None:
@@ -526,11 +935,14 @@ class ServeEngine:
             return
         if self.publish_prefix(job.host_tokens[0], start + size,
                                job.caches, job.logits, job.pattern,
-                               p_fa=job.p_fa, override=job.override):
+                               p_fa=job.p_fa, override=job.override,
+                               sa_level=job.sa_level):
+            job.dispatches += 1  # the snapshot copy
             job.published += 1
 
     def publish_prefix(self, tokens, boundary: int, caches, logits,
-                       pattern, p_fa=None, override=None) -> bool:
+                       pattern, p_fa=None, override=None,
+                       sa_level: int = 0) -> bool:
         """Insert a snapshot of the state at ``tokens[:boundary]`` into
         the prefix store. Returns True iff one was copied and inserted
         (False: a duplicate, routing that does not transfer, or a
@@ -567,7 +979,7 @@ class ServeEngine:
                 self.cfg.flux, boundary, toks.size,
                 routable=self._routable()):
             return False  # decision pooled from tokens past the boundary
-        key = PXC.routing_key(override)
+        key = PXC.routing_key(override, sa_level)
         if store.covered(toks, boundary, key):
             return False  # already published (LRU slot bumped)
         nbytes = PXC.state_bytes(caches, logits)
@@ -599,9 +1011,15 @@ class ServeEngine:
         self._check_override(override)
         routing_ctx, fixed = self._routing_ctx(override)
         pf = MD.prefill(self.params, self.cfg, tokens,
-                        routing_ctx=routing_ctx, fixed_pattern=fixed)
+                        routing_ctx=routing_ctx, fixed_pattern=fixed,
+                        fa_threshold=self._rung_threshold(self.sa_level,
+                                                          routing_ctx))
         decisions = pf.routing.numpy() if pf.routing is not None else None
         pattern = self._pattern(decisions, override)
+        if self.telemetry is not None:
+            self._record_routing(
+                pattern, None if pf.p_fa is None else pf.p_fa.numpy(),
+                self.sa_level)
         seq_len = tokens.shape[1]
         if seq_len > self.max_len:
             off = [i for i, k in enumerate(self.cfg.layer_kinds)
@@ -645,11 +1063,13 @@ class ServeEngine:
             pattern, caches = job.pattern, job.caches
             logits, p_fa = job.logits, job.p_fa
             prefix_hit = job.prefix_hit_tokens
+            dispatches = job.dispatches
         else:
             pf, pattern, caches, seq_len = self.prefill_route_repack(
                 tokens, routing_override)
             logits = pf.logits
             p_fa = None if pf.p_fa is None else pf.p_fa.numpy()
+            dispatches = 2  # prefill + the repack
         if (seq_len + n_steps > self.max_len
                 and any(isinstance(c, KC.FullKV) for c in caches)):
             raise ValueError(
@@ -663,6 +1083,7 @@ class ServeEngine:
                                         caches, seq_len, n_steps=n_steps)
         toks = toks.cpu().numpy()  # waits for the decode to finish
         t2 = time.perf_counter()
+        self.dispatch_count += dispatches + 1  # and the decode
         routed = [p for p in pattern if p is not None]
         msr = (sum(p == "sa" for p in routed) / len(routed)
                if routed else float("nan"))
@@ -677,9 +1098,10 @@ class ServeEngine:
     def scheduler(self, **kw):
         """The engine's ``ContinuousScheduler``, created on first use;
         kwargs configure it then (slots_per_bucket, chunk,
-        prefill_chunks_per_tick, clock)."""
+        prefill_chunks_per_tick, clock, slo)."""
         if self._scheduler is None:
             from repro_torch.serve.scheduler import ContinuousScheduler
+            kw.setdefault("slo", self.slo)
             self._scheduler = ContinuousScheduler(self, **kw)
         elif kw:
             raise ValueError(
@@ -696,11 +1118,75 @@ class ServeEngine:
         return self.scheduler().tick()
 
     def drain(self) -> "DrainResult":
-        """Tick until every submitted request finished. Returns the
-        {rid: FinishedRequest} mapping with a ``.summary``."""
-        sched = self.scheduler()
-        finished = sched.drain()
-        return DrainResult(finished, sched.summary(finished))
+        """Tick until every submitted request retired. Returns the
+        {rid: FinishedRequest} mapping with a ``.summary``: status counts
+        and rates, the TTFT split medians, prefix hit accounting, the
+        KV / prefix-store byte split and the fidelity probes'."""
+        finished = self.scheduler().drain()
+        return DrainResult(finished, self._drain_summary(finished))
+
+    def cancel(self, rid: int) -> bool:
+        """Cooperatively cancel a continuous-batching request (status
+        ``cancelled``, partial tokens kept). False when unknown, already
+        finished, or no scheduler exists yet."""
+        if self._scheduler is None:
+            return False
+        return self._scheduler.cancel(rid)
+
+    def inject_fault(self, rid: int) -> None:
+        """Fault-injection hook: poison request ``rid``'s resident decode
+        slot with NaNs (``SlotPool.poison_slot``). The next tick's
+        non-finite sentinel retires exactly that request with status
+        ``failed`` and frees the slot; its siblings continue bitwise as
+        without the fault (every decode operation is row-independent).
+        Raises ``ValueError`` when ``rid`` holds no slot."""
+        if self._scheduler is None:
+            raise ValueError(
+                "inject_fault: no continuous scheduler exists — submit "
+                "and tick the request into a decode slot first")
+        self._scheduler.inject_fault(rid)
+
+    def _drain_summary(self, finished) -> Dict[str, Any]:
+        ms = [f.metrics for f in finished.values()]
+        sched = self._scheduler
+        pools = list(sched.pools.values()) if sched is not None else []
+        stats = kv_cache_stats([c for p in pools for c in p.caches],
+                               self.prefix_store)
+        prompt_tokens = sum(m.prompt_len for m in ms)
+        hit_tokens = sum(m.prefix_hit_tokens for m in ms)
+        fid = [m.fidelity for m in ms if m.fidelity is not None]
+        n = len(ms)
+        statuses = [f.status for f in finished.values()]
+        counts = {s: statuses.count(s) for s in SLO.STATUSES}
+
+        def p50(xs: List[float]) -> float:
+            # requests retired before a first token carry NaN TTFTs
+            xs = [x for x in xs if np.isfinite(x)]
+            return float(np.median(xs)) if xs else float("nan")
+
+        return {
+            "n_requests": n,
+            "status_counts": counts,
+            "shed_rate": counts[SLO.STATUS_SHED] / n if n else 0.0,
+            "timeout_rate": counts[SLO.STATUS_TIMEOUT] / n if n else 0.0,
+            "sa_level": self.sa_level,
+            "ttft_p50_s": p50([m.ttft for m in ms]),
+            "prefill_time_p50_s": p50([m.prefill_time for m in ms]),
+            "slot_wait_p50_s": p50([m.slot_wait for m in ms]),
+            "prompt_tokens": prompt_tokens,
+            "prefix_hit_tokens": hit_tokens,
+            "prefix_hit_fraction": (hit_tokens / prompt_tokens
+                                    if prompt_tokens else 0.0),
+            "kv_payload_bytes": stats.payload_bytes,
+            "kv_overhead_bytes": stats.overhead_bytes,
+            "prefix_device_bytes": stats.prefix_device_bytes,
+            "prefix_host_bytes": stats.prefix_host_bytes,
+            "prefix_store": (self.prefix_store.stats()
+                             if self.prefix_store is not None else None),
+            "fidelity_probed": len(fid),
+            "fidelity_p50": p50(fid),
+            "fidelity_min": min(fid) if fid else float("nan"),
+        }
 
 
 class DrainResult(dict):
@@ -728,15 +1214,27 @@ class Request:
     # opt this request out of shared-prefix snapshot reuse: neither
     # seeded from nor published to the engine's prefix store
     prefix_reuse: bool = True
+    # TTFT / total budget in seconds from submission (None = the
+    # engine's ``slo.default_deadline_s``, itself None by default). An
+    # expired request retires with status ``timeout`` at the next tick
+    # boundary, whether queued, mid-prefill or mid-decode.
+    deadline_s: Optional[float] = None
 
 
 @dataclass
 class FinishedRequest:
+    """A request the batch frontend served, with the continuous
+    frontend's status vocabulary (``ok`` or ``timeout`` here)."""
     rid: int
     tokens: np.ndarray
-    routing: Tuple[Any, ...]
-    result: GenerationResult = field(repr=False)  # the bucket's result
-    wall_s: float = 0.0                           # the bucket's wall time
+    # the bucket's routing; None for a request whose deadline expired
+    # before its bucket ran
+    routing: Optional[Tuple[Any, ...]]
+    # the bucket's result (None when it never ran) and wall time
+    result: Optional[GenerationResult] = field(default=None, repr=False)
+    wall_s: float = 0.0
+    status: str = SLO.STATUS_OK
+    metrics: Any = None  # scheduler.RequestMetrics, in the clock's domain
 
 
 def _trim_eos(tokens: np.ndarray, eos_id: Optional[int]) -> np.ndarray:
@@ -747,27 +1245,71 @@ def _trim_eos(tokens: np.ndarray, eos_id: Optional[int]) -> np.ndarray:
     return tokens[:hits[0] + 1] if hits.size else tokens
 
 
-def serve_batch_finished(engine: ServeEngine, requests: Sequence[Request]
+def serve_batch_finished(engine: ServeEngine, requests: Sequence[Request],
+                         clock: Callable[[], float] = time.monotonic
                          ) -> Dict[int, FinishedRequest]:
     """Bucket requests by (length, n_steps, routing_override,
     prefix_reuse), serve each bucket batched (routing is batch consensus
     inside a bucket; buckets of one request give the paper's per-request
-    routing), and trim each stream after its ``eos_id``."""
+    routing), and trim each stream after its ``eos_id``.
+
+    Every request returns with the continuous frontend's status
+    vocabulary. Deadlines count from the call (``clock``). Buckets run
+    whole: a request whose deadline expired before its bucket starts
+    retires ``timeout`` with no tokens; one that expires while its
+    bucket decodes keeps its tokens but is marked ``timeout`` all the
+    same. Shedding, preemption and quarantine are scheduler concepts."""
+    from repro_torch.serve.scheduler import RequestMetrics
+    t0 = clock()
+
+    def _deadline(r: Request) -> Optional[float]:
+        d = (r.deadline_s if r.deadline_s is not None
+             else engine.slo.default_deadline_s)
+        if d is not None and d <= 0:
+            raise ValueError(
+                f"request {r.rid}: deadline_s={d} must be positive — a "
+                f"non-positive deadline is expired at submission")
+        return None if d is None else t0 + d
+
+    def _metrics(r: Request, n: int, now: float) -> "RequestMetrics":
+        return RequestMetrics(prompt_len=len(r.tokens), n_generated=n,
+                              arrival_t=t0, finish_t=now,
+                              admitted_t=t0 if n else None)
+
     buckets: Dict[Tuple, List[Request]] = {}
     for r in requests:
         buckets.setdefault((len(r.tokens), r.n_steps, r.routing_override,
                             r.prefix_reuse), []).append(r)
     results: Dict[int, FinishedRequest] = {}
     for (_, n_steps, override, reuse), rs in buckets.items():
-        t0 = time.perf_counter()
-        gen = engine.generate(np.stack([r.tokens for r in rs]), n_steps,
+        now = clock()
+        live = []
+        for r in rs:
+            dl = _deadline(r)
+            if dl is not None and now >= dl:
+                results[r.rid] = FinishedRequest(
+                    rid=r.rid, tokens=np.zeros((0,), np.int64),
+                    routing=None, status=SLO.STATUS_TIMEOUT,
+                    metrics=_metrics(r, 0, now))
+            else:
+                live.append(r)
+        if not live:
+            continue
+        w0 = time.perf_counter()
+        gen = engine.generate(np.stack([r.tokens for r in live]), n_steps,
                               routing_override=override,
                               prefix_reuse=reuse)
-        wall = time.perf_counter() - t0
-        for i, r in enumerate(rs):
+        wall = time.perf_counter() - w0
+        now = clock()
+        for i, r in enumerate(live):
+            dl = _deadline(r)
+            toks = _trim_eos(gen.tokens[i], r.eos_id)
             results[r.rid] = FinishedRequest(
-                rid=r.rid, tokens=_trim_eos(gen.tokens[i], r.eos_id),
-                routing=gen.routing, result=gen, wall_s=wall)
+                rid=r.rid, tokens=toks, routing=gen.routing, result=gen,
+                wall_s=wall,
+                status=(SLO.STATUS_TIMEOUT if dl is not None and now >= dl
+                        else SLO.STATUS_OK),
+                metrics=_metrics(r, len(toks), now))
     return results
 
 

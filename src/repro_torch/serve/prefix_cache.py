@@ -53,10 +53,14 @@ def routing_key(override, sa_level: int = 0) -> Tuple:
     """Radix-tree namespace for an admission's routing source.
 
     Router-driven admissions (``override is None``) share one tree per
-    sparsity rung ``sa_level`` (always 0 until the port has the
-    load-adaptive dial); every forced pattern gets its own, so a snapshot
-    taken under one override is never offered to a request running
-    another. ``router.prefix_routing_reusable`` guards the router tree."""
+    load-adaptive sparsity rung ``sa_level`` (``serve/slo.py``): a rung
+    moves the FA-decision threshold, so decisions taken at one rung do
+    not transfer to another, and a warm snapshot must never hand a
+    pressured admission the relaxed rung's pattern (or the reverse).
+    Every forced pattern gets its own tree and ignores the dial, so a
+    snapshot taken under one override is never offered to a request
+    running another. ``router.prefix_routing_reusable`` guards the
+    router trees."""
     if override is not None:
         return ("override", tuple(override))
     return ("router", int(sa_level))
@@ -174,8 +178,8 @@ class PrefixStore:
         self.host_budget_bytes = int(host_budget_bytes)
         # optional hook, called with an event name ("insert" / "demotion"
         # / "drop" / "promotion"), so a metrics registry can observe the
-        # store without the store importing it. None = no-op; the port
-        # sets none until it has telemetry (ROADMAP Queue 1 item 10).
+        # store without the store importing it. None = no-op; an engine
+        # built with telemetry sets it (hits and misses it counts itself)
         self.on_event: Optional[Any] = None
         self._roots: Dict[Tuple, _Node] = {}
         # LRU over snapshot-bearing nodes (both tiers), least recent first

@@ -15,6 +15,11 @@ buffer shapes the routing pattern dictates), so requests of different
 lengths and depths share one decode batch through per-slot positions,
 lengths and RoPE angles. Unlike the JAX package, ``write`` copies into
 the pool's buffers in place.
+
+The pool also carries what the serving guardrails and telemetry read:
+its byte split for the memory ledger (per slot row, fixed at
+``create``) and ``poison_slot``,
+the fault-injection hook behind ``ServeEngine.inject_fault``.
 """
 from __future__ import annotations
 
@@ -39,19 +44,34 @@ class SlotPool:
     free: List[int] = field(default_factory=list)
     active: Dict[int, Any] = field(default_factory=dict)  # slot → request
     steps: int = 0            # decode steps run over the pool's lifetime
+    # byte accounting for the memory ledger (telemetry.PoolLedgerEntry),
+    # fixed at create() from the buffers' shapes: ``slot_*`` per slot
+    # row, ``aux_bytes`` the pool's logits and pos, which
+    # ``kv_cache_stats`` never sees
+    slot_payload_bytes: int = 0
+    slot_overhead_bytes: int = 0
+    aux_bytes: int = 0
 
     @classmethod
     def create(cls, cfg: ModelConfig, pattern, capacity: int, max_len: int,
                logits_like: torch.Tensor) -> "SlotPool":
         dev = logits_like.device
+        caches = KC.init_decode_caches(cfg, pattern, capacity, max_len, dev)
+        logits = torch.zeros((capacity,) + tuple(logits_like.shape[1:]),
+                             dtype=logits_like.dtype, device=dev)
+        pos = torch.zeros((capacity,), dtype=torch.int32, device=dev)
+        # every buffer's leading axis is ``capacity``, so the division is
+        # exact: the ledger's slot bytes reconcile with kv_cache_stats to
+        # the byte at any occupancy
+        payload = KC.kv_cache_bytes(caches)
+        total = sum(t.nbytes for c in caches for t in KC.cache_fields(c))
         return cls(
-            caches=KC.init_decode_caches(cfg, pattern, capacity, max_len,
-                                         dev),
-            logits=torch.zeros((capacity,) + tuple(logits_like.shape[1:]),
-                               dtype=logits_like.dtype, device=dev),
-            pos=torch.zeros((capacity,), dtype=torch.int32, device=dev),
+            caches=caches, logits=logits, pos=pos,
             pattern=pattern, capacity=capacity,
-            free=list(range(capacity - 1, -1, -1)))  # pop() → slot 0 first
+            free=list(range(capacity - 1, -1, -1)),  # pop() → slot 0 first
+            slot_payload_bytes=payload // capacity,
+            slot_overhead_bytes=(total - payload) // capacity,
+            aux_bytes=logits.nbytes + pos.nbytes)
 
     def geometry(self) -> Tuple:
         return KC.cache_geometry(self.caches)
@@ -76,6 +96,23 @@ class SlotPool:
                 dst[slot].copy_(src[0])
         self.logits[slot].copy_(req_logits[0])
         self.pos[slot].fill_(seq_len)
+
+    def poison_slot(self, slot: int) -> None:
+        """Fault-injection hook: overwrite row ``slot`` of every
+        floating-point cache buffer, and its last-logits row, with NaN,
+        in place: the persistent shape of a real fault (a poisoned KV row
+        keeps giving non-finite logits every step, so the scheduler's
+        per-tick sentinel is sure to see it). Integer bookkeeping
+        (``positions`` / ``length``) is left intact, so the faulted row
+        keeps decoding self-consistent garbage and its siblings see the
+        shapes and masks of an unfaulted run. The next admission's
+        ``write`` copies every buffer of the row, so a quarantined slot
+        is safe to reuse."""
+        for c in self.caches:
+            for t in KC.cache_fields(c):
+                if t.is_floating_point():
+                    t[slot].fill_(float("nan"))
+        self.logits[slot].fill_(float("nan"))
 
     def advance(self, steps: int) -> None:
         """Advance active rows by ``steps`` decode positions; park free
