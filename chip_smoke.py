@@ -149,10 +149,30 @@ nothing falls back to the CPU):
      walls move 30-40 % between runs), the ledger's peak beside
      ``torch.cuda.max_memory_allocated``, the coverage per layer and the
      rung trace.
+  15. granite-moe-3b-a800m (40 experts top-8 in every layer, head dim 64,
+     G = 3) at full width, depth cut to 2 layers, fp32, the same weights
+     on the card and on the CPU: ``generate`` of a 2304-token prompt,
+     chunk 512, 8 tokens, router-driven and mixed (routing, tokens and
+     every MoE call's experts identical, first-step logits within 2e-3;
+     the prompt seed is the first whose router margins exceed 1e-3 and
+     whose smallest gap between a token's 8th and 9th gate probability
+     on the card exceeds MOE_GAP), the slot-pool drain of phase 5b,
+     layer 0's ``moe_apply`` over one chunk with drops (y within 1e-4,
+     the same kept set), and a drain with one slot poisoned whose pool
+     siblings stay bitwise equal to the drain without the fault;
+  16. granite at full width and depth (32 layers, 3.30 B parameters),
+     bf16, seeded weights: the batch path as phase 6, the continuous
+     path as phase 7 (every logit finite, exact launch counts, tok/s,
+     TTFT p50, peak memory and KV bytes), and sampled ``generate``: one
+     seed twice gives the same tokens, another seed others, and
+     ``rng=None`` is greedy.
+Phase 3 also holds every kernel at granite's grouping (G = 3, D = 64:
+bf16 at its main shapes, fp32 small cases, both decode kernels' split
+sweeps), and phase 4 also times the five kernels at granite's shapes.
 Then one JSON line of per-kernel numbers (phi3-mini's, and stablelm's
-under ``stablelm_12b``; launches by path, phase 14's as ``guardrails``),
-the total seconds, and the last line
-``{"ok": true, "device": {...}}``.
+and granite's under ``stablelm_12b`` and ``granite_moe_3b_a800m``;
+launches by path, phase 14's as ``guardrails``), the total seconds, and
+the last line ``{"ok": true, "device": {...}}``.
 """
 import collections
 import ctypes
@@ -174,6 +194,7 @@ BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 ARCH = "phi3-mini-3.8b"
 STABLELM = "stablelm-12b"  # head dim 160, G = 4: phases 9-11
 COMMAND_R = "command-r-plus-104b"  # G = 12, tied embeddings: phase 12
+GRANITE = "granite-moe-3b-a800m"  # MoE, head dim 64, G = 3: phases 15-16
 # command-r at 64 layers is 208 GB in bf16; 8 of them at full width
 # (3.15 B tied embedding + 8 x 1.573 B = 15.7 B parameters, 31.5 GB) fit
 COMMAND_R_LAYERS, COMMAND_R_REQUESTS = 8, 2
@@ -316,11 +337,12 @@ def streaming_pairs(q_pos, sink, local):
     return int((n_sink + np.maximum(p - lo + 1, 0)).sum())
 
 
-def kernel_cases(dev, dtype, main, arch=ARCH, small_d=128):
+def kernel_cases(dev, dtype, main, arch=ARCH, small_d=128, small_g=4):
     """(name → (kernel call, plain call, plain call with one V tile zeroed,
     library call, bytes, flops)) on random inputs; ``main`` picks the main
     path's shapes of ``arch`` (4 requests of its heads), else the small
-    G = 4, unaligned case at head dim ``small_d``."""
+    unaligned case at head dim ``small_d``, 2 KV heads of ``small_g``
+    query heads each."""
     from repro_torch.configs import get_config
     from repro_torch.core.modes import causal_selection
     from repro_torch.kernels import ref
@@ -346,7 +368,7 @@ def kernel_cases(dev, dtype, main, arch=ARCH, small_d=128):
         D, S, L = cfg.head_dim, CHUNK, PROMPT + GEN
         start, cur = PROMPT - CHUNK, PROMPT + GEN // 2 - 1
     else:
-        BH, BHkv, D, S, L = 8, 2, small_d, 200, 300
+        BH, BHkv, D, S, L = 2 * small_g, 2, small_d, 200, 300
         start, cur, sink, local = 150, 250, 16, 48
     it = torch.tensor([], dtype=dtype).element_size()
     B4 = (BH // BHkv, BHkv)  # the (G, Hkv) split the library call takes
@@ -423,7 +445,7 @@ def kernel_cases(dev, dtype, main, arch=ARCH, small_d=128):
         lens, Hq, Hkv = POOL_LENS, cfg.num_heads, cfg.num_kv_heads
         ppos = None
     else:
-        lens, Hq, Hkv = (0, 137, L), 8, 2
+        lens, Hq, Hkv = (0, 137, L), 2 * small_g, 2
         ppos = torch.as_tensor(ring_positions(np.random.default_rng(0),
                                               lens, L), device=dev)
     Bp = len(lens)
@@ -791,8 +813,10 @@ def decode_split_cases(dev):
                            dtype=torch.int32, device=dev)[perm]
     dtypes = (torch.bfloat16, torch.float32)
     for dtype, D, G in ([(t, D, G) for t in dtypes for D in HEAD_DIMS
-                         for G in (1, 4)] + [(t, 128, 12) for t in dtypes]):
-        rows = 2 * G if G > 4 else BH  # G = 12: two KV rows
+                         for G in (1, 4)]
+                        + [(t, 128, 12) for t in dtypes]
+                        + [(t, 64, 3) for t in dtypes]):
+        rows = BH if BH % G == 0 else 2 * G  # G = 3, 12: two KV rows
         qs, ks, vs = (torch.randn(n, s, D, generator=g, device=dev).to(dtype)
                       for n, s in ((rows, 1), (rows // G, L),
                                    (rows // G, L)))
@@ -923,8 +947,9 @@ def pooled_split_cases(dev):
     for dtype, D, G, ring in (
             [(t, D, G, r) for t in dtypes for D in HEAD_DIMS
              for G in (1, 4) for r in (False, True)]
-            + [(t, 128, 12, r) for t in dtypes for r in (False, True)]):
-        Hq = 12 if G == 12 else 8
+            + [(t, D, G, r) for t in dtypes for D, G in ((128, 12), (64, 3))
+               for r in (False, True)]):
+        Hq = {12: 12, 3: 6}.get(G, 8)
         Hkv = Hq // G
         q, k, v = (torch.randn(B * h, n, D, generator=g, device=dev).to(
             dtype) for h, n in ((Hq, 1), (Hkv, L), (Hkv, L)))
@@ -1123,10 +1148,18 @@ def pool_parity(dev, arch=ARCH):
             res[d] = (eng.drain(), sched)
         (g, gs), (c, cs) = res["card"], res["cpu"]
         preempt = sum(f.metrics.preemptions for f in g.values())
+        replayed = []
         for rid, toks in enumerate(prompts):
             assert g[rid].status == c[rid].status == STATUS_OK, rid
             assert g[rid].routing == c[rid].routing, (rid, name)
             assert np.array_equal(g[rid].tokens, c[rid].tokens), (rid, name)
+            if cfg.num_experts and g[rid].metrics.preemptions:
+                # a recompute replays the generated tokens through prefill
+                # chunks whose MoE capacity may drop some, where decode
+                # (one token a row) drops none: the JAX reference's victim
+                # leaves its uninterrupted stream too
+                replayed.append(rid)
+                continue
             alone = engines["card"].generate(toks[None], N,
                                              routing_override=override)
             assert np.array_equal(g[rid].tokens, alone.tokens[0]), (rid,
@@ -1137,7 +1170,9 @@ def pool_parity(dev, arch=ARCH):
         if override is not None:
             assert preempt >= 1, "the mixed drain did not preempt"
         out.append(f"{name}: geometries={gs.n_geometries()} "
-                   f"preemptions={preempt} ticks={gs.ticks} routing="
+                   f"preemptions={preempt} ticks={gs.ticks} "
+                   f"{'replayed (not held to generate alone)=' if replayed else ''}"
+                   f"{replayed if replayed else ''} routing="
                    + ",".join("".join(p[0] for p in g[r].routing)
                               for r in range(len(lens)))
                    + f" tokens4={g[4].tokens.tolist()}")
@@ -1824,12 +1859,270 @@ def guarded_path(dev, params, cfg):
     return counts, lines
 
 
+MOE_GAP = 1e-6  # smallest k-th / (k+1)-th gate gap of phase 15's seeds
+MOE_SEEDS = 64
+
+
+class MoeRecorder:
+    """While active, records every MoE dispatch of the port: the
+    experts it chose (top_i and the kept mask, on the host) and every
+    token's gap between its k-th and (k+1)-th gate probability."""
+
+    def __init__(self):
+        self.calls, self.gaps = [], []
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self._mod, orig = MOE, MOE.dispatch
+
+        def recorded(params, cfg, *a, **kw):
+            d = orig(params, cfg, *a, **kw)
+            top = torch.sort(d.probs, dim=-1, descending=True).values
+            self.gaps.append((top[..., cfg.top_k - 1]
+                              - top[..., cfg.top_k]).reshape(-1).cpu())
+            self.calls.append((d.top_i.cpu(), d.keep.cpu()))
+            return d
+        self._orig = orig
+        MOE.dispatch = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.dispatch = self._orig
+
+    def min_gap(self):
+        return float(torch.cat(self.gaps).min())
+
+    def below(self, t):
+        return int((torch.cat(self.gaps) < t).sum())
+
+
+def moe_chunk_parity(dev, params, cfg):
+    """One chunk of CHUNK tokens through layer 0's MoE of ``params`` on
+    both devices, at granite's capacity factor: (report, drop fraction).
+    The input stands for the normed residual the layer sees: seeded
+    normal rows plus one direction every token shares (a residual stream
+    has one; without it random gate weights spread the tokens so evenly
+    that C = 128 slots hold every expert's load), each row scaled to
+    unit rms. Its seed is the first whose smallest top-k gap on the card
+    exceeds MOE_GAP."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import params_to
+    moe = params["layers"][0]["moe"]
+    card_moe = params_to(moe, dev)
+    for seed in range(MOE_SEEDS):
+        rng = np.random.default_rng(seed)
+        x = (rng.normal(size=(1, CHUNK, cfg.d_model))
+             + 2 * rng.normal(size=cfg.d_model))
+        x = torch.from_numpy((x / np.sqrt((x ** 2).mean(-1, keepdims=True))
+                              ).astype(np.float32))
+        d = MOE.dispatch(card_moe, cfg, x.to(dev))
+        top = torch.sort(d.probs, dim=-1, descending=True).values
+        gap = float((top[..., cfg.top_k - 1] - top[..., cfg.top_k]).min())
+        if gap > MOE_GAP:
+            break
+    else:
+        raise AssertionError(f"no chunk seed with a top-k gap > {MOE_GAP}")
+    (yg, ag), (yc, ac) = (MOE.moe_apply(m, cfg, x.to(d0))
+                          for m, d0 in ((card_moe, dev), (moe, "cpu")))
+    dg, dc = MOE.dispatch(card_moe, cfg, x.to(dev)), MOE.dispatch(moe, cfg, x)
+    drop = float(ag["drop_fraction"])
+    err = float((yg.cpu() - yc).abs().max())
+    assert drop > 0 and drop == float(ac["drop_fraction"]), (drop, ac)
+    assert torch.equal(dg.top_i.cpu(), dc.top_i), "expert choices differ"
+    assert torch.equal(dg.keep.cpu(), dc.keep), "kept sets differ"
+    assert err < FP32_TOL, err
+    pdiff = float((dg.probs.cpu() - dc.probs).abs().max())
+    return (f"moe_apply one chunk (1 x {CHUNK} x {cfg.d_model}, C="
+            f"{dg.C}, x seed {seed}): drop_fraction={drop:.4f} on both, "
+            f"kept set and experts equal, y max_abs_err={err:.2e} "
+            f"(tol {FP32_TOL}), gate probs max_abs_diff={pdiff:.2e}, "
+            f"min top-k gap={gap:.2e}"), drop
+
+
+def moe_fault_drain(dev, params, cfg, prompts):
+    """The slot-pool drain of granite's 2-layer fp32 weights on the card
+    with one resident request poisoned (``inject_fault``), beside the
+    same drain without the fault: its pool siblings' logits after the
+    fault tick and their tokens must be bitwise equal."""
+    from repro_torch.launch.serve import (PREFILL_CHUNKS_PER_TICK,
+                                          routing_pattern)
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import ContinuousScheduler
+    mixed = routing_pattern(cfg, "mixed")
+    eng = ServeEngine(params, cfg, max_len=max(map(len, prompts)) + 8,
+                      prefill_chunk=CHUNK, device=dev)
+    runs = {}
+    for fault in (True, False):
+        sched = ContinuousScheduler(
+            eng, slots_per_bucket=2, chunk=4,
+            prefill_chunks_per_tick=PREFILL_CHUNKS_PER_TICK)
+        arrivals = [(0, Request(rid=rid, tokens=t, n_steps=8,
+                                routing_override=mixed), 0.0)
+                    for rid, t in enumerate(prompts)]
+        runs[fault] = guarded_drain(eng, sched, arrivals,
+                                    cancel_tick=10 ** 9, fault=fault)
+    (out, _, target, rows), (clean, _, ctarget, crows) = \
+        runs[True], runs[False]
+    assert target is not None and target == ctarget, (target, ctarget)
+    tick, rid, sibs = target
+    assert out[rid].status == "failed", out[rid].status
+    assert torch.equal(rows, crows), "a sibling's logits moved"
+    for s in sibs:
+        assert out[s].status == clean[s].status == "ok", s
+        assert np.array_equal(out[s].tokens, clean[s].tokens), s
+    return (f"fault drain: tick {tick} rid {rid} failed, siblings {sibs} "
+            f"bitwise equal (logits and tokens) to the drain without the "
+            f"fault")
+
+
+def moe_path_parity(dev):
+    """Phase 15: granite at full width, 2 layers, fp32, the same weights
+    on the card and on the CPU: ``generate`` (router-driven and mixed),
+    a slot-pool drain as in phase 5b, one chunk's ``moe_apply`` with
+    drops, and a faulted drain on the card. Returns its report lines.
+
+    A token whose k-th and (k+1)-th gate probabilities lie within
+    rounding can choose another expert on each device, so the prompt
+    seed of ``generate`` is the first whose smallest top-k gap on the
+    card, over every token and layer of both runs, exceeds MOE_GAP, and
+    whose router margins exceed 1e-3; every MoE call must then choose
+    the same experts on both devices."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import routing_pattern
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import ServeEngine, chunk_plan
+    cfg = get_config(GRANITE).replace(num_layers=2, dtype=torch.float32,
+                                      param_dtype=torch.float32)
+    params = MD.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    S, N = 2304, 8
+    engines = {name: ServeEngine(params, cfg, max_len=S + N,
+                                 prefill_chunk=CHUNK, device=d)
+               for name, d in (("card", dev), ("cpu", "cpu"))}
+    overrides = (None, routing_pattern(cfg, "mixed"))
+    tried = []
+    for seed in range(MOE_SEEDS):
+        toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                    (1, S))
+        pf = MD.prefill(engines["card"].params, cfg,
+                        torch.as_tensor(toks[:, :CHUNK], device=dev),
+                        routing_ctx="hard_prefix", want_cache=False)
+        margin = float(np.abs(pf.p_fa.numpy() - 0.5).min())
+        if margin <= 1e-3:
+            continue
+        recs = {}
+        for ov in overrides:
+            with MoeRecorder() as recs[ov]:
+                engines["card"].generate(toks, N, routing_override=ov)
+        gap = min(r.min_gap() for r in recs.values())
+        tried.append(f"{seed}:{gap:.1e}")
+        if gap > MOE_GAP:
+            break
+    else:
+        raise AssertionError(f"no prompt seed with router margins > 1e-3 "
+                             f"and a top-k gap > {MOE_GAP}: {tried}")
+    out = [f"prompt_seed={seed} router_min_margin={margin:.2e} "
+           f"min_topk_gap={gap:.2e} (seeds tried, seed:gap: "
+           f"{' '.join(tried)}); tokens with a gap below 1e-5: "
+           + ", ".join(f"{'router' if ov is None else 'mixed'} "
+                       f"{r.below(1e-5)} of {sum(g.numel() for g in r.gaps)}"
+                       for ov, r in recs.items())]
+    for ov in overrides:
+        res, rec = {}, {}
+        for d, e in engines.items():
+            with MoeRecorder() as rec[d]:
+                res[d] = e.generate(toks, N, routing_override=ov)
+        g, c = res["card"], res["cpu"]
+        err = float((g.logits.cpu() - c.logits).abs().max())
+        calls = rec["card"].calls
+        # each layer's MoE once a chunk and once a decode step
+        assert len(calls) == len(rec["cpu"].calls) == cfg.num_layers * (
+            len(chunk_plan(S, CHUNK)) + N), len(calls)
+        same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                   for a, b in zip(calls, rec["cpu"].calls))
+        assert same, "an MoE call chose other experts on the two devices"
+        # how far rounding moved a token's top-k gap between the devices:
+        # what MOE_GAP must stay well above
+        gap_diff = max(float((a - b).abs().max())
+                       for a, b in zip(rec["card"].gaps, rec["cpu"].gaps))
+        assert g.routing == c.routing, (g.routing, c.routing)
+        assert np.array_equal(g.tokens, c.tokens), (g.tokens, c.tokens)
+        assert err < 2e-3, err  # fp32 both; summation order only
+        if ov is None:
+            out.append(f"p_fa={np.round(c.p_fa, 5).tolist()}")
+        out.append(f"{'router' if ov is None else 'mixed'} routing="
+                   f"{''.join(p[0] for p in g.routing)} logits_err={err:.2e}"
+                   f" moe_calls={len(calls)} experts_equal=True "
+                   f"topk_gap_max_diff_card_cpu={gap_diff:.2e} "
+                   f"tokens={g.tokens[0].tolist()}")
+    with MoeRecorder() as rec:
+        out.append("drain " + pool_parity(dev, GRANITE))
+    out.append(f"drain (both devices) min_topk_gap={rec.min_gap():.2e}, "
+               f"gaps below "
+               f"1e-5 / 1e-6 / 1e-7: {rec.below(1e-5)} / {rec.below(1e-6)}"
+               f" / {rec.below(1e-7)} of "
+               f"{sum(g.numel() for g in rec.gaps)}")
+    line, _ = moe_chunk_parity(dev, params, cfg)
+    out.append(line)
+    rng = np.random.default_rng(seed)
+    out.append(moe_fault_drain(dev, params, cfg, [
+        rng.integers(0, cfg.vocab_size, n) for n in (1000, 700, 1536, 600)]))
+    return out
+
+
+def moe_sampling(dev, params, cfg):
+    """Phase 16's sampled ``generate``: one 4096-token prompt, GEN tokens;
+    ``rng=None`` equals greedy, one seed gives the same tokens twice (an
+    int seed and a generator seeded alike), another seed others."""
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(params, cfg, max_len=PROMPT + GEN, prefill_chunk=CHUNK,
+                      device=dev)
+    from repro_torch.models import moe as MOE
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (1, PROMPT))
+    # the host's time inside the MoE's calls of the decode steps (one
+    # token a row): the decode is host-bound, so this is the share of
+    # its wall the MoE's small operators add
+    ffn, host = MOE.moe_ffn, []
+
+    def timed(params_, cfg_, x, *a, **kw):
+        t = time.perf_counter()
+        out = ffn(params_, cfg_, x, *a, **kw)
+        if x.shape[1] == 1:
+            host.append(time.perf_counter() - t)
+        return out
+    MOE.moe_ffn = timed
+    try:
+        greedy = eng.generate(toks, GEN)
+    finally:
+        MOE.moe_ffn = ffn
+    moe_host = sum(host)
+    assert len(host) == GEN * cfg.num_layers, len(host)
+    runs = {"none": eng.generate(toks, GEN, greedy=False),
+            "seed0": eng.generate(toks, GEN, greedy=False, rng=0),
+            "gen0": eng.generate(
+                toks, GEN, greedy=False,
+                rng=torch.Generator(device=dev).manual_seed(0)),
+            "seed1": eng.generate(toks, GEN, greedy=False, rng=1)}
+    for r in (greedy, *runs.values()):
+        assert bool(torch.isfinite(r.final_logits).all())
+    assert np.array_equal(runs["none"].tokens, greedy.tokens)
+    assert np.array_equal(runs["seed0"].tokens, runs["gen0"].tokens)
+    assert not np.array_equal(runs["seed0"].tokens, runs["seed1"].tokens)
+    return (f"sampling: rng=None equals greedy; seed 0 twice equal, seed 1 "
+            f"differs; greedy={greedy.tokens[0, :8].tolist()} seed0="
+            f"{runs['seed0'].tokens[0, :8].tolist()} seed1="
+            f"{runs['seed1'].tokens[0, :8].tolist()} decode_s greedy "
+            f"{greedy.decode_s:.3f} sampled {runs['seed0'].decode_s:.3f}; "
+            f"the greedy decode's MoE host time {moe_host:.3f} s of its "
+            f"{greedy.decode_s:.3f} s wall ({moe_host / greedy.decode_s:.3f})"
+            f" over {len(host)} calls")
+
+
 def check_kernels(dev):
     """Phase 3: every kernel against its plain version on the card.
     Returns {arch: {kernel: max abs error at that arch's main shapes}}."""
     from repro_torch.configs import get_config
     errs = {}
-    for arch in (ARCH, STABLELM):
+    for arch in (ARCH, STABLELM, GRANITE):
         cfg = get_config(arch)
         errs[arch] = {}
         for name, (kern, plain, mutant, *_rest) in kernel_cases(
@@ -1847,20 +2140,20 @@ def check_kernels(dev):
                    f"G={cfg.num_heads // cfg.num_kv_heads} "
                    f"max_abs_err={e:.3e} limit_ratio={ratio_text(r)} "
                    f"zeroed_tile_ratio={ratio_text(r_mut)}")
-    for D in (128, 160):
+    for D, G in ((128, 4), (160, 4), (64, 3)):
         for name, (kern, plain, *_rest) in kernel_cases(
-                dev, torch.float32, False, small_d=D).items():
+                dev, torch.float32, False, small_d=D, small_g=G).items():
             out = kern()
             e = max_err(out, plain())
             assert e < FP32_TOL, \
-                f"{name} fp32 D={D}: max abs err {e} >= {FP32_TOL}"
+                f"{name} fp32 G={G} D={D}: max abs err {e} >= {FP32_TOL}"
             extra = ""
             if name == "decode_attention_pooled":  # slot 0 holds nothing
-                assert not bool(out[:8].any()), \
+                assert not bool(out[:2 * G].any()), \
                     "a length-0 slot is not zeros"
                 extra = " length-0 slot rows all zero"
-            say(3, f"{name} float32 G=4 D={D} unaligned max_abs_err={e:.3e}"
-                   f" tol={FP32_TOL}{extra}")
+            say(3, f"{name} float32 G={G} D={D} unaligned max_abs_err="
+                   f"{e:.3e} tol={FP32_TOL}{extra}")
     for name, check in (("decode_attention", ring_decode_check),
                         ("decode_attention_pooled", pooled_ring_check)):
         e, r, r_mut = check(dev)
@@ -1900,8 +2193,10 @@ def check_kernels(dev):
 
 def time_kernels(dev):
     """Phase 4: each kernel's times at phi3-mini's main shapes (with the
-    ring rows and the n_split and tiles sweeps) and at stablelm's (D =
-    160, G = 4). Returns {arch: {kernel: row}}."""
+    ring rows and the n_split and tiles sweeps), at stablelm's (D = 160,
+    G = 4) and at granite's (D = 64, G = 3). Returns {arch: {kernel:
+    row}}."""
+    from repro_torch.configs import get_config
     rows = {}
     for name, (kern, plain, _, lib, n_bytes, flops) in kernel_cases(
             dev, torch.bfloat16, True).items():
@@ -1961,19 +2256,24 @@ def time_kernels(dev):
             + " ".join(f"{n}{'*' if plan else ''}={ms:.4f}"
                        for n, (ms, plan) in by_n.items()) + " (* the plan's)")
     free_card()
-    out = {ARCH: rows, STABLELM: {}}
-    for name, (kern, plain, _, lib, n_bytes, flops) in kernel_cases(
-            dev, torch.bfloat16, True, STABLELM).items():
-        b_ms, b_by = bound(n_bytes, flops)
-        r = out[STABLELM][name] = dict(
-            ms=time_ms(kern), plain_ms=time_ms(plain),
-            library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
-            call_ms=call_ms(kern))
-        say(4, f"{name} {STABLELM} D=160 G=4 ms={r['ms']:.4f} "
-               f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-               f"library_ms={r['library_ms']:.4f} bound_ms={b_ms:.4f} "
-               f"({b_by}; {n_bytes} bytes, {flops} flops) "
-               f"roofline_share={b_ms / r['ms']:.3f}")
+    out = {ARCH: rows}
+    for arch in (STABLELM, GRANITE):
+        cfg = get_config(arch)
+        out[arch] = {}
+        for name, (kern, plain, _, lib, n_bytes, flops) in kernel_cases(
+                dev, torch.bfloat16, True, arch).items():
+            b_ms, b_by = bound(n_bytes, flops)
+            r = out[arch][name] = dict(
+                ms=time_ms(kern), plain_ms=time_ms(plain),
+                library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+                call_ms=call_ms(kern))
+            say(4, f"{name} {arch} D={cfg.head_dim} "
+                   f"G={cfg.num_heads // cfg.num_kv_heads} ms={r['ms']:.4f} "
+                   f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f}"
+                   f" library_ms={r['library_ms']:.4f} bound_ms={b_ms:.4f} "
+                   f"({b_by}; {n_bytes} bytes, {flops} flops) "
+                   f"roofline_share={b_ms / r['ms']:.3f}")
+        free_card()
     return out
 
 
@@ -2111,6 +2411,33 @@ def main() -> int:
     del params
     free_card()
 
+    t0 = time.perf_counter()
+    for line in moe_path_parity(dev):
+        say(15, line)
+    say(15, f"{GRANITE} card = cpu done", t0)
+    free_card()
+
+    cfg = get_config(GRANITE)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    torch.cuda.synchronize()
+    say(16, f"{GRANITE} full width and depth ({cfg.num_layers} layers, "
+            f"{cfg.num_experts} experts top-{cfg.top_k}), "
+            f"{cfg.param_count()} parameters "
+            f"({cfg.param_count(active_only=True)} active a token), "
+            f"{torch.cuda.memory_allocated(dev)} bytes on the card", t0)
+    counts["granite_batch"], lines = main_path(dev, params, cfg)
+    for line in lines:
+        say(16, line)
+    counts["granite_continuous"], lines = continuous_path(dev, params, cfg)
+    for line in lines:
+        say(16, "continuous " + line)
+    say(16, moe_sampling(dev, params, cfg))
+    say(16, f"{GRANITE} batch, continuous and sampled paths done", t0)
+    del params
+    free_card()
+
     import repro_torch.kernels as KN
     kernels = []
     for name, replaces in REPLACES.items():
@@ -2126,7 +2453,10 @@ def main() -> int:
             max_abs_err=errs[ARCH][name], **rows[ARCH][name],
             stablelm_12b=dict(launches=counts[f"stablelm_{own}"][name],
                               max_abs_err=errs[STABLELM][name],
-                              **rows[STABLELM][name])))
+                              **rows[STABLELM][name]),
+            granite_moe_3b_a800m=dict(
+                launches=counts[f"granite_{own}"][name],
+                max_abs_err=errs[GRANITE][name], **rows[GRANITE][name])))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,11 @@
 
 ``FluxConfig`` and ``ModelConfig`` are the JAX package's frozen
 dataclasses with torch dtypes; ``register``/``get_config`` and
-``smoke_variant`` keep their meaning. The port registers the dense GQA
-archs whose every layer is global attention (phi3-mini-3.8b,
-stablelm-12b, command-r-plus-104b); the other architectures come with
-the slices that port their layer kinds (ROADMAP Queue 1 items 11-14).
+``smoke_variant`` keep their meaning. The port registers the GQA archs
+whose every layer is global attention, with a dense or an MoE FFN
+(phi3-mini-3.8b, stablelm-12b, command-r-plus-104b,
+granite-moe-3b-a800m); the other architectures come with the slices
+that port their layer kinds (ROADMAP Queue 1 items 11, 12 and 14).
 """
 from __future__ import annotations
 
@@ -151,13 +152,26 @@ class ModelConfig:
         """Indices of layers the Flux router controls (global attention)."""
         return tuple(i for i, k in enumerate(self.layer_kinds) if k == "attn")
 
-    def param_count(self) -> int:
-        """Parameters of a dense GQA model (the kinds this slice runs)."""
+    def param_count(self, active_only: bool = False) -> int:
+        """The JAX package's count (embedding, attention, FFN or MoE,
+        norms; the final norm and the routers are not counted) for the
+        kinds the port serves: GQA attention layers with a dense SwiGLU
+        or an MoE FFN. ``active_only`` counts the top-k and shared
+        experts a token runs instead of every expert."""
         d = self.d_model
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        per_layer = (d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
-                     + 3 * d * self.d_ff + 2 * d)
-        return n + self.num_layers * per_layer + d
+        mask = self.moe_layer_mask()
+        for i in range(self.num_layers):
+            n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            if mask[i]:
+                per_expert = 3 * d * self.moe_d_ff
+                experts = (self.top_k if active_only else self.num_experts)
+                n += d * self.num_experts  # gate
+                n += per_expert * (experts + self.num_shared_experts)
+            else:
+                n += 3 * d * self.d_ff  # SwiGLU: gate, up, down
+            n += 2 * d  # norms
+        return n
 
 
 # ---------------------------------------------------------------------------
@@ -171,6 +185,7 @@ ARCH_MODULES = {
     "phi3-mini-3.8b": "repro_torch.configs.phi3_mini_3_8b",
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
     "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
 }
 
 
@@ -181,10 +196,11 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def get_config(name: str) -> ModelConfig:
     if name not in ARCH_MODULES:
-        raise KeyError(f"unknown arch {name!r}; the port serves the dense "
-                       f"GQA archs {sorted(ARCH_MODULES)} (MoE, MLA, SSM, "
-                       f"sliding-window and the other layer kinds wait for "
-                       f"ROADMAP Queue 1 items 11-14)")
+        raise KeyError(f"unknown arch {name!r}; the port serves the GQA "
+                       f"archs {sorted(ARCH_MODULES)} (MLA, SSM, "
+                       f"sliding-window, encoder and prefix-embedding "
+                       f"layers wait for ROADMAP Queue 1 items 11, 12 and "
+                       f"14)")
     importlib.import_module(ARCH_MODULES[name])
     return _REGISTRY[name]
 

@@ -14,6 +14,12 @@ Flux routing contexts of ``prefill`` (as in the JAX package):
   ("fixed", decision)     — externally forced decision (1 = FA, 0 = SA);
   ("fa_only",)            — backbone as-is.
 The Gumbel soft routing of training waits for the training slice.
+
+A layer's FFN is a dense SwiGLU or, where ``cfg.moe_layer_mask()`` says
+so, the Mixture-of-Experts of ``models/moe.py``, called with the length
+of the call it is in (the route chunk, a streamed chunk, the monolithic
+prompt, one decode token), as the JAX package's prefill and decode
+functions call it: its capacity depends on that length.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from repro_torch.kernels.decode_attention import decode_attention_bh
 from repro_torch.kernels.decode_attention_pooled import \
     decode_attention_pooled_bh
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import (dense_init, embed_init, ffn_apply,
                                        ffn_init, rms_norm, rms_norm_init)
 from repro_torch.serve import kv_cache as KC
@@ -43,14 +50,19 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The layer kinds this slice runs: dense GQA global attention + FFN."""
-    if (cfg.use_mla or cfg.num_experts or cfg.num_encoder_layers
-            or cfg.num_prefix_tokens
+    """The layer kinds the port runs: GQA global attention with a dense
+    SwiGLU or an MoE FFN."""
+    if (cfg.use_mla or cfg.num_encoder_layers or cfg.num_prefix_tokens
             or any(k != "attn" for k in cfg.layer_kinds)):
         raise NotImplementedError(
-            f"{cfg.name}: this slice serves dense GQA models (all layers "
-            f"'attn', no MoE/MLA/SSM/encoder/modality prefix); the other "
-            f"layer kinds wait for ROADMAP Queue 1 items 11-14")
+            f"{cfg.name}: the port serves GQA models whose layers are all "
+            f"'attn' with a dense or an MoE FFN; MLA, SSM, sliding-window, "
+            f"encoder and modality-prefix layers wait for ROADMAP Queue 1 "
+            f"items 11, 12 and 14")
+
+
+def has_ffn(cfg: ModelConfig, layer_idx: int) -> bool:
+    return cfg.d_ff > 0 or cfg.moe_layer_mask()[layer_idx]
 
 
 def is_routed(cfg: ModelConfig, layer_idx: int) -> bool:
@@ -72,8 +84,12 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig,
                  "attn": A.gqa_init(gen, cfg)}
     if is_routed(cfg, layer_idx):
         p["router"] = R.router_init(gen, cfg.q_dim, cfg.flux)
-    p["norm2"] = rms_norm_init(cfg.d_model, dt, dev)
-    p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, dt)
+    if has_ffn(cfg, layer_idx):
+        p["norm2"] = rms_norm_init(cfg.d_model, dt, dev)
+        if cfg.moe_layer_mask()[layer_idx]:
+            p["moe"] = MOE.moe_init(gen, cfg)
+        else:
+            p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, dt)
     return p
 
 
@@ -137,11 +153,29 @@ def _route_and_attend(bp, cfg: ModelConfig, q, k, v, x_q, ctx,
     return M.attention(q, k, v, mode, q_offset=q_offset), (decision, p_mean)
 
 
+def ffn_block(bp, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
+              capacity_len: Optional[int] = None) -> torch.Tensor:
+    """The residual FFN of a layer: h + FFN(norm2(h)), dense or MoE
+    (``capacity_len``: see ``moe.moe_apply``); h itself at a layer with
+    no FFN."""
+    if not has_ffn(cfg, layer_idx):
+        return h
+    x2 = rms_norm(bp["norm2"], h, cfg.norm_eps)
+    if "moe" in bp:
+        y2, _ = MOE.moe_ffn(bp["moe"], cfg, x2, capacity_len=capacity_len)
+    else:
+        y2 = ffn_apply(bp["ffn"], x2)
+    return h + y2
+
+
 def block_apply(bp, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
-                positions: torch.Tensor, ctx, want_cache: bool = False):
+                positions: torch.Tensor, ctx, want_cache: bool = False,
+                capacity_len: Optional[int] = None):
     """One transformer block over a full sequence. Returns (h, r, cache):
     r is the routing record of a routed layer else None; cache is the
-    layer's (k, v) when ``want_cache``."""
+    layer's (k, v) when ``want_cache``. ``capacity_len`` sets an MoE
+    layer's capacity from another length than the sequence's (the
+    fidelity probe's bucket)."""
     x = rms_norm(bp["norm1"], h, cfg.norm_eps)
     q, k, v, x_q = A.gqa_qkv(bp["attn"], cfg, x, positions)
     cache = (k, v) if want_cache else None
@@ -151,9 +185,7 @@ def block_apply(bp, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
     else:
         o = M.attention(q, k, v, M.FULL)
     h = h + A.gqa_out(bp["attn"], cfg, o)
-    x2 = rms_norm(bp["norm2"], h, cfg.norm_eps)
-    h = h + ffn_apply(bp["ffn"], x2)
-    return h, r, cache
+    return ffn_block(bp, cfg, layer_idx, h, capacity_len), r, cache
 
 
 # ---------------------------------------------------------------------------
@@ -326,28 +358,43 @@ def decode_core(params, cfg: ModelConfig, token: torch.Tensor,
                                                  device=h.device)
             y, cache = _decode_attn_full(bp, cfg, x, pos, rope_pos, cache,
                                          slot_positions.get(L))
-        h = h + y
-        x2 = rms_norm(bp["norm2"], h, cfg.norm_eps)
-        h = h + ffn_apply(bp["ffn"], x2)
+        h = ffn_block(bp, cfg, i, h + y)
         caches[i] = cache
     return logits_from_hidden(params, cfg, h[:, -1]), caches
 
 
+def sample_categorical(logits: torch.Tensor,
+                       generator: torch.Generator) -> torch.Tensor:
+    """One draw a row from softmax(logits) (B, V), by Gumbel-max over
+    float32 uniforms from ``generator``, as ``jax.random.categorical``
+    draws: argmax(logits - log(-log(u))). The generator must be on the
+    logits' device (``torch.rand`` raises otherwise). Returns (B,)
+    int64."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device,
+                   dtype=torch.float32)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits.float() - torch.log(-torch.log(u)), dim=-1)
+
+
 def decode_many(params, cfg: ModelConfig, logits: torch.Tensor,
                 caches: List, pos, *, n_steps: int,
-                greedy: bool = True):
-    """Greedy generation for ``n_steps``: token i is the argmax of the
-    logits before decode step i. ``pos`` is the absolute position of the
-    first generated token: an int, or a (B,) int32 device tensor, one per
-    row, advanced on the device (no step reads it back). Returns (tokens
-    (B, n_steps) int64, last logits (B, V), caches)."""
-    if not greedy:
-        raise NotImplementedError(
-            "sampled decoding (greedy=False) waits for ROADMAP Queue 1 "
-            "item 17")
+                greedy: bool = True,
+                generator: Optional[torch.Generator] = None):
+    """Generation for ``n_steps``: token i is drawn from the logits
+    before decode step i, their argmax when ``greedy``, else one
+    categorical sample a row from ``generator`` (``sample_categorical``).
+    ``pos`` is the absolute position of the first generated token: an
+    int, or a (B,) int32 device tensor, one per row, advanced on the
+    device (no step reads it back). Returns (tokens (B, n_steps) int64,
+    last logits (B, V), caches)."""
+    if not greedy and generator is None:
+        raise ValueError(
+            "decode_many(greedy=False) needs a torch.Generator on the "
+            "logits' device (generator=...)")
     toks = []
     for step in range(n_steps):
-        nxt = torch.argmax(logits, dim=-1)
+        nxt = (torch.argmax(logits, dim=-1) if greedy
+               else sample_categorical(logits, generator))
         toks.append(nxt)
         logits, caches = decode_core(params, cfg, nxt[:, None], caches,
                                      pos + step)
@@ -409,9 +456,7 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
                                         flux.sink, ring - flux.sink)
         else:
             y, cache = _chunk_attn_full(bp, cfg, x, positions, start, cache)
-        h = h + y
-        x2 = rms_norm(bp["norm2"], h, cfg.norm_eps)
-        h = h + ffn_apply(bp["ffn"], x2)
+        h = ffn_block(bp, cfg, i, h + y)
         caches[i] = cache
     return logits_from_hidden(params, cfg, h[:, -1]), caches
 
@@ -432,8 +477,9 @@ def snapshot_state(caches: List, logits: torch.Tensor):
 # Routing-fidelity probe
 # ---------------------------------------------------------------------------
 
-def attention_mass_coverage(params, cfg: ModelConfig,
-                            tokens: torch.Tensor) -> torch.Tensor:
+def attention_mass_coverage(params, cfg: ModelConfig, tokens: torch.Tensor,
+                            capacity_len: Optional[int] = None
+                            ) -> torch.Tensor:
     """Per-routed-layer FA attention mass retained by the SA window: the
     serving stack's routing-fidelity probe.
 
@@ -446,8 +492,12 @@ def attention_mass_coverage(params, cfg: ModelConfig,
 
     The JAX package pads the prompt to a power-of-two bucket with a
     traced length to bound its jit cache; the port compiles nothing, so
-    ``tokens`` (B, S) is the prompt itself. Returns (n_routed,) float32
-    on the CPU, in ``cfg.routable_layers()`` order."""
+    ``tokens`` (B, S) is the prompt itself. Causal attention makes the
+    padding invisible to the real tokens, but an MoE layer's capacity
+    comes from the padded length: ``capacity_len`` (the bucket) gives
+    the MoE layers that capacity, so the port's coverage is the JAX
+    engine's. Returns (n_routed,) float32 on the CPU, in
+    ``cfg.routable_layers()`` order."""
     if cfg.use_mla:
         raise NotImplementedError(
             "attention_mass_coverage over MLA latents waits for ROADMAP "
@@ -473,7 +523,8 @@ def attention_mass_coverage(params, cfg: ModelConfig,
                              k.float()) * (q.shape[-1] ** -0.5)
             p = torch.softmax(s, dim=-1)
             covs.append((p * vis).sum(dim=-1).mean())
-        h, _, _ = block_apply(bp, cfg, i, h, positions, ("fa_only",))
+        h, _, _ = block_apply(bp, cfg, i, h, positions, ("fa_only",),
+                              capacity_len=capacity_len)
     if not covs:
         return torch.zeros((0,), dtype=torch.float32)
     return torch.stack(covs).cpu()

@@ -1,5 +1,5 @@
 """Serving engine: route on the first chunk → stream the rest into
-decode-geometry caches → greedy decode (port of the single-request half
+decode-geometry caches → decode (port of the single-request half
 of ``repro/serve/engine.py``).
 
 Admission is the chunked, cache-resident pipeline of the JAX engine:
@@ -13,8 +13,8 @@ Admission is the chunked, cache-resident pipeline of the JAX engine:
      layer, a sink+local ``RingKV`` per SA layer. Later chunks stream
      through ``prefill_chunk`` straight into them (FA layers on the
      block-sparse kernel, ring layers on a dense masked softmax).
-  3. ``decode_many`` generates greedily, a Python loop of decode steps
-     on the decode kernel.
+  3. ``decode_many`` generates greedily (or samples, given a seeded
+     generator), a Python loop of decode steps on the decode kernel.
 ``prefill_route_repack`` (full prefill → repack) is the fallback for
 prompts the chunked path excludes (``chunked_eligible``).
 
@@ -708,7 +708,10 @@ class ServeEngine:
         extra FA-only forward (``MD.attention_mass_coverage``; flash at
         every attention layer on the card) gives, per routed layer, the
         share of the last prompt token's FA attention mass that the SA
-        window keeps. With the dial at 0 this is one int test."""
+        window keeps. With the dial at 0 this is one int test. The JAX
+        engine pads the prompt to its power-of-two bucket; the port runs
+        it unpadded and gives MoE layers the bucket's capacity, which is
+        the same result."""
         if not self.fidelity_probe_every:
             return None
         self._probe_admissions += 1
@@ -718,8 +721,10 @@ class ServeEngine:
         toks = np.asarray(tokens_1d).reshape(-1)
         if not routed or toks.size < 1:
             return None
+        bucket = 1 << (toks.size - 1).bit_length()
         cov = MD.attention_mass_coverage(self.params, self.cfg,
-                                         self._tokens(toks[None])).numpy()
+                                         self._tokens(toks[None]),
+                                         capacity_len=bucket).numpy()
         self.dispatch_count += 1
         reg = self.telemetry
         for j, i in enumerate(routed):
@@ -1040,14 +1045,18 @@ class ServeEngine:
             torch.cuda.synchronize(self.device)
 
     def generate(self, tokens, n_steps: int, *, greedy: bool = True,
-                 routing_override=None,
+                 rng=None, routing_override=None,
                  prefix_reuse: bool = True) -> GenerationResult:
-        """Admit ``tokens`` (B, S) and decode ``n_steps`` tokens greedily.
-        ``prefix_reuse=False`` keeps the request out of the prefix store."""
-        if not greedy:
-            raise NotImplementedError(
-                "sampled decoding (greedy=False) waits for ROADMAP Queue 1 "
-                "item 17")
+        """Admit ``tokens`` (B, S) and decode ``n_steps`` tokens.
+        ``greedy=False`` with an ``rng`` samples each token from the
+        softmax of its logits: ``rng`` is a ``torch.Generator`` on the
+        engine's device, or an int seed the engine makes one of (the
+        same seed, the same tokens). ``greedy or rng is None`` decodes
+        greedily, as the JAX engine does. ``prefix_reuse=False`` keeps
+        the request out of the prefix store."""
+        greedy = bool(greedy or rng is None)
+        if not greedy and not isinstance(rng, torch.Generator):
+            rng = torch.Generator(device=self.device).manual_seed(int(rng))
         tokens = self._tokens(tokens)
         seq_len = tokens.shape[1]
         if seq_len > self.max_len:
@@ -1079,8 +1088,9 @@ class ServeEngine:
         kv_bytes = KC.kv_cache_bytes(caches)
         self._sync()
         t1 = time.perf_counter()
-        toks, final, _ = MD.decode_many(self.params, self.cfg, logits,
-                                        caches, seq_len, n_steps=n_steps)
+        toks, final, _ = MD.decode_many(
+            self.params, self.cfg, logits, caches, seq_len, n_steps=n_steps,
+            greedy=greedy, generator=None if greedy else rng)
         toks = toks.cpu().numpy()  # waits for the decode to finish
         t2 = time.perf_counter()
         self.dispatch_count += dispatches + 1  # and the decode

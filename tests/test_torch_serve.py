@@ -146,8 +146,10 @@ def test_bridged_and_native_engines_are_deterministic(models):
 def test_unported_options_raise(models):
     _, tcfg, _, tparams, toks = models
     eng = ServeEngine(tparams, tcfg, max_len=MAX_LEN, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.generate(toks, N, greedy=False)
+    # sampling is ported: greedy=False without an rng decodes greedily,
+    # as the JAX engine does (tests/test_torch_sampling.py samples)
+    assert np.array_equal(eng.generate(toks, N, greedy=False).tokens,
+                          eng.generate(toks, N).tokens)
     with pytest.raises(NotImplementedError):
         eng.generate(toks, N, routing_override=(("duo", 1), "fa"))
     with pytest.raises(ValueError):  # prompt longer than the capacity
