@@ -6,12 +6,13 @@
 Phases, each printing one line (any failure raises and exits non-zero;
 nothing falls back to the CPU):
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA;
-  2. build the five hand-written attention kernels from ``csrc/``, and
+  2. build the hand-written attention kernels from ``csrc/``, and
      print the compiler's report (registers, spills, shared memory) and
      the SASS's HGMMA / UTMALDG counts of the bf16 tensor-core (wgmma)
      engine in the flash, block-sparse and streaming kernels at each head
-     dim, and the report of the batch and slot-pool split decode kernels
-     and their merge kernels;
+     dim (flash and streaming also at (Dk, Dv) = (192, 128)), and the
+     report of the batch and slot-pool split decode kernels, their merge
+     kernels and the latent (MLA) decode kernel;
   3. each kernel against its plain PyTorch version on the card: at the
      main paths' shapes in bf16 (the pooled decode kernel at the slot
      pool's: 4 slots of ragged live lengths, over a FullKV and over a
@@ -165,14 +166,38 @@ nothing falls back to the CPU):
      path as phase 7 (every logit finite, exact launch counts, tok/s,
      TTFT p50, peak memory and KV bytes), and sampled ``generate``: one
      seed twice gives the same tokens, another seed others, and
-     ``rng=None`` is greedy.
+     ``rng=None`` is greedy;
+  17. deepseek-v2-236b narrowed for the CPU (2 layers, d_model 1024, 16
+     heads, 8 experts top-6 + 2 shared) with its real per-head widths
+     (q_lora 1536, kv_lora 512, nope 128, rope 64, v 128), fp32, the
+     same weights on the card and on the CPU: ``generate`` router-driven
+     and mixed (routing, tokens and every MoE call's experts identical,
+     logits within 2e-3, seeds held to MOE_GAP as in phase 15) and the
+     slot-pool drain of phase 5b;
+  18. deepseek-v2-236b at full width, depth cut to 4 of its 60 layers
+     (472 GB in bf16 whole), bf16, seeded weights: the batch path as
+     phase 6, the continuous path as phase 7 (every logit finite, exact
+     launch counts: flash and streaming at (192, 128) on the routing
+     chunks, no block-sparse, since a latent chunk runs the absorbed
+     attention in plain torch, and the latent decode once per layer per
+     decode step on both frontends; tok/s, TTFT p50, peak memory and KV
+     bytes a row), and a full-cover prefix hit bitwise equal to cold.
 Phase 3 also holds every kernel at granite's grouping (G = 3, D = 64:
 bf16 at its main shapes, fp32 small cases, both decode kernels' split
 sweeps), and phase 4 also times the five kernels at granite's shapes.
-Then one JSON line of per-kernel numbers (phi3-mini's, and stablelm's
-and granite's under ``stablelm_12b`` and ``granite_moe_3b_a800m``;
-launches by path, phase 14's as ``guardrails``), the total seconds, and
-the last line ``{"ok": true, "device": {...}}``.
+Phase 3 also holds deepseek's instances: flash and streaming at (192,
+128) and the latent decode (R 512, rope 64, 128 heads over one latent
+KV row, scale 192 ** -0.5, over POOL_LENS and over a shuffled ring with
+holes) in bf16 at the main path's shapes under the limit (a zeroed
+tile of V, or of ``ckv`` in every slot, above it), fp32 at a small
+unaligned case (the latent decode with a length-0 slot whose rows must
+be zeros); phase 4 times them beside SDPA (naming the backends that
+refuse the shapes) and the latent decode against its tiles a range.
+Then one JSON line of per-kernel numbers (phi3-mini's, and stablelm's,
+granite's and deepseek's under ``stablelm_12b``, ``granite_moe_3b_a800m``
+and ``deepseek_v2_236b``; the latent decode its own entry at deepseek's
+shapes; launches by path, phase 14's as ``guardrails``), the total
+seconds, and the last line ``{"ok": true, "device": {...}}``.
 """
 import collections
 import ctypes
@@ -195,6 +220,17 @@ ARCH = "phi3-mini-3.8b"
 STABLELM = "stablelm-12b"  # head dim 160, G = 4: phases 9-11
 COMMAND_R = "command-r-plus-104b"  # G = 12, tied embeddings: phase 12
 GRANITE = "granite-moe-3b-a800m"  # MoE, head dim 64, G = 3: phases 15-16
+DEEPSEEK = "deepseek-v2-236b"  # MLA, 160 experts top-6 + 2: phases 17-18
+# deepseek-v2 at 60 layers is 472 GB in bf16; 4 of them at full width
+# (1.05 B embedding and unembedding + 4 x 3.98 B = 16.97 B parameters,
+# ≈ 34 GB) fit
+DEEPSEEK_LAYERS = 4
+# phase 17's narrowing of deepseek for the CPU: its real per-head widths
+# (q_lora 1536, kv_lora 512, nope 128, rope 64, v 128), fewer heads and
+# experts
+DEEPSEEK_NARROW = dict(num_layers=2, d_model=1024, num_heads=16,
+                       num_kv_heads=16, num_experts=8, top_k=6,
+                       num_shared_experts=2)
 # command-r at 64 layers is 208 GB in bf16; 8 of them at full width
 # (3.15 B tied embedding + 8 x 1.573 B = 15.7 B parameters, 31.5 GB) fit
 COMMAND_R_LAYERS, COMMAND_R_REQUESTS = 8, 2
@@ -214,6 +250,8 @@ REPLACES = {  # kernel → the Pallas TPU kernel it replaces
     "block_sparse_attention": "src/repro/kernels/block_sparse_attention.py:86",
     "decode_attention": "src/repro/kernels/decode_attention.py:107",
     "decode_attention_pooled": "src/repro/kernels/decode_attention.py:202",
+    # the pooled kernel's instance at MLA's absorbed decode
+    "decode_attention_mla": "src/repro/kernels/decode_attention.py:202",
 }
 BF16_ATOL_RMS = 0.05  # bf16 limit's absolute part, as a share of rms(plain)
 BF16_RTOL = 2.0 ** -7  # one bf16 ulp: kernel and plain round their outputs
@@ -474,6 +512,130 @@ def kernel_cases(dev, dtype, main, arch=ARCH, small_d=128, small_g=4):
     return cases
 
 
+def sdpa_backends(call):
+    """Which of PyTorch's SDPA backends take ``call``'s shapes: {backend:
+    "ok" or "refuses"} (the library yardstick's note where a backend
+    cannot compute the function)."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel(b):
+                warnings.simplefilter("ignore")
+                call()
+            torch.cuda.synchronize()
+            out[b.name.lower()] = "ok"
+        except RuntimeError:
+            out[b.name.lower()] = "refuses"
+    return out
+
+
+def mla_kernel_cases(dev, dtype, main):
+    """deepseek-v2's kernel instances, as ``kernel_cases`` gives them:
+    flash and streaming at (Dk, Dv) = (nope + rope, v) = (192, 128) and
+    the latent decode (``decode_attention_mla_bh``: q (B·H, 1, R + rope)
+    over ckv (B, L, R) and kr (B, L, rope), R = 512, rope = 64, scale
+    (nope + rope) ** -0.5). ``main``: the route chunk of 4 requests of 128
+    heads (G = 1) and the decode over POOL_LENS at L = PROMPT + GEN, plus
+    ``decode_attention_mla_ring``, a shuffled ring with holes (L 2176,
+    RING_POOL_LENS); else the small unaligned case (G = 4, 200 queries
+    over 200 keys; the decode at 32 heads over slots of 0 / 1 / 137 /
+    300 keys at L 300, a ring with holes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention_mla import (
+        decode_attention_mla_bh, decode_attention_mla_plain)
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+    from repro_torch.kernels.streaming_attention import \
+        streaming_attention_bh
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(0)
+    cfg = get_config(DEEPSEEK)
+    Dk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    Dv, R, rope = cfg.v_head_dim, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    scale = Dk ** -0.5
+    it = torch.tensor([], dtype=dtype).element_size()
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    if main:
+        BH = BHkv = REQUESTS * cfg.num_heads
+        S, sink, local = CHUNK, cfg.flux.sink, cfg.flux.local
+    else:
+        BH, BHkv, S, sink, local = 8, 2, 200, 16, 48
+    q, k, v = rnd(BH, S, Dk), rnd(BHkv, S, Dk), rnd(BHkv, S, Dv)
+    G = BH // BHkv
+
+    def qkv4():  # the library call's (G, Hkv, S, D) views
+        return (q.view(BHkv, G, S, Dk).transpose(0, 1),
+                k[None].expand(G, *k.shape), v[None].expand(G, *v.shape))
+
+    def work(pairs):
+        return (it * (BH * S * (Dk + Dv) + BHkv * S * (Dk + Dv)),
+                2 * (Dk + Dv) * pairs)
+    pos = torch.arange(S, device=dev)
+    smask = (pos[None] <= pos[:, None]) & (
+        (pos[None] < sink) | (pos[:, None] - pos[None] < local))
+    cases = {
+        "flash_attention": (
+            lambda: flash_attention_bh(q, k, v),
+            lambda: ref.flash_attention_ref(q, k, v),
+            lambda: ref.flash_attention_ref(q, k, zero_tile(v)),
+            lambda: F.scaled_dot_product_attention(*qkv4(), is_causal=True),
+            *work(BH * S * (S + 1) // 2), 1),
+        "streaming_attention": (
+            lambda: streaming_attention_bh(q, k, v, sink=sink, local=local),
+            lambda: ref.streaming_attention_ref(q, k, v, sink=sink,
+                                                local=local),
+            lambda: ref.streaming_attention_ref(q, k, zero_tile(v),
+                                                sink=sink, local=local),
+            lambda: F.scaled_dot_product_attention(*qkv4(),
+                                                   attn_mask=smask),
+            *work(BH * streaming_pairs(range(S), sink, local)), 1)}
+
+    def decode(name, lens, L, H, ring):
+        lens = tuple(min(n, L) for n in lens)
+        Bp = len(lens)
+        qd, ckv, krd = rnd(Bp * H, 1, R + rope), rnd(Bp, L, R), rnd(Bp, L,
+                                                                      rope)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        ppos = (torch.as_tensor(ring_positions(np.random.default_rng(0),
+                                               lens, L), device=dev)
+                if ring else None)
+        vis = torch.arange(L, device=dev)[None] < lengths[:, None]
+        if ppos is not None:
+            vis = vis & (ppos >= 0)
+        k_eff = torch.cat([ckv, krd], dim=-1)[:, None]  # built untimed
+        n_vis = int(vis.sum())
+        cases[name] = (
+            lambda: decode_attention_mla_bh(qd, ckv, krd, ppos, lengths,
+                                            n_heads=H, scale=scale),
+            lambda: decode_attention_mla_plain(qd, ckv, krd, ppos, lengths,
+                                               n_heads=H, scale=scale),
+            lambda: decode_attention_mla_plain(
+                qd, zero_slot_tiles(ckv, lens), krd, ppos, lengths,
+                n_heads=H, scale=scale),
+            lambda: F.scaled_dot_product_attention(
+                qd.view(Bp, H, 1, R + rope), k_eff.expand(Bp, H, L, R + rope),
+                ckv[:, None].expand(Bp, H, L, R),
+                attn_mask=vis[:, None, None], scale=scale),
+            # q read, o written, each live key's ckv and kr read once; the
+            # 2·(Dk + Dv) operations of every visible (row, key) pair
+            it * (Bp * H * (2 * R + rope) + sum(lens) * (R + rope)),
+            2 * (2 * R + rope) * H * n_vis, Bp)
+    if main:
+        decode("decode_attention_mla", POOL_LENS, PROMPT + GEN,
+               cfg.num_heads, False)
+        decode("decode_attention_mla_ring", RING_POOL_LENS,
+               cfg.flux.sink + cfg.flux.local, cfg.num_heads, True)
+    else:
+        decode("decode_attention_mla", (0, 1, 137, 300), 300, 32, True)
+    return cases
+
+
 def ring_positions(rng, lens, L, hole=0.1):
     """(B, L) int32 ring positions: slot b's first min(n, L) entries hold
     distinct absolute positions of its last n tokens in shuffled order, a
@@ -619,19 +781,20 @@ def wgmma_report(n_sel):
         lib = _build.library_path(source)
         sass = sass_counts(lib)
         smem = ctypes.CDLL(str(lib)).flux_wgmma_smem_bytes
-        smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], \
-            ctypes.c_int
+        smem.argtypes, smem.restype = [ctypes.c_int] * 3, ctypes.c_int
         report = compiler_report(lib, "wgmma_kernel")
         if not report:
             lines.append(f"{source}: no compiler report at {lib.name}.log")
         for name, r in sorted(report.items()):
-            D = int(re.search(r"ILi(\d+)E", name)[1])
+            dims = [int(d) for d in re.findall(r"Li(\d+)E", name)]
+            D, Dv = dims[0], dims[-1]  # one head dim, or (Dk, Dv)
             n = n_sel if source == "block_sparse_attention" else 0
             hgmma, tma, shapes = sass.get(name, (None, None, None))
             lines.append(
-                f"{source} wgmma D={D}: registers={r.get('registers')} "
+                f"{source} wgmma D={D}{f' Dv={Dv}' if Dv != D else ''}: "
+                f"registers={r.get('registers')} "
                 f"spill_stores/loads={r.get('spill')} bytes "
-                f"static_smem={r.get('smem')} dynamic_smem={smem(D, n)} "
+                f"static_smem={r.get('smem')} dynamic_smem={smem(D, Dv, n)} "
                 f"(n_sel={n}) sass HGMMA={hgmma} {shapes} UTMALDG={tma}")
     return lines
 
@@ -650,6 +813,12 @@ def decode_report():
         if not report:
             lines.append(f"{source}: no compiler report")
         for name, r in report.items():
+            if "mla_decode_kernel" in name:  # no head-dim argument
+                lines.append(
+                    f"pooled mla_decode {'bf16' if 'bfloat16' in name else 'fp32'}"
+                    f" (R 512, rope 64, 16 heads a CTA): {r.get('registers')}"
+                    f" regs spill {r.get('spill')} stack {r.get('stack')}")
+                continue
             kind = "split" if "split_kernel" in name else "merge"
             args = [int(x) for x in re.findall(r"Li(\d+)E", name)]
             dtype = "bf16" if "bfloat16" in name else "fp32"
@@ -1067,13 +1236,28 @@ def path_parity(dev, arch=ARCH):
     return "; ".join(out)
 
 
+def decode_launches(cfg, steps, pooled):
+    """The decode kernels' launches for ``steps`` decode steps of every
+    layer: an MLA model's latent decode on both frontends, else the batch
+    kernel (an int pos) or the pooled one (a (B,) pos)."""
+    n = steps * cfg.num_layers
+    if cfg.use_mla:
+        return dict(decode_attention=0, decode_attention_pooled=0,
+                    decode_attention_mla=n)
+    return dict(decode_attention=0 if pooled else n,
+                decode_attention_pooled=n if pooled else 0,
+                decode_attention_mla=0)
+
+
 def prefill_launches(cfg, admissions):
     """Each prefill kernel's launches for these (pattern, prompt length,
     prefix hit boundary) admissions through the chunked prefill. Cold
     (hit 0): flash (FA layers) and streaming (SA layers) once per layer
     on the routing chunk, block-sparse once per FA layer on every later
-    chunk. A hit skips the routing chunk and the chunks it covers:
-    block-sparse once per FA layer on each chunk past the boundary."""
+    chunk (an MLA model's full-cache layers run the absorbed attention
+    there, in plain torch). A hit skips the routing chunk and the chunks
+    it covers: block-sparse once per FA layer on each chunk past the
+    boundary."""
     from repro_torch.serve.engine import chunk_plan
     want = {"flash_attention": 0, "streaming_attention": 0,
             "block_sparse_attention": 0}
@@ -1083,8 +1267,9 @@ def prefill_launches(cfg, admissions):
         if not hit:
             want["flash_attention"] += n_fa
             want["streaming_attention"] += cfg.num_layers - n_fa
-        want["block_sparse_attention"] += n_fa * (len(chunk_plan(n, CHUNK))
-                                                  - covered)
+        if not cfg.use_mla:
+            want["block_sparse_attention"] += n_fa * (
+                len(chunk_plan(n, CHUNK)) - covered)
     return want
 
 
@@ -1112,18 +1297,19 @@ def router_margin_seed(engine, lens, max_seed=32, thresholds=(0.5,)):
     raise AssertionError("no prompt seed with router margins > 1e-3")
 
 
-def pool_parity(dev, arch=ARCH):
+def pool_parity(dev, arch=ARCH, cfg=None):
     """Phases 5b (phi3-mini) and 9b (stablelm): the slot-pool scheduler
     on cuda and cpu with the same 2-layer full-width fp32 weights of
-    ``arch``. Returns its report line."""
+    ``arch`` (or of ``cfg``, phase 17's narrowed deepseek). Returns its
+    report line."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import (PREFILL_CHUNKS_PER_TICK,
                                           routing_pattern)
     from repro_torch.models import model as MD
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.scheduler import STATUS_OK, ContinuousScheduler
-    cfg = get_config(arch).replace(num_layers=2, dtype=torch.float32,
-                                   param_dtype=torch.float32)
+    cfg = cfg or get_config(arch).replace(num_layers=2, dtype=torch.float32,
+                                          param_dtype=torch.float32)
     params = MD.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     lens, N = (2304, 1536, 1000, 700, 2304), 8
     engines = {name: ServeEngine(params, cfg, max_len=max(lens) + N,
@@ -1213,23 +1399,27 @@ def main_path(dev, params, cfg, requests=REQUESTS,
         n_sa = cfg.num_layers - n_fa
         n_chunks = PROMPT // CHUNK
         want = {"flash_attention": n_fa, "streaming_attention": n_sa,
-                "block_sparse_attention": n_fa * (n_chunks - 1),
-                "decode_attention": GEN * cfg.num_layers,
-                "decode_attention_pooled": 0}
+                "block_sparse_attention": 0 if cfg.use_mla
+                else n_fa * (n_chunks - 1),
+                **decode_launches(cfg, GEN, pooled=False)}
         assert delta == want, (delta, want)
         lines.append(
             f"{name}: routing={''.join(p[0] for p in gen.routing)} "
             f"msr={gen.msr:.3f} kv_bytes={gen.kv_bytes} "
             f"prefill_s={gen.prefill_s:.3f} "
             f"prefill_tok_s={requests * PROMPT / gen.prefill_s:.0f} "
+            f"kv_bytes_per_row={gen.kv_bytes // requests} "
             f"decode_s={gen.decode_s:.3f} "
             f"decode_tok_s={requests * GEN / gen.decode_s:.1f} "
             f"launches={delta} tokens0={done[0].tokens[:8].tolist()}")
     counts = KN.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    for k, n in counts.items():
-        if k != "decode_attention_pooled":
-            assert n > 0, f"{k} was never launched on the batch path"
+    served = ({"flash_attention", "streaming_attention",
+               "decode_attention_mla"} if cfg.use_mla else
+              {"flash_attention", "streaming_attention",
+               "block_sparse_attention", "decode_attention"})
+    for k in served:
+        assert counts[k] > 0, f"{k} was never launched on the batch path"
     lines.append(f"peak_mem_bytes={peak} card={torch.cuda.get_device_name(0)}")
     return counts, lines
 
@@ -1288,8 +1478,7 @@ def continuous_path(dev, params, cfg):
     assert 2 <= sched.n_geometries() <= 3, sched.n_geometries()
     steps = [p.steps for p in sched.pools.values()]
     want = prefill_launches(cfg, sched.admissions)
-    want.update(decode_attention=0,
-                decode_attention_pooled=sum(steps) * cfg.num_layers)
+    want.update(decode_launches(cfg, sum(steps), pooled=True))
     assert counts == want, (counts, want)
     tokens = sum(f.metrics.n_generated for f in done.values())
     summ = done.summary
@@ -1386,7 +1575,7 @@ def prefix_path(dev, params):
     want = prefill_launches(cfg, [(pattern, PROMPT, 0),
                                   (pattern, PROMPT, PROMPT),
                                   (pattern, PROMPT, PREAMBLE)])
-    want.update(decode_attention=3 * GEN * L, decode_attention_pooled=0)
+    want.update(decode_launches(cfg, 3 * GEN, pooled=False))
     assert counts == want, (counts, want)
     s = store.stats()
     assert min(s.demotions, events["promotion"], s.drops) >= 1, (s, events)
@@ -1431,8 +1620,8 @@ def prefix_path(dev, params):
         assert np.array_equal(done[rid].tokens, cold_done[rid].tokens), rid
     assert hits[0] == 0 and all(h > 0 for h in hits[1:]), hits
     want = prefill_launches(cfg, sched.admissions)
-    want.update(decode_attention=0, decode_attention_pooled=sum(
-        p.steps for p in sched.pools.values()) * L)
+    want.update(decode_launches(
+        cfg, sum(p.steps for p in sched.pools.values()), pooled=True))
     assert cont == want, (cont, want)
     # generate alone decodes on the batch kernel, whose splits differ
     # from the pooled kernel's, so in bf16 a near-tied greedy step can
@@ -1800,8 +1989,8 @@ def guarded_path(dev, params, cfg):
     assert n_probes == len(log) > 0
     want = prefill_launches(cfg, sched.admissions)
     want["flash_attention"] += n_probes * cfg.num_layers
-    want.update(decode_attention=0, decode_attention_pooled=sum(
-        p.steps for p in sched.pools.values()) * cfg.num_layers)
+    want.update(decode_launches(
+        cfg, sum(p.steps for p in sched.pools.values()), pooled=True))
     assert counts == want, (counts, want)
     # telemetry surfaces
     samples = parse_prometheus_text(eng.metrics_text())
@@ -1975,11 +2164,13 @@ def moe_fault_drain(dev, params, cfg, prompts):
             f"fault")
 
 
-def moe_path_parity(dev):
+def moe_path_parity(dev, cfg=None):
     """Phase 15: granite at full width, 2 layers, fp32, the same weights
     on the card and on the CPU: ``generate`` (router-driven and mixed),
     a slot-pool drain as in phase 5b, one chunk's ``moe_apply`` with
     drops, and a faulted drain on the card. Returns its report lines.
+    Phase 17 passes deepseek's narrowed ``cfg``: ``generate`` and the
+    drain only.
 
     A token whose k-th and (k+1)-th gate probabilities lie within
     rounding can choose another expert on each device, so the prompt
@@ -1991,8 +2182,9 @@ def moe_path_parity(dev):
     from repro_torch.launch.serve import routing_pattern
     from repro_torch.models import model as MD
     from repro_torch.serve.engine import ServeEngine, chunk_plan
-    cfg = get_config(GRANITE).replace(num_layers=2, dtype=torch.float32,
-                                      param_dtype=torch.float32)
+    extras = cfg is None
+    cfg = cfg or get_config(GRANITE).replace(
+        num_layers=2, dtype=torch.float32, param_dtype=torch.float32)
     params = MD.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     S, N = 2304, 8
     engines = {name: ServeEngine(params, cfg, max_len=S + N,
@@ -2055,12 +2247,14 @@ def moe_path_parity(dev):
                    f"topk_gap_max_diff_card_cpu={gap_diff:.2e} "
                    f"tokens={g.tokens[0].tolist()}")
     with MoeRecorder() as rec:
-        out.append("drain " + pool_parity(dev, GRANITE))
+        out.append("drain " + pool_parity(dev, cfg=cfg))
     out.append(f"drain (both devices) min_topk_gap={rec.min_gap():.2e}, "
                f"gaps below "
                f"1e-5 / 1e-6 / 1e-7: {rec.below(1e-5)} / {rec.below(1e-6)}"
                f" / {rec.below(1e-7)} of "
                f"{sum(g.numel() for g in rec.gaps)}")
+    if not extras:
+        return out
     line, _ = moe_chunk_parity(dev, params, cfg)
     out.append(line)
     rng = np.random.default_rng(seed)
@@ -2115,6 +2309,38 @@ def moe_sampling(dev, params, cfg):
             f"the greedy decode's MoE host time {moe_host:.3f} s of its "
             f"{greedy.decode_s:.3f} s wall ({moe_host / greedy.decode_s:.3f})"
             f" over {len(host)} calls")
+
+
+def mla_prefix_hit(dev, params, cfg):
+    """Phase 18's prefix path: one 4096-token prompt through the batch
+    frontend twice on an engine with a device store, mixed routing. The
+    second is a full-cover hit: tokens and first logits bitwise equal to
+    the cold run's, and no flash or streaming launch (the latent decode
+    alone). Returns its report line."""
+    import repro_torch.kernels as KN
+    from repro_torch.launch.serve import routing_pattern
+    from repro_torch.serve.engine import ServeEngine
+    mixed = routing_pattern(cfg, "mixed")
+    eng = ServeEngine(params, cfg, max_len=PROMPT + GEN, prefill_chunk=CHUNK,
+                      prefix_cache_mb=1024, device=dev)
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (1, PROMPT))
+    cold = eng.generate(toks, GEN, routing_override=mixed)
+    KN.reset_launch_counts()
+    warm = eng.generate(toks, GEN, routing_override=mixed)
+    counts = KN.launch_counts()
+    want = dict(flash_attention=0, streaming_attention=0,
+                block_sparse_attention=0,
+                **decode_launches(cfg, GEN, pooled=False))
+    assert counts == want, (counts, want)
+    assert warm.prefix_hit_tokens == PROMPT, warm.prefix_hit_tokens
+    assert np.array_equal(warm.tokens, cold.tokens), "warm tokens"
+    assert torch.equal(warm.logits, cold.logits), "warm first logits"
+    s = eng.prefix_store.stats()
+    return (f"prefix: a {PROMPT}-token full-cover hit, tokens and first "
+            f"logits bitwise equal to cold; prefill_s warm "
+            f"{warm.prefill_s:.4f} cold {cold.prefill_s:.4f}; launches "
+            f"{counts}; store inserts={s.inserts} hits={s.hits} "
+            f"device_bytes={eng.prefix_store.device_bytes}")
 
 
 def check_kernels(dev):
@@ -2188,6 +2414,32 @@ def check_kernels(dev):
                f"zeroed_tile_ratio={ratio_text(r_mut)}")
     for line in pooled_split_check(dev):
         say(3, line)
+    errs[DEEPSEEK] = {}
+    for name, (kern, plain, mutant, _, _, _, slots) in mla_kernel_cases(
+            dev, torch.bfloat16, True).items():
+        out, want = kern(), plain()
+        errs[DEEPSEEK][name] = e = max_err(out, want)
+        r, r_mut = bf16_ratios(out, want, slots), \
+            bf16_ratios(mutant(), want, slots)
+        assert max(r) < 1, f"{DEEPSEEK} {name} bf16: error {r} of the limit"
+        assert min(r_mut) > 1, f"{DEEPSEEK} {name} bf16: a zeroed tile is " \
+            f"within the limit {r_mut}"
+        say(3, f"{name} bfloat16 {DEEPSEEK} main shapes "
+               f"{'(Dk, Dv)=(192, 128) G=1' if slots == 1 else 'R=512 rope=64 G=128 scale=192**-0.5'} "
+               f"max_abs_err={e:.3e} limit_ratio={ratio_text(r)} "
+               f"zeroed_tile_ratio={ratio_text(r_mut)}")
+    for name, (kern, plain, *_rest, slots) in mla_kernel_cases(
+            dev, torch.float32, False).items():
+        out = kern()
+        e = max_err(out, plain())
+        assert e < FP32_TOL, f"{name} fp32 {DEEPSEEK}: max abs err {e}"
+        extra = ""
+        if slots > 1:  # slot 0 holds nothing
+            assert not bool(out[:out.shape[0] // slots].any()), \
+                "a length-0 slot is not zeros"
+            extra = " ring with holes, length-0 slot rows all zero"
+        say(3, f"{name} float32 {DEEPSEEK} small unaligned max_abs_err="
+               f"{e:.3e} tol={FP32_TOL}{extra}")
     return errs
 
 
@@ -2274,6 +2526,39 @@ def time_kernels(dev):
                    f"({b_by}; {n_bytes} bytes, {flops} flops) "
                    f"roofline_share={b_ms / r['ms']:.3f}")
         free_card()
+    out[DEEPSEEK] = {}
+    cases = mla_kernel_cases(dev, torch.bfloat16, True)
+    for name, (kern, plain, _, lib, n_bytes, flops, _) in cases.items():
+        b_ms, b_by = bound(n_bytes, flops)
+        r = out[DEEPSEEK][name] = dict(
+            ms=time_ms(kern), plain_ms=time_ms(plain),
+            library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+            call_ms=call_ms(kern), sdpa_backends=sdpa_backends(lib))
+        say(4, f"{name} {DEEPSEEK} ms={r['ms']:.4f} "
+               f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+               f"library_ms={r['library_ms']:.4f} (sdpa backends "
+               f"{r['sdpa_backends']}) bound_ms={b_ms:.4f} ({b_by}; "
+               f"{n_bytes} bytes, {flops} flops) "
+               f"roofline_share={b_ms / r['ms']:.3f}")
+    # the latent decode's device time against its 64-key tiles a range
+    from repro_torch.kernels import decode_attention_mla as DM
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, L, H = len(POOL_LENS), PROMPT + GEN, 128
+    q, ckv, kr = (torch.randn(*shape, generator=g, device=dev).to(
+        torch.bfloat16) for shape in ((B * H, 1, 576), (B, L, 512),
+                                      (B, L, 64)))
+    lengths = torch.tensor(POOL_LENS, dtype=torch.int32, device=dev)
+    sweep = {}
+    for t in (1, 2, 4, 8, 16):
+        sweep[t] = time_ms(lambda t=t: DM.decode_attention_mla_bh(
+            q, ckv, kr, None, lengths, n_heads=H, scale=192 ** -0.5,
+            tiles=t))
+    out[DEEPSEEK]["decode_attention_mla"]["ms_by_tiles"] = sweep
+    say(4, f"decode_attention_mla ms by tiles a range ({POOL_LENS}, L "
+           f"{PROMPT + GEN}, 128 heads): "
+           + " ".join(f"{t}{'*' if t == DM.MLA_TILES else ''}={ms:.4f}"
+                      for t, ms in sweep.items()) + " (* the plan's)")
+    free_card()
     return out
 
 
@@ -2438,10 +2723,51 @@ def main() -> int:
     del params
     free_card()
 
+    t0 = time.perf_counter()
+    narrow = get_config(DEEPSEEK).replace(
+        **DEEPSEEK_NARROW, dtype=torch.float32, param_dtype=torch.float32)
+    for line in moe_path_parity(dev, narrow):
+        say(17, line)
+    say(17, f"{DEEPSEEK} (per-head widths kept, {DEEPSEEK_NARROW}) card = "
+            f"cpu done", t0)
+    free_card()
+
+    cfg = get_config(DEEPSEEK).replace(num_layers=DEEPSEEK_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    torch.cuda.synchronize()
+    say(18, f"{DEEPSEEK} at full width, depth cut to {DEEPSEEK_LAYERS} of "
+            f"{get_config(DEEPSEEK).num_layers} layers ({cfg.num_experts} "
+            f"experts top-{cfg.top_k} + {cfg.num_shared_experts} shared, "
+            f"MLA R {cfg.kv_lora_rank} rope {cfg.qk_rope_head_dim}), "
+            f"{cfg.param_count()} parameters "
+            f"({cfg.param_count(active_only=True)} active a token), "
+            f"{torch.cuda.memory_allocated(dev)} bytes on the card", t0)
+    counts["deepseek_batch"], lines = main_path(dev, params, cfg)
+    for line in lines:
+        say(18, line)
+    counts["deepseek_continuous"], lines = continuous_path(dev, params, cfg)
+    for line in lines:
+        say(18, "continuous " + line)
+    say(18, mla_prefix_hit(dev, params, cfg))
+    say(18, f"{DEEPSEEK} batch, continuous and prefix paths done", t0)
+    del params
+    free_card()
+
     import repro_torch.kernels as KN
     kernels = []
     for name, replaces in REPLACES.items():
         src = _build.CSRC / f"{KN.KERNELS[name].source}.cu"
+        if name == "decode_attention_mla":  # deepseek's paths only
+            kernels.append(dict(
+                name=name, route="cuda", source=str(src.relative_to(ROOT)),
+                replaces=replaces, launches=counts["deepseek_batch"][name],
+                launches_by_path={k: c[name] for k, c in counts.items()},
+                max_abs_err=errs[DEEPSEEK][name], **rows[DEEPSEEK][name],
+                ring=dict(max_abs_err=errs[DEEPSEEK][f"{name}_ring"],
+                          **rows[DEEPSEEK][f"{name}_ring"])))
+            continue
         # each kernel's count from the path it was ported for: the batch
         # path for the first four, the slot pool for the pooled decode
         own = "continuous" if name == "decode_attention_pooled" \
@@ -2457,6 +2783,10 @@ def main() -> int:
             granite_moe_3b_a800m=dict(
                 launches=counts[f"granite_{own}"][name],
                 max_abs_err=errs[GRANITE][name], **rows[GRANITE][name])))
+        if name in errs[DEEPSEEK]:  # flash and streaming at (192, 128)
+            kernels[-1]["deepseek_v2_236b"] = dict(
+                launches=counts["deepseek_batch"][name],
+                max_abs_err=errs[DEEPSEEK][name], **rows[DEEPSEEK][name])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

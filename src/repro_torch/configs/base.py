@@ -2,11 +2,12 @@
 
 ``FluxConfig`` and ``ModelConfig`` are the JAX package's frozen
 dataclasses with torch dtypes; ``register``/``get_config`` and
-``smoke_variant`` keep their meaning. The port registers the GQA archs
-whose every layer is global attention, with a dense or an MoE FFN
-(phi3-mini-3.8b, stablelm-12b, command-r-plus-104b,
-granite-moe-3b-a800m); the other architectures come with the slices
-that port their layer kinds (ROADMAP Queue 1 items 11, 12 and 14).
+``smoke_variant`` keep their meaning. The port registers the archs
+whose every layer is global attention, GQA or Multi-head Latent
+Attention, with a dense or an MoE FFN (phi3-mini-3.8b, stablelm-12b,
+command-r-plus-104b, granite-moe-3b-a800m, deepseek-v2-236b); the other
+architectures come with the slices that port their layer kinds (ROADMAP
+Queue 1 items 12 and 14).
 """
 from __future__ import annotations
 
@@ -155,14 +156,23 @@ class ModelConfig:
     def param_count(self, active_only: bool = False) -> int:
         """The JAX package's count (embedding, attention, FFN or MoE,
         norms; the final norm and the routers are not counted) for the
-        kinds the port serves: GQA attention layers with a dense SwiGLU
-        or an MoE FFN. ``active_only`` counts the top-k and shared
-        experts a token runs instead of every expert."""
+        kinds the port serves: GQA or MLA attention layers with a dense
+        SwiGLU or an MoE FFN. ``active_only`` counts the top-k and
+        shared experts a token runs instead of every expert."""
         d = self.d_model
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         mask = self.moe_layer_mask()
         for i in range(self.num_layers):
-            n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            if self.use_mla:
+                qr = self.q_lora_rank or d
+                qk_hd = self.qk_nope_head_dim + self.qk_rope_head_dim
+                n += d * qr + qr * self.num_heads * qk_hd  # q
+                n += d * (self.kv_lora_rank + self.qk_rope_head_dim)
+                n += self.kv_lora_rank * self.num_heads * (
+                    self.qk_nope_head_dim + self.v_head_dim)
+                n += self.num_heads * self.v_head_dim * d  # o
+            else:
+                n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
             if mask[i]:
                 per_expert = 3 * d * self.moe_d_ff
                 experts = (self.top_k if active_only else self.num_experts)
@@ -186,6 +196,7 @@ ARCH_MODULES = {
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
     "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
     "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
 }
 
 
@@ -196,11 +207,10 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def get_config(name: str) -> ModelConfig:
     if name not in ARCH_MODULES:
-        raise KeyError(f"unknown arch {name!r}; the port serves the GQA "
-                       f"archs {sorted(ARCH_MODULES)} (MLA, SSM, "
-                       f"sliding-window, encoder and prefix-embedding "
-                       f"layers wait for ROADMAP Queue 1 items 11, 12 and "
-                       f"14)")
+        raise KeyError(f"unknown arch {name!r}; the port serves the archs "
+                       f"{sorted(ARCH_MODULES)} (SSM, sliding-window, "
+                       f"encoder and prefix-embedding layers wait for "
+                       f"ROADMAP Queue 1 items 12 and 14)")
     importlib.import_module(ARCH_MODULES[name])
     return _REGISTRY[name]
 

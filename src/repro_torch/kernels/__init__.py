@@ -8,6 +8,7 @@ or raises; a CPU tensor goes to the plain version.
 from typing import Dict
 
 from repro_torch.kernels import (block_sparse_attention, decode_attention,
+                                 decode_attention_mla,
                                  decode_attention_pooled, flash_attention,
                                  streaming_attention)
 
@@ -17,6 +18,7 @@ KERNELS = {
     "block_sparse_attention": block_sparse_attention.KERNEL,
     "decode_attention": decode_attention.KERNEL,
     "decode_attention_pooled": decode_attention_pooled.KERNEL,
+    "decode_attention_mla": decode_attention_mla.KERNEL,
 }
 
 

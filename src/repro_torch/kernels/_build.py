@@ -34,9 +34,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # dtype codes and head dims the kernels are instantiated for
-# (csrc/attention_common.cuh: kF32, kBF16, dispatch_head_dim)
+# (csrc/attention_common.cuh: kF32, kBF16, dispatch_head_dim), and the
+# (Dk, Dv) pairs with Dk != Dv of the flash and streaming kernels
+# (dispatch_head_dims): MLA's route chunk, nope + rope = 192 over v = 128
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 96, 128, 160)
+SPLIT_HEAD_DIMS = ((192, 128),)
 
 
 def nvcc_path() -> str:
@@ -141,7 +144,7 @@ class CudaKernel:
         self.launches += 1
 
 
-def _check_common(name: str, q: torch.Tensor, k: torch.Tensor,
+def check_common(name: str, q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor, *others: torch.Tensor) -> None:
     """Rank, emptiness, one device (also for ``others``) and one dtype of
     q, k, v."""
@@ -162,14 +165,17 @@ def _check_common(name: str, q: torch.Tensor, k: torch.Tensor,
 
 
 def check_operands(name: str, q: torch.Tensor, k: torch.Tensor,
-                   v: torch.Tensor) -> None:
+                   v: torch.Tensor, dv_free: bool = False) -> None:
     """The checks every attention entry makes, on any device:
     q (BH, Sq, D), k / v (BHkv, Skv, D), BH a multiple of BHkv, one
-    device and one dtype."""
-    _check_common(name, q, k, v)
-    if k.shape != v.shape or q.shape[2] != k.shape[2]:
-        raise ValueError(f"{name}: k and v must both be (BHkv, Skv, D) "
-                         f"with q's D; got q {tuple(q.shape)}, k "
+    device and one dtype. ``dv_free``: v may be (BHkv, Skv, Dv) with
+    another width than q's and k's (the flash and streaming entries)."""
+    check_common(name, q, k, v)
+    if (k.shape[:2] != v.shape[:2] or q.shape[2] != k.shape[2]
+            or not (dv_free or v.shape[2] == k.shape[2])):
+        want = "(BHkv, Skv, Dv)" if dv_free else "(BHkv, Skv, D)"
+        raise ValueError(f"{name}: want k (BHkv, Skv, D) with q's D and v "
+                         f"{want}; got q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if q.shape[0] % k.shape[0]:
         raise ValueError(f"{name}: q rows {q.shape[0]} are not a multiple "
@@ -183,7 +189,7 @@ def check_pooled_operands(name: str, q: torch.Tensor, k: torch.Tensor,
     (B·n_heads, 1, Dk), k (BHkv, L, Dk), v (BHkv, L, Dv) with Dv free,
     BHkv a multiple of B dividing B·n_heads, positions None or (B, L)
     int32, lengths (B,) int32; one device, and one dtype for q, k, v."""
-    _check_common(name, q, k, v, lengths,
+    check_common(name, q, k, v, lengths,
                   *(() if positions is None else (positions,)))
     BH, Sq, Dk = q.shape
     BHkv, L = k.shape[0], k.shape[1]
@@ -198,6 +204,13 @@ def check_pooled_operands(name: str, q: torch.Tensor, k: torch.Tensor,
     if BH % BHkv or BHkv % B:
         raise ValueError(f"{name}: kv rows {BHkv} must divide q rows {BH} "
                          f"and be a multiple of the {B} slots")
+    check_slots(name, positions, lengths, B, L)
+
+
+def check_slots(name: str, positions, lengths: torch.Tensor, B: int,
+                L: int) -> None:
+    """A pooled decode's slot metadata: lengths (B,) int32, positions
+    None or (B, L) int32."""
     if lengths.shape != (B,) or lengths.dtype != torch.int32:
         raise ValueError(f"{name}: lengths must be ({B},) int32; got "
                          f"{tuple(lengths.shape)} {lengths.dtype}")
@@ -219,9 +232,12 @@ def on_cpu(name: str, t: torch.Tensor) -> bool:
                      f"cuda and its plain version on cpu")
 
 
-def check_cuda(name: str, *tensors: torch.Tensor) -> int:
+def check_cuda(name: str, *tensors: torch.Tensor, dims=None) -> int:
     """The checks a CUDA launch adds: contiguous operands, a dtype and
-    head dim the kernels are built for. Returns the dtype code."""
+    head dims the kernels are built for. ``dims`` is the (Dk, Dv) pair
+    the launch needs, by default the first tensor's last dim twice; an
+    entry that checks its own widths passes (). Returns the dtype
+    code."""
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: operand of shape {tuple(t.shape)} "
@@ -230,11 +246,17 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> int:
     if dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: dtype {dtype} not supported by the "
                          f"kernel (float32, bfloat16)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not supported by the "
+    dims = (d, d) if dims is None else tuple(dims)
+    if dims and dims[0] == dims[1] and dims[0] not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {dims[0]} not supported by the "
                          f"kernel {HEAD_DIMS}; head dim 256 (gemma3's "
                          f"global layers) waits for ROADMAP Queue 2 "
                          f"instances item 2")
+    if dims and dims[0] != dims[1] and dims not in SPLIT_HEAD_DIMS:
+        raise ValueError(f"{name}: head dims (Dk, Dv) = {dims} not "
+                         f"supported by the kernel: it is built for Dk = Dv "
+                         f"in {HEAD_DIMS} and for (Dk, Dv) in "
+                         f"{SPLIT_HEAD_DIMS}")
     return DTYPE_CODES[dtype]
 
 

@@ -4,8 +4,11 @@
 // fp32 scores and accumulators, the mask value -1e30 (not -inf), p rounded
 // to v's dtype before the PV product, and the final acc / max(l, 1e-20).
 // Inputs are fp32 or bf16 (one template instance each) with head dims 32,
-// 64, 96, 128 and 160. Kernels allocate nothing and launch on the caller's
-// stream; each C entry point returns cudaGetLastError().
+// 64, 96, 128 and 160; the flash and streaming kernels also at (Dk, Dv) =
+// (192, 128), the route chunk of Multi-head Latent Attention (queries and
+// keys of nope + rope = 192 columns over values of 128). Kernels allocate
+// nothing and launch on the caller's stream; each C entry point returns
+// cudaGetLastError().
 #pragma once
 
 #include <cuda_bf16.h>
@@ -63,28 +66,33 @@ __device__ __forceinline__ float warp_sum16(float x) {
 // row and walks a caller-chosen sequence of kBK-key tiles, keeping the
 // online softmax state in registers. 256 threads form a 16 x 16 grid; thread
 // (ty, tx) owns score rows ty + 16 i and key columns tx + 16 j (i, j < 4),
-// and output columns tx + 16 j (j < D / 16). Tiles are staged in shared
+// and output columns tx + 16 j (j < Dv / 16). Tiles are staged in shared
 // memory as fp32 with an odd row stride, so column reads are conflict-free.
+// Q and K rows are D wide, V and output rows Dv (by default D).
 // ---------------------------------------------------------------------------
 
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
 
-template <int D> struct PrefillSmem {
+template <int D, int Dv = D> struct PrefillSmem {
   static constexpr int kLd = D + 1;
+  static constexpr int kVLd = Dv + 1;
   static constexpr int kPLd = kBK + 1;
   static constexpr size_t kBytes =
-      sizeof(float) * ((size_t)(kBQ + 2 * kBK) * kLd + (size_t)kBQ * kPLd);
+      sizeof(float) * ((size_t)(kBQ + kBK) * kLd + (size_t)kBK * kVLd +
+                       (size_t)kBQ * kPLd);
   // past 48 KB (D >= 64) the launch asks for it (allow_smem); 137 KB at
-  // D = 160 still fits one CTA of an H100 (227 KB)
+  // D = 160 and 145 KB at (192, 128) still fit one CTA of an H100 (227 KB)
   static_assert(kBytes <= 232448, "one CTA's shared memory on an H100");
 };
 
-template <typename T, int D> struct PrefillBlock {
-  static_assert(D % 16 == 0 && D <= 160, "head dim");
-  static constexpr int kLd = PrefillSmem<D>::kLd;
-  static constexpr int kPLd = PrefillSmem<D>::kPLd;
-  static constexpr int kCols = D / 16;
+template <typename T, int D, int Dv = D> struct PrefillBlock {
+  static_assert(D % 16 == 0 && D <= 192 && Dv % 16 == 0 && Dv <= 160,
+                "head dims");
+  static constexpr int kLd = PrefillSmem<D, Dv>::kLd;
+  static constexpr int kVLd = PrefillSmem<D, Dv>::kVLd;
+  static constexpr int kPLd = PrefillSmem<D, Dv>::kPLd;
+  static constexpr int kCols = Dv / 16;
 
   float* qs;
   float* ks;
@@ -97,7 +105,7 @@ template <typename T, int D> struct PrefillBlock {
     qs = smem;
     ks = qs + kBQ * kLd;
     vs = ks + kBK * kLd;
-    ps = vs + kBK * kLd;
+    ps = vs + kBK * kVLd;
     tx = threadIdx.x % 16;
     ty = threadIdx.x / 16;
 #pragma unroll
@@ -109,18 +117,22 @@ template <typename T, int D> struct PrefillBlock {
     }
   }
 
-  // Rows [row0, row0 + 64) of a row-major (n, D) matrix into a staged tile;
-  // rows at or past n read as zeros (the TPU kernels pad with zeros).
+  // Rows [row0, row0 + 64) of a row-major (n, W) matrix into a staged tile
+  // of row stride Ld; rows at or past n read as zeros (the TPU kernels pad
+  // with zeros).
+  template <int W, int Ld>
   __device__ static void load_tile(float* dst, const T* src, int row0, int n) {
-    for (int e = threadIdx.x; e < kBK * D; e += kThreads) {
-      const int r = e / D;
-      const int c = e - r * D;
+    for (int e = threadIdx.x; e < kBK * W; e += kThreads) {
+      const int r = e / W;
+      const int c = e - r * W;
       const int g = row0 + r;
-      dst[r * kLd + c] = g < n ? to_float(src[(size_t)g * D + c]) : 0.f;
+      dst[r * Ld + c] = g < n ? to_float(src[(size_t)g * W + c]) : 0.f;
     }
   }
 
-  __device__ void load_q(const T* q, int row0, int n) { load_tile(qs, q, row0, n); }
+  __device__ void load_q(const T* q, int row0, int n) {
+    load_tile<D, kLd>(qs, q, row0, n);
+  }
 
   // One kBK-key tile at keys [kv0, kv0 + 64). mask(r, key) says whether the
   // query row r of this block (0..63) sees the absolute key index `key`.
@@ -128,8 +140,8 @@ template <typename T, int D> struct PrefillBlock {
   __device__ void step(const T* k, const T* v, int kv0, int n_kv, float scale,
                        const Mask& mask) {
     __syncthreads();  // the previous tile's reads of ks / vs / ps are done
-    load_tile(ks, k, kv0, n_kv);
-    load_tile(vs, v, kv0, n_kv);
+    load_tile<D, kLd>(ks, k, kv0, n_kv);
+    load_tile<Dv, kVLd>(vs, v, kv0, n_kv);
     __syncthreads();
 
     float s[4][4];
@@ -181,7 +193,7 @@ template <typename T, int D> struct PrefillBlock {
     for (int key = 0; key < kBK; ++key) {
       float b[kCols];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) b[c] = vs[key * kLd + tx + 16 * c];
+      for (int c = 0; c < kCols; ++c) b[c] = vs[key * kVLd + tx + 16 * c];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = ps[(ty + 16 * i) * kPLd + key];
@@ -199,7 +211,7 @@ template <typename T, int D> struct PrefillBlock {
       const float denom = fmaxf(l[i], 1e-20f);
 #pragma unroll
       for (int c = 0; c < kCols; ++c)
-        o[(size_t)g * D + tx + 16 * c] = from_float<T>(acc[i][c] / denom);
+        o[(size_t)g * Dv + tx + 16 * c] = from_float<T>(acc[i][c] / denom);
     }
   }
 };
@@ -244,6 +256,41 @@ int dispatch_by_dtype(int dtype, int D, A... a) {
 template <template <typename, int> class Launcher, typename... A>
 int dispatch(int dtype, int D, A... a) {
   return dispatch_by_dtype<Launcher, Launcher>(dtype, D, a...);
+}
+
+// (Dk, Dv) dispatch of the flash and streaming kernels onto
+// Launcher<T, Dk, Dv>::run(args...): Dk = Dv at every head dim, and the
+// pairs with Dk != Dv (_build.SPLIT_HEAD_DIMS).
+template <template <typename, int, int> class Launcher, typename T,
+          typename... A>
+cudaError_t dispatch_head_dims(int Dk, int Dv, A... a) {
+  if (Dk == Dv) {
+    switch (Dk) {
+      case 32: return Launcher<T, 32, 32>::run(a...);
+      case 64: return Launcher<T, 64, 64>::run(a...);
+      case 96: return Launcher<T, 96, 96>::run(a...);
+      case 128: return Launcher<T, 128, 128>::run(a...);
+      case 160: return Launcher<T, 160, 160>::run(a...);
+    }
+  }
+  if (Dk == 192 && Dv == 128) return Launcher<T, 192, 128>::run(a...);
+  return cudaErrorInvalidValue;
+}
+
+// dispatch_by_dtype over (Dk, Dv) pairs.
+template <template <typename, int, int> class F32Launcher,
+          template <typename, int, int> class BF16Launcher, typename... A>
+int dispatch_pair_by_dtype(int dtype, int Dk, int Dv, A... a) {
+  cudaError_t e = cudaErrorInvalidValue;
+  if (dtype == kF32)
+    e = dispatch_head_dims<F32Launcher, float>(Dk, Dv, a...);
+  if (dtype == kBF16)
+    e = dispatch_head_dims<BF16Launcher, __nv_bfloat16>(Dk, Dv, a...);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it, so the next call reports its own
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace flux

@@ -107,7 +107,7 @@ template <typename T, int D> struct BlockSparseWgmmaLaunch {
                          int Skv, int n_sel, int q_offset, float scale,
                          cudaStream_t stream) {
     wgmma::Maps maps;
-    cudaError_t e = maps.make(q, k, v, BH, BHkv, Sq, Skv, D);
+    cudaError_t e = maps.make(q, k, v, BH, BHkv, Sq, Skv, D, D);
     if (e != cudaSuccess) return e;
     const size_t bytes = wgmma::Layout<D>::bytes(n_sel);
     auto kernel = block_sparse_wgmma_kernel<D>;

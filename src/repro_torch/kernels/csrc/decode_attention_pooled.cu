@@ -309,7 +309,225 @@ cudaError_t launch_pooled(dim3 grid, const void* q, const void* k,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// MLA's absorbed decode over a latent cache (decode_attention_mla_fwd): the
+// pooled function with one KV row a slot (G = n_heads), k_eff = [ckv ‖ kr]
+// (Dk = R + rope) and v_eff = ckv (Dv = R), read from the cache's ckv
+// (B, L, R) and kr (B, L, rope) in place. Built for deepseek-v2's widths.
+//
+// What bounds it: a key's 1,152 bytes (bf16) feed 128 heads x (576 + 512)
+// FMAs, about 240 operations a byte, so at full width it is bound by
+// operations, near the tensor cores' balance point and far above the CUDA
+// cores'. This first kernel runs them on the CUDA cores in fp32, simple and
+// exact to the pooled kernel's rounding; moving them onto wgmma is speed
+// work for later. Each CTA takes kMlaHeads query heads of one slot over one
+// range of `tiles` 64-key tiles, cut from the capacity as the pooled kernel
+// cuts them (a range past the slot's live length returns at once, and the
+// ranges merge in pooled_merge_kernel). It walks its range in sub-tiles of
+// kMlaKeys keys: each is staged once in shared memory as fp32 rows of
+// ckv ‖ kr and serves both products (its first R columns are v_eff), with
+// an online softmax across the sub-tiles (log2 units, the -1e30 mask, p
+// rounded to T while l sums the unrounded p, as the prefill engine keeps
+// its running max). The heads' 8 CTAs of a range re-read its keys from L2.
+// ---------------------------------------------------------------------------
+
+constexpr int kMlaR = 512;      // kv_lora_rank
+constexpr int kMlaRope = 64;    // qk_rope_head_dim
+constexpr int kMlaDk = kMlaR + kMlaRope;
+constexpr int kMlaHeads = 16;   // query heads of one CTA
+constexpr int kMlaKeys = 32;    // keys of one staged sub-tile
+constexpr int kMlaThreads = 256;
+
+// Shared memory of one MLA CTA: q (kMlaHeads, Dk) and one sub-tile of keys
+// (kMlaKeys rows of Dk, an odd fp32 row stride so that a column read is
+// conflict-free) in fp32, p (kMlaHeads, kMlaKeys), each head's alpha of the
+// sub-tile, and the heads' final m and l.
+struct MlaPlan {
+  static constexpr int kLd = kMlaDk + 1;
+  static constexpr uint32_t kK = 4 * kMlaHeads * kMlaDk;
+  static constexpr uint32_t kP = kK + 4 * kMlaKeys * kLd;
+  static constexpr uint32_t kAlpha = kP + 4 * kMlaHeads * kMlaKeys;
+  static constexpr uint32_t kML = kAlpha + 4 * kMlaHeads;
+  static constexpr size_t kBytes = kML + 4 * 2 * kMlaHeads;
+  static_assert(kMlaThreads == 16 * kMlaHeads && kMlaKeys == 32 &&
+                    kMlaR == 2 * kMlaThreads,
+                "thread (h, x) scores keys x and x + 16 of head h; a "
+                "thread accumulates latent columns t and t + 256");
+};
+
+// One CTA: heads [h0, h0 + n_h) of slot blockIdx.x (h0 = blockIdx.z *
+// kMlaHeads) over keys [t0 * 64, min((t0 + tiles) * 64, n_live)) of its
+// latent cache, t0 = blockIdx.y * tiles.
+template <typename T>
+__global__ void __launch_bounds__(kMlaThreads)
+mla_decode_kernel(const T* __restrict__ q, const T* __restrict__ ckv,
+                  const T* __restrict__ kr, const int* __restrict__ positions,
+                  const int* __restrict__ lengths, T* __restrict__ o,
+                  float* __restrict__ part_acc, float* __restrict__ part_m,
+                  float* __restrict__ part_l, int L, int H, int tiles,
+                  float scale_log2) {
+  using P = MlaPlan;
+  constexpr int kE = 16 / (int)sizeof(T);  // elements of 16 bytes
+  constexpr int kRowVecs = kMlaDk / kE;    // 16-byte vectors of a key
+  constexpr int kCkvVecs = kMlaR / kE;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const int slot = blockIdx.x, split = blockIdx.y, n_split = gridDim.y;
+  const int h0 = blockIdx.z * kMlaHeads;
+  const int n_h = min(kMlaHeads, H - h0);
+  const size_t row0 = (size_t)slot * H + h0;  // the CTA's first q / o row
+  const int n_live = live_length(lengths, slot, L);
+  const int t0 = split * tiles;
+  if (t0 * kKeys >= n_live) {  // past the slot's live keys: nothing to read
+    if (n_split == 1)  // n_live = 0 and no merge: the rows are zeros
+      for (int i = tid; i < n_h * kMlaR; i += kMlaThreads)
+        o[row0 * kMlaR + i] = from_float<T>(0.f);
+    return;
+  }
+  const int key_end = min((t0 + tiles) * kKeys, n_live);
+  float* qs = reinterpret_cast<float*>(smem);
+  float* ks = reinterpret_cast<float*>(smem + P::kK);
+  float* ps = reinterpret_cast<float*>(smem + P::kP);
+  float* alpha_s = reinterpret_cast<float*>(smem + P::kAlpha);
+  float* ml_s = reinterpret_cast<float*>(smem + P::kML);
+  for (int i = tid; i < kMlaHeads * kMlaDk; i += kMlaThreads)
+    qs[i] = i < n_h * kMlaDk ? to_float(q[row0 * kMlaDk + i]) : 0.f;
+
+  // scores: thread (hy, kx) takes head hy and keys kx, kx + 16 of a
+  // sub-tile; the 16 threads of a head share a half-warp and its running
+  // m and l. PV: thread tid takes latent columns tid and tid + 256 of
+  // every head.
+  const int hy = tid / 16, kx = tid % 16;
+  const int* prow = positions == nullptr ? nullptr
+                                         : positions + (size_t)slot * L;
+  float m = kNegInf, l = 0.f;
+  float acc[kMlaHeads][2];
+#pragma unroll
+  for (int h = 0; h < kMlaHeads; ++h) acc[h][0] = acc[h][1] = 0.f;
+
+  for (int k0 = t0 * kKeys; k0 < key_end; k0 += kMlaKeys) {
+    const int nk = min(kMlaKeys, key_end - k0);
+    __syncthreads();  // q is staged; the last sub-tile's ks / ps are read
+    for (int i = tid; i < nk * kRowVecs; i += kMlaThreads) {
+      const int r = i / kRowVecs, c = i - r * kRowVecs;
+      const size_t key = (size_t)slot * L + k0 + r;
+      const T* src = c < kCkvVecs ? ckv + key * kMlaR + c * kE
+                                  : kr + key * kMlaRope + (c - kCkvVecs) * kE;
+      float x[kE];
+      load_vec(reinterpret_cast<const uint8_t*>(src), x);
+#pragma unroll
+      for (int e = 0; e < kE; ++e) ks[r * P::kLd + c * kE + e] = x[e];
+    }
+    __syncthreads();
+
+    const float* qr = qs + hy * kMlaDk;
+    const float* ka = ks + kx * P::kLd;
+    const float* kb = ks + (kx + 16) * P::kLd;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < kMlaDk; ++d) {
+      const float a = qr[d];
+      s0 = fmaf(a, ka[d], s0);
+      s1 = fmaf(a, kb[d], s1);
+    }
+    // a key past the sub-tile is no key (p = 0); a live one has a position
+    // >= 0; a dead one is masked to -1e30 after the scaling
+    const bool in0 = kx < nk, in1 = kx + 16 < nk;
+    const bool live0 = in0 && (prow == nullptr || prow[k0 + kx] >= 0);
+    const bool live1 = in1 && (prow == nullptr || prow[k0 + kx + 16] >= 0);
+    s0 = live0 ? s0 * scale_log2 : kNegInf;
+    s1 = live1 ? s1 * scale_log2 : kNegInf;
+    const float m_new = fmaxf(m, warp_max16(fmaxf(s0, s1)));
+    const float alpha = fast_exp2(m - m_new);
+    const float p0 = in0 ? fast_exp2(s0 - m_new) : 0.f;
+    const float p1 = in1 ? fast_exp2(s1 - m_new) : 0.f;
+    l = l * alpha + warp_sum16(p0 + p1);
+    m = m_new;
+    ps[hy * kMlaKeys + kx] = round_to<T>(p0);
+    ps[hy * kMlaKeys + kx + 16] = round_to<T>(p1);
+    if (kx == 0) alpha_s[hy] = alpha;
+    __syncthreads();
+
+#pragma unroll
+    for (int h = 0; h < kMlaHeads; ++h) {
+      acc[h][0] *= alpha_s[h];
+      acc[h][1] *= alpha_s[h];
+    }
+    for (int r = 0; r < nk; ++r) {
+      const float b0 = ks[r * P::kLd + tid];
+      const float b1 = ks[r * P::kLd + tid + kMlaThreads];
+#pragma unroll
+      for (int h = 0; h < kMlaHeads; ++h) {
+        const float p = ps[h * kMlaKeys + r];
+        acc[h][0] = fmaf(p, b0, acc[h][0]);
+        acc[h][1] = fmaf(p, b1, acc[h][1]);
+      }
+    }
+  }
+
+  if (kx == 0) {
+    ml_s[hy] = m;
+    ml_s[kMlaHeads + hy] = l;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < kMlaHeads; ++h) {
+    if (h >= n_h) break;
+    const float mh = ml_s[h], lh = ml_s[kMlaHeads + h];
+    const size_t b = row0 + h;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int d = tid + j * kMlaThreads;
+      if (n_split == 1) {  // no live key (m = -1e30): zeros
+        o[b * kMlaR + d] = from_float<T>(
+            mh == kNegInf ? 0.f : acc[h][j] / fmaxf(lh, 1e-20f));
+      } else {
+        const size_t bs = b * n_split + split;
+        part_acc[bs * kMlaR + d] = acc[h][j];
+        if (d == 0) {
+          part_m[bs] = mh;
+          part_l[bs] = lh;
+        }
+      }
+    }
+  }
+}
+
 }  // namespace split
+
+template <typename T> struct MlaLaunch {
+  static cudaError_t run(const void* q, const void* ckv, const void* kr,
+                         const void* positions, const void* lengths, void* o,
+                         void* part_acc, void* part_m, void* part_l, int B,
+                         int H, int L, int tiles, float scale,
+                         cudaStream_t stream) {
+    const int n_tiles = (L + split::kKeys - 1) / split::kKeys;
+    if (B < 1 || H < 1 || tiles < 1 || tiles > n_tiles)
+      return cudaErrorInvalidValue;
+    const int n_split = (n_tiles + tiles - 1) / tiles;
+    const size_t bytes = split::MlaPlan::kBytes;
+    auto kernel = split::mla_decode_kernel<T>;
+    cudaError_t e = allow_smem(kernel, bytes);
+    if (e != cudaSuccess) return e;
+    const dim3 grid(B, n_split,
+                    (H + split::kMlaHeads - 1) / split::kMlaHeads);
+    kernel<<<grid, split::kMlaThreads, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(ckv),
+        static_cast<const T*>(kr), static_cast<const int*>(positions),
+        static_cast<const int*>(lengths), static_cast<T*>(o),
+        static_cast<float*>(part_acc), static_cast<float*>(part_m),
+        static_cast<float*>(part_l), L, H, tiles, scale * kLog2e);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || n_split == 1) return e;
+    split::pooled_merge_kernel<T, split::kMlaR>
+        <<<B * H, split::merge_threads<split::kMlaR>(), 0, stream>>>(
+        static_cast<const float*>(part_acc),
+        static_cast<const float*>(part_m), static_cast<const float*>(part_l),
+        static_cast<const int*>(lengths), static_cast<T*>(o), L, H, tiles,
+        n_split);
+    return cudaGetLastError();
+  }
+};
 
 template <typename T, int D> struct PooledLaunch {
   static cudaError_t run(const void* q, const void* k, const void* v,
@@ -368,4 +586,36 @@ extern "C" int decode_attention_pooled_fwd(const void* q, const void* k,
   return flux::dispatch<flux::PooledLaunch>(
       dtype, Dk, q, k, v, positions, lengths, o, part_acc, part_m, part_l,
       BH, BHkv, L, n_heads, tiles, scale, static_cast<cudaStream_t>(stream));
+}
+
+// q (B·H, 1, R + rope), ckv (B, L, R), kr (B, L, rope), positions (B, L)
+// int32 or null, lengths (B,) int32, o (B·H, 1, R): MLA's absorbed decode,
+// one KV row a slot, at the explicit scale (nope + rope) ** -0.5; ckv and kr
+// 16-byte aligned. Built for (R, rope) = (512, 64); another pair returns
+// cudaErrorInvalidValue. tiles and the scratch as decode_attention_pooled_fwd
+// takes them, with Dv = R. Returns the first cudaError_t code of the two
+// launches.
+extern "C" int decode_attention_mla_fwd(const void* q, const void* ckv,
+                                        const void* kr, const void* positions,
+                                        const void* lengths, void* o,
+                                        void* part_acc, void* part_m,
+                                        void* part_l, int B, int n_heads,
+                                        int L, int R, int rope, int dtype,
+                                        int tiles, float scale,
+                                        void* stream) {
+  cudaError_t e = cudaErrorInvalidValue;
+  if (R == flux::split::kMlaR && rope == flux::split::kMlaRope) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (dtype == flux::kF32)
+      e = flux::MlaLaunch<float>::run(q, ckv, kr, positions, lengths, o,
+                                      part_acc, part_m, part_l, B, n_heads,
+                                      L, tiles, scale, st);
+    if (dtype == flux::kBF16)
+      e = flux::MlaLaunch<__nv_bfloat16>::run(q, ckv, kr, positions,
+                                              lengths, o, part_acc, part_m,
+                                              part_l, B, n_heads, L, tiles,
+                                              scale, st);
+  }
+  if (e != cudaSuccess) cudaGetLastError();  // the next call reports its own
+  return (int)e;
 }

@@ -49,9 +49,10 @@ template <typename T, int D, int kG> struct Plan {
 };
 
 // Threads of a merge CTA, one an output column: kThreads up to D = 128
-// (the split kernels' own), twice that at D = 160.
+// (the split kernels' own), the next multiple of kThreads above that
+// (256 at D = 160, 512 for MLA's latent context of 512 columns).
 template <int D> constexpr int merge_threads() {
-  return D <= kThreads ? kThreads : 2 * kThreads;
+  return (D + kThreads - 1) / kThreads * kThreads;
 }
 
 // 4 bytes from src to shared dst by cp.async.

@@ -23,23 +23,28 @@
 // to 8 tiles each, so each CTA's start (its Q and first K / V loads in
 // flight before the first product) and the last wave weigh as much as the
 // products.
+//
+// Values may be narrower than queries and keys: MLA's route chunk runs at
+// (Dk, Dv) = (192, 128), S = Q K^T over 192 columns and O = P V over 128,
+// so V is read at its own width and never padded to Dk (a padded copy
+// would cost a pass over V and 50 % more PV products).
 #include "attention_common.cuh"
 #include "prefill_wgmma.cuh"
 
 namespace flux {
 
-template <typename T, int D>
+template <typename T, int D, int Dv>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
              int G, int causal, int q_offset, float scale) {
   extern __shared__ float smem[];
-  PrefillBlock<T, D> blk;
+  PrefillBlock<T, D, Dv> blk;
   blk.init(smem);
   const int bh = blockIdx.y;
   const int row0 = blockIdx.x * kBQ;
   const T* kb = k + (size_t)(bh / G) * Skv * D;
-  const T* vb = v + (size_t)(bh / G) * Skv * D;
+  const T* vb = v + (size_t)(bh / G) * Skv * Dv;
   blk.load_q(q + (size_t)bh * Sq * D, row0, Sq);
 
   int n_tiles = (Skv + kBK - 1) / kBK;
@@ -54,15 +59,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              (!causal || key <= q_offset + row0 + r);
     });
   }
-  blk.store(o + (size_t)bh * Sq * D, row0, Sq);
+  blk.store(o + (size_t)bh * Sq * Dv, row0, Sq);
 }
 
-template <typename T, int D> struct FlashLaunch {
+template <typename T, int D, int Dv> struct FlashLaunch {
   static cudaError_t run(const void* q, const void* k, const void* v, void* o,
                          int BH, int BHkv, int Sq, int Skv, int causal,
                          int q_offset, float scale, cudaStream_t stream) {
-    const size_t bytes = PrefillSmem<D>::kBytes;
-    auto kernel = flash_kernel<T, D>;
+    const size_t bytes = PrefillSmem<D, Dv>::kBytes;
+    auto kernel = flash_kernel<T, D, Dv>;
     cudaError_t e = allow_smem(kernel, bytes);
     if (e != cudaSuccess) return e;
     dim3 grid((Sq + kBQ - 1) / kBQ, BH);
@@ -74,7 +79,7 @@ template <typename T, int D> struct FlashLaunch {
   }
 };
 
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(wgmma::kThreads)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -82,7 +87,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    __nv_bfloat16* __restrict__ o, int Sq, int Skv, int G,
                    int causal, int q_offset, float scale_log2) {
   extern __shared__ __align__(1024) uint8_t wg_smem[];
-  wgmma::Engine<D> eng;
+  wgmma::Engine<D, Dv> eng;
   eng.init(wg_smem);
   __syncthreads();  // the mbarriers are initialised
   const int bh = blockIdx.y;
@@ -94,18 +99,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   eng.run(&qmap, &kmap, &vmap, bh, bh / G, row0, n_tiles,
           [](int j) { return j; }, Skv, causal != 0, q_offset, scale_log2);
-  eng.store(o + (size_t)bh * Sq * D, row0, Sq);
+  eng.store(o + (size_t)bh * Sq * Dv, row0, Sq);
 }
 
-template <typename T, int D> struct FlashWgmmaLaunch {
+template <typename T, int D, int Dv> struct FlashWgmmaLaunch {
   static cudaError_t run(const void* q, const void* k, const void* v, void* o,
                          int BH, int BHkv, int Sq, int Skv, int causal,
                          int q_offset, float scale, cudaStream_t stream) {
     wgmma::Maps maps;
-    cudaError_t e = maps.make(q, k, v, BH, BHkv, Sq, Skv, D);
+    cudaError_t e = maps.make(q, k, v, BH, BHkv, Sq, Skv, D, Dv);
     if (e != cudaSuccess) return e;
-    const size_t bytes = wgmma::Layout<D>::bytes(0);
-    auto kernel = flash_wgmma_kernel<D>;
+    const size_t bytes = wgmma::Layout<D, Dv>::bytes(0);
+    auto kernel = flash_wgmma_kernel<D, Dv>;
     e = allow_smem(kernel, bytes);
     if (e != cudaSuccess) return e;
     dim3 grid((Sq + kBQ - 1) / kBQ, BH);
@@ -118,15 +123,17 @@ template <typename T, int D> struct FlashWgmmaLaunch {
 
 }  // namespace flux
 
-// q (BH, Sq, D), k / v (BHkv, Skv, D), o (BH, Sq, D); all contiguous and of
-// one dtype (0 = fp32, 1 = bf16; bf16 bases 16-byte aligned). Returns a
+// q (BH, Sq, D), k (BHkv, Skv, D), v (BHkv, Skv, Dv), o (BH, Sq, Dv); all
+// contiguous and of one dtype (0 = fp32, 1 = bf16; bf16 bases 16-byte
+// aligned); (D, Dv) with D = Dv a built head dim, or (192, 128). Returns a
 // cudaError_t code.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int BH, int BHkv,
-                                   int Sq, int Skv, int D, int dtype,
+                                   int Sq, int Skv, int D, int Dv, int dtype,
                                    int causal, int q_offset, float scale,
                                    void* stream) {
-  return flux::dispatch_by_dtype<flux::FlashLaunch, flux::FlashWgmmaLaunch>(
-      dtype, D, q, k, v, o, BH, BHkv, Sq, Skv, causal, q_offset, scale,
+  return flux::dispatch_pair_by_dtype<flux::FlashLaunch,
+                                      flux::FlashWgmmaLaunch>(
+      dtype, D, Dv, q, k, v, o, BH, BHkv, Sq, Skv, causal, q_offset, scale,
       static_cast<cudaStream_t>(stream));
 }

@@ -24,7 +24,9 @@
 //   (64 bytes a row) under the 64-byte swizzle, one TMA box per panel. A
 //   192-byte row (D = 96) or a 320-byte one (D = 160) does not fit the
 //   128-byte swizzle atom; 64-byte panels serve all five head dims with one
-//   layout.
+//   layout. Q and K tiles are D wide and V tiles Dv (by default D): MLA's
+//   route chunk runs S = Q K^T over Dk = 192 (6 panels, 12 k16 steps) and
+//   O += P V over Dv = 128 (the D = 128 accumulator).
 // - wgmma. S = Q K^T is m64n64k16 with Q and K K-major in shared memory:
 //   the descriptors step 32 bytes per k16 inside a panel and a panel's
 //   4096 bytes between panels. O += P V is m64nDk16 with P in registers and
@@ -309,15 +311,19 @@ struct StreamingMask {
 // Byte offsets inside the CTA's shared memory, from a 1024-byte aligned
 // base: Q, kStages K tiles, kStages V tiles, the mbarriers (Q's, then one
 // per K slot and one per V slot), the live-tile count and the list of live
-// tiles.
-template <int D> struct Layout {
-  static_assert(D % kPanelCols == 0 && D <= 160, "head dim");
+// tiles. Q and K tiles hold D columns, V tiles Dv.
+template <int D, int Dv = D> struct Layout {
+  static_assert(D % kPanelCols == 0 && D <= 192 && Dv % kPanelCols == 0 &&
+                    Dv <= 160,
+                "head dims");
   static constexpr int kPanels = D / kPanelCols;
+  static constexpr int kVPanels = Dv / kPanelCols;
   static constexpr uint32_t kTile = kPanels * kPanelBytes;
+  static constexpr uint32_t kVTile = kVPanels * kPanelBytes;
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kK = kTile;
   static constexpr uint32_t kV = kK + kStages * kTile;
-  static constexpr uint32_t kBars = kV + kStages * kTile;
+  static constexpr uint32_t kBars = kV + kStages * kVTile;
   static constexpr uint32_t kCount = kBars + 8 * (1 + 2 * kStages);
   static constexpr uint32_t kList = kCount + 16;
   // what a launch asks for: the slack that aligns the base, and n_list ints
@@ -326,9 +332,9 @@ template <int D> struct Layout {
   }
 };
 
-template <int D> struct Engine {
-  using L = Layout<D>;
-  static constexpr int kO = D / 2;  // O accumulator registers per thread
+template <int D, int Dv = D> struct Engine {
+  using L = Layout<D, Dv>;
+  static constexpr int kO = Dv / 2;  // O accumulator registers per thread
 
   uint32_t base;  // shared address of the aligned base
   int* list;      // the live tiles (block-sparse)
@@ -362,7 +368,7 @@ template <int D> struct Engine {
     return base + L::kK + (t % kStages) * L::kTile;
   }
   __device__ uint32_t v_slot(int t) const {
-    return base + L::kV + (t % kStages) * L::kTile;
+    return base + L::kV + (t % kStages) * L::kVTile;
   }
 
   // The entries >= 0 of one selection row, in order, into `list` (warp 0,
@@ -383,13 +389,14 @@ template <int D> struct Engine {
     return *count;
   }
 
-  // Rows [row0, row0 + 64) of a (rows, seq, D) map's row `head` into the
-  // tile at dst, one box per panel.
+  // Rows [row0, row0 + 64) of a (rows, seq, kP panels) map's row `head`
+  // into the tile at dst, one box per panel.
+  template <int kP>
   __device__ static void load_tile(uint32_t dst, const CUtensorMap* map,
                                    uint32_t mbar, int row0, int head) {
-    mbar_expect_tx(mbar, L::kTile);
+    mbar_expect_tx(mbar, kP * kPanelBytes);
 #pragma unroll
-    for (int p = 0; p < L::kPanels; ++p)
+    for (int p = 0; p < kP; ++p)
       tma_load_3d(dst + p * kPanelBytes, map, mbar, p * kPanelCols, row0,
                   head);
   }
@@ -397,12 +404,13 @@ template <int D> struct Engine {
   // Tile t of the walk (key tile `tile`) into its K / V slot.
   __device__ void load_k(int t, int tile, const CUtensorMap* kmap,
                          int head) const {
-    load_tile(k_slot(t), kmap, bar(1 + t % kStages), tile * kBK, head);
+    load_tile<L::kPanels>(k_slot(t), kmap, bar(1 + t % kStages), tile * kBK,
+                          head);
   }
   __device__ void load_v(int t, int tile, const CUtensorMap* vmap,
                          int head) const {
-    load_tile(v_slot(t), vmap, bar(1 + kStages + t % kStages), tile * kBK,
-              head);
+    load_tile<L::kVPanels>(v_slot(t), vmap, bar(1 + kStages + t % kStages),
+                           tile * kBK, head);
   }
 
   // Issues S = Q K^T for the K tile at ks (D / 16 k16 steps).
@@ -415,7 +423,8 @@ template <int D> struct Engine {
   // Issues O += P V for the V tile at vs (64 keys, 4 k16 steps).
   __device__ void issue_pv(const uint32_t (&pa)[4][4], uint32_t vs) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(o, pa[kk], mnmajor_desc(vs, kk));
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<Dv>(o, pa[kk], mnmajor_desc(vs, kk));
   }
 
   // The online softmax of one score tile of keys [kv0, kv0 + 64), step j
@@ -489,7 +498,7 @@ template <int D> struct Engine {
     const int pos0 = q_offset + row0 + 16 * warp + lane / 4;
     const uint32_t qs = base + L::kQ;
     if (threadIdx.x == 0) {
-      load_tile(qs, qmap, bar(0), row0, head_q);
+      load_tile<L::kPanels>(qs, qmap, bar(0), row0, head_q);
       for (int t = 0; t < kStages && t < n_tiles; ++t) {
         load_k(t, tile_of(t), kmap, head_kv);
         load_v(t, tile_of(t), vmap, head_kv);
@@ -547,7 +556,7 @@ template <int D> struct Engine {
     }
   }
 
-  // acc / max(l, 1e-20) of the rows below Sq into o_row (Sq, D).
+  // acc / max(l, 1e-20) of the rows below Sq into o_row (Sq, Dv).
   __device__ void store(__nv_bfloat16* __restrict__ o_row, int row0,
                         int Sq) {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -561,9 +570,9 @@ template <int D> struct Engine {
       const int g = row0 + 16 * warp + lane / 4 + 8 * r;
       if (g >= Sq) continue;
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c)
+      for (int c = 0; c < Dv / 8; ++c)
         *reinterpret_cast<__nv_bfloat162*>(
-            o_row + (size_t)g * D + 8 * c + 2 * (lane & 3)) =
+            o_row + (size_t)g * Dv + 8 * c + 2 * (lane & 3)) =
             __floats2bfloat162_rn(o[4 * c + 2 * r] * inv,
                                   o[4 * c + 2 * r + 1] * inv);
     }
@@ -628,14 +637,14 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int rows,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The maps of q (BH, Sq, D) and k / v (BHkv, Skv, D).
+// The maps of q (BH, Sq, D), k (BHkv, Skv, D) and v (BHkv, Skv, Dv).
 struct Maps {
   CUtensorMap q, k, v;
   cudaError_t make(const void* qp, const void* kp, const void* vp, int BH,
-                   int BHkv, int Sq, int Skv, int D) {
+                   int BHkv, int Sq, int Skv, int D, int Dv) {
     cudaError_t e = make_map(&q, qp, BH, Sq, D);
     if (e == cudaSuccess) e = make_map(&k, kp, BHkv, Skv, D);
-    if (e == cudaSuccess) e = make_map(&v, vp, BHkv, Skv, D);
+    if (e == cudaSuccess) e = make_map(&v, vp, BHkv, Skv, Dv);
     return e;
   }
 };
@@ -643,10 +652,14 @@ struct Maps {
 }  // namespace wgmma
 }  // namespace flux
 
-// Dynamic shared memory one CTA of the engine asks for at head dim D with a
-// tile list of n_list entries (0 for flash); -1 for a head dim not built.
-extern "C" int flux_wgmma_smem_bytes(int D, int n_list) {
-  switch (D) {
+// Dynamic shared memory one CTA of the engine asks for at head dims
+// (Dk, Dv) with a tile list of n_list entries (0 for flash); -1 for a pair
+// not built.
+extern "C" int flux_wgmma_smem_bytes(int Dk, int Dv, int n_list) {
+  if (Dk == 192 && Dv == 128)
+    return (int)flux::wgmma::Layout<192, 128>::bytes(n_list);
+  if (Dk != Dv) return -1;
+  switch (Dk) {
     case 32: return (int)flux::wgmma::Layout<32>::bytes(n_list);
     case 64: return (int)flux::wgmma::Layout<64>::bytes(n_list);
     case 96: return (int)flux::wgmma::Layout<96>::bytes(n_list);

@@ -29,18 +29,18 @@
 
 namespace flux {
 
-template <typename T, int D>
+template <typename T, int D, int Dv>
 __global__ void __launch_bounds__(kThreads)
 streaming_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
                  int G, int sink, int local, int q_offset, float scale) {
   extern __shared__ float smem[];
-  PrefillBlock<T, D> blk;
+  PrefillBlock<T, D, Dv> blk;
   blk.init(smem);
   const int bh = blockIdx.y;
   const int row0 = blockIdx.x * kBQ;
   const T* kb = k + (size_t)(bh / G) * Skv * D;
-  const T* vb = v + (size_t)(bh / G) * Skv * D;
+  const T* vb = v + (size_t)(bh / G) * Skv * Dv;
   blk.load_q(q + (size_t)bh * Sq * D, row0, Sq);
 
   const int first_q = q_offset + row0;
@@ -65,16 +65,16 @@ streaming_kernel(const T* __restrict__ q, const T* __restrict__ k,
              row0 + r < Sq;
     });
   }
-  blk.store(o + (size_t)bh * Sq * D, row0, Sq);
+  blk.store(o + (size_t)bh * Sq * Dv, row0, Sq);
 }
 
-template <typename T, int D> struct StreamingLaunch {
+template <typename T, int D, int Dv> struct StreamingLaunch {
   static cudaError_t run(const void* q, const void* k, const void* v, void* o,
                          int BH, int BHkv, int Sq, int Skv, int sink,
                          int local, int q_offset, float scale,
                          cudaStream_t stream) {
-    const size_t bytes = PrefillSmem<D>::kBytes;
-    auto kernel = streaming_kernel<T, D>;
+    const size_t bytes = PrefillSmem<D, Dv>::kBytes;
+    auto kernel = streaming_kernel<T, D, Dv>;
     cudaError_t e = allow_smem(kernel, bytes);
     if (e != cudaSuccess) return e;
     dim3 grid((Sq + kBQ - 1) / kBQ, BH);
@@ -86,7 +86,7 @@ template <typename T, int D> struct StreamingLaunch {
   }
 };
 
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(wgmma::kThreads)
 streaming_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
@@ -94,7 +94,7 @@ streaming_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        __nv_bfloat16* __restrict__ o, int Sq, int Skv, int G,
                        int sink, int local, int q_offset, float scale_log2) {
   extern __shared__ __align__(1024) uint8_t wg_smem[];
-  wgmma::Engine<D> eng;
+  wgmma::Engine<D, Dv> eng;
   eng.init(wg_smem);
   __syncthreads();  // the mbarriers are initialised
   const int bh = blockIdx.y;
@@ -113,19 +113,19 @@ streaming_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           [n_sink, w0](int j) { return j < n_sink ? j : w0 + (j - n_sink); },
           Skv, true, q_offset, scale_log2,
           wgmma::StreamingMask{sink, local, n_sink, last_q});
-  eng.store(o + (size_t)bh * Sq * D, row0, Sq);
+  eng.store(o + (size_t)bh * Sq * Dv, row0, Sq);
 }
 
-template <typename T, int D> struct StreamingWgmmaLaunch {
+template <typename T, int D, int Dv> struct StreamingWgmmaLaunch {
   static cudaError_t run(const void* q, const void* k, const void* v, void* o,
                          int BH, int BHkv, int Sq, int Skv, int sink,
                          int local, int q_offset, float scale,
                          cudaStream_t stream) {
     wgmma::Maps maps;
-    cudaError_t e = maps.make(q, k, v, BH, BHkv, Sq, Skv, D);
+    cudaError_t e = maps.make(q, k, v, BH, BHkv, Sq, Skv, D, Dv);
     if (e != cudaSuccess) return e;
-    const size_t bytes = wgmma::Layout<D>::bytes(0);
-    auto kernel = streaming_wgmma_kernel<D>;
+    const size_t bytes = wgmma::Layout<D, Dv>::bytes(0);
+    auto kernel = streaming_wgmma_kernel<D, Dv>;
     e = allow_smem(kernel, bytes);
     if (e != cudaSuccess) return e;
     dim3 grid((Sq + kBQ - 1) / kBQ, BH);
@@ -138,17 +138,18 @@ template <typename T, int D> struct StreamingWgmmaLaunch {
 
 }  // namespace flux
 
-// q (BH, Sq, D), k / v (BHkv, Skv, D), o (BH, Sq, D); all contiguous and of
-// one dtype (0 = fp32, 1 = bf16; bf16 bases 16-byte aligned); sink >= 0 and
+// q (BH, Sq, D), k (BHkv, Skv, D), v (BHkv, Skv, Dv), o (BH, Sq, Dv); all
+// contiguous and of one dtype (0 = fp32, 1 = bf16; bf16 bases 16-byte
+// aligned); (D, Dv) as flash_attention_fwd takes them; sink >= 0 and
 // local >= 1 in tokens. Returns a cudaError_t code.
 extern "C" int streaming_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, int BH,
                                        int BHkv, int Sq, int Skv, int D,
-                                       int dtype, int sink, int local,
-                                       int q_offset, float scale,
+                                       int Dv, int dtype, int sink,
+                                       int local, int q_offset, float scale,
                                        void* stream) {
-  return flux::dispatch_by_dtype<flux::StreamingLaunch,
-                                 flux::StreamingWgmmaLaunch>(
-      dtype, D, q, k, v, o, BH, BHkv, Sq, Skv, sink, local, q_offset, scale,
-      static_cast<cudaStream_t>(stream));
+  return flux::dispatch_pair_by_dtype<flux::StreamingLaunch,
+                                      flux::StreamingWgmmaLaunch>(
+      dtype, D, Dv, q, k, v, o, BH, BHkv, Sq, Skv, sink, local, q_offset,
+      scale, static_cast<cudaStream_t>(stream));
 }

@@ -51,7 +51,9 @@ def decode_attention_pooled_bh(q: torch.Tensor, k: torch.Tensor,
     ``pooled_split_plan`` picks it.
 
     The plain version takes any (Dk, Dv); the kernel is built for
-    Dk = Dv in ``_build.HEAD_DIMS``."""
+    Dk = Dv in ``_build.HEAD_DIMS``. MLA's absorbed decode, Dk = R + rope
+    over Dv = R, runs on ``decode_attention_mla.decode_attention_mla_bh``,
+    which reads the latent cache in place."""
     name = "decode_attention_pooled_bh"
     _build.check_pooled_operands(name, q, k, v, positions, lengths, n_heads)
     if _build.on_cpu(name, q):
@@ -62,9 +64,9 @@ def decode_attention_pooled_bh(q: torch.Tensor, k: torch.Tensor,
     if Dk != Dv or Dk not in _build.HEAD_DIMS:
         raise NotImplementedError(
             f"{name}: (Dk, Dv) = ({Dk}, {Dv}): the kernel is built for "
-            f"Dk = Dv in {_build.HEAD_DIMS}; MLA's (576, 512) instance "
-            f"waits for ROADMAP Queue 1 item 11, head dim 256 for Queue 2 "
-            f"instances item 2")
+            f"Dk = Dv in {_build.HEAD_DIMS}; MLA's latent decode runs on "
+            f"decode_attention_mla_bh, head dim 256 waits for ROADMAP "
+            f"Queue 2 instances item 2")
     code = _build.check_cuda(name, q, k, v, lengths,
                              *(() if positions is None else (positions,)))
     _build.check_aligned16(name, "its TMA bulk loads", k, v)

@@ -10,9 +10,12 @@ is disassembled with the CUDA toolkit's ``cuobjdump -sass``, and every
 kernel symbol the two share is compared instruction by instruction,
 whitespace aside: ``cuobjdump`` pads its columns to the longest
 instruction of the whole library, so a new kernel instance with a longer
-mnemonic re-pads every other listing. Prints one line per library (the
-shared, identical and differing symbols, and the new ones) and exits 1
-if any shared symbol differs. Runs on a machine with ``nvcc``.
+mnemonic re-pads every other listing. A kernel template that gained a
+second head dim (the flash and streaming kernels' Dv beside D) is paired
+by its old name: ``<.., D, D>`` in this tree with ``<.., D>`` in the
+other (``old_name``). Prints one line per library (the shared, identical
+and differing symbols, and the new ones) and exits 1 if any shared
+symbol differs. Runs on a machine with ``nvcc``.
 """
 from __future__ import annotations
 
@@ -44,6 +47,15 @@ def sass(lib: Path) -> Dict[str, str]:
     return out
 
 
+def old_name(name: str, old: Dict[str, str]) -> str:
+    """``name``'s symbol in the other tree: itself, or, where that tree
+    has no such symbol, the mangled name with a trailing repeated int
+    template argument dropped (``ILi96ELi96EE`` → ``ILi96EE``)."""
+    if name in old:
+        return name
+    return re.sub(r"Li(\d+)ELi\1EE", r"Li\1EE", name)
+
+
 def other_libraries(src: Path) -> Dict[str, Path]:
     """Build the other tree's libraries in a subprocess; their paths."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
@@ -67,7 +79,9 @@ def main(argv=None) -> int:
         if name not in other:
             print(f"{name}: not in the other tree")
             continue
-        a, b = sass(other[name]), sass(_build.library_path(name))
+        a = sass(other[name])
+        b = {old_name(f, a): text
+             for f, text in sass(_build.library_path(name)).items()}
         shared = sorted(set(a) & set(b))
         differ = [f for f in shared if a[f] != b[f]]
         moved += len(differ)

@@ -17,6 +17,10 @@ Counting conventions, as in the JAX module:
     once for its G heads, so for G > 1 this column counts G times the
     bytes the card moves; at G = 1 the two agree)
   * FLOPs             = 2 · (same block counts) · Hq per q-row
+An MLA layer's absorbed decode is one latent "kv head" (Hkv = 1) with
+Dk = R + rope and Dv = R: the engine's layer spec says so, and its key
+and value columns are counted apart as above, though the latent decode
+kernel reads ckv once for both.
 Tiny q/output traffic (B·Hq·(Dk+Dv)) is omitted from both columns. The
 engine passes ``block_k`` = 64, the port's pooled kernel's key tile,
 when its pools lie on the card, and no kernel column (all dense) on the

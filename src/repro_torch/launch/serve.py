@@ -16,6 +16,12 @@ engine (port of ``repro/launch/serve.py``).
         --arch phi3-mini-3.8b --continuous --requests 8 \\
         --prompt-len 4096 --gen-len 32 --slots 4 --chunk 8
 
+    # deepseek-v2-236b (MLA, 160 experts) at full width; its 60 layers
+    # are 472 GB in bf16, so --layers cuts the depth to what one card holds
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-236b --layers 4 --requests 4 \\
+        --prompt-len 4096 --gen-len 32 --prefill-chunk 512
+
     # shared-system-prompt traffic through the prefix cache: every
     # prompt opens with the same 2048 tokens; snapshots up to 8 GiB on
     # the card and 8 GiB in pinned host memory
@@ -231,6 +237,9 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="phi3-mini-3.8b", choices=ALL_ARCHS)
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced smoke config (2 layers, d_model 256)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model's depth to this many layers, at "
+                         "full width (0 = all)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--gen-len", type=int, default=16)
@@ -309,6 +318,8 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, gen, device)
     engine = ServeEngine(

@@ -15,6 +15,14 @@ Flux routing contexts of ``prefill`` (as in the JAX package):
   ("fa_only",)            — backbone as-is.
 The Gumbel soft routing of training waits for the training slice.
 
+A layer's attention is GQA or, for an MLA model (``cfg.use_mla``),
+Multi-head Latent Attention: the route chunk decompresses the latent
+into per-head K / V and runs the prefill kernels at (Dk, Dv) = (nope +
+rope, v); the caches hold the latent (``LatentKV`` / ``RingLatentKV``);
+decode runs the absorbed attention on the latent decode kernel, and a
+streamed chunk at a full-cache layer the absorbed attention in plain
+torch, as the JAX package runs it in XLA.
+
 A layer's FFN is a dense SwiGLU or, where ``cfg.moe_layer_mask()`` says
 so, the Mixture-of-Experts of ``models/moe.py``, called with the length
 of the call it is in (the route chunk, a streamed chunk, the monolithic
@@ -34,6 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import modes as M
 from repro_torch.core import router as R
 from repro_torch.kernels.decode_attention import decode_attention_bh
+from repro_torch.kernels.decode_attention_mla import decode_attention_mla_bh
 from repro_torch.kernels.decode_attention_pooled import \
     decode_attention_pooled_bh
 from repro_torch.models import attention as A
@@ -50,15 +59,15 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The layer kinds the port runs: GQA global attention with a dense
-    SwiGLU or an MoE FFN."""
-    if (cfg.use_mla or cfg.num_encoder_layers or cfg.num_prefix_tokens
+    """The layer kinds the port runs: GQA or MLA global attention with a
+    dense SwiGLU or an MoE FFN."""
+    if (cfg.num_encoder_layers or cfg.num_prefix_tokens
             or any(k != "attn" for k in cfg.layer_kinds)):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves GQA models whose layers are all "
-            f"'attn' with a dense or an MoE FFN; MLA, SSM, sliding-window, "
-            f"encoder and modality-prefix layers wait for ROADMAP Queue 1 "
-            f"items 11, 12 and 14")
+            f"{cfg.name}: the port serves models whose layers are all "
+            f"'attn' (GQA or MLA) with a dense or an MoE FFN; SSM, "
+            f"sliding-window, encoder and modality-prefix layers wait for "
+            f"ROADMAP Queue 1 items 12 and 14")
 
 
 def has_ffn(cfg: ModelConfig, layer_idx: int) -> bool:
@@ -67,6 +76,14 @@ def has_ffn(cfg: ModelConfig, layer_idx: int) -> bool:
 
 def is_routed(cfg: ModelConfig, layer_idx: int) -> bool:
     return cfg.flux.enabled and cfg.layer_kinds[layer_idx] == "attn"
+
+
+def router_in_dim(cfg: ModelConfig) -> int:
+    """Width of the Layer Router's input x_Q: the query projection, which
+    for MLA is H·(nope + rope), not ``cfg.q_dim``."""
+    if cfg.use_mla:
+        return cfg.num_heads * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    return cfg.q_dim
 
 
 def sa_mode(cfg: ModelConfig) -> M.AttnMode:
@@ -81,9 +98,10 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig,
                 layer_idx: int) -> Params:
     dt, dev = cfg.param_dtype, gen.device
     p: Params = {"norm1": rms_norm_init(cfg.d_model, dt, dev),
-                 "attn": A.gqa_init(gen, cfg)}
+                 "attn": (A.mla_init(gen, cfg) if cfg.use_mla
+                          else A.gqa_init(gen, cfg))}
     if is_routed(cfg, layer_idx):
-        p["router"] = R.router_init(gen, cfg.q_dim, cfg.flux)
+        p["router"] = R.router_init(gen, router_in_dim(cfg), cfg.flux)
     if has_ffn(cfg, layer_idx):
         p["norm2"] = rms_norm_init(cfg.d_model, dt, dev)
         if cfg.moe_layer_mask()[layer_idx]:
@@ -173,18 +191,24 @@ def block_apply(bp, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
                 capacity_len: Optional[int] = None):
     """One transformer block over a full sequence. Returns (h, r, cache):
     r is the routing record of a routed layer else None; cache is the
-    layer's (k, v) when ``want_cache``. ``capacity_len`` sets an MoE
-    layer's capacity from another length than the sequence's (the
-    fidelity probe's bucket)."""
+    layer's (k, v), or an MLA layer's latent (ckv, kr), when
+    ``want_cache``. ``capacity_len`` sets an MoE layer's capacity from
+    another length than the sequence's (the fidelity probe's bucket)."""
     x = rms_norm(bp["norm1"], h, cfg.norm_eps)
-    q, k, v, x_q = A.gqa_qkv(bp["attn"], cfg, x, positions)
-    cache = (k, v) if want_cache else None
+    if cfg.use_mla:
+        ckv, kr = A.mla_latent(bp["attn"], cfg, x, positions)
+        q, x_q = A.mla_q(bp["attn"], cfg, x, positions)
+        k, v = A.mla_expand_kv(bp["attn"], cfg, ckv, kr)
+        cache = (ckv, kr) if want_cache else None
+    else:
+        q, k, v, x_q = A.gqa_qkv(bp["attn"], cfg, x, positions)
+        cache = (k, v) if want_cache else None
     r = None
     if is_routed(cfg, layer_idx) and ctx[0] != "fa_only":
         o, r = _route_and_attend(bp, cfg, q, k, v, x_q, ctx)
     else:
         o = M.attention(q, k, v, M.FULL)
-    h = h + A.gqa_out(bp["attn"], cfg, o)
+    h = h + (A.mla_out if cfg.use_mla else A.gqa_out)(bp["attn"], cfg, o)
     return ffn_block(bp, cfg, layer_idx, h, capacity_len), r, cache
 
 
@@ -216,7 +240,7 @@ class ForwardOut:
     logits: torch.Tensor                 # (B, V) last-token logits
     routing: Optional[torch.Tensor]      # (n_routed,) int32 decisions
     p_fa: Optional[torch.Tensor]         # (n_routed,) f32 mean FA prob
-    caches: Optional[List] = None        # per layer (k, v)
+    caches: Optional[List] = None        # per layer (k, v) or (ckv, kr)
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -299,8 +323,27 @@ def _dot_decode_pooled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Hq, 1, out.shape[-1])
 
 
-def _decode_attn_full(bp, cfg, x, pos, rope_pos, cache: KC.FullKV,
-                      slot_positions):
+def _mla_decode(bp, cfg, x, rope_pos, cache, positions, lengths):
+    """The absorbed MLA decode step over a latent cache on the latent
+    decode kernel, for an int ``pos`` (every row's ``lengths`` pos + 1)
+    and a per-row one alike: the latent query against [ckv ‖ kr], the
+    latent context through W_uv and the output projection. positions
+    (B, L) int32 or None as ``decode_attention_mla_bh`` takes them."""
+    q = A.mla_absorbed_q(bp["attn"], cfg, x, rope_pos)  # (B,H,1,R+rope)
+    B, H = q.shape[:2]
+    ctx = decode_attention_mla_bh(q.reshape(B * H, 1, q.shape[-1]),
+                                  cache.ckv, cache.kr[:, 0], positions,
+                                  lengths, n_heads=H, scale=A.mla_scale(cfg))
+    return A.mla_absorbed_finish(bp["attn"], cfg, ctx.reshape(B, H, 1, -1))
+
+
+def _decode_attn_full(bp, cfg, x, pos, rope_pos, cache, slot_positions):
+    if isinstance(cache, KC.LatentKV):
+        # slots [0, length) are live and slot j holds position j
+        ckv, kr = A.mla_latent(bp["attn"], cfg, x, rope_pos)
+        cache = KC.latent_insert(cache, ckv, kr, pos)
+        return (_mla_decode(bp, cfg, x, rope_pos, cache, None,
+                            cache.length), cache)
     q, k, v, _ = A.gqa_qkv(bp["attn"], cfg, x, rope_pos)
     cache = KC.full_insert(cache, k, v, pos)
     if isinstance(pos, torch.Tensor):
@@ -311,8 +354,18 @@ def _decode_attn_full(bp, cfg, x, pos, rope_pos, cache: KC.FullKV,
     return A.gqa_out(bp["attn"], cfg, o), cache
 
 
-def _decode_attn_ring(bp, cfg, x, pos, rope_pos, cache: KC.RingKV,
-                      sink: int, local: int):
+def _decode_attn_ring(bp, cfg, x, pos, rope_pos, cache, sink: int,
+                      local: int):
+    if isinstance(cache, KC.RingLatentKV):
+        # the pooled path's ring masks below, for an int pos too
+        ckv, kr = A.mla_latent(bp["attn"], cfg, x, rope_pos)
+        cache = KC.ring_latent_insert(cache, ckv, kr, pos, sink, local)
+        pos_col = pos[:, None] if isinstance(pos, torch.Tensor) else pos
+        vis = (cache.positions >= 0) & (cache.positions <= pos_col)
+        return (_mla_decode(bp, cfg, x, rope_pos, cache,
+                            torch.where(vis, cache.positions, -1),
+                            torch.clamp(cache.length,
+                                        max=KC.capacity(cache))), cache)
     q, k, v, _ = A.gqa_qkv(bp["attn"], cfg, x, rope_pos)
     cache = KC.ring_insert(cache, k, v, pos, sink, local)
     if isinstance(pos, torch.Tensor):
@@ -347,13 +400,13 @@ def decode_core(params, cfg: ModelConfig, token: torch.Tensor,
     for i, bp in enumerate(params["layers"]):
         cache = caches[i]
         x = rms_norm(bp["norm1"], h, cfg.norm_eps)
-        if isinstance(cache, KC.RingKV):
-            ring = cache.k.shape[2]
+        L = KC.capacity(cache)
+        if KC.is_ring(cache):
             y, cache = _decode_attn_ring(bp, cfg, x, pos, rope_pos, cache,
-                                         flux.sink, ring - flux.sink)
+                                         flux.sink, L - flux.sink)
         else:
-            L = cache.k.shape[2]
-            if not pooled and L not in slot_positions:
+            if isinstance(cache, KC.FullKV) and not pooled \
+                    and L not in slot_positions:
                 slot_positions[L] = torch.arange(L, dtype=torch.int32,
                                                  device=h.device)
             y, cache = _decode_attn_full(bp, cfg, x, pos, rope_pos, cache,
@@ -409,28 +462,56 @@ def decode_many(params, cfg: ModelConfig, logits: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _chunk_attn_ring(bp, cfg: ModelConfig, x, positions, start: int,
-                     cache: KC.RingKV, sink: int, local: int):
+                     cache, sink: int, local: int):
     """Chunk attention at a ring-cache layer: queries see the pre-insert
     ring (explicit per-slot positions) plus the chunk's own keys under
     the sink+local mask, then the chunk is ring-inserted. Attending
-    before the insert keeps chunks longer than the ring exact."""
+    before the insert keeps chunks longer than the ring exact. A latent
+    ring is decompressed to per-head K / V first."""
     B, C, _ = x.shape
-    q, k_new, v_new, _ = A.gqa_qkv(bp["attn"], cfg, x, positions)
+    latent = isinstance(cache, KC.RingLatentKV)
+    if latent:
+        ckv, kr = A.mla_latent(bp["attn"], cfg, x, positions)
+        q, _ = A.mla_q(bp["attn"], cfg, x, positions)
+        k_ctx, v_ctx = A.mla_expand_kv(bp["attn"], cfg, cache.ckv, cache.kr)
+        k_new, v_new = A.mla_expand_kv(bp["attn"], cfg, ckv, kr)
+    else:
+        q, k_new, v_new, _ = A.gqa_qkv(bp["attn"], cfg, x, positions)
+        k_ctx, v_ctx = cache.k, cache.v
     kv_pos = torch.cat([cache.positions,
                         positions.to(torch.int32)[None].expand(B, C)], dim=1)
-    k_all = torch.cat([cache.k, k_new], dim=2)
-    v_all = torch.cat([cache.v, v_new], dim=2)
+    k_all = torch.cat([k_ctx, k_new], dim=2)
+    v_all = torch.cat([v_ctx, v_new], dim=2)
     valid = M.streaming_valid(positions, kv_pos, sink, local)  # (B,C,L)
     o = M.masked_attention(q, k_all, v_all, valid[:, None])
+    if latent:
+        cache = KC.ring_latent_insert_chunk(cache, ckv, kr, start, sink,
+                                            local)
+        return A.mla_out(bp["attn"], cfg, o), cache
     cache = KC.ring_insert_chunk(cache, k_new, v_new, start, sink, local)
     return A.gqa_out(bp["attn"], cfg, o), cache
 
 
 def _chunk_attn_full(bp, cfg: ModelConfig, x, positions, start: int,
-                     cache: KC.FullKV):
+                     cache):
     """Chunk attention at a full-cache layer: insert the chunk at
     [start, start+C), then causal attention over the cache buffer on the
-    block-sparse kernel (key blocks past the live prefix are skipped)."""
+    block-sparse kernel (key blocks past the live prefix are skipped).
+    A latent cache runs the absorbed attention over its live prefix
+    [0, start+C) in plain torch, as the JAX package runs it in XLA over
+    the whole buffer (the masked slots past the prefix add exact
+    zeros)."""
+    if isinstance(cache, KC.LatentKV):
+        B, C, _ = x.shape
+        ckv, kr = A.mla_latent(bp["attn"], cfg, x, positions)
+        cache = KC.latent_insert_chunk(cache, ckv, kr, start)
+        live = start + C
+        valid = (torch.arange(live, device=x.device)[None, None, :]
+                 <= positions[None, :, None]).expand(B, C, live)
+        y = A.mla_absorbed_attend(bp["attn"], cfg, x, positions,
+                                  cache.ckv[:, :live], cache.kr[:, :, :live],
+                                  valid)
+        return y, cache
     q, k_new, v_new, _ = A.gqa_qkv(bp["attn"], cfg, x, positions)
     cache = KC.full_insert_chunk(cache, k_new, v_new, start)
     o = M.chunk_causal_attention(q, cache.k, cache.v, start)
@@ -450,10 +531,10 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
     for i, bp in enumerate(params["layers"]):
         cache = caches[i]
         x = rms_norm(bp["norm1"], h, cfg.norm_eps)
-        if isinstance(cache, KC.RingKV):
-            ring = cache.k.shape[2]
+        if KC.is_ring(cache):
             y, cache = _chunk_attn_ring(bp, cfg, x, positions, start, cache,
-                                        flux.sink, ring - flux.sink)
+                                        flux.sink,
+                                        KC.capacity(cache) - flux.sink)
         else:
             y, cache = _chunk_attn_full(bp, cfg, x, positions, start, cache)
         h = ffn_block(bp, cfg, i, h + y)
@@ -498,10 +579,6 @@ def attention_mass_coverage(params, cfg: ModelConfig, tokens: torch.Tensor,
     the MoE layers that capacity, so the port's coverage is the JAX
     engine's. Returns (n_routed,) float32 on the CPU, in
     ``cfg.routable_layers()`` order."""
-    if cfg.use_mla:
-        raise NotImplementedError(
-            "attention_mass_coverage over MLA latents waits for ROADMAP "
-            "Queue 1 item 11")
     h = embed_tokens(params, cfg, tokens)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)
@@ -515,7 +592,12 @@ def attention_mass_coverage(params, cfg: ModelConfig, tokens: torch.Tensor,
             # the (cheap) projections again, rather than threading probe
             # plumbing through block_apply's cache contract
             x = rms_norm(bp["norm1"], h, cfg.norm_eps)
-            q, k, _, _ = A.gqa_qkv(bp["attn"], cfg, x, positions)
+            if cfg.use_mla:  # the route chunk's per-head K of the latent
+                ckv, kr = A.mla_latent(bp["attn"], cfg, x, positions)
+                q, _ = A.mla_q(bp["attn"], cfg, x, positions)
+                k, _ = A.mla_expand_kv(bp["attn"], cfg, ckv, kr)
+            else:
+                q, k, _, _ = A.gqa_qkv(bp["attn"], cfg, x, positions)
             G = q.shape[1] // k.shape[1]
             if G > 1:  # kv-major head order: head j reads kv head j // G
                 k = k.repeat_interleave(G, dim=1)

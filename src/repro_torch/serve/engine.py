@@ -10,7 +10,8 @@ Admission is the chunked, cache-resident pipeline of the JAX engine:
      the sink+local streaming kernel.
   2. Decode-geometry caches are allocated from the pattern and seeded
      with the first chunk's KV (``seed_caches``): a ``FullKV`` per FA
-     layer, a sink+local ``RingKV`` per SA layer. Later chunks stream
+     layer, a sink+local ``RingKV`` per SA layer (an MLA model's
+     ``LatentKV`` / ``RingLatentKV`` hold its latents). Later chunks stream
      through ``prefill_chunk`` straight into them (FA layers on the
      block-sparse kernel, ring layers on a dense masked softmax).
   3. ``decode_many`` generates greedily (or samples, given a seeded
@@ -109,15 +110,20 @@ def chunk_plan(seq_len: int, chunk: int) -> List[Tuple[int, int]]:
 def seed_caches(cfg: ModelConfig, prefill_caches, pattern, batch: int,
                 max_len: int, device) -> List:
     """Decode-geometry caches for ``pattern``, seeded with a routing
-    chunk's per-layer (k, v) at position 0."""
+    chunk's per-layer (k, v), or an MLA model's (ckv, kr), at position
+    0."""
     caches = KC.init_decode_caches(cfg, pattern, batch, max_len, device)
     sink = cfg.flux.sink
-    for (k, v), dec in zip(prefill_caches, caches):
-        if isinstance(dec, KC.RingKV):
-            ring = dec.k.shape[2]
-            KC.ring_insert_chunk(dec, k, v, 0, sink, ring - sink)
+    for kv, dec in zip(prefill_caches, caches):
+        local = KC.capacity(dec) - sink
+        if isinstance(dec, KC.RingLatentKV):
+            KC.ring_latent_insert_chunk(dec, *kv, 0, sink, local)
+        elif isinstance(dec, KC.LatentKV):
+            KC.latent_insert_chunk(dec, *kv, 0)
+        elif isinstance(dec, KC.RingKV):
+            KC.ring_insert_chunk(dec, *kv, 0, sink, local)
         else:
-            KC.full_insert_chunk(dec, k, v, 0)
+            KC.full_insert_chunk(dec, *kv, 0)
     return caches
 
 
@@ -131,33 +137,39 @@ def _ring_src(seq_len: int, sink: int, local: int, ring: int) -> np.ndarray:
     return src
 
 
-def _gather_ring(k_full: torch.Tensor, src: np.ndarray) -> torch.Tensor:
-    """Slots of ``k_full`` (B, H, S, D) at ``src`` along S; -1 → zeros."""
-    idx = torch.as_tensor(np.maximum(src, 0), device=k_full.device)
-    g = k_full.index_select(2, idx)
-    mask = torch.as_tensor(src >= 0, device=k_full.device)
-    return torch.where(mask[None, None, :, None], g, torch.zeros_like(g))
+def _gather_ring(x: torch.Tensor, src: np.ndarray,
+                 axis: int = 2) -> torch.Tensor:
+    """Entries of ``x`` at ``src`` along its sequence ``axis`` (2 of a
+    (B, H, S, D) k or kr, 1 of a (B, S, R) ckv); -1 → zeros."""
+    idx = torch.as_tensor(np.maximum(src, 0), device=x.device)
+    g = x.index_select(axis, idx)
+    shape = [1] * g.dim()
+    shape[axis] = len(src)
+    mask = torch.as_tensor(src >= 0, device=x.device).reshape(shape)
+    return torch.where(mask, g, torch.zeros_like(g))
 
 
 def repack_caches(cfg: ModelConfig, prefill_caches, routing,
                   seq_len: int, max_len: int) -> List:
-    """Whole-prompt prefill KV (per layer (k, v)) → decode cache list.
-    FALLBACK PATH for admissions ``chunked_eligible`` excludes.
-    routing[i] ∈ {"fa", "sa"}."""
+    """Whole-prompt prefill KV (per layer (k, v), or an MLA model's
+    (ckv, kr)) → decode cache list. FALLBACK PATH for admissions
+    ``chunked_eligible`` excludes. routing[i] ∈ {"fa", "sa"}."""
     flux = cfg.flux
+    # the sequence axis of each buffer: ckv (B, S, R) holds it at 1
+    axes = (1, 2) if cfg.use_mla else (2, 2)
     out = []
-    for i, (k, v) in enumerate(prefill_caches):
-        B = k.shape[0]
+    for i, (a, b) in enumerate(prefill_caches):
+        B = a.shape[0]
         length = torch.full((B,), seq_len, dtype=torch.int32,
-                            device=k.device)
+                            device=a.device)
         if routing[i] == "sa":
             ring, sink = KC.sa_ring(flux, max_len)
             src = _ring_src(seq_len, sink, ring - sink, ring)
-            pos = torch.as_tensor(src, dtype=torch.int32, device=k.device)
-            out.append(KC.RingKV(k=_gather_ring(k, src),
-                                 v=_gather_ring(v, src),
-                                 positions=pos[None].repeat(B, 1),
-                                 length=length))
+            pos = torch.as_tensor(src, dtype=torch.int32, device=a.device)
+            kind = KC.RingLatentKV if cfg.use_mla else KC.RingKV
+            out.append(kind(_gather_ring(a, src, axes[0]),
+                            _gather_ring(b, src, axes[1]),
+                            pos[None].repeat(B, 1), length))
         else:
             if seq_len > max_len:
                 raise ValueError(
@@ -166,10 +178,15 @@ def repack_caches(cfg: ModelConfig, prefill_caches, routing,
                     f"at full-cache layer {i}; raise the engine's max_len "
                     f"or truncate the prompt")
             pad = max_len - seq_len
-            out.append(KC.FullKV(k=F.pad(k, (0, 0, 0, pad)),
-                                 v=F.pad(v, (0, 0, 0, pad)),
-                                 length=length))
+            kind = KC.LatentKV if cfg.use_mla else KC.FullKV
+            out.append(kind(_pad_seq(a, axes[0], pad),
+                            _pad_seq(b, axes[1], pad), length))
     return out
+
+
+def _pad_seq(x: torch.Tensor, axis: int, pad: int) -> torch.Tensor:
+    """``x`` with ``pad`` zero entries appended along dimension ``axis``."""
+    return F.pad(x, (0, 0) * (x.dim() - 1 - axis) + (0, pad))
 
 
 # ---------------------------------------------------------------------------
@@ -672,6 +689,11 @@ class ServeEngine:
         if specs is None:
             hq = self.cfg.num_heads
             specs = self._cost_specs[key] = [
+                # absorbed MLA decode: one latent "kv head", scores over
+                # ckv ‖ kr, values read from the latent
+                (KC.capacity(c), hq, 1, c.ckv.shape[-1] + c.kr.shape[-1],
+                 c.ckv.shape[-1], c.ckv.element_size())
+                if isinstance(c, (KC.LatentKV, KC.RingLatentKV)) else
                 (c.k.shape[2], hq, c.k.shape[1], c.k.shape[-1],
                  c.v.shape[-1], c.k.element_size()) for c in pool.caches]
         return specs
@@ -1080,7 +1102,8 @@ class ServeEngine:
             p_fa = None if pf.p_fa is None else pf.p_fa.numpy()
             dispatches = 2  # prefill + the repack
         if (seq_len + n_steps > self.max_len
-                and any(isinstance(c, KC.FullKV) for c in caches)):
+                and any(isinstance(c, (KC.FullKV, KC.LatentKV))
+                        for c in caches)):
             raise ValueError(
                 f"generate: prompt ({seq_len}) + n_steps ({n_steps}) = "
                 f"{seq_len + n_steps} exceeds the cache capacity "

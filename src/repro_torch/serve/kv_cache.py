@@ -1,10 +1,12 @@
-"""Decode-time KV caches (port of the ``FullKV``/``RingKV`` half of
+"""Decode-time KV caches (port of the attention half of
 ``repro/serve/kv_cache.py``).
 
 FA layers keep the complete KV history (``FullKV``); SA layers keep only
 the sink+local ring (``RingKV``), whose size is independent of the
-context length. Keys are stored with RoPE already applied at absolute
-positions.
+context length. MLA layers cache the compressed latent and the one
+shared roped key instead of per-head K / V, in the same two geometries
+(``LatentKV``, ``RingLatentKV``). Keys are stored with RoPE already
+applied at absolute positions.
 
 Unlike the JAX package, whose arrays are immutable, every insert here
 writes into the cache's own buffers in place and returns the same cache:
@@ -44,6 +46,24 @@ class RingKV:
     v: torch.Tensor
     positions: torch.Tensor  # (B, sink+local) int32
     length: torch.Tensor  # (B,) int32 — absolute position of next token
+
+
+@dataclass
+class LatentKV:
+    """MLA: the compressed latent and the shared roped key, complete
+    history."""
+    ckv: torch.Tensor  # (B, Smax, R)
+    kr: torch.Tensor   # (B, 1, Smax, rope)
+    length: torch.Tensor  # (B,) int32
+
+
+@dataclass
+class RingLatentKV:
+    """MLA's sink + local ring (the ``RingKV`` geometry over latents)."""
+    ckv: torch.Tensor  # (B, ring, R)
+    kr: torch.Tensor   # (B, 1, ring, rope)
+    positions: torch.Tensor  # (B, ring) int32
+    length: torch.Tensor  # (B,) int32
 
 
 def ring_slot(pos, sink: int, local: int):
@@ -107,6 +127,53 @@ def full_insert(cache: FullKV, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
+def ring_latent_insert(cache: RingLatentKV, ckv_new: torch.Tensor,
+                       kr_new: torch.Tensor, pos, sink: int,
+                       local: int) -> RingLatentKV:
+    """``ring_insert`` for a latent ring: ckv_new (B, 1, R), kr_new
+    (B, 1, 1, rope)."""
+    if isinstance(pos, torch.Tensor):
+        b = torch.arange(ckv_new.shape[0], device=pos.device)
+        slot = ring_slot(pos, sink, local).long()
+        cache.ckv[b, slot] = ckv_new[:, 0]
+        cache.kr[b, :, slot] = kr_new[:, :, 0]
+        cache.positions[b, slot] = pos
+        cache.length.copy_(pos + 1)
+        return cache
+    slot = ring_slot(pos, sink, local)
+    cache.ckv[:, slot] = ckv_new[:, 0]
+    cache.kr[:, :, slot] = kr_new[:, :, 0]
+    cache.positions[:, slot] = pos
+    cache.length.fill_(pos + 1)
+    return cache
+
+
+def latent_insert(cache: LatentKV, ckv_new: torch.Tensor,
+                  kr_new: torch.Tensor, pos) -> LatentKV:
+    """``full_insert`` for a latent cache, with its capacity rules: an int
+    position raises past the capacity, a per-row write past it is
+    dropped."""
+    cap = cache.ckv.shape[1]
+    if isinstance(pos, torch.Tensor):
+        b = torch.arange(ckv_new.shape[0], device=pos.device)
+        idx = pos.clamp(0, cap - 1).long()
+        drop = (pos < 0) | (pos >= cap)
+        cache.ckv[b, idx] = torch.where(drop[:, None], cache.ckv[b, idx],
+                                        ckv_new[:, 0])
+        cache.kr[b, :, idx] = torch.where(drop[:, None, None],
+                                          cache.kr[b, :, idx],
+                                          kr_new[:, :, 0])
+        cache.length.copy_(pos + 1)
+        return cache
+    if not 0 <= pos < cap:
+        raise IndexError(f"latent_insert: position {pos} outside the cache "
+                         f"capacity {cap}")
+    cache.ckv[:, pos] = ckv_new[:, 0]
+    cache.kr[:, :, pos] = kr_new[:, :, 0]
+    cache.length.fill_(pos + 1)
+    return cache
+
+
 def _ring_chunk_sources(start: int, C: int, sink: int, local: int,
                         device=None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -160,15 +227,68 @@ def full_insert_chunk(cache: FullKV, k_new: torch.Tensor,
     return cache
 
 
+def ring_latent_insert_chunk(cache: RingLatentKV, ckv_new: torch.Tensor,
+                             kr_new: torch.Tensor, start: int, sink: int,
+                             local: int) -> RingLatentKV:
+    """Insert C latents (ckv_new (B, C, R), kr_new (B, 1, C, rope)) at
+    [start, start+C)."""
+    C = ckv_new.shape[1]
+    src, pos, valid = _ring_chunk_sources(start, C, sink, local,
+                                          ckv_new.device)
+    idx = src.clamp(0, C - 1)
+    cache.ckv.copy_(torch.where(valid[None, :, None],
+                                ckv_new.index_select(1, idx), cache.ckv))
+    cache.kr.copy_(torch.where(valid[None, None, :, None],
+                               kr_new.index_select(2, idx), cache.kr))
+    cache.positions.copy_(torch.where(valid[None, :], pos[None, :],
+                                      cache.positions))
+    cache.length.fill_(start + C)
+    return cache
+
+
+def latent_insert_chunk(cache: LatentKV, ckv_new: torch.Tensor,
+                        kr_new: torch.Tensor, start: int) -> LatentKV:
+    """Insert C latents at [start, start+C); raises past the capacity."""
+    C, cap = ckv_new.shape[1], cache.ckv.shape[1]
+    if start < 0 or start + C > cap:
+        raise IndexError(f"latent_insert_chunk: positions [{start}, "
+                         f"{start + C}) outside the cache capacity {cap}")
+    cache.ckv[:, start:start + C] = ckv_new
+    cache.kr[:, :, start:start + C] = kr_new
+    cache.length.fill_(start + C)
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # Construction
 # ---------------------------------------------------------------------------
 
+# a cache type's buffer names in the JAX package's leaf order (its
+# constructor takes them in this order)
+_FIELDS = {FullKV: ("k", "v", "length"),
+           RingKV: ("k", "v", "positions", "length"),
+           LatentKV: ("ckv", "kr", "length"),
+           RingLatentKV: ("ckv", "kr", "positions", "length")}
+# the KV payload among them; ``positions`` / ``length`` are bookkeeping
+_PAYLOAD = ("k", "v", "ckv", "kr")
+
+
 def cache_fields(cache) -> Tuple[torch.Tensor, ...]:
     """A cache's buffers in the JAX package's leaf order."""
-    if isinstance(cache, RingKV):
-        return cache.k, cache.v, cache.positions, cache.length
-    return cache.k, cache.v, cache.length
+    return tuple(getattr(cache, f) for f in _FIELDS[type(cache)])
+
+
+def is_ring(cache) -> bool:
+    """True for the sink + local geometries (``RingKV``, ``RingLatentKV``)."""
+    return isinstance(cache, (RingKV, RingLatentKV))
+
+
+def capacity(cache) -> int:
+    """The token slots of a cache's buffers (its ring size for a ring)."""
+    if is_ring(cache):
+        return cache.positions.shape[1]
+    return (cache.k.shape[2] if isinstance(cache, FullKV)
+            else cache.ckv.shape[1])
 
 
 def map_buffers(caches: Sequence, fn) -> List:
@@ -196,9 +316,10 @@ def slot_geometry(caches: Sequence) -> Tuple:
 
 
 def kv_cache_bytes(caches: Sequence) -> int:
-    """KV *payload* bytes (k and v); ``positions``/``length`` are
-    bookkeeping and not counted, as in the JAX package."""
-    return sum(c.k.nbytes + c.v.nbytes for c in caches)
+    """KV *payload* bytes (k and v, or ckv and kr); ``positions`` /
+    ``length`` are bookkeeping and not counted, as in the JAX package."""
+    return sum(getattr(c, f).nbytes for c in caches
+               for f in _FIELDS[type(c)] if f in _PAYLOAD)
 
 
 def ring_size(flux: FluxConfig) -> int:
@@ -219,7 +340,8 @@ def sa_ring(flux: FluxConfig, max_len: int) -> Tuple[int, int]:
 
 def init_layer_cache(cfg: ModelConfig, kind: str, mode: str, batch: int,
                      max_len: int, device, dtype=None):
-    """Fresh (empty) cache for one layer; mode ∈ {"fa", "sa"}."""
+    """Fresh (empty) cache for one layer; mode ∈ {"fa", "sa"}. An MLA
+    model's layers cache latents (``LatentKV`` / ``RingLatentKV``)."""
     if max_len <= 0:
         raise ValueError(f"init_layer_cache: max_len={max_len} must be "
                          f"positive")
@@ -231,6 +353,18 @@ def init_layer_cache(cfg: ModelConfig, kind: str, mode: str, batch: int,
     dtype = dtype or cfg.dtype
     H, D = cfg.num_kv_heads, cfg.head_dim
     length = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if cfg.use_mla:
+        R, rope = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        L = sa_ring(cfg.flux, max_len)[0] if mode == "sa" else max_len
+        ckv = torch.zeros((batch, L, R), dtype=dtype, device=device)
+        kr = torch.zeros((batch, 1, L, rope), dtype=dtype, device=device)
+        if mode == "sa":
+            return RingLatentKV(
+                ckv=ckv, kr=kr,
+                positions=torch.full((batch, L), -1, dtype=torch.int32,
+                                     device=device),
+                length=length)
+        return LatentKV(ckv=ckv, kr=kr, length=length)
     if mode == "sa":
         L, _ = sa_ring(cfg.flux, max_len)
         return RingKV(

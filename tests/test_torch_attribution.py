@@ -90,11 +90,18 @@ def test_coverage_is_one_inside_the_sa_window(phi3):
     np.testing.assert_allclose(cov.numpy(), 1.0, rtol=0, atol=1e-6)
 
 
-def test_coverage_of_mla_names_its_queue_item(phi3):
-    _, tcfg, _, tparams = phi3
-    with pytest.raises(NotImplementedError, match="item 11"):
-        MD.attention_mass_coverage(tparams, tcfg.replace(use_mla=True),
-                                   torch.as_tensor(_prompt(8)[None]))
+def test_coverage_of_mla_matches_jax():
+    """deepseek-v2's smoke variant: the probe reads the per-head K of the
+    decompressed latent, scaled by (nope + rope) ** -0.5, as JAX's does."""
+    jcfg, tcfg, jparams, tparams = _models("deepseek-v2-236b")
+    toks = _prompt(tcfg.flux.sink + tcfg.flux.local + 7)[None]
+    want = np.asarray(JMD.attention_mass_coverage(jparams, jcfg,
+                                                  jnp.asarray(toks)))
+    port = MD.attention_mass_coverage(tparams, tcfg,
+                                      torch.as_tensor(toks)).numpy()
+    assert port.shape == (len(tcfg.routable_layers()),)
+    np.testing.assert_allclose(port, want, rtol=0, atol=COVERAGE_TOL)
+    assert (port < 1.0).all()
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +188,8 @@ def test_knobs_off_calls_each_kernel_as_the_path_needs(on_off):
     assert all(f.status == STATUS_OK for f in out.values())
     assert sum(f.metrics.preemptions for f in out.values()) >= 1
     want = _prefill_calls(cfg, sched.admissions, 16)
-    want.update(decode_attention=0, decode_attention_pooled=sum(
+    want.update(decode_attention=0, decode_attention_mla=0,
+                decode_attention_pooled=sum(
         p.steps for p in sched.pools.values()) * cfg.num_layers)
     assert calls == want
 

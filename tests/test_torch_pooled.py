@@ -346,10 +346,13 @@ def test_pooled_cuda_operands_go_to_the_kernel(monkeypatch):
     assert all(launched[1][6:9])
     assert launched[0][9:17] == (8, 4, 70, 32, 32, 4, 0, 2)
     assert launched[1][16] == 1
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # an unbuilt (Dk, Dv): MLA's latent decode has its own entry
+    with pytest.raises(NotImplementedError,
+                       match="latent decode runs on decode_attention_mla_bh"):
         TP.decode_attention_pooled_bh(*_ops(Dv=16)[:3], pos, lens,
                                       n_heads=4)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="latent decode runs on decode_attention_mla_bh"):
         TP.decode_attention_pooled_bh(*_ops(D=48, Dv=48)[:3], pos, lens,
                                       n_heads=4)
     with pytest.raises(ValueError, match="contiguous"):
