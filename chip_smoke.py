@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent SRC]
 
-Phases, each printing one line (any failure raises and exits non-zero;
-nothing falls back to the CPU):
+``--parent SRC`` (another checkout's ``src``, e.g. a ``git archive`` of
+the parent commit) builds that tree's kernels too and times its latent
+decode beside this tree's in phase 4. Phases, each printing one line
+(any failure raises and exits non-zero; nothing falls back to the CPU):
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA;
   2. build the hand-written attention kernels from ``csrc/``, and
      print the compiler's report (registers, spills, shared memory) and
@@ -12,7 +14,20 @@ nothing falls back to the CPU):
      engine in the flash, block-sparse and streaming kernels at each head
      dim (flash and streaming also at (Dk, Dv) = (192, 128)), and the
      report of the batch and slot-pool split decode kernels, their merge
-     kernels and the latent (MLA) decode kernel;
+     kernels and the latent (MLA) decode kernels: the fp32 one on the
+     CUDA cores and the bf16 one on the tensor cores (its registers,
+     spills, shared memory and SASS HGMMA / UTMALDG counts, which must be
+     > 0);
+  2b. the stress phase, first after the build: every bf16 wgmma instance
+     the main paths run (flash, streaming and block-sparse at D = 64, 96
+     and 160 at granite's, phi3-mini's and stablelm's main shapes, flash
+     and streaming at (192, 128), the latent decode over POOL_LENS and
+     over the ring) STRESS_CALLS times each, every other call into an
+     output pre-filled with NaN (the entries' test-only ``out=``), so an
+     element the kernel never writes shows on each such call: the
+     outputs holding a non-finite element and the elements past phase
+     3's bf16 limit against the plain version (computed once) must both
+     count 0;
   3. each kernel against its plain PyTorch version on the card: at the
      main paths' shapes in bf16 (the pooled decode kernel at the slot
      pool's: 4 slots of ragged live lengths, over a FullKV and over a
@@ -189,14 +204,23 @@ Phase 3 also holds deepseek's instances: flash and streaming at (192,
 128) and the latent decode (R 512, rope 64, 128 heads over one latent
 KV row, scale 192 ** -0.5, over POOL_LENS and over a shuffled ring with
 holes) in bf16 at the main path's shapes under the limit (a zeroed
-tile of V, or of ``ckv`` in every slot, above it), fp32 at a small
-unaligned case (the latent decode with a length-0 slot whose rows must
-be zeros); phase 4 times them beside SDPA (naming the backends that
-refuse the shapes) and the latent decode against its tiles a range.
+tile of V, or of ``ckv`` in every slot, above it), the bf16 latent
+decode also at the small case (slots of 0 / 1 / 137 / 300 keys at L
+300, H = 32 and 16, FullKV and a ring with holes, 1 / 2 / 5 tiles a
+range and the plan's: live slots under the limit, zeroed tiles above
+it, the length-0 slot's rows zeros), fp32 at a small unaligned case
+(the latent decode with a length-0 slot whose rows must be zeros);
+phase 4 times flash and streaming beside SDPA (naming the backends that
+refuse the shapes) and the latent decode at MLA_SHAPES (POOL_LENS, the
+ring, long context: 4 slots of 32,768 keys, high batch: 64 slots of
+4,096) beside SDPA, the parent's kernel (``--parent``) and its tiles a
+range, each shape also held to the bf16 limit.
 Then one JSON line of per-kernel numbers (phi3-mini's, and stablelm's,
 granite's and deepseek's under ``stablelm_12b``, ``granite_moe_3b_a800m``
 and ``deepseek_v2_236b``; the latent decode its own entry at deepseek's
-shapes; launches by path, phase 14's as ``guardrails``), the total
+shapes with its ring, long-context and high-batch rows; launches by
+path, phase 14's as ``guardrails``; each kernel's phase-2b counts under
+``stress``), the total
 seconds, and the last line ``{"ok": true, "device": {...}}``.
 """
 import collections
@@ -421,7 +445,7 @@ def kernel_cases(dev, dtype, main, arch=ARCH, small_d=128, small_g=4):
     q, k, v = rnd(BH, S, D), rnd(BHkv, S, D), rnd(BHkv, S, D)
     pairs = BH * S * (S + 1) // 2
     cases["flash_attention"] = (
-        lambda: flash_attention_bh(q, k, v),
+        lambda **kw: flash_attention_bh(q, k, v, **kw),
         lambda: ref.flash_attention_ref(q, k, v),
         lambda: ref.flash_attention_ref(q, k, zero_tile(v)),
         lambda: F.scaled_dot_product_attention(q4(q), kv4(k), kv4(v),
@@ -431,7 +455,8 @@ def kernel_cases(dev, dtype, main, arch=ARCH, small_d=128, small_g=4):
     smask = (pos[None] <= pos[:, None]) & (
         (pos[None] < sink) | (pos[:, None] - pos[None] < local))
     cases["streaming_attention"] = (
-        lambda: streaming_attention_bh(q, k, v, sink=sink, local=local),
+        lambda **kw: streaming_attention_bh(q, k, v, sink=sink, local=local,
+                                            **kw),
         lambda: ref.streaming_attention_ref(q, k, v, sink=sink, local=local),
         lambda: ref.streaming_attention_ref(q, k, zero_tile(v), sink=sink,
                                             local=local),
@@ -447,7 +472,8 @@ def kernel_cases(dev, dtype, main, arch=ARCH, small_d=128, small_g=4):
     cmask = kpos[None] <= start + torch.arange(Sq, device=dev)[:, None]
     live = start + Sq
     cases["block_sparse_attention"] = (
-        lambda: block_sparse_attention_bh(qc, kc, vc, sel, q_offset=start),
+        lambda **kw: block_sparse_attention_bh(qc, kc, vc, sel,
+                                               q_offset=start, **kw),
         lambda: ref.block_sparse_attention_ref(qc, kc, vc, sel,
                                                block=KERNEL_BLOCK,
                                                q_offset=start),
@@ -545,8 +571,6 @@ def mla_kernel_cases(dev, dtype, main):
     300 keys at L 300, a ring with holes)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention_mla import (
-        decode_attention_mla_bh, decode_attention_mla_plain)
     from repro_torch.kernels.flash_attention import flash_attention_bh
     from repro_torch.kernels.streaming_attention import \
         streaming_attention_bh
@@ -554,8 +578,7 @@ def mla_kernel_cases(dev, dtype, main):
     g = torch.Generator(device=dev).manual_seed(0)
     cfg = get_config(DEEPSEEK)
     Dk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
-    Dv, R, rope = cfg.v_head_dim, cfg.kv_lora_rank, cfg.qk_rope_head_dim
-    scale = Dk ** -0.5
+    Dv = cfg.v_head_dim
     it = torch.tensor([], dtype=dtype).element_size()
 
     def rnd(*shape):
@@ -581,13 +604,14 @@ def mla_kernel_cases(dev, dtype, main):
         (pos[None] < sink) | (pos[:, None] - pos[None] < local))
     cases = {
         "flash_attention": (
-            lambda: flash_attention_bh(q, k, v),
+            lambda **kw: flash_attention_bh(q, k, v, **kw),
             lambda: ref.flash_attention_ref(q, k, v),
             lambda: ref.flash_attention_ref(q, k, zero_tile(v)),
             lambda: F.scaled_dot_product_attention(*qkv4(), is_causal=True),
             *work(BH * S * (S + 1) // 2), 1),
         "streaming_attention": (
-            lambda: streaming_attention_bh(q, k, v, sink=sink, local=local),
+            lambda **kw: streaming_attention_bh(q, k, v, sink=sink,
+                                                local=local, **kw),
             lambda: ref.streaming_attention_ref(q, k, v, sink=sink,
                                                 local=local),
             lambda: ref.streaming_attention_ref(q, k, zero_tile(v),
@@ -596,44 +620,72 @@ def mla_kernel_cases(dev, dtype, main):
                                                    attn_mask=smask),
             *work(BH * streaming_pairs(range(S), sink, local)), 1)}
 
-    def decode(name, lens, L, H, ring):
-        lens = tuple(min(n, L) for n in lens)
-        Bp = len(lens)
-        qd, ckv, krd = rnd(Bp * H, 1, R + rope), rnd(Bp, L, R), rnd(Bp, L,
-                                                                      rope)
-        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-        ppos = (torch.as_tensor(ring_positions(np.random.default_rng(0),
-                                               lens, L), device=dev)
-                if ring else None)
-        vis = torch.arange(L, device=dev)[None] < lengths[:, None]
-        if ppos is not None:
-            vis = vis & (ppos >= 0)
-        k_eff = torch.cat([ckv, krd], dim=-1)[:, None]  # built untimed
-        n_vis = int(vis.sum())
-        cases[name] = (
-            lambda: decode_attention_mla_bh(qd, ckv, krd, ppos, lengths,
-                                            n_heads=H, scale=scale),
-            lambda: decode_attention_mla_plain(qd, ckv, krd, ppos, lengths,
-                                               n_heads=H, scale=scale),
-            lambda: decode_attention_mla_plain(
-                qd, zero_slot_tiles(ckv, lens), krd, ppos, lengths,
-                n_heads=H, scale=scale),
-            lambda: F.scaled_dot_product_attention(
-                qd.view(Bp, H, 1, R + rope), k_eff.expand(Bp, H, L, R + rope),
-                ckv[:, None].expand(Bp, H, L, R),
-                attn_mask=vis[:, None, None], scale=scale),
-            # q read, o written, each live key's ckv and kr read once; the
-            # 2·(Dk + Dv) operations of every visible (row, key) pair
-            it * (Bp * H * (2 * R + rope) + sum(lens) * (R + rope)),
-            2 * (2 * R + rope) * H * n_vis, Bp)
     if main:
-        decode("decode_attention_mla", POOL_LENS, PROMPT + GEN,
-               cfg.num_heads, False)
-        decode("decode_attention_mla_ring", RING_POOL_LENS,
-               cfg.flux.sink + cfg.flux.local, cfg.num_heads, True)
+        cases["decode_attention_mla"] = mla_decode_case(
+            dev, dtype, POOL_LENS, PROMPT + GEN, cfg.num_heads, False, g)
+        cases["decode_attention_mla_ring"] = mla_decode_case(
+            dev, dtype, RING_POOL_LENS, cfg.flux.sink + cfg.flux.local,
+            cfg.num_heads, True, g)
     else:
-        decode("decode_attention_mla", (0, 1, 137, 300), 300, 32, True)
+        cases["decode_attention_mla"] = mla_decode_case(
+            dev, dtype, MLA_SMALL_LENS, 300, 32, True, g)
     return cases
+
+
+MLA_SMALL_LENS = (0, 1, 137, 300)  # the small latent decode's slots, L 300
+MLA_SMALL_TILES = (1, 2, 5, None)  # forced tiles a range, then the plan's
+
+
+def mla_decode_case(dev, dtype, lens, L, H, ring, g, tiles=None):
+    """The latent decode of len(lens) slots of H heads at deepseek's
+    widths (R 512, rope 64, scale 192 ** -0.5) over capacity L, FullKV or
+    (``ring``) a shuffled ring with holes: (kernel call taking ``out=``,
+    ``tiles=`` and ``entry=``, plain call, plain call with one ``ckv``
+    tile zeroed in every slot, library call, bytes, flops, slots).
+    ``tiles`` forces the kernel's tiles a range."""
+    from repro_torch.kernels.decode_attention_mla import (
+        decode_attention_mla_bh, decode_attention_mla_plain)
+    R, rope, scale = 512, 64, 192 ** -0.5
+    it = torch.tensor([], dtype=dtype).element_size()
+    lens = tuple(min(n, L) for n in lens)
+    Bp = len(lens)
+    qd, ckv, krd = (torch.randn(*shape, generator=g, device=dev).to(dtype)
+                    for shape in ((Bp * H, 1, R + rope), (Bp, L, R),
+                                  (Bp, L, rope)))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    ppos = (torch.as_tensor(ring_positions(np.random.default_rng(0),
+                                           lens, L), device=dev)
+            if ring else None)
+    vis = torch.arange(L, device=dev)[None] < lengths[:, None]
+    if ppos is not None:
+        vis = vis & (ppos >= 0)
+    n_vis = int(vis.sum())
+
+    def library():  # k_eff built once, outside the timed call
+        if not hasattr(library, "k_eff"):
+            library.k_eff = torch.cat([ckv, krd], dim=-1)[:, None]
+        return torch.nn.functional.scaled_dot_product_attention(
+            qd.view(Bp, H, 1, R + rope),
+            library.k_eff.expand(Bp, H, L, R + rope),
+            ckv[:, None].expand(Bp, H, L, R), attn_mask=vis[:, None, None],
+            scale=scale)
+
+    def kernel(entry=None, **kw):  # entry: another tree's (parent_mla)
+        kw.setdefault("tiles", tiles)
+        return (entry or decode_attention_mla_bh)(
+            qd, ckv, krd, ppos, lengths, n_heads=H, scale=scale, **kw)
+    return (
+        kernel,
+        lambda: decode_attention_mla_plain(qd, ckv, krd, ppos, lengths,
+                                           n_heads=H, scale=scale),
+        lambda: decode_attention_mla_plain(
+            qd, zero_slot_tiles(ckv, lens), krd, ppos, lengths, n_heads=H,
+            scale=scale),
+        library,
+        # q read, o written, each live key's ckv and kr read once; the
+        # 2·(Dk + Dv) operations of every visible (row, key) pair
+        it * (Bp * H * (2 * R + rope) + sum(lens) * (R + rope)),
+        2 * (2 * R + rope) * H * n_vis, Bp)
 
 
 def ring_positions(rng, lens, L, hole=0.1):
@@ -813,6 +865,8 @@ def decode_report():
         if not report:
             lines.append(f"{source}: no compiler report")
         for name, r in report.items():
+            if "mla_wgmma_kernel" in name:  # mla_report's
+                continue
             if "mla_decode_kernel" in name:  # no head-dim argument
                 lines.append(
                     f"pooled mla_decode {'bf16' if 'bfloat16' in name else 'fp32'}"
@@ -829,6 +883,242 @@ def decode_report():
                           f"spill {r.get('spill')} stack {r.get('stack')}"))
     return lines + [f"{k}: " + ", ".join(t for _, t in sorted(v))
                     for k, v in sorted(groups.items())]
+
+
+def mla_report():
+    """Phase 2's lines for the bf16 latent decode (``mla_wgmma_kernel`` of
+    the pooled library): registers, spills and stack from the compiler's
+    report, the dynamic shared memory a CTA asks for, and its SASS's
+    tensor-core (HGMMA) and TMA-load (UTMALDG) counts, which must be > 0."""
+    from repro_torch.kernels import _build
+    lib = _build.library_path("decode_attention_pooled")
+    smem = ctypes.CDLL(str(lib)).flux_mla_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    report = compiler_report(lib, "mla_wgmma_kernel")
+    sass = sass_counts(lib)
+    assert report, f"no compiler report of mla_wgmma_kernel in {lib.name}.log"
+    lines = []
+    for name, r in report.items():
+        hgmma, tma, shapes = sass.get(name, (0, 0, []))
+        assert hgmma > 0 and tma > 0, \
+            f"{name}: HGMMA={hgmma} UTMALDG={tma}, not on the tensor cores"
+        lines.append(
+            f"pooled mla_wgmma bf16 (R 512, rope 64, 64 heads a CTA, 2 "
+            f"warpgroups): registers={r.get('registers')} "
+            f"spill_stores/loads={r.get('spill')} bytes stack="
+            f"{r.get('stack')} dynamic_smem={smem(1)} (fp32 kernel's "
+            f"{smem(0)}) sass HGMMA={hgmma} {shapes} UTMALDG={tma}")
+    return lines
+
+
+STRESS_CALLS = 1000  # calls of each instance in phase 2b
+
+
+def stress_cases(dev):
+    """Phase 2b's instances: [(label, kernel name, kernel call taking
+    ``out=``, plain call, slots)], every bf16 wgmma instance the main
+    paths run at their shapes: flash, streaming and block-sparse at
+    granite's (D = 64), phi3-mini's (96) and stablelm's (160), flash and
+    streaming at deepseek's (192, 128), and the latent decode over
+    POOL_LENS and over the ring with holes."""
+    from repro_torch.configs import get_config
+    cases = []
+    for arch in (GRANITE, ARCH, STABLELM):
+        D = get_config(arch).head_dim
+        kc = kernel_cases(dev, torch.bfloat16, True, arch)
+        for name in ("flash_attention", "streaming_attention",
+                     "block_sparse_attention"):
+            cases.append((f"{name} {arch} D={D}", name, *kc[name][:2], 1))
+    for name, c in mla_kernel_cases(dev, torch.bfloat16, True).items():
+        kernel = "decode_attention_mla" if "mla" in name else name
+        label = {"flash_attention": "flash_attention (192, 128)",
+                 "streaming_attention": "streaming_attention (192, 128)",
+                 "decode_attention_mla": "decode_attention_mla POOL_LENS",
+                 "decode_attention_mla_ring":
+                     "decode_attention_mla ring"}[name]
+        cases.append((f"{label} {DEEPSEEK}", kernel, c[0], c[1], c[-1]))
+    return cases
+
+
+def stress(dev, calls=STRESS_CALLS):
+    """Phase 2b: each of ``stress_cases`` ``calls`` times, every other call
+    into an output pre-filled with NaN (the entries' ``out=``), so that an
+    element the kernel leaves unwritten shows on every such call; the
+    others into a fresh ``torch.empty``, as the main paths call them.
+    Counts the outputs that hold a non-finite element and the elements
+    past phase 3's bf16 limit against the plain version (computed once).
+    Returns {label: counts} and the kernel each label belongs to."""
+    rows, kernel_of = {}, {}
+    for label, kernel, kern, plain, slots in stress_cases(dev):
+        t0 = time.perf_counter()
+        want = plain().float()
+        p = want.reshape(slots, -1)
+        limit = (BF16_ATOL_RMS * p.square().mean(1, keepdim=True).sqrt()
+                 + BF16_RTOL * p.abs()).reshape(want.shape)
+        buf = torch.empty_like(kern())
+        nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
+        past = torch.zeros((), dtype=torch.int64, device=dev)
+        for i in range(calls):
+            if i % 2:
+                buf.fill_(float("nan"))
+                out = kern(out=buf)
+                assert out is buf
+            else:
+                out = kern()
+            nonfinite += (~torch.isfinite(out)).any()
+            past += ((out.float() - want).abs() > limit).sum()
+        torch.cuda.synchronize()
+        rows[label] = dict(calls=calls, nan_prefilled=calls // 2,
+                           nonfinite_outputs=int(nonfinite),
+                           past_limit=int(past),
+                           seconds=time.perf_counter() - t0)
+        kernel_of[label] = kernel
+        del want, limit, buf
+        free_card()
+    return rows, kernel_of
+
+
+def mla_small_checks(dev):
+    """Phase 3's bf16 latent decode at the small case: slots of 0 / 1 /
+    137 / 300 keys at L 300 and H = 32 or 16 heads (the q map's rows past H
+    read as zeros and are never written), FullKV and a shuffled ring with
+    holes, at each of MLA_SMALL_TILES tiles a range (None: the plan's).
+    Every live slot under the bf16 limit (rms per slot), its zeroed ckv
+    tile above it, the length-0 slot's rows zeros. Returns the lines."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    lines = []
+    for H in (32, 16):
+        for ring in (False, True):
+            for tiles in MLA_SMALL_TILES:
+                kern, plain, mutant, *_, slots = mla_decode_case(
+                    dev, torch.bfloat16, MLA_SMALL_LENS, 300, H, ring, g,
+                    tiles)
+                out, want = kern(), plain()
+                rows = out.shape[0] // slots  # slot 0 holds nothing
+                assert not bool(out[:rows].any()), \
+                    f"latent decode bf16 H={H}: a length-0 slot not zeros"
+                e = max_err(out, want)
+                r = bf16_ratios(out[rows:], want[rows:], slots - 1)
+                r_mut = bf16_ratios(mutant()[rows:], want[rows:], slots - 1)
+                label = (f"decode_attention_mla bfloat16 small H={H} "
+                         f"{'ring with holes' if ring else 'FullKV'} lens="
+                         f"{MLA_SMALL_LENS} L=300 tiles={tiles or 'plan'}")
+                assert max(r) < 1, f"{label}: error {r} of the limit"
+                assert min(r_mut) > 1, \
+                    f"{label}: a zeroed tile is within the limit {r_mut}"
+                lines.append(f"{label} max_abs_err={e:.3e} limit_ratio="
+                             f"{ratio_text(r)} zeroed_tile_ratio="
+                             f"{ratio_text(r_mut)} length-0 slot zeros")
+    return lines
+
+
+def parent_mla(src):
+    """The latent decode entry of another tree (``src``: its ``src``
+    directory, e.g. a ``git archive`` of the parent), built by that tree's
+    own ``_build`` in a subprocess: a callable taking
+    ``decode_attention_mla_bh``'s arguments that launches that tree's
+    ``decode_attention_mla_fwd`` (bf16, 4 tiles a range unless ``tiles``
+    says)."""
+    from repro_torch.kernels.decode_attention import normalize_tiles
+    from repro_torch.kernels.sass_diff import other_libraries
+    lib = other_libraries(Path(src))["decode_attention_pooled"]
+    fn = ctypes.CDLL(str(lib)).decode_attention_mla_fwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(q, ckv, kr, positions, lengths, *, n_heads, scale, tiles=None,
+             out=None):
+        B, L, R = ckv.shape
+        t = normalize_tiles(L, 4 if tiles is None else tiles)
+        n_split = -(-L // (64 * t))
+        o = torch.empty((q.shape[0], 1, R), dtype=q.dtype, device=q.device)
+        acc = torch.empty((q.shape[0], n_split, R), dtype=torch.float32,
+                          device=q.device)
+        ml = torch.empty((2, q.shape[0], n_split), dtype=torch.float32,
+                         device=q.device)
+        code = fn(q.data_ptr(), ckv.data_ptr(), kr.data_ptr(),
+                  None if positions is None else positions.data_ptr(),
+                  lengths.data_ptr(), o.data_ptr(), acc.data_ptr(),
+                  ml[0].data_ptr(), ml[1].data_ptr(), B, n_heads, L, R,
+                  kr.shape[-1], 1, t, scale,
+                  torch.cuda.current_stream().cuda_stream)
+        assert code == 0, f"{lib.name}: decode_attention_mla_fwd {code}"
+        return o
+    return call
+
+
+def sdpa_efficient_ms(lib):
+    """The library call's device time on SDPA's memory-efficient backend
+    alone (the math backend would expand k and v per head: 38.6 GB at 64
+    slots), or None where it refuses the shapes."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return time_ms(lib)
+    except RuntimeError:
+        return None
+
+
+def time_mla(dev, parent=None):
+    """Phase 4's latent decode rows, one per MLA_SHAPES entry: the
+    kernel's device time and call_ms, its plain version's, the library
+    call's (SDPA; at the two large shapes its memory-efficient backend
+    alone), the bound, the other tree's kernel (``parent``, a
+    ``parent_mla`` callable) in the same process, and the device time
+    against the tiles a range (MLA_SWEEP_TILES). Each shape is also held
+    to the bf16 limit, its zeroed ckv tile above it. Returns {shape:
+    row}."""
+    from repro_torch.kernels import decode_attention_mla as DM
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+    for shape, (lens, L, ring) in MLA_SHAPES.items():
+        kern, plain, mutant, lib, n_bytes, flops, slots = mla_decode_case(
+            dev, torch.bfloat16, lens, L, 128, ring, g)
+        out, want = kern(), plain()
+        r = bf16_ratios(out, want, slots)
+        r_mut = bf16_ratios(mutant(), want, slots)
+        assert max(r) < 1, f"latent decode {shape}: error {r} of the limit"
+        assert min(r_mut) > 1, \
+            f"latent decode {shape}: a zeroed tile is within the limit"
+        b_ms, b_by = bound(n_bytes, flops)
+        large = shape in ("long_context", "high_batch")
+        row = rows[shape] = dict(
+            lens=f"{lens[0]} x {len(lens)}" if large else list(lens), L=L,
+            max_abs_err=max_err(out, want), limit_ratio=max(r),
+            zeroed_tile_ratio=min(r_mut), ms=time_ms(kern),
+            call_ms=call_ms(kern), plain_ms=time_ms(plain),
+            library_ms=sdpa_efficient_ms(lib) if large else time_ms(lib),
+            bound_ms=b_ms, bound_by=b_by,
+            tiles=DM.mla_plan(len(lens), L, 128, torch.bfloat16,
+                              sms=torch.cuda.get_device_properties(
+                                  dev).multi_processor_count).tiles)
+        if not large:
+            row["sdpa_backends"] = sdpa_backends(lib)
+        if parent is not None:
+            p_out = kern(entry=parent)
+            row["parent_limit_ratio"] = max(bf16_ratios(p_out, want, slots))
+            row["parent_ms"] = time_ms(lambda: kern(entry=parent))
+            row["parent_call_ms"] = call_ms(lambda: kern(entry=parent))
+        row["ms_by_tiles"] = {
+            t: time_ms(lambda t=t: kern(tiles=t))
+            for t in sorted({*MLA_SWEEP_TILES, row["tiles"]})
+            if t <= -(-L // 64)}
+        say(4, f"decode_attention_mla {shape} lens={row['lens']} L={L} "
+               f"H=128 ms={row['ms']:.4f} call_ms={row['call_ms']:.4f} "
+               f"parent_ms={row.get('parent_ms')} plain_ms="
+               f"{row['plain_ms']:.4f} library_ms={row['library_ms']} "
+               f"bound_ms={b_ms:.4f} ({b_by}; {n_bytes} bytes, {flops} "
+               f"flops) roofline_share={b_ms / row['ms']:.3f} "
+               f"limit_ratio={row['limit_ratio']:.3f} "
+               f"zeroed_tile_ratio={row['zeroed_tile_ratio']:.2f}")
+        say(4, f"decode_attention_mla {shape} ms by tiles a range: "
+               + " ".join(f"{t}{'*' if t == row['tiles'] else ''}={ms:.4f}"
+                          for t, ms in row["ms_by_tiles"].items())
+               + " (* the plan's)")
+        del out, want, kern, plain, mutant, lib
+        free_card()
+    return rows
 
 
 def ring_decode_case(dev):
@@ -1007,6 +1297,15 @@ def decode_split_cases(dev):
 
 
 RING_POOL_LENS = (4112, 2080, 1400, 100)  # depths of the timed ring pool
+# the latent decode's timed shapes, 128 heads: (slot lengths, capacity L,
+# ring with holes); long context and many concurrent decodes fill the card
+MLA_SHAPES = {
+    "pool": (POOL_LENS, PROMPT + GEN, False),
+    "ring": (RING_POOL_LENS, 2176, True),
+    "long_context": ((32768,) * 4, 32768, False),
+    "high_batch": ((4096,) * 64, 4096, False),
+}
+MLA_SWEEP_TILES = (1, 2, 4, 8, 16, 32, 64)
 
 
 def pooled_ring_case(dev):
@@ -2440,14 +2739,17 @@ def check_kernels(dev):
             extra = " ring with holes, length-0 slot rows all zero"
         say(3, f"{name} float32 {DEEPSEEK} small unaligned max_abs_err="
                f"{e:.3e} tol={FP32_TOL}{extra}")
+    for line in mla_small_checks(dev):
+        say(3, line)
     return errs
 
 
-def time_kernels(dev):
+def time_kernels(dev, parent=None):
     """Phase 4: each kernel's times at phi3-mini's main shapes (with the
     ring rows and the n_split and tiles sweeps), at stablelm's (D = 160,
-    G = 4) and at granite's (D = 64, G = 3). Returns {arch: {kernel:
-    row}}."""
+    G = 4), at granite's (D = 64, G = 3) and at deepseek's (the latent
+    decode at MLA_SHAPES, beside ``parent``'s kernel when given). Returns
+    {arch: {kernel: row}}."""
     from repro_torch.configs import get_config
     rows = {}
     for name, (kern, plain, _, lib, n_bytes, flops) in kernel_cases(
@@ -2529,6 +2831,8 @@ def time_kernels(dev):
     out[DEEPSEEK] = {}
     cases = mla_kernel_cases(dev, torch.bfloat16, True)
     for name, (kern, plain, _, lib, n_bytes, flops, _) in cases.items():
+        if name.startswith("decode_attention_mla"):  # time_mla's
+            continue
         b_ms, b_by = bound(n_bytes, flops)
         r = out[DEEPSEEK][name] = dict(
             ms=time_ms(kern), plain_ms=time_ms(plain),
@@ -2540,29 +2844,20 @@ def time_kernels(dev):
                f"{r['sdpa_backends']}) bound_ms={b_ms:.4f} ({b_by}; "
                f"{n_bytes} bytes, {flops} flops) "
                f"roofline_share={b_ms / r['ms']:.3f}")
-    # the latent decode's device time against its 64-key tiles a range
-    from repro_torch.kernels import decode_attention_mla as DM
-    g = torch.Generator(device=dev).manual_seed(0)
-    B, L, H = len(POOL_LENS), PROMPT + GEN, 128
-    q, ckv, kr = (torch.randn(*shape, generator=g, device=dev).to(
-        torch.bfloat16) for shape in ((B * H, 1, 576), (B, L, 512),
-                                      (B, L, 64)))
-    lengths = torch.tensor(POOL_LENS, dtype=torch.int32, device=dev)
-    sweep = {}
-    for t in (1, 2, 4, 8, 16):
-        sweep[t] = time_ms(lambda t=t: DM.decode_attention_mla_bh(
-            q, ckv, kr, None, lengths, n_heads=H, scale=192 ** -0.5,
-            tiles=t))
-    out[DEEPSEEK]["decode_attention_mla"]["ms_by_tiles"] = sweep
-    say(4, f"decode_attention_mla ms by tiles a range ({POOL_LENS}, L "
-           f"{PROMPT + GEN}, 128 heads): "
-           + " ".join(f"{t}{'*' if t == DM.MLA_TILES else ''}={ms:.4f}"
-                      for t, ms in sweep.items()) + " (* the plan's)")
+    del cases
     free_card()
+    out[DEEPSEEK]["decode_attention_mla"] = time_mla(dev, parent)
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--parent"] and len(argv) == 2:
+        parent_src = argv[1]
+    elif argv:
+        raise SystemExit("usage: python3 chip_smoke.py [--parent SRC]")
+    else:
+        parent_src = None
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is False); it runs on an NVIDIA "
@@ -2586,8 +2881,22 @@ def main() -> int:
     built = _build.build()
     say(2, "built " + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()),
         t0)
-    for line in wgmma_report(-(-(PROMPT + GEN) // 64)) + decode_report():
+    for line in (wgmma_report(-(-(PROMPT + GEN) // 64)) + decode_report()
+                 + mla_report()):
         say(2, line)
+
+    t0 = time.perf_counter()
+    stressed, stress_kernel = stress(dev)
+    for label, c in stressed.items():
+        say("2b", f"{label}: {c['calls']} calls ({c['nan_prefilled']} into "
+                  f"a NaN-filled out) nonfinite_outputs="
+                  f"{c['nonfinite_outputs']} past_limit={c['past_limit']} "
+                  f"[{c['seconds']:.1f} s]")
+    bad = {k: c for k, c in stressed.items()
+           if c["nonfinite_outputs"] or c["past_limit"]}
+    assert not bad, f"stress: outputs non-finite or past the limit: {bad}"
+    say("2b", f"{len(stressed)} wgmma instances x {STRESS_CALLS} calls: no "
+              f"non-finite output, no element past the limit", t0)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2596,7 +2905,8 @@ def main() -> int:
     say(3, "kernels agree with their plain versions", t0)
 
     t0 = time.perf_counter()
-    rows = time_kernels(dev)
+    rows = time_kernels(
+        dev, None if parent_src is None else parent_mla(parent_src))
     free_card()
     say(4, f"timed at {card}", t0)
 
@@ -2759,14 +3069,19 @@ def main() -> int:
     kernels = []
     for name, replaces in REPLACES.items():
         src = _build.CSRC / f"{KN.KERNELS[name].source}.cu"
+        stress_counts = {k: c for k, c in stressed.items()
+                         if stress_kernel[k] == name}
         if name == "decode_attention_mla":  # deepseek's paths only
+            mla = rows[DEEPSEEK][name]
             kernels.append(dict(
                 name=name, route="cuda", source=str(src.relative_to(ROOT)),
                 replaces=replaces, launches=counts["deepseek_batch"][name],
                 launches_by_path={k: c[name] for k, c in counts.items()},
-                max_abs_err=errs[DEEPSEEK][name], **rows[DEEPSEEK][name],
-                ring=dict(max_abs_err=errs[DEEPSEEK][f"{name}_ring"],
-                          **rows[DEEPSEEK][f"{name}_ring"])))
+                **{**mla["pool"], "max_abs_err": errs[DEEPSEEK][name]},
+                ring={**mla["ring"],
+                      "max_abs_err": errs[DEEPSEEK][f"{name}_ring"]},
+                long_context=mla["long_context"],
+                high_batch=mla["high_batch"], stress=stress_counts))
             continue
         # each kernel's count from the path it was ported for: the batch
         # path for the first four, the slot pool for the pooled decode
@@ -2782,7 +3097,8 @@ def main() -> int:
                               **rows[STABLELM][name]),
             granite_moe_3b_a800m=dict(
                 launches=counts[f"granite_{own}"][name],
-                max_abs_err=errs[GRANITE][name], **rows[GRANITE][name])))
+                max_abs_err=errs[GRANITE][name], **rows[GRANITE][name]),
+            stress=stress_counts))
         if name in errs[DEEPSEEK]:  # flash and streaming at (192, 128)
             kernels[-1]["deepseek_v2_236b"] = dict(
                 launches=counts["deepseek_batch"][name],

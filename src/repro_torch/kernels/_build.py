@@ -276,5 +276,31 @@ def check_tma_aligned(name: str, *tensors: torch.Tensor) -> None:
     check_aligned16(name, "its TMA loads", *tensors)
 
 
+def check_out(name: str, out, shape, like: torch.Tensor):
+    """An entry's ``out=`` (a test-only hook: nothing on the serving path
+    passes it): None, or a contiguous tensor of ``shape`` with ``like``'s
+    dtype and device, which the entry writes in place and returns. Raises
+    on any other tensor."""
+    if out is None:
+        return None
+    shape = tuple(shape)
+    if (tuple(out.shape) != shape or out.dtype != like.dtype
+            or out.device != like.device or not out.is_contiguous()):
+        raise ValueError(
+            f"{name}: out must be a contiguous {shape} {like.dtype} tensor "
+            f"on {like.device}; got {tuple(out.shape)} {out.dtype} on "
+            f"{out.device}{'' if out.is_contiguous() else ', strided'}")
+    return out
+
+
+def into(out, result: torch.Tensor) -> torch.Tensor:
+    """The plain version's result, copied into ``out`` when one was
+    given."""
+    if out is None:
+        return result
+    out.copy_(result)
+    return out
+
+
 def default_scale(d: int, scale) -> float:
     return d ** -0.5 if scale is None else float(scale)

@@ -45,12 +45,15 @@ def dedupe_selection(sel: torch.Tensor) -> torch.Tensor:
 def block_sparse_attention_bh(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, sel: torch.Tensor, *,
                               q_offset: int = 0,
-                              scale: Optional[float] = None) -> torch.Tensor:
+                              scale: Optional[float] = None,
+                              out: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """q (BH,Sq,D), k/v (BHkv,Skv,D), sel (BH, ceil(Sq/KERNEL_BLOCK), K)
     int32 key-block indices per query block, -1 = skip
     (``dedupe_selection`` first). Query and key blocks are KERNEL_BLOCK
     tokens, the CUDA kernel's tile. Query row r attends keys
-    <= ``q_offset + r`` among the selected blocks."""
+    <= ``q_offset + r`` among the selected blocks. ``out`` as
+    ``flash_attention_bh`` takes it."""
     name = "block_sparse_attention_bh"
     _build.check_operands(name, q, k, v)
     BH, Sq, D = q.shape
@@ -63,15 +66,17 @@ def block_sparse_attention_bh(q: torch.Tensor, k: torch.Tensor,
                          f"{sel.dtype} on {sel.device}")
     if q_offset < 0:
         raise ValueError(f"{name}: q_offset={q_offset} must be >= 0")
+    out = _build.check_out(name, out, q.shape, q)
     if _build.on_cpu(name, q):
-        return block_sparse_attention_plain(q, k, v, sel,
-                                            block=KERNEL_BLOCK,
-                                            q_offset=q_offset, scale=scale)
+        return _build.into(out, block_sparse_attention_plain(
+            q, k, v, sel, block=KERNEL_BLOCK, q_offset=q_offset,
+            scale=scale))
     code = _build.check_cuda(name, q, k, v, sel)
     if q.dtype == torch.bfloat16:
         _build.check_tma_aligned(name, q, k, v)
     BHkv, Skv = k.shape[0], k.shape[1]
-    out = torch.empty_like(q)
+    if out is None:
+        out = torch.empty_like(q)
     KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   sel.data_ptr(), out.data_ptr(), BH, BHkv, Sq, Skv, D,
                   code, sel.shape[2], int(q_offset),

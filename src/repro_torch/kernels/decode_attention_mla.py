@@ -12,16 +12,28 @@ package concatenates k_eff every step (4.75 MB a slot a layer at L =
 ``decode_attention_mla_fwd`` of ``csrc/decode_attention_pooled.cu`` or
 raises; on CPU tensors it runs the plain version,
 ``ref.decode_attention_pooled_ref`` on the concatenation.
+
+What bounds it: a key's 1,152 bytes (bf16) feed 128 heads x 1,088 x 2
+≈ 278 k operations, ≈ 242 operations a byte, just under the H100's 295
+bf16 tensor-core operations a byte, so on the tensor cores the least
+time is that of the live keys' bytes. bf16 runs on the tensor cores
+(``mla_wgmma_kernel``: 64 heads a CTA, each 64-key tile of ckv ‖ kr
+staged once by TMA and read by both wgmma products, S = q k^T and
+O += P ckv); fp32 stays on the CUDA cores (``mla_decode_kernel``, 16
+heads a CTA), as the prefill kernels keep fp32 off the tensor cores.
+Both cut each slot's capacity into ranges of whole 64-key tiles
+(``mla_plan``) and merge the ranges that ran by their log-sum-exp.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import TILE, normalize_tiles
+from repro_torch.kernels.decode_attention import (TILE, normalize_tiles,
+                                                  sm_count)
 from repro_torch.kernels.ref import decode_attention_pooled_ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -33,9 +45,62 @@ KERNEL = _build.CudaKernel("decode_attention_pooled",
                             _I, _I, _I, _I, _F])
 
 # the (R, rope) the kernel is built for: deepseek-v2's kv_lora_rank and
-# qk_rope_head_dim (csrc/decode_attention_pooled.cu: MlaDims)
+# qk_rope_head_dim (csrc/decode_attention_pooled.cu: kMlaR / kMlaRope)
 BUILT_WIDTHS = ((512, 64),)
-MLA_TILES = 4  # 64-key tiles a range of the kernel holds (its plan)
+# query heads of one CTA: the bf16 kernel's wgmma M tile (mla::kHeads) and
+# the fp32 kernel's (kMlaHeads); both run 256 threads
+WGMMA_HEADS, CORE_HEADS, THREADS = 64, 16, 256
+MLA_TILES = 4  # 64-key tiles a range of the fp32 kernel (its plan)
+
+
+class MlaPlan(NamedTuple):
+    """One launch of ``decode_attention_mla_fwd``: 64-key tiles a range,
+    ranges a slot (cut from the capacity L), the grid, threads a CTA and
+    the merge's fp32 scratch (part_acc (B·H, ranges, R), part_m and
+    part_l stacked as (2, B·H, ranges)), None with one range."""
+    tiles: int
+    n_split: int
+    grid: Tuple[int, int, int]
+    threads: int
+    scratch: Optional[Tuple[Tuple[int, int, int], Tuple[int, int, int]]]
+
+
+def mla_tiles(B: int, L: int, n_heads: int, sms: int) -> int:
+    """Tiles a range of the bf16 kernel over B slots of capacity L: as
+    many ranges a slot as still give every CTA of a full pool its own
+    multiprocessor, n = max(1, sms // (B · ceil(H / 64))), so tiles =
+    ceil(ceil(L / 64) / n). One CTA fits a multiprocessor (231,448 bytes
+    of shared memory), and each range writes 128 KB of partials a head
+    block for the merge, so the fewest ranges that fill the card win. On
+    an H100 at 128 heads this is the fastest of 1 to 64 tiles over 4
+    slots of 32,768 keys (32 tiles) and 64 slots of 4,096 (64 tiles),
+    and within 7 % of the fastest (2 tiles) over the ragged pools of
+    4112 / 2080 / 1400 / 1 and 100 keys, where the capacity's grid mostly
+    returns at once (PERF.md, the latent decode by tiles a range)."""
+    n = max(1, sms // (B * -(-n_heads // WGMMA_HEADS)))
+    return normalize_tiles(L, -(-(-(-L // TILE)) // n))
+
+
+def mla_plan(B: int, L: int, n_heads: int, dtype: torch.dtype, R: int = 512,
+             tiles: Optional[int] = None, sms: int = 132) -> MlaPlan:
+    """The launch for B slots of capacity L and n_heads query heads:
+    bf16 on the tensor cores, grid (ceil(H / 64), ranges, B) with the head
+    blocks fastest (the CTAs of one range run side by side and share its
+    keys in L2); fp32 on the CUDA cores, grid (B, ranges, ceil(H / 16)).
+    ``tiles`` forces the tiles a range (normalized as the kernel runs it);
+    by default ``mla_tiles`` (bf16) or MLA_TILES (fp32)."""
+    if tiles is None:
+        tiles = (mla_tiles(B, L, n_heads, sms) if dtype == torch.bfloat16
+                 else MLA_TILES)
+    t = normalize_tiles(L, tiles)
+    n_split = -(-L // (t * TILE))
+    if dtype == torch.bfloat16:
+        grid = (-(-n_heads // WGMMA_HEADS), n_split, B)
+    else:
+        grid = (B, n_split, -(-n_heads // CORE_HEADS))
+    BH = B * n_heads
+    scratch = None if n_split == 1 else ((BH, n_split, R), (2, BH, n_split))
+    return MlaPlan(t, n_split, grid, THREADS, scratch)
 
 
 def decode_attention_mla_plain(q, ckv, kr, positions, lengths, *, n_heads,
@@ -52,7 +117,9 @@ def decode_attention_mla_bh(q: torch.Tensor, ckv: torch.Tensor,
                             positions: Optional[torch.Tensor],
                             lengths: torch.Tensor, *, n_heads: int,
                             scale: float,
-                            tiles: Optional[int] = None) -> torch.Tensor:
+                            tiles: Optional[int] = None,
+                            out: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """q (B·n_heads, 1, R + rope); ckv (B, L, R); kr (B, L, rope);
     positions (B, L) int32 with -1 for an empty entry, or None when
     column j holds position j; lengths (B,) int32 live-prefix counts,
@@ -60,7 +127,8 @@ def decode_attention_mla_bh(q: torch.Tensor, ckv: torch.Tensor,
     j < lengths[slot] and positions[slot, j] >= 0; a row that sees
     nothing gives zeros. Returns the latent context (B·n_heads, 1, R).
     ``tiles`` forces the 64-key tiles a range of the kernel holds; by
-    default MLA_TILES."""
+    default ``mla_plan`` picks it. ``out`` (a test's hook,
+    ``_build.check_out``) is written in place and returned."""
     name = "decode_attention_mla_bh"
     if kr.dim() != 3 or kr.shape[:2] != ckv.shape[:2] or \
             q.dim() != 3 or q.shape[-1] != ckv.shape[-1] + kr.shape[-1]:
@@ -74,10 +142,12 @@ def decode_attention_mla_bh(q: torch.Tensor, ckv: torch.Tensor,
                          f"R + rope) for {ckv.shape[0]} slots; got "
                          f"{tuple(q.shape)}")
     _build.check_slots(name, positions, lengths, *ckv.shape[:2])
-    if _build.on_cpu(name, q):
-        return decode_attention_mla_plain(q, ckv, kr, positions, lengths,
-                                          n_heads=n_heads, scale=scale)
     B, L, R = ckv.shape
+    BH = q.shape[0]
+    out = _build.check_out(name, out, (BH, 1, R), q)
+    if _build.on_cpu(name, q):
+        return _build.into(out, decode_attention_mla_plain(
+            q, ckv, kr, positions, lengths, n_heads=n_heads, scale=scale))
     rope = kr.shape[-1]
     if (R, rope) not in BUILT_WIDTHS:
         raise NotImplementedError(
@@ -86,20 +156,24 @@ def decode_attention_mla_bh(q: torch.Tensor, ckv: torch.Tensor,
     code = _build.check_cuda(name, q, ckv, kr, lengths,
                              *(() if positions is None else (positions,)),
                              dims=())
-    _build.check_aligned16(name, "its 16-byte loads", ckv, kr)
-    t = normalize_tiles(L, MLA_TILES if tiles is None else tiles)
-    n_split = -(-L // (t * TILE))  # ranges a slot, from the capacity
-    BH = q.shape[0]
-    out = torch.empty((BH, 1, R), dtype=q.dtype, device=q.device)
+    if q.dtype == torch.bfloat16:  # q, ckv and kr through TMA maps
+        _build.check_tma_aligned(name, q, ckv, kr)
+    else:
+        _build.check_aligned16(name, "its 16-byte loads", ckv, kr)
+    plan = mla_plan(B, L, n_heads, q.dtype, R, tiles,
+                    sm_count(q.device.index)
+                    if q.device.type == "cuda" else 132)
+    if out is None:
+        out = torch.empty((BH, 1, R), dtype=q.dtype, device=q.device)
     ptrs = (0, 0, 0)
-    if n_split > 1:  # the ranges' fp32 (acc, m, l), merged by the same entry
-        acc = torch.empty((BH, n_split, R), dtype=torch.float32,
+    if plan.scratch is not None:  # the ranges' fp32 (acc, m, l), merged
+        acc = torch.empty(plan.scratch[0], dtype=torch.float32,
                           device=q.device)
-        ml = torch.empty((2, BH, n_split), dtype=torch.float32,
+        ml = torch.empty(plan.scratch[1], dtype=torch.float32,
                          device=q.device)
         ptrs = (acc.data_ptr(), ml[0].data_ptr(), ml[1].data_ptr())
     KERNEL.launch(q.device, q.data_ptr(), ckv.data_ptr(), kr.data_ptr(),
                   None if positions is None else positions.data_ptr(),
                   lengths.data_ptr(), out.data_ptr(), *ptrs, B, n_heads, L,
-                  R, rope, code, t, float(scale))
+                  R, rope, code, plan.tiles, float(scale))
     return out

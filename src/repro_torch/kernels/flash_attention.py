@@ -28,24 +28,28 @@ KERNEL = _build.CudaKernel("flash_attention", "flash_attention_fwd",
 
 def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True, scale: Optional[float] = None,
-                       q_offset: int = 0) -> torch.Tensor:
+                       q_offset: int = 0,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (BH, Sq, D); k (BHkv, Skv, D), v (BHkv, Skv, Dv) with BH =
     BHkv·G; query row r sits at position ``q_offset + r``. Returns
     (BH, Sq, Dv) in q's dtype. On the card Dv = D, or (D, Dv) one of
-    ``_build.SPLIT_HEAD_DIMS`` (MLA's route chunk)."""
+    ``_build.SPLIT_HEAD_DIMS`` (MLA's route chunk). ``out`` (a test's
+    hook, ``_build.check_out``) is written in place and returned."""
     name = "flash_attention_bh"
     _build.check_operands(name, q, k, v, dv_free=True)
     if q_offset < 0:
         raise ValueError(f"{name}: q_offset={q_offset} must be >= 0")
-    if _build.on_cpu(name, q):
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     q_offset=q_offset, scale=scale)
     BH, Sq, D = q.shape
     BHkv, Skv, Dv = v.shape
+    out = _build.check_out(name, out, (BH, Sq, Dv), q)
+    if _build.on_cpu(name, q):
+        return _build.into(out, flash_attention_plain(
+            q, k, v, causal=causal, q_offset=q_offset, scale=scale))
     code = _build.check_cuda(name, q, k, v, dims=(D, Dv))
     if q.dtype == torch.bfloat16:
         _build.check_tma_aligned(name, q, k, v)
-    out = torch.empty((BH, Sq, Dv), dtype=q.dtype, device=q.device)
+    if out is None:
+        out = torch.empty((BH, Sq, Dv), dtype=q.dtype, device=q.device)
     KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   out.data_ptr(), BH, BHkv, Sq, Skv, D, Dv, code, int(causal),
                   int(q_offset), _build.default_scale(D, scale))

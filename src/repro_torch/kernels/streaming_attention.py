@@ -29,26 +29,30 @@ KERNEL = _build.CudaKernel("streaming_attention", "streaming_attention_fwd",
 def streaming_attention_bh(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, sink: int, local: int,
                            scale: Optional[float] = None,
-                           q_offset: int = 0) -> torch.Tensor:
+                           q_offset: int = 0,
+                           out: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """q (BH,Sq,D), k (BHkv,Skv,D), v (BHkv,Skv,Dv) → (BH,Sq,Dv), with
-    (D, Dv) as ``flash_attention_bh`` takes them. ``sink``/``local`` in
-    tokens: query position p sees key c iff c <= p and (c < sink or
-    p - c < local)."""
+    (D, Dv) and ``out`` as ``flash_attention_bh`` takes them.
+    ``sink``/``local`` in tokens: query position p sees key c iff c <= p
+    and (c < sink or p - c < local)."""
     name = "streaming_attention_bh"
     _build.check_operands(name, q, k, v, dv_free=True)
     if sink < 0 or local < 1 or q_offset < 0:
         raise ValueError(f"{name}: need sink >= 0, local >= 1 and "
                          f"q_offset >= 0; got sink={sink} local={local} "
                          f"q_offset={q_offset}")
-    if _build.on_cpu(name, q):
-        return streaming_attention_plain(q, k, v, sink=sink, local=local,
-                                         q_offset=q_offset, scale=scale)
     BH, Sq, D = q.shape
     BHkv, Skv, Dv = v.shape
+    out = _build.check_out(name, out, (BH, Sq, Dv), q)
+    if _build.on_cpu(name, q):
+        return _build.into(out, streaming_attention_plain(
+            q, k, v, sink=sink, local=local, q_offset=q_offset, scale=scale))
     code = _build.check_cuda(name, q, k, v, dims=(D, Dv))
     if q.dtype == torch.bfloat16:
         _build.check_tma_aligned(name, q, k, v)
-    out = torch.empty((BH, Sq, Dv), dtype=q.dtype, device=q.device)
+    if out is None:
+        out = torch.empty((BH, Sq, Dv), dtype=q.dtype, device=q.device)
     KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   out.data_ptr(), BH, BHkv, Sq, Skv, D, Dv, code, int(sink),
                   int(local), int(q_offset), _build.default_scale(D, scale))

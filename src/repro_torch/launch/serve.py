@@ -43,8 +43,8 @@ the store: hits, misses, the prompt tokens served warm and each tier's
 bytes. ``--profile`` then serves the requests again under
 ``torch.profiler`` (batch mode: the first bucket's admission alone, then
 the whole batch) and prints where the time went: the device's busy share
-of the wall time and the operators with the most device (or, on the CPU,
-host) time.
+of the wall time and the PROFILE_TOP operators with the most device (or,
+on the CPU, host) time.
 
 Guardrails (``serve/slo.py``), all off by default: ``--max-queue`` and
 ``--shed-policy`` bound the waiting queue, ``--deadline-s`` gives every
@@ -92,6 +92,11 @@ def routing_pattern(cfg, routing: str):
     return (routing,) * cfg.num_layers
 
 
+# operators --profile lists, most time first: enough to reach a kernel of
+# a few ms beside deepseek's ≈ 1.4 s of serve_batch (the latent decode)
+PROFILE_TOP = 200
+
+
 def _profiled(fn, device, top: int) -> dict:
     """Run ``fn`` under torch.profiler. On cuda: the device's busy time
     (the sum of its kernels' times; one stream, so they never overlap)
@@ -124,7 +129,7 @@ def _profiled(fn, device, top: int) -> dict:
     }
 
 
-def profile_batch(engine, reqs, device, top: int = 40) -> dict:
+def profile_batch(engine, reqs, device, top: int = PROFILE_TOP) -> dict:
     """Profile the batch's admission alone (the chunked prefill of the
     first bucket's prompts) and then the whole ``serve_batch``; the
     difference is the decode."""
@@ -408,7 +413,7 @@ def _continuous_main(engine, reqs, args, device) -> None:
                                 for rid, f in done.items()}, reqs)
     if args.profile:
         print(json.dumps({"profile": {"continuous": _profiled(
-            run, device, 40)}}))
+            run, device, PROFILE_TOP)}}))
 
 
 if __name__ == "__main__":
