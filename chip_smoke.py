@@ -215,12 +215,45 @@ refuse the shapes) and the latent decode at MLA_SHAPES (POOL_LENS, the
 ring, long context: 4 slots of 32,768 keys, high batch: 64 slots of
 4,096) beside SDPA, the parent's kernel (``--parent``) and its tiles a
 range, each shape also held to the bf16 limit.
+Phase 3 also holds the xa and ta calls: block-sparse at a real xa
+selection (4 prompts of 4096 tokens at phi3-mini's and at stablelm's
+widths, built on the card by ``xa_selection`` at the published block 128,
+stride 16 and threshold 0.9: 4 of 32 blocks a query block, per head),
+and the ta split (streaming over rows [0, b), flash at q_offset b; b =
+100 of 300 keys, and b = 2048 of TA_PROMPT = 18,432 keys), each under
+the bf16 limit with a zeroed tile above it; and an xa call on cuda at
+block 16 must raise. Phase 4 times them at the main shapes beside their
+plain versions and SDPA's efficient backend under the equivalent
+boolean mask, with the plain-torch antidiagonal scoring's device time.
+  19. phi3-mini at full width, 2 layers, fp32, card against CPU under the
+     paper's comparison set: ``generate`` of a 4096-token prompt under xa
+     (published block, stride and threshold) and ta (chunk 2048),
+     router-driven and mixed, a duo override (("duo", 16), "sa") and
+     ``prefill(routing_ctx="head_split", head_split_n=16)``: routing,
+     every xa selection and the tokens identical, logits within 2e-3
+     (the prompt seed is the first whose router margins exceed 1e-3 and
+     whose smallest xa score gap at the keep-th place on the card
+     exceeds XA_GAP); and a slot-pool drain under xa (XA_DRAIN: 4
+     prompts, router-driven and mixed);
+  20. phi3-mini-3.8b at full width and depth, bf16, seeded weights: the
+     batch path of phase 6 under xa (router-driven and mixed) and with a
+     duo override (16 layers split at 16 of 32 KV heads) through
+     ``generate``, ta on one prompt of 18,432 tokens (boundary 2048 at
+     the published chunk), and the continuous path of phase 7 under xa:
+     every logit finite, exact launch counts (block-sparse once per SA
+     layer an xa admission, flash once per FA layer and once more per SA
+     layer under ta, streaming once per SA layer under ta and never under
+     xa, the batch decode kernel never at a duo layer), and ssa at the
+     same prompts beside them: prefill and decode tok/s, peak memory.
 Then one JSON line of per-kernel numbers (phi3-mini's, and stablelm's,
 granite's and deepseek's under ``stablelm_12b``, ``granite_moe_3b_a800m``
 and ``deepseek_v2_236b``; the latent decode its own entry at deepseek's
 shapes with its ring, long-context and high-batch rows; launches by
-path, phase 14's as ``guardrails``; each kernel's phase-2b counts under
-``stress``), the total
+path, phase 14's as ``guardrails`` and phase 20's as ``xa_batch``,
+``duo``, ``ta`` and ``xa_continuous``; each kernel's phase-2b counts
+under ``stress``; block-sparse's xa rows and streaming's and flash's ta
+rows under ``xa``, ``xa_stablelm_12b``, ``ta_streaming`` and
+``ta_flash``), the total
 seconds, and the last line ``{"ok": true, "device": {...}}``.
 """
 import collections
@@ -1548,7 +1581,7 @@ def decode_launches(cfg, steps, pooled):
                 decode_attention_mla=0)
 
 
-def prefill_launches(cfg, admissions):
+def prefill_launches(cfg, admissions, repacks=()):
     """Each prefill kernel's launches for these (pattern, prompt length,
     prefix hit boundary) admissions through the chunked prefill. Cold
     (hit 0): flash (FA layers) and streaming (SA layers) once per layer
@@ -1556,11 +1589,28 @@ def prefill_launches(cfg, admissions):
     chunk (an MLA model's full-cache layers run the absorbed attention
     there, in plain torch). A hit skips the routing chunk and the chunks
     it covers: block-sparse once per FA layer on each chunk past the
-    boundary."""
+    boundary. ``repacks`` are the (pattern, prompt length) of every
+    monolithic prefill (the repack fallback, which serves the xa and ta
+    SA modes), an admitted one also in ``admissions``: flash at each FA
+    layer; at each SA layer streaming (ssa), block-sparse (xa), or flash
+    and, past ta's chunk, streaming."""
     from repro_torch.serve.engine import chunk_plan
     want = {"flash_attention": 0, "streaming_attention": 0,
             "block_sparse_attention": 0}
+    mode = cfg.flux.sa_mode
+    left = collections.Counter(repacks)
+    for pattern, n in repacks:
+        n_fa = sum(p == "fa" for p in pattern)
+        n_sa = sum(p == "sa" for p in pattern)
+        want["flash_attention"] += n_fa + (n_sa if mode == "ta" else 0)
+        if mode == "xa":
+            want["block_sparse_attention"] += n_sa
+        elif mode == "ssa" or n > cfg.flux.chunk:
+            want["streaming_attention"] += n_sa
     for pattern, n, hit in admissions:
+        if not hit and left[pattern, n]:
+            left[pattern, n] -= 1  # counted with the repacks
+            continue
         n_fa = sum(p == "fa" for p in pattern)
         covered = hit // CHUNK if hit else 1  # a cold one: the route chunk
         if not hit:
@@ -1733,6 +1783,14 @@ def continuous_path(dev, params, cfg):
     from repro_torch.serve.scheduler import STATUS_OK, ContinuousScheduler
     eng = ServeEngine(params, cfg, max_len=PROMPT + GEN, prefill_chunk=CHUNK,
                       device=dev)
+    repacks = []  # every monolithic prefill: (pattern, prompt length)
+    repack = eng.prefill_route_repack
+
+    def recorded(tokens, override=None):
+        out = repack(tokens, override)
+        repacks.append((out[1], out[3]))
+        return out
+    eng.prefill_route_repack = recorded
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, PROMPT // (1 + rid % 3))
                for rid in range(8)]
@@ -1776,7 +1834,7 @@ def continuous_path(dev, params, cfg):
     assert preempt >= 1, "no preemption"
     assert 2 <= sched.n_geometries() <= 3, sched.n_geometries()
     steps = [p.steps for p in sched.pools.values()]
-    want = prefill_launches(cfg, sched.admissions)
+    want = prefill_launches(cfg, sched.admissions, repacks)
     want.update(decode_launches(cfg, sum(steps), pooled=True))
     assert counts == want, (counts, want)
     tokens = sum(f.metrics.n_generated for f in done.values())
@@ -1792,7 +1850,7 @@ def continuous_path(dev, params, cfg):
         + ",".join("".join(p[0] for p in pl.pattern)
                    for pl in sched.pools.values())
         + f" ticks={sched.ticks} preemptions={preempt} "
-        f"admissions={len(sched.admissions)} "
+        f"admissions={len(sched.admissions)} repacks={len(repacks)} "
         f"kv_payload_bytes={summ['kv_payload_bytes']} peak_mem_bytes={peak}",
         f"launches={counts} tokens7={done[7].tokens[:8].tolist()}"]
     return counts, lines
@@ -2642,6 +2700,572 @@ def mla_prefix_hit(dev, params, cfg):
             f"device_bytes={eng.prefix_store.device_bytes}")
 
 
+# ---------------------------------------------------------------------------
+# The paper's comparison set: the xa and ta SA modes and the DuoAttention
+# head split (phases 3, 4, 19 and 20)
+# ---------------------------------------------------------------------------
+
+TA_PROMPT = 18432  # ta at the published chunk of 16384: boundary 2048
+PARITY_TA_CHUNK = 2048  # phase 19's ta chunk: boundary 2048 of 4096
+DUO_HEADS = 16  # full-attention KV heads of a duo layer (of phi3's 32)
+# the smallest gap, on the card, between a (head, query block)'s keep-th
+# and (keep+1)-th finite xa score that a phase-19 seed may show: card and
+# CPU scores (≈ 5 in size, 2 layers in fp32) differ by rounding, up to
+# a few 1e-5 (phase 19 prints the largest, score_diff), so a closer pair
+# could pick another block on the CPU
+XA_GAP = 1e-4
+XA_SEEDS = 256
+# phase 19's xa drain: (prompt length, routing: None = the router's,
+# "mixed"); xa keeps 3 blocks of the long prompts and only the two forced
+# ones of the short (keep = max(2, ceil(0.1 nkb))), so that two prompts,
+# not four, must clear XA_GAP
+XA_DRAIN = ((3072, None), (1536, None), (2816, "mixed"), (1024, "mixed"))
+PLAIN_ROWS = 4  # query rows a plain call takes at once at the long shapes
+
+
+# phase 4's rows of the xa and ta calls: the kernel each times, and the
+# phase-20 path whose launches the JSON line gives beside it
+SA_ROWS = {"xa": ("block_sparse_attention", "xa_batch"),
+           "xa_stablelm_12b": ("block_sparse_attention", None),
+           "ta_streaming": ("streaming_attention", "ta"),
+           "ta_flash": ("flash_attention", "ta")}
+
+
+def sa_cfg(cfg, sa_mode, **flux):
+    """``cfg`` with another SA mode (and flux fields)."""
+    return cfg.replace(flux=cfg.flux.replace(sa_mode=sa_mode, **flux))
+
+
+def duo_pattern(n_layers):
+    """Phase 19's and 20's duo override: ("duo", DUO_HEADS) on the even
+    layers, "sa" and "fa" in turn on the odd ones."""
+    return tuple(("duo", DUO_HEADS) if i % 2 == 0
+                 else ("sa" if i % 4 == 1 else "fa") for i in range(n_layers))
+
+
+def pattern_text(pattern):
+    """A routing pattern as one letter a layer (f, s; d for a duo split)."""
+    return "".join(p[0] for p in pattern)
+
+
+def rows_plain(fn, q, k, v, *rows_args, rows=PLAIN_ROWS, **kw):
+    """A plain version ``fn`` over ``rows`` query rows at a time (with
+    their KV rows and the matching rows of ``rows_args``), concatenated:
+    the same result in pieces whose dense scores fit the card."""
+    G = q.shape[0] // k.shape[0]
+    rows = max(rows, G)
+    out = []
+    for a in range(0, q.shape[0], rows):
+        b = min(a + rows, q.shape[0])
+        out.append(fn(q[a:b], k[a // G:b // G], v[a // G:b // G],
+                      *(x[a:b] for x in rows_args), **kw))
+    return torch.cat(out)
+
+
+def gqa_sdpa(q, k, v, mask, backend=None):
+    """The library yardstick: scaled_dot_product_attention of flattened
+    (BH, S, D) q over (BHkv, S, D) k / v under a boolean mask (Sq, Skv)
+    or (BH, Sq, Skv), with k / v expanded to the query heads (a view),
+    on ``backend`` when one is named."""
+    from torch.nn.attention import sdpa_kernel
+    G = q.shape[0] // k.shape[0]
+    q4 = q.view(k.shape[0], G, *q.shape[1:]).transpose(0, 1)
+    k4, v4 = (x[None].expand(G, *x.shape) for x in (k, v))
+    if mask.dim() == 3:
+        mask = mask.view(k.shape[0], G, *mask.shape[1:]).transpose(0, 1)
+    F = torch.nn.functional
+    if backend is None:
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+    with sdpa_kernel(backend):
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+
+def xa_case(dev, arch=ARCH):
+    """Block-sparse at a real xa selection: REQUESTS prompts of PROMPT
+    tokens at ``arch``'s widths, random bf16 q / k / v, the selection
+    built on the card by ``xa_selection`` at the published block 128,
+    stride 16 and threshold 0.9 (4 of 32 blocks a query block) and
+    expanded to the kernel's tiles. Returns a dict of calls (kernel,
+    plain, plain with one V tile zeroed, SDPA's efficient backend under
+    the equivalent boolean mask, the antidiagonal scoring and top-k) and
+    the work (bytes, operations over the selected pairs)."""
+    from torch.nn.attention import SDPBackend
+    from repro_torch.configs import get_config
+    from repro_torch.core import modes as M
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_sparse_attention import (
+        KERNEL_BLOCK, block_sparse_attention_bh)
+    cfg = get_config(arch)
+    mode = M.xa_mode(cfg.flux)
+    B, Hq, Hkv, D, S = (REQUESTS, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.head_dim, PROMPT)
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(B, Hq, S, D, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, Hkv, S, D, generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    scale = D ** -0.5
+    sel = M.xa_selection(q, k, mode, q_offset=0, scale=scale)
+    tiles = M.expand_selection(sel, mode.block, S, S, 0)
+    qf, kf, vf = (x.reshape(-1, S, D) for x in (q, k, v))
+    nt = -(-S // KERNEL_BLOCK)
+    blk = torch.zeros(B * Hq, nt, nt + 1, dtype=torch.bool, device=dev)
+    blk.scatter_(2, torch.where(tiles >= 0, tiles, nt).long(), True)
+    pos = torch.arange(S, device=dev)
+    mask = (blk[:, :, :nt].repeat_interleave(KERNEL_BLOCK, 1)
+            .repeat_interleave(KERNEL_BLOCK, 2)[:, :S, :S]
+            & (pos[None] <= pos[:, None])[None])
+    pairs = int(mask.sum())
+    del blk
+    return dict(
+        label=f"block_sparse xa {arch} D={D} G={Hq // Hkv} "
+              f"{B}x{S} block={mode.block} stride={mode.stride} "
+              f"threshold={mode.threshold} keep={sel.shape[-1]} of "
+              f"{-(-S // mode.block)}",
+        kern=lambda **kw: block_sparse_attention_bh(qf, kf, vf, tiles, **kw),
+        plain=lambda: rows_plain(ref.block_sparse_attention_ref, qf, kf, vf,
+                                 tiles, block=KERNEL_BLOCK, rows=32),
+        mutant=lambda: rows_plain(ref.block_sparse_attention_ref, qf, kf,
+                                  zero_tile(vf), tiles, block=KERNEL_BLOCK,
+                                  rows=32),
+        lib=lambda: gqa_sdpa(qf, kf, vf, mask,
+                             SDPBackend.EFFICIENT_ATTENTION),
+        score=lambda: M.xa_selection(q, k, mode, q_offset=0, scale=scale),
+        work=attn_work(B * Hq, B * Hkv, S, D, S, pairs, 2),
+        keep=sel.shape[-1], blocks=-(-S // mode.block), pairs=pairs)
+
+
+def ta_cases(dev):
+    """The ta split's two calls at phi3-mini's widths (D = 96): the
+    streaming kernel over query rows [0, b) and flash over rows [b, Skv)
+    at q_offset b, both over all Skv keys; b = 100 of 300 keys (G = 4,
+    sink 16, local 48: an unaligned boundary) and b = 2048 of TA_PROMPT
+    (one prompt of 32 heads, the published sink 128 and local 2048: ta at
+    chunk 16384). The yardstick is SDPA's efficient backend under the
+    equivalent boolean mask. Returns [dict(label, kernel, size, kern,
+    plain, mutant, lib, work)]."""
+    from torch.nn.attention import SDPBackend
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+    from repro_torch.kernels.streaming_attention import \
+        streaming_attention_bh
+    cfg = get_config(ARCH)
+    g = torch.Generator(device=dev).manual_seed(6)
+    out = []
+    for size, BH, BHkv, Skv, sink, local, rows in (
+            ("small", 8, 2, 300, 16, 48, 8),
+            ("main", cfg.num_heads, cfg.num_kv_heads, TA_PROMPT,
+             cfg.flux.sink, cfg.flux.local, PLAIN_ROWS)):
+        D = cfg.head_dim
+        b = 100 if size == "small" else TA_PROMPT - cfg.flux.chunk
+        q = torch.randn(BH, Skv, D, generator=g, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn(BHkv, Skv, D, generator=g, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        q_pre, q_last = q[:, :b].contiguous(), q[:, b:].contiguous()
+        kp = torch.arange(Skv, device=dev)
+        qp_pre, qp_last = kp[:b], kp[b:]
+        smask = (kp[None] <= qp_pre[:, None]) & (
+            (kp[None] < sink) | (qp_pre[:, None] - kp[None] < local))
+        fmask = kp[None] <= qp_last[:, None]
+        skw = dict(sink=sink, local=local)
+        fkw = dict(causal=True, q_offset=b)
+        tag = f"Skv={Skv} boundary={b} BH={BH} G={BH // BHkv} D={D}"
+        out.append(dict(
+            label=f"ta streaming rows [0, {b}) {tag} sink={sink} "
+                  f"local={local}",
+            kernel="streaming_attention", size=size,
+            kern=lambda q=q_pre, k=k, v=v, kw=skw, **o:
+                streaming_attention_bh(q, k, v, **kw, **o),
+            plain=lambda q=q_pre, k=k, v=v, kw=skw, r=rows: rows_plain(
+                ref.streaming_attention_ref, q, k, v, rows=r, **kw),
+            mutant=lambda q=q_pre, k=k, v=v, kw=skw, r=rows: rows_plain(
+                ref.streaming_attention_ref, q, k, zero_tile(v), rows=r,
+                **kw),
+            lib=lambda q=q_pre, k=k, v=v, m=smask: gqa_sdpa(
+                q, k, v, m, SDPBackend.EFFICIENT_ATTENTION),
+            work=attn_work(BH, BHkv, b, D, b,
+                           BH * streaming_pairs(range(b), sink, local), 2)))
+        out.append(dict(
+            label=f"ta flash rows [{b}, {Skv}) at q_offset={b} {tag}",
+            kernel="flash_attention", size=size,
+            kern=lambda q=q_last, k=k, v=v, kw=fkw, **o:
+                flash_attention_bh(q, k, v, **kw, **o),
+            plain=lambda q=q_last, k=k, v=v, kw=fkw, r=rows: rows_plain(
+                ref.flash_attention_ref, q, k, v, rows=r, **kw),
+            mutant=lambda q=q_last, k=k, v=v, kw=fkw, r=rows: rows_plain(
+                ref.flash_attention_ref, q, k, zero_tile(v), rows=r, **kw),
+            lib=lambda q=q_last, k=k, v=v, m=fmask: gqa_sdpa(
+                q, k, v, m, SDPBackend.EFFICIENT_ATTENTION),
+            work=attn_work(BH, BHkv, Skv - b, D, Skv,
+                           BH * int((qp_last + 1).sum()), 2)))
+    return out
+
+
+def sa_mode_cases(dev):
+    """[(key, case)]: the xa case at phi3-mini's and stablelm's widths
+    and the ta split's calls, small ("_small") and main."""
+    yield "xa", xa_case(dev, ARCH)
+    yield "xa_stablelm_12b", xa_case(dev, STABLELM)
+    for c in ta_cases(dev):
+        yield (f"ta_{c['kernel'].split('_')[0]}"
+               f"{'_small' if c['size'] == 'small' else ''}"), c
+
+
+def sa_mode_checks(dev):
+    """Phase 3's checks of the xa and ta calls: each under the bf16
+    limit against its plain version, with one zeroed V tile above it;
+    and a CUDA-tensor xa call at block 16 (not a multiple of the kernel's
+    64-token tile) must raise. Returns {key: max abs error}."""
+    from repro_torch.core import modes as M
+    errs = {}
+    for key, c in sa_mode_cases(dev):
+        out, want = c["kern"](), c["plain"]()
+        errs[key] = e = max_err(out, want)
+        r, r_mut = bf16_ratios(out, want), bf16_ratios(c["mutant"](), want)
+        assert max(r) < 1, f"{c['label']}: error {r} of the limit"
+        assert min(r_mut) > 1, f"{c['label']}: a zeroed tile is within " \
+            f"the limit {r_mut}"
+        say(3, f"{c['label']} bfloat16 max_abs_err={e:.3e} "
+               f"limit_ratio={ratio_text(r)} "
+               f"zeroed_tile_ratio={ratio_text(r_mut)}")
+        del out, want, c
+        free_card()
+    q = torch.randn(1, 4, 96, 64, device=dev)
+    try:
+        M.attention(q, q, q, M.AttnMode("block_topk", block=16, stride=4,
+                                        threshold=0.5))
+    except ValueError as err:
+        say(3, f"xa at block 16 on cuda raises ValueError: {err}")
+    else:
+        raise AssertionError("xa at block 16 ran on cuda: a fallback")
+    return errs
+
+
+def sa_mode_times(dev):
+    """Phase 4's rows of the xa and ta calls (main shapes): device ms,
+    call ms, plain ms, the SDPA yardstick and the bound; the xa rows also
+    time the plain-torch antidiagonal scoring and top-k that choose the
+    selection. Returns {"xa": row, "xa_stablelm_12b": row, "ta_streaming":
+    row, "ta_flash": row}."""
+    rows = {}
+    for key, c in sa_mode_cases(dev):
+        if key.endswith("_small"):
+            continue
+        b_ms, b_by = bound(*c["work"])
+        r = rows[key] = dict(
+            ms=time_ms(c["kern"]), call_ms=call_ms(c["kern"]),
+            plain_ms=time_ms(c["plain"], reps=1, rounds=3, warmup=1),
+            library_ms=time_ms(c["lib"], reps=3, rounds=3),
+            bound_ms=b_ms, bound_by=b_by)
+        extra = ""
+        if "score" in c:
+            r.update(scoring_ms=time_ms(c["score"]), keep=c["keep"],
+                     blocks=c["blocks"])
+            extra = f" scoring_ms={r['scoring_ms']:.4f} (plain torch)"
+        say(4, f"{c['label']} ms={r['ms']:.4f} call_ms={r['call_ms']:.4f} "
+               f"plain_ms={r['plain_ms']:.4f} library_ms="
+               f"{r['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}; "
+               f"{c['work'][0]} bytes, {c['work'][1]} flops) "
+               f"roofline_share={b_ms / r['ms']:.3f}{extra}")
+        del c
+        free_card()
+    return rows
+
+
+class XaRecorder:
+    """While active, records every xa selection the port makes and its
+    scores (on the host), and the smallest gap, per call, between a
+    (head, query block)'s keep-th and (keep+1)-th score where both are
+    finite: a near tie there could pick another block on another
+    device."""
+
+    def __init__(self):
+        self.sels, self.scores, self.gaps = [], [], []
+
+    def __enter__(self):
+        from repro_torch.core import modes as M
+        self._mod, orig = M, M.xa_selection
+
+        def recorded(q, k, mode, **kw):
+            sel = orig(q, k, mode, **kw)
+            scores, keep = M.xa_scores(q, k, mode, **kw)
+            top = torch.sort(scores, dim=-1, descending=True).values
+            if keep < top.shape[-1]:
+                a, b = top[..., keep - 1], top[..., keep]
+                live = (a.abs() < 1e29) & (b.abs() < 1e29)
+                if bool(live.any()):
+                    self.gaps.append(float((a - b)[live].min()))
+            self.sels.append(sel.cpu())
+            self.scores.append(scores.cpu())
+            return sel
+        self._orig = orig
+        M.xa_selection = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.xa_selection = self._orig
+
+    def min_gap(self):
+        return min(self.gaps, default=float("inf"))
+
+
+def score_diff(a, b):
+    """The largest |difference| between two recorders' finite xa scores
+    (the masked -1e30 and forced +inf entries are equal by construction)."""
+    out = 0.0
+    for x, y in zip(a.scores, b.scores):
+        live = x.abs() < 1e29
+        out = max(out, float((x - y)[live].abs().max()))
+    return out
+
+
+def xa_seed(engine, specs):
+    """The first prompt seed (of XA_SEEDS) whose prompts, one of each
+    (length, overrides) of ``specs``, keep on the card under each of
+    their overrides every router margin above 1e-3 and every xa score gap
+    at the keep-th place above XA_GAP. Returns (seed, prompts, smallest
+    gap)."""
+    from repro_torch.models import model as MD
+    cfg = engine.cfg
+    for seed in range(XA_SEEDS):
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(0, cfg.vocab_size, n) for n, _ in specs]
+        ok, gaps = True, []
+        for toks, (_, overrides) in zip(prompts, specs):
+            t = torch.as_tensor(toks[None], device=engine.device)
+            for ov in overrides:
+                ctx, fixed = engine._routing_ctx(ov)
+                with XaRecorder() as rec:
+                    pf = MD.prefill(engine.params, cfg, t, routing_ctx=ctx,
+                                    fixed_pattern=fixed, want_cache=False)
+                if ov is None:
+                    ok &= float(np.abs(pf.p_fa.numpy() - 0.5).min()) > 1e-3
+                gaps.append(rec.min_gap())
+        if ok and min(gaps) > XA_GAP:
+            return seed, prompts, min(gaps)
+    raise AssertionError(f"no prompt seed of {XA_SEEDS} with router margins "
+                         f"> 1e-3 and xa gaps > {XA_GAP}")
+
+
+def sa_mode_parity(dev):
+    """Phase 19: phi3-mini at full width, 2 layers, fp32, the same weights
+    on the card and on the CPU: ``generate`` of a PROMPT-token prompt under
+    xa (published block 128, stride 16, threshold 0.9) and ta (chunk
+    PARITY_TA_CHUNK), router-driven and mixed, and a duo override under
+    ssa; ``prefill(routing_ctx="head_split", head_split_n=DUO_HEADS)``;
+    and a slot-pool drain under xa. Routing, every xa selection and the
+    tokens identical, first logits within 2e-3. Returns report lines."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (PREFILL_CHUNKS_PER_TICK,
+                                          routing_pattern)
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import STATUS_OK, ContinuousScheduler
+    base = get_config(ARCH).replace(num_layers=2, dtype=torch.float32,
+                                    param_dtype=torch.float32)
+    params = MD.init_params(base, torch.Generator().manual_seed(0), "cpu")
+    N = 8
+    mixed = routing_pattern(base, "mixed")
+    cfgs = {"xa": sa_cfg(base, "xa"),
+            "ta": sa_cfg(base, "ta", chunk=PARITY_TA_CHUNK), "ssa": base}
+    max_len = max(PROMPT, *(n for n, _ in XA_DRAIN)) + N
+    devices = (("card", dev), ("cpu", torch.device("cpu")))
+    eng = {(m, name): ServeEngine(params, c, max_len=max_len,
+                                  prefill_chunk=CHUNK, device=d)
+           for m, c in cfgs.items() for name, d in devices}
+    seed, prompts, gap = xa_seed(eng["xa", "card"],
+                                 [(PROMPT, (None, mixed))])
+    toks = prompts[0][None]
+    lines = [f"prompt_seed={seed} xa_min_gap={gap:.3e} (XA_GAP {XA_GAP:g})"]
+    for mode, ov in (("xa", None), ("xa", mixed), ("ta", None),
+                     ("ta", mixed), ("ssa", duo_pattern(2))):
+        res, recs = {}, {}
+        for d in ("card", "cpu"):
+            assert not eng[mode, d].chunked_eligible(PROMPT, ov)
+            with XaRecorder() as recs[d]:
+                res[d] = eng[mode, d].generate(toks, N, routing_override=ov)
+        sels = {d: r.sels for d, r in recs.items()}
+        g, c = res["card"], res["cpu"]
+        err = float((g.logits.cpu() - c.logits).abs().max())
+        assert g.routing == c.routing, (mode, g.routing, c.routing)
+        assert np.array_equal(g.tokens, c.tokens), (mode, g.tokens, c.tokens)
+        assert err < 2e-3, (mode, err)
+        n_sa = sum(p == "sa" for p in g.routing)
+        assert len(sels["card"]) == len(sels["cpu"]) == (
+            n_sa if mode == "xa" else 0)
+        assert all(torch.equal(a, b) for a, b in zip(sels["card"],
+                                                     sels["cpu"])), mode
+        name = "router" if ov is None else "duo" if mode == "ssa" else \
+            "mixed"
+        lines.append(
+            f"{mode} {name}: routing={pattern_text(g.routing)} "
+            f"selections={len(sels['card'])} equal"
+            + (f" score_diff={score_diff(recs['card'], recs['cpu']):.2e}"
+               if sels["card"] else "")
+            + f" logits_err={err:.2e} tokens={g.tokens[0].tolist()}")
+    lg = {}
+    for d in ("card", "cpu"):
+        e = eng["ssa", d]
+        lg[d] = MD.prefill(e.params, base, torch.as_tensor(toks,
+                                                           device=e.device),
+                           routing_ctx="head_split", head_split_n=DUO_HEADS,
+                           want_cache=False).logits.cpu()
+    err = float((lg["card"] - lg["cpu"]).abs().max())
+    assert err < 2e-3 and torch.equal(lg["card"].argmax(-1),
+                                      lg["cpu"].argmax(-1)), err
+    lines.append(f"prefill head_split n={DUO_HEADS}: logits_err={err:.2e}")
+    # the slot-pool drain of phase 5b under xa
+    overrides = [mixed if ov else None for _, ov in XA_DRAIN]
+    seed, prompts, gap = xa_seed(eng["xa", "card"],
+                                 [(n, (ov,)) for (n, _), ov in
+                                  zip(XA_DRAIN, overrides)])
+    res = {}
+    for d in ("card", "cpu"):
+        e = eng["xa", d]
+        sched = ContinuousScheduler(
+            e, slots_per_bucket=2, chunk=4,
+            prefill_chunks_per_tick=PREFILL_CHUNKS_PER_TICK)
+        with XaRecorder() as rec:
+            for rid, p in enumerate(prompts):
+                e.submit(Request(rid=rid, tokens=p, n_steps=N,
+                                 routing_override=overrides[rid]))
+            res[d] = (e.drain(), sched, rec)
+    (g, gs, grec), (c, cs, crec) = res["card"], res["cpu"]
+    gsel, csel = grec.sels, crec.sels
+    for rid in range(len(prompts)):
+        assert g[rid].status == c[rid].status == STATUS_OK, rid
+        assert g[rid].routing == c[rid].routing, rid
+        assert np.array_equal(g[rid].tokens, c[rid].tokens), rid
+    assert gs.n_geometries() == cs.n_geometries()
+    assert len(gsel) == len(csel) and all(
+        torch.equal(a, b) for a, b in zip(gsel, csel))
+    lines.append(
+        f"xa drain: prompt_seed={seed} xa_min_gap={gap:.3e} lens="
+        f"{[n for n, _ in XA_DRAIN]} geometries={gs.n_geometries()} "
+        f"selections={len(gsel)} equal "
+        f"score_diff={score_diff(grec, crec):.2e} routing="
+        + ",".join("".join(p[0] for p in g[r].routing)
+                   for r in range(len(prompts)))
+        + f" tokens0={g[0].tokens.tolist()}")
+    return lines
+
+
+def sa_batch(eng, prompts, override):
+    """One bucket of GEN new tokens a prompt through
+    ``serve_batch_finished``: its GenerationResult and each kernel's
+    launches in it; every logit finite."""
+    import repro_torch.kernels as KN
+    from repro_torch.serve.engine import Request, serve_batch_finished
+    before = KN.launch_counts()
+    done = serve_batch_finished(eng, [
+        Request(rid=i, tokens=p, n_steps=GEN, routing_override=override)
+        for i, p in enumerate(prompts)])
+    gen = done[0].result
+    assert all(len(done[i].tokens) == GEN for i in range(len(prompts)))
+    assert bool(torch.isfinite(gen.logits).all()), "first logits"
+    assert bool(torch.isfinite(gen.final_logits).all()), "last logits"
+    return gen, {k: v - before[k] for k, v in KN.launch_counts().items()}
+
+
+def gen_text(gen, rows, prompt):
+    return (f"prefill_s={gen.prefill_s:.3f} "
+            f"prefill_tok_s={rows * prompt / gen.prefill_s:.0f} "
+            f"decode_s={gen.decode_s:.3f} "
+            f"decode_tok_s={rows * gen.tokens.shape[1] / gen.decode_s:.1f} "
+            f"kv_bytes={gen.kv_bytes}")
+
+
+def sa_mode_paths(dev, params, cfg):
+    """Phase 20: phi3-mini at full width and depth, bf16: the batch path
+    of phase 6 under xa (router-driven and mixed), ta on one TA_PROMPT
+    prompt (mixed), the duo override through ``generate``, and the
+    continuous path of phase 7 under xa; ssa at the same prompts beside
+    each for prefill tok/s. Every logit finite; exact launch counts:
+    block-sparse once per SA layer an xa admission, flash once per FA
+    layer and once more per SA layer under ta, streaming once per SA
+    layer under ta and never under xa, the batch decode kernel never at a
+    duo layer. Returns ({path: launch counts}, lines)."""
+    import repro_torch.kernels as KN
+    from repro_torch.launch.serve import routing_pattern
+    from repro_torch.serve.engine import ServeEngine
+    L = cfg.num_layers
+    mixed = routing_pattern(cfg, "mixed")
+    counts, lines = {}, []
+    zero = {k: 0 for k in KN.KERNELS}
+
+    def want(**kw):
+        return {**zero, "decode_attention": GEN * L, **kw}
+
+    xa = sa_cfg(cfg, "xa")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (REQUESTS, PROMPT))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    KN.reset_launch_counts()
+    eng = ServeEngine(params, xa, max_len=PROMPT + GEN, prefill_chunk=CHUNK,
+                      device=dev)
+    for name in ("router", "mixed"):
+        ov = routing_pattern(cfg, name)
+        assert not eng.chunked_eligible(PROMPT, ov)
+        gen, delta = sa_batch(eng, prompts, ov)
+        n_sa = sum(p == "sa" for p in gen.routing)
+        assert n_sa, f"xa {name}: no SA layer"
+        assert delta == want(flash_attention=L - n_sa,
+                             block_sparse_attention=n_sa), (name, delta)
+        lines.append(f"xa batch {name}: routing="
+                     f"{pattern_text(gen.routing)} "
+                     f"{gen_text(gen, REQUESTS, PROMPT)} launches={delta} "
+                     f"tokens0={gen.tokens[0, :8].tolist()}")
+    counts["xa_batch"] = KN.launch_counts()
+    ssa = ServeEngine(params, cfg, max_len=PROMPT + GEN, prefill_chunk=CHUNK,
+                      device=dev)
+    gen, _ = sa_batch(ssa, prompts, mixed)
+    lines.append(f"ssa batch mixed (chunked) at the same prompts: "
+                 f"{gen_text(gen, REQUESTS, PROMPT)}")
+    gen, delta = sa_batch(ssa, prompts, duo_pattern(L))
+    n_duo = sum(isinstance(p, tuple) for p in gen.routing)
+    n_sa = sum(p == "sa" for p in gen.routing)
+    assert not ssa.chunked_eligible(PROMPT, duo_pattern(L))
+    assert delta == {**zero, "flash_attention": L - n_sa,
+                     "streaming_attention": n_sa,
+                     "decode_attention": GEN * (L - n_duo)}, delta
+    counts["duo"] = delta
+    lines.append(f"duo batch ({n_duo} duo layers of {DUO_HEADS} FA KV heads, "
+                 f"{L - n_duo - n_sa} fa, {n_sa} sa): "
+                 f"{gen_text(gen, REQUESTS, PROMPT)} launches={delta} "
+                 f"tokens0={gen.tokens[0, :8].tolist()} peak_mem_bytes="
+                 f"{torch.cuda.max_memory_allocated(dev)}")
+    del eng, ssa
+    free_card()
+
+    ta = sa_cfg(cfg, "ta")
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                             (1, TA_PROMPT))
+    torch.cuda.reset_peak_memory_stats(dev)
+    for name, c in (("ta", ta), ("ssa", cfg)):
+        e = ServeEngine(params, c, max_len=TA_PROMPT + GEN,
+                        prefill_chunk=CHUNK, device=dev)
+        gen, delta = sa_batch(e, toks, mixed)
+        n_sa = sum(p == "sa" for p in gen.routing)
+        if name == "ta":
+            assert not e.chunked_eligible(TA_PROMPT, mixed)
+            assert TA_PROMPT > ta.flux.chunk
+            assert delta == want(flash_attention=L,
+                                 streaming_attention=n_sa), delta
+            counts["ta"] = delta
+        lines.append(f"{name} mixed one prompt of {TA_PROMPT} tokens"
+                     f"{' (chunked)' if name == 'ssa' else ''}: "
+                     f"{gen_text(gen, 1, TA_PROMPT)} launches={delta} "
+                     f"peak_mem_bytes={torch.cuda.max_memory_allocated(dev)}")
+        del e
+        free_card()
+
+    counts["xa_continuous"], cont = continuous_path(dev, params, xa)
+    lines += [f"xa continuous {line}" for line in cont]
+    return counts, lines
+
+
 def check_kernels(dev):
     """Phase 3: every kernel against its plain version on the card.
     Returns {arch: {kernel: max abs error at that arch's main shapes}}."""
@@ -2741,6 +3365,7 @@ def check_kernels(dev):
                f"{e:.3e} tol={FP32_TOL}{extra}")
     for line in mla_small_checks(dev):
         say(3, line)
+    errs["sa_modes"] = sa_mode_checks(dev)
     return errs
 
 
@@ -2847,6 +3472,8 @@ def time_kernels(dev, parent=None):
     del cases
     free_card()
     out[DEEPSEEK]["decode_attention_mla"] = time_mla(dev, parent)
+    free_card()
+    out["sa_modes"] = sa_mode_times(dev)
     return out
 
 
@@ -3065,6 +3692,24 @@ def main(argv=None) -> int:
     del params
     free_card()
 
+    t0 = time.perf_counter()
+    for line in sa_mode_parity(dev):
+        say(19, line)
+    say(19, "xa, ta, duo and head-split card = cpu done", t0)
+    free_card()
+
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    sa_counts, lines = sa_mode_paths(dev, params, cfg)
+    counts.update(sa_counts)
+    for line in lines:
+        say(20, line)
+    say(20, "xa, ta and duo paths done", t0)
+    del params
+    free_card()
+
     import repro_torch.kernels as KN
     kernels = []
     for name, replaces in REPLACES.items():
@@ -3103,6 +3748,14 @@ def main(argv=None) -> int:
             kernels[-1]["deepseek_v2_236b"] = dict(
                 launches=counts["deepseek_batch"][name],
                 max_abs_err=errs[DEEPSEEK][name], **rows[DEEPSEEK][name])
+        # the xa and ta calls: block-sparse at the xa selection (phase 20's
+        # xa batch path), streaming and flash at ta's split (its ta path)
+        for key, (kern, path) in SA_ROWS.items():
+            if kern == name:
+                kernels[-1][key] = dict(
+                    launches=counts[path][name] if path else None,
+                    max_abs_err=errs["sa_modes"][key],
+                    **rows["sa_modes"][key])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

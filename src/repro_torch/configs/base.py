@@ -27,8 +27,11 @@ import torch
 class FluxConfig:
     """Configuration of the paper's layer-level FA/SA routing.
 
-    Defaults follow Table 3 of the paper (``block`` is the JAX package's
-    TPU tile and is not read by this port's kernels)."""
+    Defaults follow Table 3 of the paper. ``block`` is the ``xa`` mode's
+    selection granularity: its top-k picks key blocks of ``block``
+    tokens, which the block-sparse kernel runs as ``block // 64`` of its
+    64-token tiles (a block that is not a multiple of 64 runs only on the
+    CPU). ``chunk`` is the ``ta`` mode's dense last chunk."""
 
     enabled: bool = True
     # Sparse-layer attention mode: "ssa" (StreamingLLM sink+local),

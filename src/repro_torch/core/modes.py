@@ -7,9 +7,13 @@ hand-written CUDA kernels on CUDA tensors and run their plain versions
 on CPU tensors. ``masked_attention`` stays plain PyTorch: the JAX package
 computes it outside any Pallas kernel too.
 
-This slice ports the ``full`` and ``streaming`` kinds (FA and the SSA
-sparse mode); ``window``, ``triangle`` and ``block_topk`` wait for the
-slices that serve gemma3-style local layers and the xa/ta modes.
+Kinds: ``full`` (flash), ``streaming`` (the SSA sparse mode, the
+sink+local kernel), ``triangle`` (TriangleMix, the ``ta`` mode: the
+streaming kernel over the rows before the last ``chunk`` rows, flash over
+those) and ``block_topk`` (XAttention, the ``xa`` mode: antidiagonal
+block scores in plain torch, as the JAX package scores them in XLA, and
+the block-sparse kernel over the per-query-head top-k selection). The
+``window`` kind waits for the slice that serves gemma3-style local layers.
 """
 from __future__ import annotations
 
@@ -19,10 +23,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.block_sparse_attention import (
     KERNEL_BLOCK, block_sparse_attention_bh)
 from repro_torch.kernels.flash_attention import flash_attention_bh
-from repro_torch.kernels.ref import NEG_INF
+from repro_torch.kernels.ref import NEG_INF, block_sparse_attention_ref
 from repro_torch.kernels.streaming_attention import streaming_attention_bh
 
 
@@ -42,18 +47,26 @@ class AttnMode:
 
 
 FULL = AttnMode("full")
+BIDIRECTIONAL = AttnMode("full", causal=False)
 
 
 def ssa_mode(flux) -> AttnMode:
     return AttnMode("streaming", sink=flux.sink, local=flux.local)
 
 
+def xa_mode(flux) -> AttnMode:
+    return AttnMode("block_topk", sink=flux.sink, local=flux.local,
+                    block=flux.block, stride=flux.stride,
+                    threshold=flux.threshold)
+
+
+def ta_mode(flux) -> AttnMode:
+    return AttnMode("triangle", sink=flux.sink, local=flux.local,
+                    chunk=flux.chunk)
+
+
 def sa_mode_for(flux) -> AttnMode:
-    if flux.sa_mode != "ssa":
-        raise NotImplementedError(
-            f"sa_mode={flux.sa_mode!r}: the port serves the ssa sparse "
-            f"mode only; xa/ta wait for ROADMAP Queue 1 item 14")
-    return ssa_mode(flux)
+    return {"ssa": ssa_mode, "xa": xa_mode, "ta": ta_mode}[flux.sa_mode](flux)
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
@@ -67,8 +80,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q (B,Hq,Sq,D); k, v (B,Hkv,Skv,D); query row r sits at position
     ``q_offset + r``. ``full`` runs the flash kernel, ``streaming`` the
-    sink+local kernel. Returns (B,Hq,Sq,D) in q's dtype."""
+    sink+local kernel, ``triangle`` both (``_triangle``), ``block_topk``
+    the block-sparse kernel (``_block_topk``). Returns (B,Hq,Sq,Dv) in
+    q's dtype."""
     B, Hq, Sq, D = q.shape
+    if mode.kind == "triangle":
+        return _triangle(q, k, v, mode, q_offset=q_offset, scale=scale)
+    if mode.kind == "block_topk":
+        return _block_topk(q, k, v, mode, q_offset=q_offset,
+                           scale=D ** -0.5 if scale is None else scale)
     qf, kf, vf = _flat(q), _flat(k), _flat(v)
     if mode.kind == "full":
         out = flash_attention_bh(qf, kf, vf, causal=mode.causal,
@@ -79,8 +99,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      q_offset=q_offset)
     else:
         raise NotImplementedError(
-            f"attention mode {mode.kind!r}: this slice ports 'full' and "
-            f"'streaming'; the others wait for ROADMAP Queue 1 item 14")
+            f"attention mode {mode.kind!r}: the sliding-window kind waits "
+            f"for ROADMAP Queue 1 item 14d")
     return out.reshape(B, Hq, Sq, out.shape[-1])
 
 
@@ -155,3 +175,199 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-20)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v.float())
     return o.reshape(B, Hq, Sq, Dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Triangle (TriangleMix, the ``ta`` mode): streaming body + dense last chunk
+# ---------------------------------------------------------------------------
+
+def _triangle(q, k, v, mode: AttnMode, *, q_offset: int, scale):
+    """Rows before ``boundary = max(0, Sq - chunk)`` run the streaming
+    kernel, the last ``chunk`` rows flash at ``q_offset + boundary``; both
+    over all of k/v. The row slices are copied contiguous (the entries
+    need contiguous, 16-byte aligned operands on the card)."""
+    Sq = q.shape[2]
+    boundary = max(0, Sq - mode.chunk)
+    if boundary == 0:
+        return attention(q, k, v, FULL, q_offset=q_offset, scale=scale)
+    stream = mode.replace(kind="streaming")
+    out_pre = attention(q[:, :, :boundary].contiguous(), k, v, stream,
+                        q_offset=q_offset, scale=scale)
+    out_last = attention(q[:, :, boundary:].contiguous(), k, v, FULL,
+                         q_offset=q_offset + boundary, scale=scale)
+    return torch.cat([out_pre, out_last], dim=2)
+
+
+# ---------------------------------------------------------------------------
+# XAttention (the ``xa`` mode): antidiagonal block scoring + static top-K
+# ---------------------------------------------------------------------------
+
+def xa_keep_blocks(num_kv_blocks: int, threshold: float) -> int:
+    """Static per-query-block budget of key blocks: the JAX package's
+    stand-in for the paper's cumulative-softmax-mass threshold."""
+    return max(2, min(num_kv_blocks,
+                      int(-(-(1.0 - threshold) * num_kv_blocks // 1))))
+
+
+def _pad_to(x: torch.Tensor, axis: int, target: int) -> torch.Tensor:
+    pad = target - x.shape[axis]
+    if pad <= 0:
+        return x
+    widths = [0, 0] * (x.dim() - 1 - axis) + [0, pad]
+    return torch.nn.functional.pad(x, widths)
+
+
+def antidiagonal_scores(q: torch.Tensor, k: torch.Tensor, block: int,
+                        stride: int, scale: float) -> torch.Tensor:
+    """XAttention's block importance estimate, in float32 plain torch.
+
+    q (B,K,G,Sq,D), k (B,K,Skv,D), both padded to ``block``. For each
+    (query block, key block) pair: the logsumexp over the products of
+    every ``stride``-th query row with every ``stride``-th key row of the
+    reversed key block (the sampled antidiagonals). Returns
+    (B,K,G,nqb,nkb) float32."""
+    B, K, G, Sq, D = q.shape
+    Skv = k.shape[2]
+    nqb, nkb = Sq // block, Skv // block
+    qs = q.reshape(B, K, G, nqb, block, D)[:, :, :, :, ::stride]
+    ks = k.reshape(B, K, nkb, block, D).flip(3)[:, :, :, ::stride]
+    s = torch.einsum("bkgqrd,bkncd->bkgqnrc", qs.float(),
+                     ks.float()) * scale
+    return torch.logsumexp(s, dim=(-2, -1))
+
+
+def xa_scores(q: torch.Tensor, k: torch.Tensor, mode: AttnMode, *,
+              q_offset: int, scale: float):
+    """XAttention's block scores as its top-k ranks them, and the budget:
+    the antidiagonal estimate of each (query block, key block) pair of
+    each query head, -1e30 past the causal diagonal (at block
+    granularity), +inf for block 0 (the sink) and the diagonal block.
+    q (B,Hq,Sq,D), k (B,Hkv,Skv,D) → ((B,Hkv,G,nqb,nkb) float32, keep)."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    blk = mode.block
+    Sq_pad, Skv_pad = -(-Sq // blk) * blk, -(-Skv // blk) * blk
+    q5 = _pad_to(q.reshape(B, Hkv, Hq // Hkv, Sq, D), 3, Sq_pad)
+    nqb, nkb = Sq_pad // blk, Skv_pad // blk
+    scores = antidiagonal_scores(q5, _pad_to(k, 2, Skv_pad), blk,
+                                 mode.stride, scale)
+    qb = q_offset // blk + torch.arange(nqb, device=q.device)
+    kb = torch.arange(nkb, device=q.device)
+    scores = torch.where(kb[None, :] <= qb[:, None], scores, NEG_INF)
+    forced = (kb[None, :] == 0) | (kb[None, :] == qb[:, None])
+    return (torch.where(forced, torch.inf, scores),
+            xa_keep_blocks(nkb, mode.threshold))
+
+
+def xa_selection(q: torch.Tensor, k: torch.Tensor, mode: AttnMode, *,
+                 q_offset: int, scale: float) -> torch.Tensor:
+    """The key blocks each query block of each query head attends under
+    XAttention, at ``mode.block`` granularity: the first ``keep`` of
+    ``xa_scores`` by a stable descending sort, which puts the lower index
+    first among equal scores as ``lax.top_k`` does. Returns (B·Hq,
+    ceil(Sq/block), keep) int64, head-major as the kernels flatten q."""
+    scores, keep = xa_scores(q, k, mode, q_offset=q_offset, scale=scale)
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    return order[..., :keep].reshape(q.shape[0] * q.shape[1], -1, keep)
+
+
+def expand_selection(sel: torch.Tensor, block: int, Sq: int, Skv: int,
+                     q_offset: int) -> torch.Tensor:
+    """A ``block``-granular selection (BH, ceil(Sq/block), keep) in the
+    block-sparse kernel's 64-token tiles, ``block`` a multiple of
+    KERNEL_BLOCK: query tile t takes the selection of block
+    t·64 // block, and block j becomes tiles j·r … j·r + r - 1 (r =
+    block // 64), sorted ascending. Tiles past Skv and tiles wholly past
+    the query tile's last row (their keys are all masked: they add exact
+    zeros) are -1. Returns (BH, ceil(Sq/64), keep·r) int32."""
+    r = block // KERNEL_BLOCK
+    nqt = -(-Sq // KERNEL_BLOCK)
+    t = torch.arange(nqt, device=sel.device)
+    rows = sel[:, t * KERNEL_BLOCK // block]          # (BH, nqt, keep)
+    tiles = (rows[..., None] * r
+             + torch.arange(r, device=sel.device)).flatten(-2)
+    tiles = torch.sort(tiles, dim=-1).values
+    last = q_offset + torch.clamp((t + 1) * KERNEL_BLOCK, max=Sq) - 1
+    dead = ((tiles >= -(-Skv // KERNEL_BLOCK))
+            | (tiles * KERNEL_BLOCK > last[None, :, None]))
+    return torch.where(dead, -1, tiles).to(torch.int32)
+
+
+def _block_topk(q, k, v, mode: AttnMode, *, q_offset: int, scale: float):
+    """XAttention: ``xa_selection``, then the block-sparse kernel over it
+    (query row r sees the selected keys <= ``q_offset + r``, as the JAX
+    package masks ``pos <= q_pos``). A ``mode.block`` that is not a
+    multiple of the kernel's 64-token tile runs the plain version at
+    that block on CPU tensors and raises on CUDA tensors."""
+    B, Hq, Sq, D = q.shape
+    Skv = k.shape[2]
+    sel = xa_selection(q, k, mode, q_offset=q_offset, scale=scale)
+    if mode.block % KERNEL_BLOCK == 0:
+        out = block_sparse_attention_bh(
+            _flat(q), _flat(k), _flat(v),
+            expand_selection(sel, mode.block, Sq, Skv, q_offset),
+            q_offset=q_offset, scale=scale)
+    elif _build.on_cpu("attention(block_topk)", q):
+        out = block_sparse_attention_ref(_flat(q), _flat(k), _flat(v), sel,
+                                         block=mode.block,
+                                         q_offset=q_offset, scale=scale)
+    else:
+        raise ValueError(
+            f"attention(block_topk): block={mode.block} is not a multiple "
+            f"of the block-sparse kernel's {KERNEL_BLOCK}-token tile; the "
+            f"kernel cannot run this selection on the card")
+    return out.reshape(B, Hq, Sq, out.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Head-level split (DuoAttention / PruLong baselines)
+# ---------------------------------------------------------------------------
+
+def head_split_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         n_fa_kv: int, sa: AttnMode, *,
+                         q_offset: int = 0) -> torch.Tensor:
+    """Static head-level hybrid: the first ``n_fa_kv`` KV heads and their
+    query groups run full attention, the rest run ``sa``. The head slices
+    are copied contiguous (they are strided when B > 1)."""
+    Hkv = k.shape[1]
+    n_fa_q = n_fa_kv * (q.shape[1] // Hkv)
+
+    def heads(x, a, b):
+        return x[:, a:b].contiguous()
+
+    o_fa = attention(heads(q, 0, n_fa_q), heads(k, 0, n_fa_kv),
+                     heads(v, 0, n_fa_kv), FULL, q_offset=q_offset)
+    if n_fa_kv == Hkv:
+        return o_fa
+    o_sa = attention(heads(q, n_fa_q, None), heads(k, n_fa_kv, None),
+                     heads(v, n_fa_kv, None), sa, q_offset=q_offset)
+    return torch.cat([o_fa, o_sa], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# FLOP model (the napkin math of the JAX package's prefill benchmark)
+# ---------------------------------------------------------------------------
+
+def mode_flops(mode: AttnMode, Sq: int, Skv: int, num_heads: int,
+               head_dim: int, batch: int = 1) -> float:
+    """Matmul FLOPs of one attention call (2 per MAC), per the mode's
+    expressed computation in the JAX package's blocked engine."""
+    per_pair = 4.0 * head_dim  # QK^T + PV, 2 FLOPs per MAC each
+    if mode.kind == "full":
+        pairs = Sq * Skv
+    elif mode.kind == "window":
+        pairs = Sq * min(mode.local + 512, Skv)
+    elif mode.kind == "streaming":
+        pairs = Sq * min(mode.sink + mode.local + 512, Skv)
+    elif mode.kind == "triangle":
+        last = min(mode.chunk, Sq)
+        pre = Sq - last
+        pairs = pre * min(mode.sink + mode.local + 512, Skv) + last * Skv
+    elif mode.kind == "block_topk":
+        nkb = -(-Skv // mode.block)
+        keep = xa_keep_blocks(nkb, mode.threshold)
+        pairs = Sq * keep * mode.block
+        pairs += (Sq // mode.stride) * (Skv // mode.stride)  # scoring
+    else:
+        raise ValueError(mode.kind)
+    return batch * num_heads * pairs * per_pair

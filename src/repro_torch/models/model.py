@@ -12,8 +12,18 @@ Flux routing contexts of ``prefill`` (as in the JAX package):
   ("hard_prefix", [thr])  — the same with prefix-only pooling (the
                             chunk-invariant serving variant);
   ("fixed", decision)     — externally forced decision (1 = FA, 0 = SA);
+  ("head_split", n_fa_kv) — the DuoAttention / PruLong baseline: the
+                            first n_fa_kv KV heads of every routed layer
+                            run FA, the rest the SA mode;
   ("fa_only",)            — backbone as-is.
 The Gumbel soft routing of training waits for the training slice.
+
+A layer's SA mode is ``flux.sa_mode``: ``ssa`` (the streaming kernel),
+``xa`` (XAttention's top-k blocks on the block-sparse kernel) or ``ta``
+(TriangleMix: streaming, then flash over the last ``flux.chunk`` rows).
+Decode dispatches on the cache type; a duo layer (``duo_layers``) keeps a
+full cache and masks its streaming heads per KV head in plain torch, as
+the JAX package computes it in XLA.
 
 A layer's attention is GQA or, for an MLA model (``cfg.use_mla``),
 Multi-head Latent Attention: the route chunk decompresses the latent
@@ -32,7 +42,7 @@ functions call it: its capacity depends on that length.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -146,11 +156,15 @@ def params_to(params, device):
 
 def _route_and_attend(bp, cfg: ModelConfig, q, k, v, x_q, ctx,
                       q_offset: int = 0):
-    """Run FA or SA per the routing context. Returns (attn_out, r) with
-    r = (decision 0/1, p_fa mean) for the hard and fixed contexts."""
+    """Run FA, SA or a head split per the routing context. Returns
+    (attn_out, r) with r = (decision 0/1, p_fa mean) for the hard and
+    fixed contexts, None for the others."""
     kind = ctx[0]
     if kind == "fa_only":
         return M.attention(q, k, v, M.FULL, q_offset=q_offset), None
+    if kind == "head_split":
+        return M.head_split_attention(q, k, v, ctx[1], sa_mode(cfg),
+                                      q_offset=q_offset), None
     if kind in ("hard", "hard_prefix"):
         pooling = "prefix" if kind == "hard_prefix" else "prefix_suffix"
         _, p_fa = R.hard_route(bp["router"], x_q, cfg.flux, pooling)
@@ -165,8 +179,8 @@ def _route_and_attend(bp, cfg: ModelConfig, q, k, v, x_q, ctx,
         p_mean = float(decision)
     else:
         raise NotImplementedError(
-            f"routing context {kind!r}: the soft (training) and "
-            f"head_split contexts wait for ROADMAP Queue 1 items 15 and 14")
+            f"routing context {kind!r}: the soft (training) context waits "
+            f"for ROADMAP Queue 1 item 15")
     mode = M.FULL if decision > 0 else sa_mode(cfg)
     return M.attention(q, k, v, mode, q_offset=q_offset), (decision, p_mean)
 
@@ -246,23 +260,30 @@ class ForwardOut:
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             routing_ctx: str = "hard",
             fixed_pattern: Optional[Sequence[int]] = None,
+            head_split_n: int = 0,
             want_cache: bool = True,
             fa_threshold: Optional[float] = None) -> ForwardOut:
     """Serving prefill over the whole of ``tokens`` (B, S): hard routing
     (or a fixed pattern), full per-layer KV out.
 
     ``fixed_pattern``: (num_layers,) ints (1 = FA, 0 = SA) for
-    ``routing_ctx="fixed"``. ``fa_threshold``: the FA-decision threshold
-    of the hard contexts (None = the paper's 0.5 argmax)."""
-    if routing_ctx not in ("hard", "hard_prefix", "fixed", "fa_only"):
+    ``routing_ctx="fixed"``. ``routing_ctx="head_split"`` runs the
+    DuoAttention-style baseline with ``head_split_n`` full-attention KV
+    heads per routed layer (no routing record). ``fa_threshold``: the
+    FA-decision threshold of the hard contexts (None = the paper's 0.5
+    argmax)."""
+    if routing_ctx not in ("hard", "hard_prefix", "fixed", "fa_only",
+                           "head_split"):
         raise NotImplementedError(
-            f"routing_ctx={routing_ctx!r}: the head_split baseline waits "
-            f"for ROADMAP Queue 1 item 14")
+            f"routing_ctx={routing_ctx!r}: the soft (training) context "
+            f"waits for ROADMAP Queue 1 item 15")
     h = embed_tokens(params, cfg, tokens)
     positions = torch.arange(h.shape[1], device=h.device)
     rs, caches = [], []
     for i, bp in enumerate(params["layers"]):
-        if not cfg.flux.enabled or routing_ctx == "fa_only":
+        if routing_ctx == "head_split":
+            ctx = ("head_split", int(head_split_n))
+        elif not cfg.flux.enabled or routing_ctx == "fa_only":
             ctx = ("fa_only",)
         elif routing_ctx == "fixed":
             ctx = ("fixed", int(fixed_pattern[i]))
@@ -386,11 +407,42 @@ def _decode_attn_ring(bp, cfg, x, pos, rope_pos, cache, sink: int,
     return A.gqa_out(bp["attn"], cfg, o), cache
 
 
+def _decode_attn_headsplit(bp, cfg, x, pos, rope_pos, cache, n_fa_kv: int):
+    """DuoAttention-style decode over a full-shape cache (ragged per-head
+    histories are unrepresentable: the paper's §2.3 point). The first
+    ``n_fa_kv`` KV heads see every slot <= pos, the rest sink + local;
+    a per-KV-head validity mask in plain torch, as the JAX package
+    computes it in XLA, outside the decode kernels."""
+    q, k, v, _ = A.gqa_qkv(bp["attn"], cfg, x, rope_pos)
+    cache = KC.full_insert(cache, k, v, pos)
+    L = cache.k.shape[2]
+    idx = torch.arange(L, device=x.device)
+    head_is_full = torch.arange(cfg.num_kv_heads, device=x.device) < n_fa_kv
+    sink, local = cfg.flux.sink, cfg.flux.local
+    if isinstance(pos, torch.Tensor):  # per row → (B, Hkv, L)
+        full_valid = idx[None, :] <= pos[:, None]
+        stream_valid = full_valid & ((idx[None, :] < sink)
+                                     | (pos[:, None] - idx[None, :] < local))
+        valid = torch.where(head_is_full[None, :, None],
+                            full_valid[:, None], stream_valid[:, None])
+    else:  # one position → (1, Hkv, L)
+        full_valid = idx <= pos
+        stream_valid = full_valid & ((idx < sink) | (pos - idx < local))
+        valid = torch.where(head_is_full[:, None], full_valid[None],
+                            stream_valid[None])[None]
+    o = M.masked_attention(q, cache.k, cache.v, valid[:, :, None])
+    return A.gqa_out(bp["attn"], cfg, o), cache
+
+
 def decode_core(params, cfg: ModelConfig, token: torch.Tensor,
-                caches: List, pos):
+                caches: List, pos, fa_heads: Optional[Sequence[int]] = None,
+                duo_layers: Optional[Tuple[int, ...]] = None):
     """One autoregressive step at position ``pos``: an int shared by all
     rows, or a (B,) int32 device tensor, one per row. token (B,1).
-    Updates ``caches`` in place. Returns (logits (B,V), caches)."""
+    ``duo_layers`` marks full-cache GQA layers that run a DuoAttention
+    head split, ``fa_heads`` (num_layers,) their full-attention KV-head
+    counts (``routing_head_split``). Updates ``caches`` in place. Returns
+    (logits (B,V), caches)."""
     h = embed_tokens(params, cfg, token)
     pooled = isinstance(pos, torch.Tensor)
     rope_pos = (pos[:, None] if pooled
@@ -404,6 +456,10 @@ def decode_core(params, cfg: ModelConfig, token: torch.Tensor,
         if KC.is_ring(cache):
             y, cache = _decode_attn_ring(bp, cfg, x, pos, rope_pos, cache,
                                          flux.sink, L - flux.sink)
+        elif (duo_layers is not None and i in duo_layers
+              and fa_heads is not None and not cfg.use_mla):
+            y, cache = _decode_attn_headsplit(bp, cfg, x, pos, rope_pos,
+                                              cache, int(fa_heads[i]))
         else:
             if isinstance(cache, KC.FullKV) and not pooled \
                     and L not in slot_positions:
@@ -414,6 +470,37 @@ def decode_core(params, cfg: ModelConfig, token: torch.Tensor,
         h = ffn_block(bp, cfg, i, h + y)
         caches[i] = cache
     return logits_from_hidden(params, cfg, h[:, -1]), caches
+
+
+def routing_head_split(cfg: ModelConfig, routing):
+    """A routing pattern ("fa" | "sa" | ("duo", n) | None per layer) as
+    (fa_heads, duo_layers): the per-layer full-attention KV-head counts
+    (a tuple of ints) and the tuple of duo layer indices, or (None,
+    None) when no entry is a head split. Raises ValueError for an MLA
+    model, whose heads share one latent."""
+    duo = tuple(i for i, r in enumerate(routing)
+                if isinstance(r, tuple) and r[0] == "duo")
+    if not duo:
+        return None, None
+    if cfg.use_mla:
+        raise ValueError(
+            "duo head-split routing requires per-KV-head GQA caches; "
+            "MLA shares one latent across heads (cfg.use_mla=True) so "
+            f"a split is meaningless — got duo at layers {duo}")
+    fa_heads = tuple(int(r[1]) if isinstance(r, tuple) and r[0] == "duo"
+                     else cfg.num_kv_heads for r in routing)
+    return fa_heads, duo
+
+
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches: List,
+                routing, pos):
+    """One autoregressive step under a routing pattern cached from
+    prefill. The fa/sa entries are informational (the caches' types
+    carry them); only duo head splits change what runs. Returns
+    (logits (B,V), caches)."""
+    fa_heads, duo_layers = routing_head_split(cfg, routing)
+    return decode_core(params, cfg, token, caches, pos, fa_heads=fa_heads,
+                       duo_layers=duo_layers)
 
 
 def sample_categorical(logits: torch.Tensor,
@@ -432,14 +519,17 @@ def sample_categorical(logits: torch.Tensor,
 def decode_many(params, cfg: ModelConfig, logits: torch.Tensor,
                 caches: List, pos, *, n_steps: int,
                 greedy: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                fa_heads: Optional[Sequence[int]] = None,
+                duo_layers: Optional[Tuple[int, ...]] = None):
     """Generation for ``n_steps``: token i is drawn from the logits
     before decode step i, their argmax when ``greedy``, else one
     categorical sample a row from ``generator`` (``sample_categorical``).
     ``pos`` is the absolute position of the first generated token: an
     int, or a (B,) int32 device tensor, one per row, advanced on the
-    device (no step reads it back). Returns (tokens (B, n_steps) int64,
-    last logits (B, V), caches)."""
+    device (no step reads it back). ``fa_heads`` / ``duo_layers`` as
+    ``decode_core`` takes them. Returns (tokens (B, n_steps) int64, last
+    logits (B, V), caches)."""
     if not greedy and generator is None:
         raise ValueError(
             "decode_many(greedy=False) needs a torch.Generator on the "
@@ -450,7 +540,8 @@ def decode_many(params, cfg: ModelConfig, logits: torch.Tensor,
                else sample_categorical(logits, generator))
         toks.append(nxt)
         logits, caches = decode_core(params, cfg, nxt[:, None], caches,
-                                     pos + step)
+                                     pos + step, fa_heads=fa_heads,
+                                     duo_layers=duo_layers)
     out = (torch.stack(toks, dim=1) if toks
            else torch.zeros((logits.shape[0], 0), dtype=torch.int64,
                             device=logits.device))
@@ -540,6 +631,19 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
         h = ffn_block(bp, cfg, i, h + y)
         caches[i] = cache
     return logits_from_hidden(params, cfg, h[:, -1]), caches
+
+
+def capture_hidden(params, cfg: ModelConfig,
+                   tokens: torch.Tensor) -> torch.Tensor:
+    """Hidden states after every layer of an FA-only forward, (L, B, S,
+    d): the input of the UnComp entropy ranking (``core/policies.py``)."""
+    h = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(h.shape[1], device=h.device)
+    snaps = []
+    for i, bp in enumerate(params["layers"]):
+        h, _, _ = block_apply(bp, cfg, i, h, positions, ("fa_only",))
+        snaps.append(h)
+    return torch.stack(snaps)
 
 
 def snapshot_state(caches: List, logits: torch.Tensor):

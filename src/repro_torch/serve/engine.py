@@ -17,7 +17,13 @@ Admission is the chunked, cache-resident pipeline of the JAX engine:
   3. ``decode_many`` generates greedily (or samples, given a seeded
      generator), a Python loop of decode steps on the decode kernel.
 ``prefill_route_repack`` (full prefill → repack) is the fallback for
-prompts the chunked path excludes (``chunked_eligible``).
+prompts the chunked path excludes (``chunked_eligible``): the paper's
+prefix+suffix pooling, DuoAttention head-split overrides (``("duo",
+n)`` entries, decoded over full caches with a per-KV-head mask) and the
+``xa`` / ``ta`` SA modes, whose prefill has no ring-resident form. As
+in the JAX engine, a duo layer's admission prefill runs full attention
+(the "fixed" context maps every entry but "sa" to FA); only its decode
+is head-split.
 
 Shared-prefix reuse: an engine built with ``prefix_cache_mb`` keeps a
 radix store of chunk-boundary snapshots (``serve/prefix_cache.py``). A
@@ -153,7 +159,8 @@ def repack_caches(cfg: ModelConfig, prefill_caches, routing,
                   seq_len: int, max_len: int) -> List:
     """Whole-prompt prefill KV (per layer (k, v), or an MLA model's
     (ckv, kr)) → decode cache list. FALLBACK PATH for admissions
-    ``chunked_eligible`` excludes. routing[i] ∈ {"fa", "sa"}."""
+    ``chunked_eligible`` excludes. routing[i] ∈ {"fa", "sa", ("duo", n),
+    None}: only "sa" makes a ring; a duo layer keeps its full cache."""
     flux = cfg.flux
     # the sequence axis of each buffer: ckv (B, S, R) holds it at 1
     axes = (1, 2) if cfg.use_mla else (2, 2)
@@ -426,8 +433,16 @@ class ServeEngine:
         override = self.routing_override
         budget = int(prefix_cache_mb * 2 ** 20)
         host_budget = int(prefix_cache_host_mb * 2 ** 20)
+        if override is not None and any(isinstance(p, tuple)
+                                        for p in override):
+            raise ValueError(
+                f"prefix_cache_mb={prefix_cache_mb:g} with a duo "
+                f"head-split routing_override: duo admissions take the "
+                f"repack fallback (chunked_eligible=False), so the store "
+                f"could never hold a snapshot — drop the duo override or "
+                f"the prefix cache")
         if override is not None:
-            self._check_override(override)  # duo raises here
+            self._check_override(override)
             pattern = self._pattern(None, override)
             what = "the overridden routing geometry"
         else:
@@ -817,36 +832,37 @@ class ServeEngine:
         }
 
     def _check_override(self, override) -> None:
-        """Raise on what this slice does not serve: duo head-split
-        overrides and the xa/ta sparse modes."""
+        """Raise on a malformed routing override: each layer's entry must
+        be "fa", "sa", None or ("duo", n) with 0 <= n <= num_kv_heads."""
         cfg = self.cfg
-        if override is not None:
-            if any(isinstance(p, tuple) for p in override):
-                raise NotImplementedError(
-                    "duo head-split routing overrides wait for ROADMAP "
-                    "Queue 1 item 14")
-            bad = [p for p in override if p not in ("fa", "sa", None)]
-            if bad or len(override) != cfg.num_layers:
-                raise ValueError(
-                    f"routing override must give 'fa' or 'sa' for each "
-                    f"of {cfg.num_layers} layers; got {override!r}")
-        routable = bool(cfg.flux.enabled and cfg.routable_layers())
-        needs_sa = routable and (override is None
-                                 or any(p == "sa" for p in override))
-        if needs_sa and cfg.flux.sa_mode != "ssa":
-            raise NotImplementedError(
-                f"sa_mode={cfg.flux.sa_mode!r} waits for ROADMAP Queue 1 "
-                f"item 14")
+        if override is None:
+            return
+
+        def ok(p):
+            if isinstance(p, tuple):
+                return (len(p) == 2 and p[0] == "duo"
+                        and 0 <= int(p[1]) <= cfg.num_kv_heads)
+            return p in ("fa", "sa", None)
+        if len(override) != cfg.num_layers or not all(map(ok, override)):
+            raise ValueError(
+                f"routing override must give 'fa', 'sa' or ('duo', n) with "
+                f"0 <= n <= {cfg.num_kv_heads} for each of "
+                f"{cfg.num_layers} layers; got {override!r}")
 
     def chunked_eligible(self, seq_len: int, override=None) -> bool:
         """True when the chunked cache-resident admission can serve this
-        request; False routes it to the monolithic repack fallback."""
+        request; False routes it to the monolithic repack fallback (duo
+        head splits and the xa / ta SA modes among others, as in the JAX
+        engine)."""
         cfg = self.cfg
         override = (override if override is not None
                     else self.routing_override)
         self._check_override(override)
         if not self.prefill_chunk or seq_len <= 0:
             return False
+        if override is not None and any(isinstance(p, tuple)
+                                        for p in override):
+            return False  # duo head splits keep the repack path
         routable = bool(cfg.flux.enabled and cfg.routable_layers())
         if routable and override is None:
             if not self.sparse_decode:
@@ -856,6 +872,10 @@ class ServeEngine:
             if (chunk_plan(seq_len, self.prefill_chunk)[0][1]
                     < min(cfg.flux.pool_size, seq_len)):
                 return False  # first chunk can't cover the router pool
+        needs_sa = routable and (override is None
+                                 or any(p == "sa" for p in override))
+        if needs_sa and cfg.flux.sa_mode != "ssa":
+            return False  # xa/ta prefill has no ring-resident equivalent
         return True
 
     def _tokens(self, tokens) -> torch.Tensor:
@@ -1111,9 +1131,11 @@ class ServeEngine:
         kv_bytes = KC.kv_cache_bytes(caches)
         self._sync()
         t1 = time.perf_counter()
+        fa_heads, duo_layers = MD.routing_head_split(self.cfg, pattern)
         toks, final, _ = MD.decode_many(
             self.params, self.cfg, logits, caches, seq_len, n_steps=n_steps,
-            greedy=greedy, generator=None if greedy else rng)
+            greedy=greedy, generator=None if greedy else rng,
+            fa_heads=fa_heads, duo_layers=duo_layers)
         toks = toks.cpu().numpy()  # waits for the decode to finish
         t2 = time.perf_counter()
         self.dispatch_count += dispatches + 1  # and the decode

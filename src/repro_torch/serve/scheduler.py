@@ -11,8 +11,10 @@ keeps a persistent decode batch that requests join and leave per tick:
             Prefill chunks are tick work: at most
             ``prefill_chunks_per_tick`` run per tick, interleaved with the
             decode chunks below, so a long prompt cannot stall the
-            resident batch. Requests ``chunked_eligible`` excludes admit
-            through the monolithic repack fallback. With the engine's
+            resident batch. Requests ``chunked_eligible`` excludes (the
+            ``xa`` / ``ta`` SA modes among them) admit through the
+            monolithic repack fallback; a duo head-split pattern raises,
+            as in the JAX scheduler (``generate`` serves it). With the engine's
             prefix store, an admission starts from the deepest matching
             chunk-boundary snapshot and streams only the suffix
             (``RequestMetrics.prefix_hit_tokens``), and publishes the
@@ -510,6 +512,10 @@ class ContinuousScheduler:
                 self._prefill_tokens(inf)[None], inf.req.routing_override)
             logits, hit = pf.logits, 0
             eng.dispatch_count += 2  # prefill + the repack
+        if any(isinstance(p, tuple) for p in pattern):
+            raise ValueError(
+                "duo head-split patterns carry traced per-layer state the "
+                "slot pool does not thread yet; serve them via generate()")
         key = KC.slot_geometry(caches)
         pool = self.pools.get(key)
         if pool is None:

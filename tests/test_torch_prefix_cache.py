@@ -399,7 +399,7 @@ def test_store_without_chunked_prefill_raises(models):
 
 def test_duo_override_with_a_store_raises(models):
     _, tcfg, _, tparams = models
-    with pytest.raises(NotImplementedError, match="duo"):
+    with pytest.raises(ValueError, match="duo head-split"):
         _port(tparams, tcfg, prefill_chunk=CH, prefix_cache_mb=64,
               routing_override=(("duo", 1), ("duo", 1)))
 

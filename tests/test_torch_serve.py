@@ -150,8 +150,9 @@ def test_unported_options_raise(models):
     # as the JAX engine does (tests/test_torch_sampling.py samples)
     assert np.array_equal(eng.generate(toks, N, greedy=False).tokens,
                           eng.generate(toks, N).tokens)
-    with pytest.raises(NotImplementedError):
-        eng.generate(toks, N, routing_override=(("duo", 1), "fa"))
+    with pytest.raises(ValueError):  # a duo split past the KV heads
+        eng.generate(toks, N, routing_override=(
+            ("duo", tcfg.num_kv_heads + 1), "fa"))
     with pytest.raises(ValueError):  # prompt longer than the capacity
         eng.generate(np.zeros((1, MAX_LEN + 1), np.int64), 1)
     with pytest.raises(ValueError):  # prompt + new tokens past FullKV
