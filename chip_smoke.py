@@ -244,7 +244,35 @@ boolean mask, with the plain-torch antidiagonal scoring's device time.
      layer an xa admission, flash once per FA layer and once more per SA
      layer under ta, streaming once per SA layer under ta and never under
      xa, the batch decode kernel never at a duo layer), and ssa at the
-     same prompts beside them: prefill and decode tok/s, peak memory.
+     same prompts beside them: prefill and decode tok/s, peak memory;
+  21. modality side inputs, card against CPU in fp32 at full per-head
+     widths: phi-3-vision-4.2b at 2 layers (576 image embeddings, then
+     1728 tokens) and whisper-tiny at 2 encoder + 2 decoder layers (1500
+     frames, 2304 decoder tokens) through ``generate``, router-driven,
+     all-FA, all-SA and mixed: routing and tokens identical, first logits
+     within FP32_TOL (the embeddings, frames and tokens are numpy draws
+     of the first seed whose router margins exceed 1e-3);
+  22. phi-3-vision-4.2b at full width and depth, bf16, seeded weights: 4
+     requests of 576 image embeddings and 3520 tokens (4096 positions),
+     32 new tokens, router-driven and mixed, through ``generate`` (the
+     monolithic prefill and repack, as in JAX): every logit finite,
+     exact launch counts (flash at FA layers, streaming at SA layers, the
+     batch decode once a layer a step, block-sparse and the pooled
+     decodes never), the slot pool refusing the model; prefill and
+     decode tok/s, KV bytes, peak memory;
+  23. whisper-tiny at full width and depth (4 + 4 layers), bf16: 4
+     requests of 1500 frames and 384 decoder tokens, 32 new tokens (416
+     positions in its 448-token context), router-driven and mixed: as
+     phase 22, with flash at causal=False once an encoder layer (1500 x
+     1500) and once a decoder layer (the cross attention, 384 x 1500),
+     and the batch decode once more a layer a step over the 1500 encoder
+     keys, each counted by ``SideRecorder``; the encode's seconds apart
+     from the prefill's and the decode's.
+Phase 2b also stresses flash at whisper's encoder shape (causal=False,
+4 x 6 heads, D = 64, 1500 x 1500); phases 3 and 4 hold and time
+flash with causal=False at 1500 x 1500 and 384 x 1500 and the batch
+decode over 1500 keys all visible, at those heads, beside SDPA without
+a mask (``side_kernel_cases``).
 Then one JSON line of per-kernel numbers (phi3-mini's, and stablelm's,
 granite's and deepseek's under ``stablelm_12b``, ``granite_moe_3b_a800m``
 and ``deepseek_v2_236b``; the latent decode its own entry at deepseek's
@@ -253,7 +281,9 @@ path, phase 14's as ``guardrails`` and phase 20's as ``xa_batch``,
 ``duo``, ``ta`` and ``xa_continuous``; each kernel's phase-2b counts
 under ``stress``; block-sparse's xa rows and streaming's and flash's ta
 rows under ``xa``, ``xa_stablelm_12b``, ``ta_streaming`` and
-``ta_flash``), the total
+``ta_flash``; whisper's under ``whisper_encoder`` and ``whisper_cross``,
+with their launches on phase 23's path; launches by path also as
+``phi3_vision`` and ``whisper``), the total
 seconds, and the last line ``{"ok": true, "device": {...}}``.
 """
 import collections
@@ -952,8 +982,9 @@ def stress_cases(dev):
     ``out=``, plain call, slots)], every bf16 wgmma instance the main
     paths run at their shapes: flash, streaming and block-sparse at
     granite's (D = 64), phi3-mini's (96) and stablelm's (160), flash and
-    streaming at deepseek's (192, 128), and the latent decode over
-    POOL_LENS and over the ring with holes."""
+    streaming at deepseek's (192, 128), the latent decode over POOL_LENS
+    and over the ring with holes, and flash with causal=False at
+    whisper's encoder shape (4 x 6 heads, D = 64, 1500 x 1500)."""
     from repro_torch.configs import get_config
     cases = []
     for arch in (GRANITE, ARCH, STABLELM):
@@ -970,6 +1001,10 @@ def stress_cases(dev):
                  "decode_attention_mla_ring":
                      "decode_attention_mla ring"}[name]
         cases.append((f"{label} {DEEPSEEK}", kernel, c[0], c[1], c[-1]))
+    name = "flash_attention whisper_encoder"
+    c = side_kernel_cases(dev)[name]
+    cases.append((f"{name} {WHISPER} D=64 bidirectional 1500x1500",
+                   "flash_attention", c[0], c[1], 1))
     return cases
 
 
@@ -3266,6 +3301,304 @@ def sa_mode_paths(dev, params, cfg):
     return counts, lines
 
 
+# ---------------------------------------------------------------------------
+# Modality side inputs (phases 2b, 3, 4, 21-23): phi-3-vision's prefix
+# embeddings and whisper-tiny's encoder and cross attention
+# ---------------------------------------------------------------------------
+
+PHI3V = "phi-3-vision-4.2b"  # 576 prefix embeddings: phases 21-22
+WHISPER = "whisper-tiny"  # 4 encoder + 4 decoder layers: phases 21, 23
+PHI3V_PROMPT = PROMPT - 576  # text tokens after the 576 image embeddings
+WHISPER_REQUESTS, WHISPER_PROMPT = 4, 384
+# whisper's decoder context (arXiv:2212.04356): 384 + GEN positions fit
+WHISPER_MAX_LEN = 448
+# phase 21: positions a prompt holds (prefix included), past sink + local
+SIDE_PARITY_LEN, SIDE_PARITY_GEN = 2304, 8
+
+
+def side_inputs(cfg, rows, seed):
+    """A request's side input, made with numpy from ``seed``: prefix
+    embeddings (rows, P, d) of a VLM or encoder frames (rows, E, d)."""
+    rng = np.random.default_rng(seed)
+    if cfg.num_prefix_tokens:
+        shape, key = (rows, cfg.num_prefix_tokens, cfg.d_model), \
+            "prefix_embeddings"
+    else:
+        shape, key = (rows, cfg.encoder_ctx, cfg.d_model), "encoder_frames"
+    return {key: rng.standard_normal(shape, dtype=np.float32)}
+
+
+class SideRecorder:
+    """While active, tallies the port's flash calls by (causal, Sq, Skv)
+    and its batch decode calls by key count, through the names
+    ``core.modes`` and ``models.model`` call them by: whisper's encoder
+    runs flash (False, E, E), its cross attention flash (False, S, E) at
+    prefill and the batch decode over E keys at a decode step."""
+
+    def __enter__(self):
+        from repro_torch.core import modes as M
+        from repro_torch.models import model as MD
+        self.flash, self.decode = collections.Counter(), \
+            collections.Counter()
+        flash, decode = M.flash_attention_bh, MD.decode_attention_bh
+        self._saved = ((M, "flash_attention_bh", flash),
+                       (MD, "decode_attention_bh", decode))
+
+        def flash_rec(q, k, v, **kw):
+            self.flash[kw.get("causal", True), q.shape[1], k.shape[1]] += 1
+            return flash(q, k, v, **kw)
+
+        def decode_rec(q, k, *a, **kw):
+            self.decode[k.shape[1]] += 1
+            return decode(q, k, *a, **kw)
+        M.flash_attention_bh, MD.decode_attention_bh = flash_rec, decode_rec
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def side_kernel_cases(dev):
+    """The instances whisper's path adds, bf16 at its main shapes (4
+    requests of 6 heads, D = 64, G = 1), as ``kernel_cases`` gives them:
+    flash with causal=False over the 1500 encoder frames (1500 x 1500)
+    and over the decoder prompt (384 x 1500: the cross attention at
+    prefill; the last key tile holds 28 keys), and the batch decode with
+    all 1500 keys visible (positions arange(1500), cur_pos 1499: the
+    cross attention at a decode step). SDPA is called without a mask and
+    not causal."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_bh
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+    F = torch.nn.functional
+    cfg = get_config(WHISPER)
+    BH, D, E = WHISPER_REQUESTS * cfg.num_heads, cfg.head_dim, \
+        cfg.encoder_ctx
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(
+            torch.bfloat16)
+
+    k, v = rnd(BH, E, D), rnd(BH, E, D)
+    cases = {}
+    for label, Sq in (("whisper_encoder", E), ("whisper_cross",
+                                                WHISPER_PROMPT)):
+        q = rnd(BH, Sq, D)
+        cases[f"flash_attention {label}"] = (
+            lambda q=q, **kw: flash_attention_bh(q, k, v, causal=False,
+                                                 **kw),
+            lambda q=q: ref.flash_attention_ref(q, k, v, causal=False),
+            lambda q=q: ref.flash_attention_ref(q, k, zero_tile(v),
+                                                causal=False),
+            lambda q=q: F.scaled_dot_product_attention(q[None], k[None],
+                                                       v[None]),
+            *attn_work(BH, BH, Sq, D, E, BH * Sq * E, 2))
+    qd = rnd(BH, 1, D)
+    pos = torch.arange(E, dtype=torch.int32, device=dev)
+    cases["decode_attention whisper_cross"] = (
+        lambda: decode_attention_bh(qd, k, v, pos, E - 1),
+        lambda: ref.decode_attention_ref(qd, k, v, pos, E - 1),
+        lambda: ref.decode_attention_ref(qd, k, zero_tile(v), pos, E - 1),
+        lambda: F.scaled_dot_product_attention(qd[None], k[None], v[None]),
+        *attn_work(BH, BH, 1, D, E, BH * E, 2))
+    return cases
+
+
+def side_kernel_checks(dev):
+    """Phase 3's whisper rows: each ``side_kernel_cases`` call under the
+    bf16 limit, its zeroed tile above it. Returns ({name: max abs err},
+    lines)."""
+    errs, lines = {}, []
+    for name, (kern, plain, mutant, *_rest) in side_kernel_cases(
+            dev).items():
+        out, want = kern(), plain()
+        errs[name] = e = max_err(out, want)
+        r, r_mut = bf16_ratios(out, want), bf16_ratios(mutant(), want)
+        assert max(r) < 1, f"{WHISPER} {name} bf16: error {r} of the limit"
+        assert min(r_mut) > 1, f"{WHISPER} {name} bf16: a zeroed tile is " \
+            f"within the limit {r_mut}"
+        lines.append(f"{name} bfloat16 {WHISPER} main shapes (4 x 6 heads, "
+                     f"D=64, G=1, not causal) max_abs_err={e:.3e} "
+                     f"limit_ratio={ratio_text(r)} "
+                     f"zeroed_tile_ratio={ratio_text(r_mut)}")
+    return errs, lines
+
+
+def side_kernel_times(dev):
+    """Phase 4's whisper rows: device ms, call_ms, the plain version's and
+    SDPA's ms and the bound of each ``side_kernel_cases`` call. Returns
+    ({name: row}, lines)."""
+    rows, lines = {}, []
+    for name, (kern, plain, _, lib, n_bytes, flops) in side_kernel_cases(
+            dev).items():
+        b_ms, b_by = bound(n_bytes, flops)
+        r = rows[name] = dict(ms=time_ms(kern), plain_ms=time_ms(plain),
+                              library_ms=time_ms(lib), bound_ms=b_ms,
+                              bound_by=b_by, call_ms=call_ms(kern))
+        lines.append(f"{name} {WHISPER} ms={r['ms']:.4f} "
+                     f"call_ms={r['call_ms']:.4f} "
+                     f"plain_ms={r['plain_ms']:.4f} library_ms="
+                     f"{r['library_ms']:.4f} (sdpa, not causal, no mask) "
+                     f"bound_ms={b_ms:.4f} ({b_by}; {n_bytes} bytes, "
+                     f"{flops} flops) roofline_share={b_ms / r['ms']:.3f}")
+    return rows, lines
+
+
+def side_parity(dev):
+    """Phase 21: phi-3-vision (2 layers) and whisper-tiny (2 encoder + 2
+    decoder layers) at full per-head widths in fp32, the same weights
+    served on cuda and on cpu through ``generate``: one prompt of
+    SIDE_PARITY_LEN positions (phi-3-vision's 576 image embeddings and
+    1728 tokens; 1500 frames and 2304 decoder tokens for whisper, past
+    its 448-token context so that the SA layers' ring wraps), 8 new
+    tokens, router-driven, all-FA, all-SA and mixed. Routing and tokens
+    identical, first logits within FP32_TOL. The seed (of the tokens and
+    the side input, numpy) is the first whose router margins all exceed
+    1e-3 on the card. Returns lines."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import routing_pattern
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import ServeEngine
+    out = []
+    for arch in (PHI3V, WHISPER):
+        base = get_config(arch)
+        cfg = base.replace(num_layers=2, dtype=torch.float32,
+                           param_dtype=torch.float32,
+                           num_encoder_layers=min(base.num_encoder_layers,
+                                                  2))
+        params = MD.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        S = SIDE_PARITY_LEN - cfg.num_prefix_tokens
+        assert SIDE_PARITY_LEN > cfg.flux.sink + cfg.flux.local
+        engines = {name: ServeEngine(
+            params, cfg, max_len=SIDE_PARITY_LEN + SIDE_PARITY_GEN,
+            prefill_chunk=CHUNK, device=d)
+            for name, d in (("card", dev), ("cpu", "cpu"))}
+        card = engines["card"]
+        for seed in range(32):
+            toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                        (1, S))
+            side = side_inputs(cfg, 1, seed)
+            pf = MD.prefill(card.params, cfg,
+                            torch.as_tensor(toks, device=dev),
+                            routing_ctx="hard_prefix", want_cache=False,
+                            **{k: torch.as_tensor(v, device=dev)
+                               for k, v in side.items()})
+            margin = float(np.abs(pf.p_fa.numpy() - 0.5).min())
+            if margin > 1e-3:
+                break
+        else:
+            raise AssertionError(f"{arch}: no prompt seed with router "
+                                 f"margins > 1e-3")
+        enc = cfg.num_encoder_layers
+        line = [f"{arch} ({cfg.num_layers} layers"
+                f"{f' + {enc} encoder' if enc else ''}, fp32) "
+                f"prompt_seed={seed} min_margin={margin:.2e}"]
+        for name in ("router", "fa", "sa", "mixed"):
+            ov = routing_pattern(cfg, name)
+            res = {d: e.generate(toks, SIDE_PARITY_GEN, routing_override=ov,
+                                 **side) for d, e in engines.items()}
+            g, c = res["card"], res["cpu"]
+            err = float((g.logits.cpu() - c.logits).abs().max())
+            assert g.routing == c.routing, (arch, name, g.routing, c.routing)
+            assert np.array_equal(g.tokens, c.tokens), (arch, name)
+            assert err < FP32_TOL, (arch, name, err)
+            assert g.dispatches == c.dispatches
+            if name == "router":
+                assert float(np.abs(c.p_fa - 0.5).min()) > 1e-3, c.p_fa
+            line.append(f"{name} routing={pattern_text(g.routing)} "
+                        f"logits_err={err:.2e} "
+                        f"tokens={g.tokens[0].tolist()}")
+        out.append("; ".join(line))
+        del engines, card, params
+        free_card()
+    return out
+
+
+def side_path(dev, params, cfg, prompt, max_len, requests=REQUESTS):
+    """Phases 22 (phi-3-vision) and 23 (whisper-tiny): ``cfg`` at full
+    width and depth in bf16 through ``generate``, ``requests`` prompts of
+    ``prompt`` tokens with their side inputs (numpy, seed 0), GEN new
+    tokens, router-driven and mixed: the monolithic prefill and repack,
+    as in the JAX engine. Every logit finite, the unembedding's full
+    vocabulary, exact launch counts: flash (causal) at each FA layer,
+    streaming at each SA layer, the batch decode once a layer a step; for
+    whisper also flash with causal=False once an encoder layer (E x E)
+    and once a decoder layer (the cross attention, S x E), and the batch
+    decode once more a layer a step over the E encoder keys; block-sparse
+    and the pooled decodes never. The slot pool must refuse the model.
+    Returns (launch counts, {instance: launches}, lines)."""
+    import repro_torch.kernels as KN
+    from repro_torch.launch.serve import routing_pattern
+    from repro_torch.serve.engine import ServeEngine
+    L, E = cfg.num_layers, cfg.num_encoder_layers
+    ctx, P = cfg.encoder_ctx, cfg.num_prefix_tokens
+    eng = ServeEngine(params, cfg, max_len=max_len, prefill_chunk=CHUNK,
+                      device=dev)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (requests, prompt))
+    side = side_inputs(cfg, requests, 0)
+    assert not eng.chunked_eligible(P + prompt, **side)
+    try:
+        eng.scheduler()
+    except ValueError as e:
+        assert "decoder-only" in str(e), e
+    else:
+        raise AssertionError(f"{cfg.name}: the slot pool took a model with "
+                             f"a side input")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    KN.reset_launch_counts()
+    zero = {k: 0 for k in KN.KERNELS}
+    lines, inst = [], collections.Counter()
+    for name in ("router", "mixed"):
+        before = KN.launch_counts()
+        with SideRecorder() as rec:
+            gen = eng.generate(prompts, GEN,
+                               routing_override=routing_pattern(cfg, name),
+                               **side)
+        delta = {k: v - before[k] for k, v in KN.launch_counts().items()}
+        assert gen.tokens.shape == (requests, GEN)
+        assert gen.logits.shape == (requests, cfg.vocab_size)
+        assert bool(torch.isfinite(gen.logits).all()), "first logits"
+        assert bool(torch.isfinite(gen.final_logits).all()), "last logits"
+        n_fa = sum(p == "fa" for p in gen.routing)
+        S = P + prompt
+        want = {**zero, "flash_attention": n_fa + (E + L if E else 0),
+                "streaming_attention": L - n_fa,
+                "decode_attention": GEN * L * (2 if E else 1)}
+        assert delta == want, (name, delta, want)
+        flash = {k: c for k, c in {(True, S, S): n_fa, (False, ctx, ctx): E,
+                                   (False, prompt, ctx): L if E else 0}
+                 .items() if c}
+        assert dict(rec.flash) == flash, (name, dict(rec.flash), flash)
+        assert rec.decode[ctx] == (GEN * L if E else 0), dict(rec.decode)
+        assert sum(rec.decode.values()) == want["decode_attention"]
+        inst["flash_attention whisper_encoder"] += rec.flash[False, ctx, ctx]
+        inst["flash_attention whisper_cross"] += rec.flash[False, prompt,
+                                                           ctx]
+        inst["decode_attention whisper_cross"] += rec.decode[ctx] if E else 0
+        enc = (f"encode_s={gen.encode_s:.4f} encode_frames_s="
+               f"{requests * ctx / gen.encode_s:.0f} " if E else "")
+        lines.append(
+            f"{name}: routing={pattern_text(gen.routing)} {enc}"
+            f"prefill_s={gen.prefill_s:.3f} prefill_tok_s="
+            f"{requests * S / gen.prefill_s:.0f} (positions, prefix "
+            f"included) decode_s={gen.decode_s:.3f} decode_tok_s="
+            f"{requests * GEN / gen.decode_s:.1f} kv_bytes={gen.kv_bytes} "
+            f"dispatches={gen.dispatches} launches={delta} "
+            f"flash_calls={dict(rec.flash)} decode_calls={dict(rec.decode)} "
+            f"tokens0={gen.tokens[0, :8].tolist()}")
+    counts = KN.launch_counts()
+    for k in ("flash_attention", "streaming_attention", "decode_attention"):
+        assert counts[k] > 0, f"{k} was never launched on {cfg.name}'s path"
+    lines.append(f"peak_mem_bytes={torch.cuda.max_memory_allocated(dev)} "
+                 f"card={torch.cuda.get_device_name(0)}")
+    return counts, dict(inst), lines
+
+
 def check_kernels(dev):
     """Phase 3: every kernel against its plain version on the card.
     Returns {arch: {kernel: max abs error at that arch's main shapes}}."""
@@ -3366,6 +3699,9 @@ def check_kernels(dev):
     for line in mla_small_checks(dev):
         say(3, line)
     errs["sa_modes"] = sa_mode_checks(dev)
+    errs[WHISPER], lines = side_kernel_checks(dev)
+    for line in lines:
+        say(3, line)
     return errs
 
 
@@ -3474,6 +3810,10 @@ def time_kernels(dev, parent=None):
     out[DEEPSEEK]["decode_attention_mla"] = time_mla(dev, parent)
     free_card()
     out["sa_modes"] = sa_mode_times(dev)
+    free_card()
+    out[WHISPER], lines = side_kernel_times(dev)
+    for line in lines:
+        say(4, line)
     return out
 
 
@@ -3710,6 +4050,48 @@ def main(argv=None) -> int:
     del params
     free_card()
 
+    t0 = time.perf_counter()
+    for line in side_parity(dev):
+        say(21, line)
+    say(21, f"{PHI3V} and {WHISPER} card = cpu done", t0)
+    free_card()
+
+    cfg = get_config(PHI3V)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    torch.cuda.synchronize()
+    say(22, f"{PHI3V} full width and depth ({cfg.num_layers} layers, "
+            f"{cfg.num_prefix_tokens} prefix embeddings), "
+            f"{cfg.param_count()} parameters, "
+            f"{torch.cuda.memory_allocated(dev)} bytes on the card", t0)
+    counts["phi3_vision"], _, lines = side_path(
+        dev, params, cfg, PHI3V_PROMPT, PROMPT + GEN)
+    for line in lines:
+        say(22, line)
+    say(22, f"{PHI3V} batch path done", t0)
+    del params
+    free_card()
+
+    cfg = get_config(WHISPER)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    torch.cuda.synchronize()
+    say(23, f"{WHISPER} full width and depth ({cfg.num_encoder_layers} "
+            f"encoder + {cfg.num_layers} decoder layers over "
+            f"{cfg.encoder_ctx} frames, tied vocabulary "
+            f"{cfg.vocab_size}), {cfg.param_count()} parameters, "
+            f"{torch.cuda.memory_allocated(dev)} bytes on the card", t0)
+    counts["whisper"], side_launches, lines = side_path(
+        dev, params, cfg, WHISPER_PROMPT, WHISPER_MAX_LEN,
+        requests=WHISPER_REQUESTS)
+    for line in lines:
+        say(23, line)
+    say(23, f"{WHISPER} batch path done", t0)
+    del params
+    free_card()
+
     import repro_torch.kernels as KN
     kernels = []
     for name, replaces in REPLACES.items():
@@ -3756,6 +4138,14 @@ def main(argv=None) -> int:
                     launches=counts[path][name] if path else None,
                     max_abs_err=errs["sa_modes"][key],
                     **rows["sa_modes"][key])
+        # whisper's instances (not causal): their launches on phase 23's
+        # path, as SideRecorder tallied them
+        for case in rows[WHISPER]:
+            kern, key = case.split()
+            if kern == name:
+                kernels[-1][key] = dict(launches=side_launches[case],
+                                        max_abs_err=errs[WHISPER][case],
+                                        **rows[WHISPER][case])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ params)``), so this module imports neither JAX nor the JAX package. The
 JAX trunk is stacked by period position (``trunk[pos]`` leaves carry a
 leading ``n_periods`` axis); the port keeps one dictionary per layer, so
 layer ``i`` is ``trunk[i % P]`` at period ``i // P``, the way the JAX
-``layer_params`` un-stacks it.
+``layer_params`` un-stacks it (a decoder layer's ``norm_x`` / ``xattn``
+come with it). The JAX encoder stacks its layers on one leading axis
+for ``lax.scan``; the port keeps them as a list, ``encoder["layers"]``.
 """
 from __future__ import annotations
 
@@ -49,6 +51,15 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
         layers.append(_convert(trunk[pos], device, per))
     out: Dict[str, Any] = {"layers": layers}
     for k, v in np_params.items():
-        if k != "trunk":
+        if k not in ("trunk", "encoder"):
             out[k] = _convert(v, device)
+    if "encoder" in np_params:
+        enc = np_params["encoder"]
+        n = cfg.num_encoder_layers
+        if np.asarray(enc["layers"]["norm1"]["scale"]).shape[0] != n:
+            raise ValueError(f"the encoder's layers are not stacked {n} "
+                             f"deep; {cfg.name} has {n} encoder layers")
+        out["encoder"] = {
+            "layers": [_convert(enc["layers"], device, i) for i in range(n)],
+            "final_norm": _convert(enc["final_norm"], device)}
     return out

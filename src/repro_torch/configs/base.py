@@ -5,9 +5,12 @@ dataclasses with torch dtypes; ``register``/``get_config`` and
 ``smoke_variant`` keep their meaning. The port registers the archs
 whose every layer is global attention, GQA or Multi-head Latent
 Attention, with a dense or an MoE FFN (phi3-mini-3.8b, stablelm-12b,
-command-r-plus-104b, granite-moe-3b-a800m, deepseek-v2-236b); the other
-architectures come with the slices that port their layer kinds (ROADMAP
-Queue 1 items 12 and 14).
+command-r-plus-104b, granite-moe-3b-a800m, deepseek-v2-236b), and the
+two whose requests carry a modality side input: phi-3-vision-4.2b
+(prefix embeddings) and whisper-tiny (an encoder over frame embeddings,
+and cross attention in every decoder layer). SSM and sliding-window
+layers come with the slices that port them (ROADMAP Queue 1 items 12 and
+14d).
 """
 from __future__ import annotations
 
@@ -160,7 +163,8 @@ class ModelConfig:
         """The JAX package's count (embedding, attention, FFN or MoE,
         norms; the final norm and the routers are not counted) for the
         kinds the port serves: GQA or MLA attention layers with a dense
-        SwiGLU or an MoE FFN. ``active_only`` counts the top-k and
+        SwiGLU or an MoE FFN, and whisper's encoder layers and the
+        decoder's cross attention. ``active_only`` counts the top-k and
         shared experts a token runs instead of every expert."""
         d = self.d_model
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
@@ -184,6 +188,12 @@ class ModelConfig:
             else:
                 n += 3 * d * self.d_ff  # SwiGLU: gate, up, down
             n += 2 * d  # norms
+        # encoder (whisper): self attention + FFN + 2 norms a layer; every
+        # decoder layer adds cross attention (wq, wk, wv, wo) and its norm
+        for _ in range(self.num_encoder_layers):
+            n += 4 * d * self.q_dim + 3 * d * self.d_ff + 2 * d
+        if self.num_encoder_layers:
+            n += self.num_layers * (4 * d * self.q_dim + d)
         return n
 
 
@@ -200,6 +210,8 @@ ARCH_MODULES = {
     "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
     "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "phi-3-vision-4.2b": "repro_torch.configs.phi_3_vision_4_2b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
 
@@ -211,9 +223,9 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     if name not in ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; the port serves the archs "
-                       f"{sorted(ARCH_MODULES)} (SSM, sliding-window, "
-                       f"encoder and prefix-embedding layers wait for "
-                       f"ROADMAP Queue 1 items 12 and 14)")
+                       f"{sorted(ARCH_MODULES)} (SSM and sliding-window "
+                       f"layers wait for ROADMAP Queue 1 items 12 and "
+                       f"14d)")
     importlib.import_module(ARCH_MODULES[name])
     return _REGISTRY[name]
 

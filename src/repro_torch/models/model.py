@@ -38,6 +38,16 @@ so, the Mixture-of-Experts of ``models/moe.py``, called with the length
 of the call it is in (the route chunk, a streamed chunk, the monolithic
 prompt, one decode token), as the JAX package's prefill and decode
 functions call it: its capacity depends on that length.
+
+Modality side inputs, as in the JAX package: a VLM (phi-3-vision)
+takes ``prefix_embeddings`` (B, P, d), concatenated before the token
+embeddings, so positions, routing and the caches run over P + S; an
+encoder-decoder (whisper) takes ``encoder_frames`` (B, E, d), which
+``encode`` turns into ``enc_out`` (bidirectional self attention, no
+RoPE, on the flash kernel with ``causal=False``), and every decoder
+layer adds cross attention over ``enc_out`` after its self attention:
+flash with ``causal=False`` over the S prompt rows at prefill, the batch
+decode kernel with every one of the E keys visible at a decode step.
 """
 from __future__ import annotations
 
@@ -70,14 +80,15 @@ Params = Dict[str, Any]
 
 def check_supported(cfg: ModelConfig) -> None:
     """The layer kinds the port runs: GQA or MLA global attention with a
-    dense SwiGLU or an MoE FFN."""
-    if (cfg.num_encoder_layers or cfg.num_prefix_tokens
-            or any(k != "attn" for k in cfg.layer_kinds)):
+    dense SwiGLU or an MoE FFN, with or without an encoder and prefix
+    embeddings."""
+    kinds = set(cfg.layer_kinds) - {"attn"}
+    if kinds:
         raise NotImplementedError(
             f"{cfg.name}: the port serves models whose layers are all "
-            f"'attn' (GQA or MLA) with a dense or an MoE FFN; SSM, "
-            f"sliding-window, encoder and modality-prefix layers wait for "
-            f"ROADMAP Queue 1 items 12 and 14")
+            f"'attn' (GQA or MLA) with a dense or an MoE FFN; its "
+            f"{sorted(kinds)} layers wait for ROADMAP Queue 1 items 12 "
+            f"(SSM) and 14d (sliding-window)")
 
 
 def has_ffn(cfg: ModelConfig, layer_idx: int) -> bool:
@@ -112,6 +123,9 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig,
                           else A.gqa_init(gen, cfg))}
     if is_routed(cfg, layer_idx):
         p["router"] = R.router_init(gen, router_in_dim(cfg), cfg.flux)
+    if cfg.num_encoder_layers:  # whisper's decoder: cross attention
+        p["norm_x"] = rms_norm_init(cfg.d_model, dt, dev)
+        p["xattn"] = _xattn_init(gen, cfg)
     if has_ffn(cfg, layer_idx):
         p["norm2"] = rms_norm_init(cfg.d_model, dt, dev)
         if cfg.moe_layer_mask()[layer_idx]:
@@ -119,6 +133,25 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig,
         else:
             p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, dt)
     return p
+
+
+def _xattn_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """wq / wk / wv / wo of an attention without RoPE over all heads (an
+    encoder layer's self attention and a decoder layer's cross
+    attention)."""
+    d, dt = cfg.d_model, cfg.param_dtype
+    return {"wq": dense_init(gen, d, cfg.q_dim, dt),
+            "wk": dense_init(gen, d, cfg.q_dim, dt),
+            "wv": dense_init(gen, d, cfg.q_dim, dt),
+            "wo": dense_init(gen, cfg.q_dim, d, dt)}
+
+
+def _enc_block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    dt, dev = cfg.param_dtype, gen.device
+    return {"norm1": rms_norm_init(cfg.d_model, dt, dev),
+            "attn": _xattn_init(gen, cfg),
+            "norm2": rms_norm_init(cfg.d_model, dt, dev),
+            "ffn": ffn_init(gen, cfg.d_model, cfg.d_ff, dt)}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
@@ -138,6 +171,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     if not cfg.tie_embeddings:
         params["out_w"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                      cfg.param_dtype)
+    if cfg.num_encoder_layers:
+        params["encoder"] = {
+            "layers": [_enc_block_init(gen, cfg)
+                       for _ in range(cfg.num_encoder_layers)],
+            "final_norm": rms_norm_init(cfg.d_model, cfg.param_dtype,
+                                        gen.device),
+        }
     return params_to(params, device)
 
 
@@ -153,6 +193,59 @@ def params_to(params, device):
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
+
+def _heads(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(B, S, H·hd) → (B, H, S, hd), contiguous (the kernels' operands)."""
+    B, S, _ = x.shape
+    return x.reshape(B, S, cfg.num_heads, cfg.head_dim).transpose(
+        1, 2).contiguous()
+
+
+def _merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, hd) → (B, S, H·hd)."""
+    B, H, S, hd = o.shape
+    return o.transpose(1, 2).reshape(B, S, H * hd)
+
+
+def _cross_kv(p, cfg: ModelConfig, enc_out: torch.Tensor):
+    """A decoder layer's cross-attention keys and values over ``enc_out``
+    (B, E, d): (B, H, E, hd) each, no RoPE."""
+    return (_heads(enc_out @ p["wk"], cfg), _heads(enc_out @ p["wv"], cfg))
+
+
+def _cross_attention(p, cfg: ModelConfig, h: torch.Tensor,
+                     enc_out: torch.Tensor,
+                     enc_positions: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Whisper's decoder cross attention: queries from ``h`` (B, S, d),
+    keys and values from ``enc_out`` (B, E, d), every key visible, no
+    RoPE. Returns (B, S, d). Over S rows it runs the flash kernel with
+    ``causal=False``; at one token a row, given ``enc_positions`` =
+    arange(E) int32, the batch decode kernel with cur_pos = E - 1, so
+    every key is visible (the softmax of ``M.attention(..,
+    BIDIRECTIONAL)`` at Sq = 1; a flash call would fill 1 row of a 64-row
+    tile). The keys and values are recomputed from ``enc_out`` at every
+    call, as the JAX package recomputes them."""
+    k, v = _cross_kv(p, cfg, enc_out)
+    q = _heads(h @ p["wq"], cfg)
+    if enc_positions is None:
+        o = M.attention(q, k, v, M.BIDIRECTIONAL)
+    else:
+        o = _dot_decode(q, k, v, enc_positions, enc_out.shape[1] - 1)
+    return _merge_heads(o) @ p["wo"]
+
+
+def _cross_residual(bp, cfg: ModelConfig, h: torch.Tensor, enc_out,
+                    enc_positions=None) -> torch.Tensor:
+    """h + cross attention over ``enc_out`` of norm_x(h) at a decoder
+    layer that has it and when ``enc_out`` is given, else h; one token a
+    row on the decode kernel with ``enc_positions``."""
+    if "xattn" not in bp or enc_out is None:
+        return h
+    hx = rms_norm(bp["norm_x"], h, cfg.norm_eps)
+    return h + _cross_attention(bp["xattn"], cfg, hx, enc_out,
+                                enc_positions)
+
 
 def _route_and_attend(bp, cfg: ModelConfig, q, k, v, x_q, ctx,
                       q_offset: int = 0):
@@ -202,12 +295,14 @@ def ffn_block(bp, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
 
 def block_apply(bp, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
                 positions: torch.Tensor, ctx, want_cache: bool = False,
-                capacity_len: Optional[int] = None):
+                capacity_len: Optional[int] = None, enc_out=None):
     """One transformer block over a full sequence. Returns (h, r, cache):
     r is the routing record of a routed layer else None; cache is the
     layer's (k, v), or an MLA layer's latent (ckv, kr), when
     ``want_cache``. ``capacity_len`` sets an MoE layer's capacity from
-    another length than the sequence's (the fidelity probe's bucket)."""
+    another length than the sequence's (the fidelity probe's bucket).
+    ``enc_out`` (B, E, d): the encoder's output, which a decoder layer
+    with cross attention attends after its self attention."""
     x = rms_norm(bp["norm1"], h, cfg.norm_eps)
     if cfg.use_mla:
         ckv, kr = A.mla_latent(bp["attn"], cfg, x, positions)
@@ -223,16 +318,59 @@ def block_apply(bp, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
     else:
         o = M.attention(q, k, v, M.FULL)
     h = h + (A.mla_out if cfg.use_mla else A.gqa_out)(bp["attn"], cfg, o)
+    h = _cross_residual(bp, cfg, h, enc_out)
     return ffn_block(bp, cfg, layer_idx, h, capacity_len), r, cache
+
+
+# ---------------------------------------------------------------------------
+# Encoder (whisper backbone)
+# ---------------------------------------------------------------------------
+
+def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """The bidirectional encoder over precomputed frame embeddings (B, E,
+    d), cast to ``cfg.dtype``: per layer RMSNorm, q / k / v without RoPE,
+    attention over every frame (the flash kernel with ``causal=False``),
+    the output projection, RMSNorm and SwiGLU; then the encoder's final
+    norm. Returns enc_out (B, E, d)."""
+    enc = params["encoder"]
+    h = frames.to(cfg.dtype)
+    for bp in enc["layers"]:
+        x = rms_norm(bp["norm1"], h, cfg.norm_eps)
+        p = bp["attn"]
+        o = M.attention(_heads(x @ p["wq"], cfg), _heads(x @ p["wk"], cfg),
+                        _heads(x @ p["wv"], cfg), M.BIDIRECTIONAL)
+        h = h + _merge_heads(o) @ p["wo"]
+        x2 = rms_norm(bp["norm2"], h, cfg.norm_eps)
+        h = h + ffn_apply(bp["ffn"], x2)
+    return rms_norm(enc["final_norm"], h, cfg.norm_eps)
+
+
+def encode_side_input(params, cfg: ModelConfig, encoder_frames):
+    """enc_out for a model with an encoder (``encode``; ValueError when
+    ``encoder_frames`` is None), None for one without."""
+    if not cfg.num_encoder_layers:
+        return None
+    if encoder_frames is None:
+        raise ValueError(
+            f"{cfg.name} has an encoder ({cfg.num_encoder_layers} layers): "
+            f"pass its frame embeddings as encoder_frames (B, "
+            f"{cfg.encoder_ctx}, {cfg.d_model})")
+    return encode(params, cfg, encoder_frames)
 
 
 # ---------------------------------------------------------------------------
 # Embedding / logits
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, params["embed"]).to(cfg.dtype)
+def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor,
+                 prefix_embeddings: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Token embeddings (B, S, d) in ``cfg.dtype``, after the modality
+    prefix (B, P, d) when one is given: (B, P + S, d)."""
+    h = F.embedding(tokens, params["embed"]).to(cfg.dtype)
+    if prefix_embeddings is not None:
+        h = torch.cat([prefix_embeddings.to(cfg.dtype), h], dim=1)
+    return h
 
 
 def unembed_matrix(params, cfg: ModelConfig) -> torch.Tensor:
@@ -261,8 +399,11 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             routing_ctx: str = "hard",
             fixed_pattern: Optional[Sequence[int]] = None,
             head_split_n: int = 0,
+            prefix_embeddings: Optional[torch.Tensor] = None,
+            encoder_frames: Optional[torch.Tensor] = None,
             want_cache: bool = True,
-            fa_threshold: Optional[float] = None) -> ForwardOut:
+            fa_threshold: Optional[float] = None,
+            enc_out: Optional[torch.Tensor] = None) -> ForwardOut:
     """Serving prefill over the whole of ``tokens`` (B, S): hard routing
     (or a fixed pattern), full per-layer KV out.
 
@@ -271,13 +412,19 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     DuoAttention-style baseline with ``head_split_n`` full-attention KV
     heads per routed layer (no routing record). ``fa_threshold``: the
     FA-decision threshold of the hard contexts (None = the paper's 0.5
-    argmax)."""
+    argmax). ``prefix_embeddings`` (B, P, d) run before the tokens, so
+    routing, positions and the caches cover P + S; a model with an
+    encoder needs ``encoder_frames`` (B, E, d), which ``encode`` runs
+    first, or their ``enc_out`` already encoded (the engine encodes once
+    for the prefill and the decode)."""
     if routing_ctx not in ("hard", "hard_prefix", "fixed", "fa_only",
                            "head_split"):
         raise NotImplementedError(
             f"routing_ctx={routing_ctx!r}: the soft (training) context "
             f"waits for ROADMAP Queue 1 item 15")
-    h = embed_tokens(params, cfg, tokens)
+    if enc_out is None:
+        enc_out = encode_side_input(params, cfg, encoder_frames)
+    h = embed_tokens(params, cfg, tokens, prefix_embeddings)
     positions = torch.arange(h.shape[1], device=h.device)
     rs, caches = [], []
     for i, bp in enumerate(params["layers"]):
@@ -291,7 +438,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             ctx = ((routing_ctx,) if fa_threshold is None
                    else (routing_ctx, float(fa_threshold)))
         h, r, cache = block_apply(bp, cfg, i, h, positions, ctx,
-                                  want_cache=want_cache)
+                                  want_cache=want_cache, enc_out=enc_out)
         if r is not None:
             rs.append(r)
         caches.append(cache)
@@ -436,13 +583,21 @@ def _decode_attn_headsplit(bp, cfg, x, pos, rope_pos, cache, n_fa_kv: int):
 
 def decode_core(params, cfg: ModelConfig, token: torch.Tensor,
                 caches: List, pos, fa_heads: Optional[Sequence[int]] = None,
-                duo_layers: Optional[Tuple[int, ...]] = None):
+                duo_layers: Optional[Tuple[int, ...]] = None,
+                enc_out: Optional[torch.Tensor] = None,
+                enc_positions: Optional[torch.Tensor] = None):
     """One autoregressive step at position ``pos``: an int shared by all
     rows, or a (B,) int32 device tensor, one per row. token (B,1).
     ``duo_layers`` marks full-cache GQA layers that run a DuoAttention
     head split, ``fa_heads`` (num_layers,) their full-attention KV-head
-    counts (``routing_head_split``). Updates ``caches`` in place. Returns
-    (logits (B,V), caches)."""
+    counts (``routing_head_split``). ``enc_out`` (B, E, d): the encoder's
+    output, which every decoder layer with cross attention attends after
+    its self attention, on the batch decode kernel over
+    ``enc_positions`` (arange(E) int32 on enc_out's device; made here
+    when None, ``decode_many`` makes it once). Updates ``caches`` in
+    place. Returns (logits (B,V), caches)."""
+    if enc_out is not None and enc_positions is None:
+        enc_positions = _enc_positions(enc_out)
     h = embed_tokens(params, cfg, token)
     pooled = isinstance(pos, torch.Tensor)
     rope_pos = (pos[:, None] if pooled
@@ -467,9 +622,17 @@ def decode_core(params, cfg: ModelConfig, token: torch.Tensor,
                                                  device=h.device)
             y, cache = _decode_attn_full(bp, cfg, x, pos, rope_pos, cache,
                                          slot_positions.get(L))
-        h = ffn_block(bp, cfg, i, h + y)
+        h = _cross_residual(bp, cfg, h + y, enc_out, enc_positions)
+        h = ffn_block(bp, cfg, i, h)
         caches[i] = cache
     return logits_from_hidden(params, cfg, h[:, -1]), caches
+
+
+def _enc_positions(enc_out: torch.Tensor) -> torch.Tensor:
+    """The cross-attention keys' positions, arange(E) int32: with cur_pos
+    E - 1 the decode kernel sees every encoder frame."""
+    return torch.arange(enc_out.shape[1], dtype=torch.int32,
+                        device=enc_out.device)
 
 
 def routing_head_split(cfg: ModelConfig, routing):
@@ -493,14 +656,14 @@ def routing_head_split(cfg: ModelConfig, routing):
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches: List,
-                routing, pos):
+                routing, pos, enc_out: Optional[torch.Tensor] = None):
     """One autoregressive step under a routing pattern cached from
     prefill. The fa/sa entries are informational (the caches' types
     carry them); only duo head splits change what runs. Returns
     (logits (B,V), caches)."""
     fa_heads, duo_layers = routing_head_split(cfg, routing)
     return decode_core(params, cfg, token, caches, pos, fa_heads=fa_heads,
-                       duo_layers=duo_layers)
+                       duo_layers=duo_layers, enc_out=enc_out)
 
 
 def sample_categorical(logits: torch.Tensor,
@@ -521,19 +684,22 @@ def decode_many(params, cfg: ModelConfig, logits: torch.Tensor,
                 greedy: bool = True,
                 generator: Optional[torch.Generator] = None,
                 fa_heads: Optional[Sequence[int]] = None,
-                duo_layers: Optional[Tuple[int, ...]] = None):
+                duo_layers: Optional[Tuple[int, ...]] = None,
+                enc_out: Optional[torch.Tensor] = None):
     """Generation for ``n_steps``: token i is drawn from the logits
     before decode step i, their argmax when ``greedy``, else one
     categorical sample a row from ``generator`` (``sample_categorical``).
     ``pos`` is the absolute position of the first generated token: an
     int, or a (B,) int32 device tensor, one per row, advanced on the
-    device (no step reads it back). ``fa_heads`` / ``duo_layers`` as
-    ``decode_core`` takes them. Returns (tokens (B, n_steps) int64, last
-    logits (B, V), caches)."""
+    device (no step reads it back). ``fa_heads`` / ``duo_layers`` /
+    ``enc_out`` as ``decode_core`` takes them (the cross-attention
+    positions are made once, here). Returns (tokens (B, n_steps) int64,
+    last logits (B, V), caches)."""
     if not greedy and generator is None:
         raise ValueError(
             "decode_many(greedy=False) needs a torch.Generator on the "
             "logits' device (generator=...)")
+    enc_positions = None if enc_out is None else _enc_positions(enc_out)
     toks = []
     for step in range(n_steps):
         nxt = (torch.argmax(logits, dim=-1) if greedy
@@ -541,7 +707,8 @@ def decode_many(params, cfg: ModelConfig, logits: torch.Tensor,
         toks.append(nxt)
         logits, caches = decode_core(params, cfg, nxt[:, None], caches,
                                      pos + step, fa_heads=fa_heads,
-                                     duo_layers=duo_layers)
+                                     duo_layers=duo_layers, enc_out=enc_out,
+                                     enc_positions=enc_positions)
     out = (torch.stack(toks, dim=1) if toks
            else torch.zeros((logits.shape[0], 0), dtype=torch.int64,
                             device=logits.device))
@@ -610,9 +777,11 @@ def _chunk_attn_full(bp, cfg: ModelConfig, x, positions, start: int,
 
 
 def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
-                  caches: List, start: int):
+                  caches: List, start: int,
+                  enc_out: Optional[torch.Tensor] = None):
     """Stream one chunk (B, C) at absolute offset ``start`` into the
-    decode-geometry caches (routing already frozen on the first chunk).
+    decode-geometry caches (routing already frozen on the first chunk);
+    with ``enc_out``, each decoder layer's cross attention over it.
     Updates ``caches`` in place. Returns (last-token logits (B, V),
     caches)."""
     B, C = tokens.shape
@@ -628,20 +797,25 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
                                         KC.capacity(cache) - flux.sink)
         else:
             y, cache = _chunk_attn_full(bp, cfg, x, positions, start, cache)
-        h = ffn_block(bp, cfg, i, h + y)
+        h = ffn_block(bp, cfg, i, _cross_residual(bp, cfg, h + y, enc_out))
         caches[i] = cache
     return logits_from_hidden(params, cfg, h[:, -1]), caches
 
 
-def capture_hidden(params, cfg: ModelConfig,
-                   tokens: torch.Tensor) -> torch.Tensor:
-    """Hidden states after every layer of an FA-only forward, (L, B, S,
-    d): the input of the UnComp entropy ranking (``core/policies.py``)."""
-    h = embed_tokens(params, cfg, tokens)
+def capture_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
+                   prefix_embeddings: Optional[torch.Tensor] = None,
+                   encoder_frames: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Hidden states after every layer of an FA-only forward, (L, B,
+    P + S, d), side inputs as ``prefill`` takes them: the input of the
+    UnComp entropy ranking (``core/policies.py``)."""
+    enc_out = encode_side_input(params, cfg, encoder_frames)
+    h = embed_tokens(params, cfg, tokens, prefix_embeddings)
     positions = torch.arange(h.shape[1], device=h.device)
     snaps = []
     for i, bp in enumerate(params["layers"]):
-        h, _, _ = block_apply(bp, cfg, i, h, positions, ("fa_only",))
+        h, _, _ = block_apply(bp, cfg, i, h, positions, ("fa_only",),
+                              enc_out=enc_out)
         snaps.append(h)
     return torch.stack(snaps)
 
@@ -663,7 +837,9 @@ def snapshot_state(caches: List, logits: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def attention_mass_coverage(params, cfg: ModelConfig, tokens: torch.Tensor,
-                            capacity_len: Optional[int] = None
+                            capacity_len: Optional[int] = None, *,
+                            prefix_embeddings: Optional[torch.Tensor] = None,
+                            encoder_frames: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """Per-routed-layer FA attention mass retained by the SA window: the
     serving stack's routing-fidelity probe.
@@ -672,8 +848,10 @@ def attention_mass_coverage(params, cfg: ModelConfig, tokens: torch.Tensor,
     on the card) and, at every routed layer, asks: of the full-attention
     softmax mass the last query spreads over the prompt, what fraction
     lands on keys the sink+local window keeps? 1.0 means routing the
-    layer to SA loses nothing for the next decoded token. Scores are
-    float32 whatever the model's dtype.
+    layer to SA loses nothing for the next decoded token. Under ``ta``
+    the last query sits in the dense tail chunk, so coverage is exactly
+    1, as in the JAX package. Scores are float32 whatever the model's
+    dtype.
 
     The JAX package pads the prompt to a power-of-two bucket with a
     traced length to bound its jit cache; the port compiles nothing, so
@@ -681,15 +859,21 @@ def attention_mass_coverage(params, cfg: ModelConfig, tokens: torch.Tensor,
     padding invisible to the real tokens, but an MoE layer's capacity
     comes from the padded length: ``capacity_len`` (the bucket) gives
     the MoE layers that capacity, so the port's coverage is the JAX
-    engine's. Returns (n_routed,) float32 on the CPU, in
-    ``cfg.routable_layers()`` order."""
-    h = embed_tokens(params, cfg, tokens)
+    engine's. Side inputs as ``prefill`` takes them: the last query is
+    the prompt's last token, and the prefix counts among its keys.
+    Returns (n_routed,) float32 on the CPU, in ``cfg.routable_layers()``
+    order."""
+    enc_out = encode_side_input(params, cfg, encoder_frames)
+    h = embed_tokens(params, cfg, tokens, prefix_embeddings)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)
     sa = sa_mode(cfg)
     q_idx = S - 1
     kv_pos = torch.arange(S, device=h.device)
-    vis = (kv_pos < sa.sink) | (q_idx - kv_pos < sa.local)
+    if sa.kind == "triangle":  # the last query sits in the dense tail
+        vis = torch.ones(S, dtype=torch.bool, device=h.device)
+    else:
+        vis = (kv_pos < sa.sink) | (q_idx - kv_pos < sa.local)
     covs = []
     for i, bp in enumerate(params["layers"]):
         if is_routed(cfg, i):
@@ -710,7 +894,7 @@ def attention_mass_coverage(params, cfg: ModelConfig, tokens: torch.Tensor,
             p = torch.softmax(s, dim=-1)
             covs.append((p * vis).sum(dim=-1).mean())
         h, _, _ = block_apply(bp, cfg, i, h, positions, ("fa_only",),
-                              capacity_len=capacity_len)
+                              capacity_len=capacity_len, enc_out=enc_out)
     if not covs:
         return torch.zeros((0,), dtype=torch.float32)
     return torch.stack(covs).cpu()

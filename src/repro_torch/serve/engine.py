@@ -20,10 +20,14 @@ Admission is the chunked, cache-resident pipeline of the JAX engine:
 prompts the chunked path excludes (``chunked_eligible``): the paper's
 prefix+suffix pooling, DuoAttention head-split overrides (``("duo",
 n)`` entries, decoded over full caches with a per-KV-head mask) and the
-``xa`` / ``ta`` SA modes, whose prefill has no ring-resident form. As
-in the JAX engine, a duo layer's admission prefill runs full attention
-(the "fixed" context maps every entry but "sa" to FA); only its decode
-is head-split.
+``xa`` / ``ta`` SA modes, whose prefill has no ring-resident form, and
+requests with a modality side input (phi-3-vision's prefix embeddings,
+whisper's encoder frames) or for a model that takes one. As in the JAX
+engine, a duo layer's admission prefill runs full attention (the "fixed"
+context maps every entry but "sa" to FA); only its decode is head-split.
+A model with an encoder encodes its frames once per ``generate`` (the
+flash kernel with ``causal=False``); the prefill's and every decode
+step's cross attention read that one output.
 
 Shared-prefix reuse: an engine built with ``prefix_cache_mb`` keeps a
 radix store of chunk-boundary snapshots (``serve/prefix_cache.py``). A
@@ -55,6 +59,7 @@ from __future__ import annotations
 import time
 import warnings
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -325,6 +330,8 @@ class GenerationResult:
     prefill_s: float = 0.0        # host clock, admission incl. routing
     decode_s: float = 0.0         # host clock, the n_steps decode
     prefix_hit_tokens: int = 0    # prompt tokens served from a warm prefix
+    dispatches: int = 0           # engine calls, as the JAX engine counts
+    encode_s: float = 0.0         # host clock, the encoder (whisper)
 
 
 class ServeEngine:
@@ -379,6 +386,10 @@ class ServeEngine:
         self.routing_override = routing_override
         self.prefill_chunk = int(prefill_chunk) if prefill_chunk else 0
         self.routing_pooling = routing_pooling
+        # the encoder's call over a request's frames (whisper; a
+        # ValueError naming encoder_frames without them), else None
+        self._encode = (partial(MD.encode_side_input, self.params, cfg)
+                        if cfg.num_encoder_layers else None)
         self._scheduler = None  # ContinuousScheduler, created by scheduler()
         # geometries whose over-budget publication was already warned of
         self._snap_skip_warned: set = set()
@@ -849,17 +860,22 @@ class ServeEngine:
                 f"0 <= n <= {cfg.num_kv_heads} for each of "
                 f"{cfg.num_layers} layers; got {override!r}")
 
-    def chunked_eligible(self, seq_len: int, override=None) -> bool:
+    def chunked_eligible(self, seq_len: int, override=None, *,
+                         prefix_embeddings=None,
+                         encoder_frames=None) -> bool:
         """True when the chunked cache-resident admission can serve this
         request; False routes it to the monolithic repack fallback (duo
-        head splits and the xa / ta SA modes among others, as in the JAX
-        engine)."""
+        head splits, the xa / ta SA modes and modality side inputs among
+        others, as in the JAX engine)."""
         cfg = self.cfg
         override = (override if override is not None
                     else self.routing_override)
         self._check_override(override)
         if not self.prefill_chunk or seq_len <= 0:
             return False
+        if (prefix_embeddings is not None or encoder_frames is not None
+                or cfg.num_encoder_layers or cfg.num_prefix_tokens):
+            return False  # modality side inputs ride the monolithic path
         if override is not None and any(isinstance(p, tuple)
                                         for p in override):
             return False  # duo head splits keep the repack path
@@ -883,6 +899,11 @@ class ServeEngine:
             return tokens.to(device=self.device, dtype=torch.long)
         return torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                                device=self.device)
+
+    def _side_input(self, x) -> Optional[torch.Tensor]:
+        """A side input (prefix embeddings, encoder frames; numpy or a
+        tensor) on the engine's device, None kept."""
+        return None if x is None else torch.as_tensor(x, device=self.device)
 
     def start_chunked_prefill(self, tokens, override=None, *,
                               reuse: bool = True) -> ChunkedPrefill:
@@ -1048,26 +1069,35 @@ class ServeEngine:
             boundary=boundary, nbytes=nbytes), key)
         return True
 
-    def prefill_route_repack(self, tokens, override=None):
+    def prefill_route_repack(self, tokens, override=None, *,
+                             prefix_embeddings=None, encoder_frames=None,
+                             enc_out: Optional[torch.Tensor] = None):
         """Monolithic admission FALLBACK: full-sequence prefill (router
         fires once) → per-request pattern → repack into decode geometry.
-        Returns (pf, pattern, caches, seq_len)."""
+        Side inputs as ``MD.prefill`` takes them (``enc_out``: frames
+        already encoded, which ``generate`` passes). Returns (pf,
+        pattern, caches, seq_len), seq_len counting the prefix."""
         tokens = self._tokens(tokens)
+        prefix_embeddings = self._side_input(prefix_embeddings)
         override = (override if override is not None
                     else self.routing_override)
         self._check_override(override)
         routing_ctx, fixed = self._routing_ctx(override)
         pf = MD.prefill(self.params, self.cfg, tokens,
                         routing_ctx=routing_ctx, fixed_pattern=fixed,
+                        prefix_embeddings=prefix_embeddings,
+                        encoder_frames=self._side_input(encoder_frames),
                         fa_threshold=self._rung_threshold(self.sa_level,
-                                                          routing_ctx))
+                                                          routing_ctx),
+                        enc_out=enc_out)
         decisions = pf.routing.numpy() if pf.routing is not None else None
         pattern = self._pattern(decisions, override)
         if self.telemetry is not None:
             self._record_routing(
                 pattern, None if pf.p_fa is None else pf.p_fa.numpy(),
                 self.sa_level)
-        seq_len = tokens.shape[1]
+        seq_len = tokens.shape[1] + (0 if prefix_embeddings is None
+                                     else prefix_embeddings.shape[1])
         if seq_len > self.max_len:
             off = [i for i, k in enumerate(self.cfg.layer_kinds)
                    if k == "attn" and pattern[i] != "sa"]
@@ -1086,13 +1116,19 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def generate(self, tokens, n_steps: int, *, greedy: bool = True,
+    def generate(self, tokens, n_steps: int, *, prefix_embeddings=None,
+                 encoder_frames=None, greedy: bool = True,
                  rng=None, routing_override=None,
                  prefix_reuse: bool = True) -> GenerationResult:
         """Admit ``tokens`` (B, S) and decode ``n_steps`` tokens.
-        ``greedy=False`` with an ``rng`` samples each token from the
-        softmax of its logits: ``rng`` is a ``torch.Generator`` on the
-        engine's device, or an int seed the engine makes one of (the
+        ``prefix_embeddings`` (B, P, d) run before the tokens (a VLM's
+        projected image patches: the prompt is P + S long);
+        ``encoder_frames`` (B, E, d) are encoded once and attended by
+        every decoder layer (a model with an encoder needs them). Either
+        sends the request down the monolithic path, as in the JAX
+        engine. ``greedy=False`` with an ``rng`` samples each token from
+        the softmax of its logits: ``rng`` is a ``torch.Generator`` on
+        the engine's device, or an int seed the engine makes one of (the
         same seed, the same tokens). ``greedy or rng is None`` decodes
         greedily, as the JAX engine does. ``prefix_reuse=False`` keeps
         the request out of the prefix store."""
@@ -1100,27 +1136,40 @@ class ServeEngine:
         if not greedy and not isinstance(rng, torch.Generator):
             rng = torch.Generator(device=self.device).manual_seed(int(rng))
         tokens = self._tokens(tokens)
-        seq_len = tokens.shape[1]
+        prefix_embeddings = self._side_input(prefix_embeddings)
+        encoder_frames = self._side_input(encoder_frames)
+        seq_len = tokens.shape[1] + (0 if prefix_embeddings is None
+                                     else prefix_embeddings.shape[1])
         if seq_len > self.max_len:
             raise ValueError(
                 f"generate: prompt length {seq_len} exceeds the engine's "
                 f"cache capacity max_len={self.max_len}; raise max_len "
                 f"or truncate the prompt")
+        t_enc = time.perf_counter()
+        dispatches = 0
+        enc_out = None
+        if self._encode is not None:
+            enc_out = self._encode(encoder_frames)
+            dispatches += 1
+            self._sync()
         t0 = time.perf_counter()
         prefix_hit = 0
-        if self.chunked_eligible(seq_len, routing_override):
+        if self.chunked_eligible(seq_len, routing_override,
+                                 prefix_embeddings=prefix_embeddings,
+                                 encoder_frames=encoder_frames):
             job = self.prefill_chunked(tokens, routing_override,
                                        reuse=prefix_reuse)
             pattern, caches = job.pattern, job.caches
             logits, p_fa = job.logits, job.p_fa
             prefix_hit = job.prefix_hit_tokens
-            dispatches = job.dispatches
+            dispatches += job.dispatches
         else:
             pf, pattern, caches, seq_len = self.prefill_route_repack(
-                tokens, routing_override)
+                tokens, routing_override,
+                prefix_embeddings=prefix_embeddings, enc_out=enc_out)
             logits = pf.logits
             p_fa = None if pf.p_fa is None else pf.p_fa.numpy()
-            dispatches = 2  # prefill + the repack
+            dispatches += 2  # prefill + the repack
         if (seq_len + n_steps > self.max_len
                 and any(isinstance(c, (KC.FullKV, KC.LatentKV))
                         for c in caches)):
@@ -1135,10 +1184,11 @@ class ServeEngine:
         toks, final, _ = MD.decode_many(
             self.params, self.cfg, logits, caches, seq_len, n_steps=n_steps,
             greedy=greedy, generator=None if greedy else rng,
-            fa_heads=fa_heads, duo_layers=duo_layers)
+            fa_heads=fa_heads, duo_layers=duo_layers, enc_out=enc_out)
         toks = toks.cpu().numpy()  # waits for the decode to finish
         t2 = time.perf_counter()
-        self.dispatch_count += dispatches + 1  # and the decode
+        dispatches += 1  # and the decode
+        self.dispatch_count += dispatches
         routed = [p for p in pattern if p is not None]
         msr = (sum(p == "sa" for p in routed) / len(routed)
                if routed else float("nan"))
@@ -1147,7 +1197,9 @@ class ServeEngine:
                                 logits=logits, final_logits=final,
                                 prefill_s=t1 - t0,
                                 decode_s=t2 - t1,
-                                prefix_hit_tokens=prefix_hit)
+                                prefix_hit_tokens=prefix_hit,
+                                dispatches=dispatches,
+                                encode_s=t0 - t_enc)
 
     # -- continuous-batching frontend --------------------------------------
     def scheduler(self, **kw):

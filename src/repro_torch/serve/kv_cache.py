@@ -349,7 +349,7 @@ def init_layer_cache(cfg: ModelConfig, kind: str, mode: str, batch: int,
         raise NotImplementedError(
             f"layer kind {kind!r}: this slice caches global attention "
             f"layers only; local and mamba layers wait for ROADMAP "
-            f"Queue 1 items 14 and 12")
+            f"Queue 1 items 14d and 12")
     dtype = dtype or cfg.dtype
     H, D = cfg.num_kv_heads, cfg.head_dim
     length = torch.zeros((batch,), dtype=torch.int32, device=device)

@@ -14,7 +14,9 @@ keeps a persistent decode batch that requests join and leave per tick:
             resident batch. Requests ``chunked_eligible`` excludes (the
             ``xa`` / ``ta`` SA modes among them) admit through the
             monolithic repack fallback; a duo head-split pattern raises,
-            as in the JAX scheduler (``generate`` serves it). With the engine's
+            as in the JAX scheduler (``generate`` serves it), and so
+            does the constructor for a model whose requests carry a
+            modality side input (phi-3-vision, whisper). With the engine's
             prefix store, an admission starts from the deepest matching
             chunk-boundary snapshot and streams only the suffix
             (``RequestMetrics.prefix_hit_tokens``), and publishes the
@@ -171,6 +173,11 @@ class ContinuousScheduler:
                  chunk: int = 8, prefill_chunks_per_tick: int = 1,
                  clock: Callable[[], float] = time.monotonic,
                  slo: Optional[SLO.SLOConfig] = None):
+        if engine.cfg.num_encoder_layers or engine.cfg.num_prefix_tokens:
+            raise ValueError(
+                "continuous batching supports decoder-only text requests; "
+                "encoder/prefix modalities carry per-request side inputs "
+                "the slot pool does not hold yet")
         if slots_per_bucket < 1:
             raise ValueError(
                 f"slots_per_bucket={slots_per_bucket} must be >= 1: a "

@@ -90,6 +90,21 @@ def test_coverage_is_one_inside_the_sa_window(phi3):
     np.testing.assert_allclose(cov.numpy(), 1.0, rtol=0, atol=1e-6)
 
 
+def test_coverage_under_ta_matches_jax(phi3):
+    """Under TriangleMix the last query sits in the dense tail chunk, so
+    the JAX probe counts every live key as kept: coverage 1."""
+    jcfg, tcfg, jparams, tparams = phi3
+    jcfg = jcfg.replace(flux=jcfg.flux.replace(sa_mode="ta"))
+    tcfg = tcfg.replace(flux=tcfg.flux.replace(sa_mode="ta"))
+    toks = _prompt(tcfg.flux.sink + tcfg.flux.local + 9)[None]
+    want = np.asarray(JMD.attention_mass_coverage(jparams, jcfg,
+                                                  jnp.asarray(toks)))
+    port = MD.attention_mass_coverage(tparams, tcfg,
+                                      torch.as_tensor(toks)).numpy()
+    np.testing.assert_allclose(port, want, rtol=0, atol=COVERAGE_TOL)
+    np.testing.assert_allclose(port, 1.0, rtol=0, atol=1e-6)
+
+
 def test_coverage_of_mla_matches_jax():
     """deepseek-v2's smoke variant: the probe reads the per-head K of the
     decompressed latent, scaled by (nope + rope) ** -0.5, as JAX's does."""
