@@ -267,7 +267,30 @@ boolean mask, with the plain-torch antidiagonal scoring's device time.
      1500) and once a decoder layer (the cross attention, 384 x 1500),
      and the batch decode once more a layer a step over the 1500 encoder
      keys, each counted by ``SideRecorder``; the encode's seconds apart
-     from the prefill's and the decode's.
+     from the prefill's and the decode's;
+  24. mamba2-780m's SSD at its full widths (B 4, H 48, P 64, N 128, Q
+     256) on one seeded layer: ``ssd_chunked`` over S = 4096 and 1365 on
+     the layer's own operands, then ``mamba_apply`` and 32
+     ``mamba_decode_step``s, card against CPU in fp32 (1e-4 of the
+     largest value) and the card in bf16 within phase 3's bf16 limit of
+     the fp32 result;
+  25. mamba2 at full width, 2 of 48 layers, fp32, card against CPU
+     through phase 5's ``generate`` and phase 5b's drain (tokens
+     identical, first logits within 2e-3); jamba-1.5-large-398b's smoke
+     variant (one period: 7 Mamba layers, attention at index 3, MoE on
+     the even layers) fp32 card = CPU under the router, all-FA, all-SA
+     and mixed and through a drain, then in bf16 with exact launch
+     counts of the five kernels (its attention layer only);
+  26. mamba2-780m at full width and depth, bf16, seeded weights: phase
+     6's batch cell, phase 7's continuous cell and phase 8's prefix cell
+     (warm = cold bitwise from the device and host tiers, a shared
+     preamble drain), every attention kernel's launch count 0; prefill
+     and decode tok/s, TTFT, the SSD state bytes a request, peak memory,
+     and one prefill chunk's and one decode step's device time by
+     operator (torch.profiler).
+Phases 3 and 4 also hold and time the five kernels at jamba's attention
+layer (64 heads over 8 KV heads, D = 128) at the main shapes and its
+ring decode over 2176 slots.
 Phase 2b also stresses flash at whisper's encoder shape (causal=False,
 4 x 6 heads, D = 64, 1500 x 1500); phases 3 and 4 hold and time
 flash with causal=False at 1500 x 1500 and 384 x 1500 and the batch
@@ -283,7 +306,9 @@ under ``stress``; block-sparse's xa rows and streaming's and flash's ta
 rows under ``xa``, ``xa_stablelm_12b``, ``ta_streaming`` and
 ``ta_flash``; whisper's under ``whisper_encoder`` and ``whisper_cross``,
 with their launches on phase 23's path; launches by path also as
-``phi3_vision`` and ``whisper``), the total
+``phi3_vision``, ``whisper``, ``jamba_smoke`` (phase 25's bf16 runs)
+and ``mamba2`` (phase 26's three cells); jamba's G = 8 rows under
+``jamba_1_5_large_398b``, launches "phase 3 / 4 only"), the total
 seconds, and the last line ``{"ok": true, "device": {...}}``.
 """
 import collections
@@ -308,6 +333,10 @@ STABLELM = "stablelm-12b"  # head dim 160, G = 4: phases 9-11
 COMMAND_R = "command-r-plus-104b"  # G = 12, tied embeddings: phase 12
 GRANITE = "granite-moe-3b-a800m"  # MoE, head dim 64, G = 3: phases 15-16
 DEEPSEEK = "deepseek-v2-236b"  # MLA, 160 experts top-6 + 2: phases 17-18
+MAMBA2 = "mamba2-780m"  # every layer Mamba2 SSD, no attention: 24-26
+# 7 Mamba : 1 routed attention layer a period, MoE on the even layers: its
+# smoke variant in phase 25, its attention shapes (G = 8) in phases 3-4
+JAMBA = "jamba-1.5-large-398b"
 # deepseek-v2 at 60 layers is 472 GB in bf16; 4 of them at full width
 # (1.05 B embedding and unembedding + 4 x 3.98 B = 16.97 B parameters,
 # ≈ 34 GB) fit
@@ -1189,37 +1218,43 @@ def time_mla(dev, parent=None):
     return rows
 
 
-def ring_decode_case(dev):
+def ring_decode_case(dev, arch=ARCH):
     """The decode kernel over a sink + local RingKV at the main path's
-    shapes (bf16), the SA layers' decode: (kernel call, plain call, plain
-    call with one V tile zeroed, library call, bytes, flops)."""
+    shapes of ``arch`` (bf16), the SA layers' decode: (kernel call, plain
+    call, plain call with one V tile zeroed, library call, bytes,
+    flops)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_bh
     from repro_torch.serve.engine import _ring_src
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     sink, local = cfg.flux.sink, cfg.flux.local
     ring, BH, D = sink + local, REQUESTS * cfg.num_heads, cfg.head_dim
+    BHkv = REQUESTS * cfg.num_kv_heads
+    G = BH // BHkv
     cur = PROMPT + GEN // 2 - 1
     g = torch.Generator(device=dev).manual_seed(1)
-    q, k, v = (torch.randn(BH, n, D, generator=g, device=dev).to(
-        torch.bfloat16) for n in (1, ring, ring))
+    q, k, v = (torch.randn(n_bh, n, D, generator=g, device=dev).to(
+        torch.bfloat16) for n_bh, n in ((BH, 1), (BHkv, ring), (BHkv, ring)))
     pos = torch.as_tensor(_ring_src(cur + 1, sink, local, ring),
                           dtype=torch.int32, device=dev)
     valid = (pos >= 0) & (pos <= cur)
     n_valid = int(valid.sum())
+    # the library call takes (G, Hkv) query heads over Hkv key heads
+    q4 = q.view(BHkv, G, 1, D).transpose(0, 1)
     return (lambda: decode_attention_bh(q, k, v, pos, cur),
             lambda: ref.decode_attention_ref(q, k, v, pos, cur),
             lambda: ref.decode_attention_ref(q, k, zero_tile(v), pos, cur),
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                q[None], k[None], v[None], attn_mask=valid[None]),
-            *attn_work(BH, BH, 1, D, n_valid, BH * n_valid, 2))
+                q4, k[None].expand(G, *k.shape),
+                v[None].expand(G, *v.shape), attn_mask=valid[None]),
+            *attn_work(BH, BHkv, 1, D, n_valid, BH * n_valid, 2))
 
 
-def ring_decode_check(dev):
+def ring_decode_check(dev, arch=ARCH):
     """(max abs error, bf16 ratio of the kernel, bf16 ratio of the plain
     version with one V tile zeroed) of ``ring_decode_case``."""
-    kern, plain, mutant, *_ = ring_decode_case(dev)
+    kern, plain, mutant, *_ = ring_decode_case(dev, arch)
     out, want = kern(), plain()
     return (max_err(out, want), bf16_ratios(out, want),
             bf16_ratios(mutant(), want))
@@ -1553,20 +1588,23 @@ def pooled_split_check(dev):
     return lines
 
 
-def path_parity(dev, arch=ARCH):
-    """Phase 5 (phi3-mini) and 9 (stablelm): the same 2-layer full-width
-    fp32 weights of ``arch`` on cuda and cpu.
+def path_parity(dev, arch=ARCH, cfg=None, routings=("router", "mixed")):
+    """Phase 5 (phi3-mini), 9 (stablelm) and 25 (mamba2, jamba's smoke
+    variant): the same 2-layer full-width fp32 weights of ``arch`` (or of
+    ``cfg``) on cuda and cpu, through ``generate`` under each of
+    ``routings``.
 
     The hard decision is mean(p_fa) > 0.5 (strict), so a layer whose
     p_fa sits within rounding of 0.5 could route differently on the two
     devices. The prompt seed is the first whose router margins all exceed
     1e-3, found on the card; the CPU run must agree with it."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import routing_pattern
+    from repro_torch.launch.serve import routing_letters, routing_pattern
     from repro_torch.models import model as MD
     from repro_torch.serve.engine import ServeEngine
-    cfg = get_config(arch).replace(num_layers=2, dtype=torch.float32,
-                                   param_dtype=torch.float32)
+    cfg = cfg or get_config(arch).replace(num_layers=2, dtype=torch.float32,
+                                          param_dtype=torch.float32)
+    routed = bool(cfg.flux.enabled and cfg.routable_layers())
     params = MD.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     S, N = 2304, 8
     assert S > cfg.flux.sink + cfg.flux.local
@@ -1576,6 +1614,8 @@ def path_parity(dev, arch=ARCH):
     for seed in range(32):
         toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
                                                     (1, S))
+        if not routed:
+            break
         pf = MD.prefill(engines["cuda"].params, cfg,
                         torch.as_tensor(toks[:, :CHUNK],
                                         device=engines["cuda"].device),
@@ -1585,7 +1625,8 @@ def path_parity(dev, arch=ARCH):
     else:
         raise AssertionError("no prompt seed with router margins > 1e-3")
     out = [f"prompt_seed={seed}"]
-    for override in (None, routing_pattern(cfg, "mixed")):
+    for name in routings:
+        override = routing_pattern(cfg, name)
         res = {d: e.generate(toks, N, routing_override=override)
                for d, e in engines.items()}
         g, c = res["cuda"], res["cpu"]
@@ -1593,21 +1634,23 @@ def path_parity(dev, arch=ARCH):
         assert g.routing == c.routing, (g.routing, c.routing)
         assert np.array_equal(g.tokens, c.tokens), (g.tokens, c.tokens)
         assert err < 2e-3, err  # fp32 both; summation order only
-        if override is None:
+        assert g.kv_bytes == c.kv_bytes
+        if override is None and routed:
             margin = float(np.abs(c.p_fa - 0.5).min())
             assert margin > 1e-3, c.p_fa
             out.append(f"p_fa={np.round(c.p_fa, 5).tolist()}")
-        out.append(f"{'router' if override is None else 'mixed'} "
-                   f"routing={''.join(p[0] for p in g.routing)} "
-                   f"logits_err={err:.2e} tokens={g.tokens[0].tolist()}")
+        out.append(f"{name} routing={routing_letters(g.routing)} "
+                   f"logits_err={err:.2e} kv_bytes={g.kv_bytes} "
+                   f"tokens={g.tokens[0].tolist()}")
     return "; ".join(out)
 
 
 def decode_launches(cfg, steps, pooled):
     """The decode kernels' launches for ``steps`` decode steps of every
-    layer: an MLA model's latent decode on both frontends, else the batch
-    kernel (an int pos) or the pooled one (a (B,) pos)."""
-    n = steps * cfg.num_layers
+    attention layer (a Mamba layer launches none): an MLA model's latent
+    decode on both frontends, else the batch kernel (an int pos) or the
+    pooled one (a (B,) pos)."""
+    n = steps * sum(k == "attn" for k in cfg.layer_kinds)
     if cfg.use_mla:
         return dict(decode_attention=0, decode_attention_pooled=0,
                     decode_attention_mla=n)
@@ -1650,7 +1693,7 @@ def prefill_launches(cfg, admissions, repacks=()):
         covered = hit // CHUNK if hit else 1  # a cold one: the route chunk
         if not hit:
             want["flash_attention"] += n_fa
-            want["streaming_attention"] += cfg.num_layers - n_fa
+            want["streaming_attention"] += sum(p == "sa" for p in pattern)
         if not cfg.use_mla:
             want["block_sparse_attention"] += n_fa * (
                 len(chunk_plan(n, CHUNK)) - covered)
@@ -1661,12 +1704,15 @@ def router_margin_seed(engine, lens, max_seed=32, thresholds=(0.5,)):
     """The first prompt seed whose prompts' router decisions all sit more
     than 1e-3 from every one of ``thresholds`` on the card (the hard
     decision is a strict mean(p_fa) > threshold, so a closer tie could
-    flip on rounding), and its prompts."""
+    flip on rounding), and its prompts; seed 0 (margin inf) for a model
+    with no routed layer."""
     from repro_torch.models import model as MD
     cfg = engine.cfg
     for seed in range(max_seed):
         rng = np.random.default_rng(seed)
         prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+        if not (cfg.flux.enabled and cfg.routable_layers()):
+            return seed, prompts, float("inf")
         margins = []
         for toks in prompts:
             pf = MD.prefill(engine.params, cfg,
@@ -1681,14 +1727,15 @@ def router_margin_seed(engine, lens, max_seed=32, thresholds=(0.5,)):
     raise AssertionError("no prompt seed with router margins > 1e-3")
 
 
-def pool_parity(dev, arch=ARCH, cfg=None):
-    """Phases 5b (phi3-mini) and 9b (stablelm): the slot-pool scheduler
-    on cuda and cpu with the same 2-layer full-width fp32 weights of
-    ``arch`` (or of ``cfg``, phase 17's narrowed deepseek). Returns its
-    report line."""
+def pool_parity(dev, arch=ARCH, cfg=None, routings=("router", "mixed")):
+    """Phases 5b (phi3-mini), 9b (stablelm) and 25 (mamba2, jamba's smoke
+    variant): the slot-pool scheduler on cuda and cpu with the same
+    2-layer full-width fp32 weights of ``arch`` (or of ``cfg``, phase 17's
+    narrowed deepseek, phase 25's models), under each of ``routings``.
+    Returns its report line."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import (PREFILL_CHUNKS_PER_TICK,
-                                          routing_pattern)
+                                          routing_letters, routing_pattern)
     from repro_torch.models import model as MD
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.scheduler import STATUS_OK, ContinuousScheduler
@@ -1700,9 +1747,10 @@ def pool_parity(dev, arch=ARCH, cfg=None):
                                  prefill_chunk=CHUNK, device=d)
                for name, d in (("card", dev), ("cpu", "cpu"))}
     seed, prompts, margin = router_margin_seed(engines["card"], lens)
+    routed = bool(cfg.flux.enabled and cfg.routable_layers())
     out = [f"prompt_seed={seed} min_margin={margin:.2e}"]
-    for name, override in (("router", None),
-                           ("mixed", routing_pattern(cfg, "mixed"))):
+    for name in routings:
+        override = routing_pattern(cfg, name)
         res = {}
         for d, eng in engines.items():
             sched = ContinuousScheduler(
@@ -1737,13 +1785,13 @@ def pool_parity(dev, arch=ARCH, cfg=None):
             assert g[rid].routing == alone.routing
         assert preempt == sum(f.metrics.preemptions for f in c.values())
         assert gs.n_geometries() == cs.n_geometries()
-        if override is not None:
-            assert preempt >= 1, "the mixed drain did not preempt"
+        if override is not None or not routed:  # one geometry: it fills
+            assert preempt >= 1, f"the {name} drain did not preempt"
         out.append(f"{name}: geometries={gs.n_geometries()} "
                    f"preemptions={preempt} ticks={gs.ticks} "
                    f"{'replayed (not held to generate alone)=' if replayed else ''}"
                    f"{replayed if replayed else ''} routing="
-                   + ",".join("".join(p[0] for p in g[r].routing)
+                   + ",".join(routing_letters(g[r].routing)
                               for r in range(len(lens)))
                    + f" tokens4={g[4].tokens.tolist()}")
     return "; ".join(out)
@@ -1751,11 +1799,12 @@ def pool_parity(dev, arch=ARCH, cfg=None):
 
 def main_path(dev, params, cfg, requests=REQUESTS,
               routings=("router", "mixed")):
-    """Phases 6 (phi3-mini), 10 (stablelm) and 12 (command-r, depth cut):
-    ``cfg`` in bf16 through the batch frontend, ``requests`` prompts of
-    PROMPT tokens, once per routing (the router, or a forced pattern)."""
+    """Phases 6 (phi3-mini), 10 (stablelm), 12 (command-r, depth cut) and
+    25 (jamba's smoke variant): ``cfg`` in bf16 through the batch
+    frontend, ``requests`` prompts of PROMPT tokens, once per routing (the
+    router, or a forced pattern)."""
     import repro_torch.kernels as KN
-    from repro_torch.launch.serve import routing_pattern
+    from repro_torch.launch.serve import routing_letters, routing_pattern
     from repro_torch.serve.engine import (Request, ServeEngine,
                                           serve_batch_finished)
     eng = ServeEngine(params, cfg, max_len=PROMPT + GEN, prefill_chunk=CHUNK,
@@ -1780,7 +1829,7 @@ def main_path(dev, params, cfg, requests=REQUESTS,
         assert bool(torch.isfinite(gen.final_logits).all()), "last logits"
         delta = {k: v - before[k] for k, v in KN.launch_counts().items()}
         n_fa = sum(p == "fa" for p in gen.routing)
-        n_sa = cfg.num_layers - n_fa
+        n_sa = sum(p == "sa" for p in gen.routing)
         n_chunks = PROMPT // CHUNK
         want = {"flash_attention": n_fa, "streaming_attention": n_sa,
                 "block_sparse_attention": 0 if cfg.use_mla
@@ -1788,7 +1837,7 @@ def main_path(dev, params, cfg, requests=REQUESTS,
                 **decode_launches(cfg, GEN, pooled=False)}
         assert delta == want, (delta, want)
         lines.append(
-            f"{name}: routing={''.join(p[0] for p in gen.routing)} "
+            f"{name}: routing={routing_letters(gen.routing)} "
             f"msr={gen.msr:.3f} kv_bytes={gen.kv_bytes} "
             f"prefill_s={gen.prefill_s:.3f} "
             f"prefill_tok_s={requests * PROMPT / gen.prefill_s:.0f} "
@@ -1809,11 +1858,11 @@ def main_path(dev, params, cfg, requests=REQUESTS,
 
 
 def continuous_path(dev, params, cfg):
-    """Phases 7 (phi3-mini) and 11 (stablelm): ``cfg`` at full depth in
-    bf16 through the continuous frontend."""
+    """Phases 7 (phi3-mini), 11 (stablelm) and 25 (jamba's smoke variant):
+    ``cfg`` at full depth in bf16 through the continuous frontend."""
     import repro_torch.kernels as KN
     from repro_torch.launch.serve import (PREFILL_CHUNKS_PER_TICK,
-                                          routing_pattern)
+                                          routing_letters, routing_pattern)
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.scheduler import STATUS_OK, ContinuousScheduler
     eng = ServeEngine(params, cfg, max_len=PROMPT + GEN, prefill_chunk=CHUNK,
@@ -1831,6 +1880,7 @@ def continuous_path(dev, params, cfg):
                for rid in range(8)]
     mixed, fa = routing_pattern(cfg, "mixed"), routing_pattern(cfg, "fa")
     override = [mixed] * 4 + [fa, fa, None, mixed]
+    mixed_pattern = eng._pattern(None, mixed)  # None at a Mamba layer
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     KN.reset_launch_counts()
@@ -1846,8 +1896,8 @@ def continuous_path(dev, params, cfg):
                            routing_override=override[rid]))
     for _ in range(64):
         eng.step()
-        pool = next((p for p in sched.pools.values() if p.pattern == mixed),
-                    None)
+        pool = next((p for p in sched.pools.values()
+                     if p.pattern == mixed_pattern), None)
         if pool is not None and pool.occupancy() == pool.capacity:
             break
     else:
@@ -1864,7 +1914,7 @@ def continuous_path(dev, params, cfg):
         assert f.status == STATUS_OK, (rid, f.status)  # all logits finite
         assert len(f.tokens) == GEN, (rid, len(f.tokens))
         if override[rid] is not None:
-            assert f.routing == override[rid], rid
+            assert f.routing == eng._pattern(None, override[rid]), rid
     preempt = sum(f.metrics.preemptions for f in done.values())
     assert preempt >= 1, "no preemption"
     assert 2 <= sched.n_geometries() <= 3, sched.n_geometries()
@@ -1882,7 +1932,7 @@ def continuous_path(dev, params, cfg):
         f"slot_wait_p50_s={summ['slot_wait_p50_s']:.3f}",
         f"geometries={sched.n_geometries()} pool_steps={steps} "
         f"pool_patterns="
-        + ",".join("".join(p[0] for p in pl.pattern)
+        + ",".join(routing_letters(pl.pattern)
                    for pl in sched.pools.values())
         + f" ticks={sched.ticks} preemptions={preempt} "
         f"admissions={len(sched.admissions)} repacks={len(repacks)} "
@@ -3599,12 +3649,336 @@ def side_path(dev, params, cfg, prompt, max_len, requests=REQUESTS):
     return counts, dict(inst), lines
 
 
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (phases 24-26): the SSD pieces at mamba2's widths, mamba2 and
+# jamba's smoke variant card against CPU, mamba2-780m at full width and
+# depth on both frontends and through the prefix store
+# ---------------------------------------------------------------------------
+
+SSD_LENS = (4096, 1365)  # phase 24: 16 whole chunks; 5 and a 85-token tail
+SSD_STEPS = 32           # phase 24's decode steps after each prefill
+SSD_FP32_TOL = 1e-4      # card vs CPU in f32, relative to the largest |ref|
+# bf16 against f32, relative to the largest |f32|: ssd_chunked on equal
+# (bf16-rounded) operands, and the block (mamba_apply, then the decode
+# steps), whose projections also round dt to bf16, an error exp(A·dt)
+# multiplies by up to |A| = 16. Phase 3's per-element limit does not fit
+# a sum over thousands of positions: an element's error follows the size
+# of its terms, not its own (measured on the CPU at S = 4096: 1.45 of
+# that limit, 4.8e-3 of the largest value)
+SSD_BF16_TOL, SSD_BF16_BLOCK_TOL = 0.02, 0.05
+MAMBA_STORE_MB = 1024    # phase 26's store: 13 snapshots of 76.6 MB
+PROFILE_TOP_OPS = 8      # phase 26's operators by device time
+
+
+def rel_err(a, b, floor=1.0):
+    """max |a - b| over max(floor, max |b|), on the host."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max()) / max(floor, float(b.abs().max()))
+
+
+def ssd_parity(dev):
+    """Phase 24: ``ssd_chunked`` and SSD_STEPS ``mamba_decode_step``s at
+    mamba2's full widths (B = REQUESTS; H 48, P 64, N 128, Q 256) on one
+    seeded layer, card against CPU in f32 (SSD_FP32_TOL), and the card in
+    bf16 against the CPU's f32 result: ``ssd_chunked`` within SSD_BF16_TOL
+    (every operand rounded to bf16 first, so both runs see the same inputs
+    and the bf16 run's error is its arithmetic's), the block and its
+    decode steps within SSD_BF16_BLOCK_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.model import params_to
+    cfg = get_config(MAMBA2)
+    p16 = SSM.mamba_init(torch.Generator().manual_seed(24), cfg)
+    p32 = {k: (v.float() if isinstance(v, torch.Tensor)
+               else {n: t.float() for n, t in v.items()})
+           for k, v in p16.items()}
+    c32, c16 = cfg.replace(dtype=torch.float32), cfg
+    card = {torch.float32: (params_to(p32, dev), c32),
+            torch.bfloat16: (params_to(p16, dev), c16)}
+    lines = []
+    for S in SSD_LENS:
+        g = torch.Generator().manual_seed(S)
+        x = torch.randn(REQUESTS, S + SSD_STEPS, cfg.d_model, generator=g
+                        ).to(torch.bfloat16).float()
+        _, _, (xs, dt, A, Bm, Cm) = SSM.ssd_operands(p32, c32, x[:, :S])
+        # x, B and C in bf16 in the bf16 run (dt and A stay f32, as in
+        # mamba_apply): both runs take the bf16-rounded values
+        xs, Bm, Cm = (t.to(torch.bfloat16).float() for t in (xs, Bm, Cm))
+        ref_y, ref_h = SSM.ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
+        res = {dt_: SSM.ssd_chunked(xs.to(dev, dt_), dt.to(dev), A.to(dev),
+                                    Bm.to(dev, dt_), Cm.to(dev, dt_),
+                                    cfg.ssm_chunk)
+               for dt_ in (torch.float32, torch.bfloat16)}
+        e_y = rel_err(res[torch.float32][0], ref_y)
+        e_h = rel_err(res[torch.float32][1], ref_h)
+        assert max(e_y, e_h) < SSD_FP32_TOL, (S, e_y, e_h)
+        b_y = rel_err(res[torch.bfloat16][0], ref_y, 0.0)
+        b_h = rel_err(res[torch.bfloat16][1], ref_h, 0.0)
+        assert max(b_y, b_h) < SSD_BF16_TOL, (S, b_y, b_h)
+        # the block over S tokens, then SSD_STEPS decode steps
+        want = [SSM.mamba_apply(p32, c32, x[:, :S])]
+        state = want[0][1]
+        for i in range(S, S + SSD_STEPS):
+            y, *state = SSM.mamba_decode_step(p32, c32, x[:, i:i + 1],
+                                              *state)
+            want.append((y, tuple(state)))
+        errs = {}
+        for dt_, (pp, cc) in card.items():
+            xd = x.to(dev, dt_)
+            got = [SSM.mamba_apply(pp, cc, xd[:, :S])]
+            state = got[0][1]
+            for i in range(S, S + SSD_STEPS):
+                y, *state = SSM.mamba_decode_step(pp, cc, xd[:, i:i + 1],
+                                                  *state)
+                got.append((y, tuple(state)))
+            if dt_ == torch.float32:
+                errs[dt_] = max(rel_err(a, b) for (ya, sa), (yb, sb)
+                                in zip(got, want)
+                                for a, b in zip((ya, *sa), (yb, *sb)))
+            else:  # y and the SSD state
+                errs[dt_] = max(rel_err(a, b, 0.0)
+                                for (ya, sa), (yb, sb) in zip(got, want)
+                                for a, b in zip((ya, sa[0]), (yb, sb[0])))
+        assert errs[torch.float32] < SSD_FP32_TOL, (S, errs)
+        assert errs[torch.bfloat16] < SSD_BF16_BLOCK_TOL, (S, errs)
+        lines.append(
+            f"S={S} B={REQUESTS} ssd_chunked fp32 rel_err y={e_y:.2e} "
+            f"h={e_h:.2e} (tol {SSD_FP32_TOL}) bf16 rel_err y={b_y:.2e} "
+            f"h={b_h:.2e} (tol {SSD_BF16_TOL}); mamba_apply + "
+            f"{SSD_STEPS} decode steps fp32 rel_err="
+            f"{errs[torch.float32]:.2e} bf16 rel_err (y, h)="
+            f"{errs[torch.bfloat16]:.2e} (tol {SSD_BF16_BLOCK_TOL})")
+    return lines
+
+
+def op_profile(fn, dev):
+    """Run ``fn`` twice: once on the host clock alone, then under
+    torch.profiler (host operators and device kernels). Returns (wall ms
+    of the first, wall ms of the profiled one, its device busy ms, the
+    PROFILE_TOP_OPS operators with the most device time of their own as
+    (name, calls, ms))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(dev)
+    plain = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    key = ("self_device_time_total"
+           if hasattr(rows[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    busy = sum(getattr(e, key) for e in rows
+               if e.device_type == DeviceType.CUDA) / 1e3
+    ops = sorted((e for e in rows if e.device_type == DeviceType.CPU
+                  and e.key.startswith("aten::") and getattr(e, key) > 0),
+                 key=lambda e: -getattr(e, key))
+    return (1e3 * plain, 1e3 * wall, busy,
+            [(e.key, e.count, getattr(e, key) / 1e3)
+             for e in ops[:PROFILE_TOP_OPS]])
+
+
+def profile_text(name, prof):
+    plain, wall, busy, ops = prof
+    return (f"{name}: wall_ms={plain:.3f} (profiled {wall:.3f}) "
+            f"device_busy_ms={busy:.3f} idle_share="
+            f"{1 - busy / plain:.3f} top_ops=" + ", ".join(
+                f"{k} x{c} {ms:.3f} ms" for k, c, ms in ops))
+
+
+def mamba_cells(dev, params, cfg):
+    """Phase 26: mamba2-780m at full width and depth in bf16 on three
+    cells: phase 6's batch cell (REQUESTS x PROMPT, GEN tokens, chunk
+    CHUNK), phase 7's continuous cell (8 requests, 4 slots, chunks of 8,
+    a priority-9 preemption) and phase 8's prefix cell (warm = cold
+    bitwise from the device and pinned host tiers, and a shared-preamble
+    drain). No attention kernel may launch. Returns (launch counts,
+    report lines)."""
+    import repro_torch.kernels as KN
+    from repro_torch.launch.serve import PREFILL_CHUNKS_PER_TICK
+    from repro_torch.models import model as MD
+    from repro_torch.serve import kv_cache as KC
+    from repro_torch.serve.engine import (Request, ServeEngine,
+                                          serve_batch_finished)
+    from repro_torch.serve.scheduler import STATUS_OK, ContinuousScheduler
+    kw = dict(max_len=PROMPT + GEN, prefill_chunk=CHUNK, device=dev)
+    state_bytes = cfg.num_layers * (
+        cfg.ssm_num_heads * cfg.ssm_head_dim * cfg.ssm_state_dim * 4
+        + (cfg.ssm_conv_width - 1) * (cfg.ssm_inner + 2 * cfg.ssm_state_dim)
+        * cfg.dtype.itemsize)
+    zero = {k: 0 for k in KN.launch_counts()}
+    total = collections.Counter()
+    lines = []
+    # --- batch cell
+    eng = ServeEngine(params, cfg, **kw)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (REQUESTS, PROMPT))
+    serve_batch_finished(eng, [Request(rid=0, tokens=prompts[0, :CHUNK],
+                                       n_steps=2)])  # the first calls
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    KN.reset_launch_counts()
+    done = serve_batch_finished(eng, [Request(rid=i, tokens=prompts[i],
+                                              n_steps=GEN)
+                                      for i in range(REQUESTS)])
+    gen = done[0].result
+    assert all(len(done[i].tokens) == GEN for i in range(REQUESTS))
+    assert bool(torch.isfinite(gen.logits).all()), "first logits"
+    assert bool(torch.isfinite(gen.final_logits).all()), "last logits"
+    assert KN.launch_counts() == zero, KN.launch_counts()
+    total.update(KN.launch_counts())
+    assert gen.kv_bytes == REQUESTS * state_bytes, (gen.kv_bytes,
+                                                    state_bytes)
+    peak = torch.cuda.max_memory_allocated(dev)
+    lines.append(
+        f"batch: {REQUESTS}x{PROMPT} gen={GEN} chunk={CHUNK} "
+        f"prefill_s={gen.prefill_s:.3f} "
+        f"prefill_tok_s={REQUESTS * PROMPT / gen.prefill_s:.0f} "
+        f"decode_s={gen.decode_s:.3f} "
+        f"decode_tok_s={REQUESTS * GEN / gen.decode_s:.1f} "
+        f"ssd_state_bytes_per_request={gen.kv_bytes // REQUESTS} "
+        f"peak_mem_bytes={peak} launches={KN.launch_counts()} "
+        f"tokens0={done[0].tokens[:8].tolist()}")
+    # one prefill chunk and one decode step by operator
+    job = eng.start_chunked_prefill(prompts)
+    job.step()  # the routing chunk; then chunks at CHUNK and 2 CHUNK
+    lines.append(profile_text(f"prefill chunk (B={REQUESTS}, {CHUNK} "
+                              f"tokens)", op_profile(job.step, dev)))
+    while not job.done:
+        job.step()
+    tok = torch.argmax(job.logits, dim=-1)[:, None]
+    lines.append(profile_text(
+        f"decode step (B={REQUESTS} at {PROMPT})",
+        op_profile(lambda: MD.decode_core(params, cfg, tok, job.caches,
+                                          PROMPT), dev)))
+    del job
+    free_card()
+    # --- continuous cell
+    rng = np.random.default_rng(1)
+    cprompts = [rng.integers(0, cfg.vocab_size, PROMPT // (1 + rid % 3))
+                for rid in range(8)]
+    eng = ServeEngine(params, cfg, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    KN.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched = ContinuousScheduler(
+        eng, slots_per_bucket=4, chunk=8,
+        prefill_chunks_per_tick=PREFILL_CHUNKS_PER_TICK)
+    for rid in range(7):
+        eng.submit(Request(rid=rid, tokens=cprompts[rid], n_steps=GEN))
+    for _ in range(64):
+        eng.step()
+        if any(p.occupancy() == p.capacity for p in sched.pools.values()):
+            break
+    else:
+        raise AssertionError("the pool never filled")
+    eng.submit(Request(rid=7, tokens=cprompts[7], n_steps=GEN, priority=9))
+    cdone = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert sorted(cdone) == list(range(8))
+    for rid, f in cdone.items():
+        assert f.status == STATUS_OK, (rid, f.status)
+        assert len(f.tokens) == GEN, rid
+    preempt = sum(f.metrics.preemptions for f in cdone.values())
+    assert preempt >= 1, "no preemption"
+    assert sched.n_geometries() == 1
+    assert KN.launch_counts() == zero, KN.launch_counts()
+    total.update(KN.launch_counts())
+    summ = cdone.summary
+    tokens = sum(f.metrics.n_generated for f in cdone.values())
+    lines.append(
+        f"continuous: requests=8 prompt_lens={[len(p) for p in cprompts]} "
+        f"tokens={tokens} wall_s={wall:.3f} tok_s={tokens / wall:.1f} "
+        f"ttft_p50_s={summ['ttft_p50_s']:.3f} "
+        f"prefill_time_p50_s={summ['prefill_time_p50_s']:.3f} "
+        f"preemptions={preempt} ticks={sched.ticks} "
+        f"pool_steps={[p.steps for p in sched.pools.values()]} "
+        f"pool_state_bytes={summ['kv_payload_bytes']} "
+        f"peak_mem_bytes={torch.cuda.max_memory_allocated(dev)} "
+        f"launches={KN.launch_counts()}")
+    del eng, sched
+    free_card()
+    # --- prefix cell
+    rng = np.random.default_rng(3)
+    pre = rng.integers(0, cfg.vocab_size, PREAMBLE)
+    A, B = (np.concatenate([pre, rng.integers(0, cfg.vocab_size,
+                                              PROMPT - PREAMBLE)])[None]
+            for _ in range(2))
+    cold = ServeEngine(params, cfg, **kw)
+    ref = {"A": cold.generate(A, GEN), "B": cold.generate(B, GEN)}
+    warm = ServeEngine(params, cfg, prefix_cache_mb=MAMBA_STORE_MB,
+                       prefix_cache_host_mb=MAMBA_STORE_MB, **kw)
+    KN.reset_launch_counts()
+    runs = [("A cold", "A", warm.generate(A, GEN))]
+    offloaded = warm.prefix_store.offload_all()
+    runs.append(("A host hit", "A", warm.generate(A, GEN)))
+    runs.append(("B hit", "B", warm.generate(B, GEN)))
+    for name, key, g in runs:
+        assert np.array_equal(g.tokens, ref[key].tokens), name
+        assert torch.equal(g.logits, ref[key].logits), name
+        assert torch.equal(g.final_logits, ref[key].final_logits), name
+    hits = [g.prefix_hit_tokens for *_, g in runs]
+    assert hits == [0, PROMPT, PREAMBLE], hits
+    job = cold.prefill_chunked(A)
+    snap = sum(t.nbytes for c in job.caches for t in KC.cache_fields(c))
+    lines.append(
+        f"prefix batch: prefix_hit_tokens={hits} offloaded={offloaded} "
+        f"warm_equals_cold=True (tokens, first and last logits) "
+        f"prefill_s=" + "/".join(f"{g.prefill_s:.4f}" for *_, g in runs)
+        + f" (cold {ref['A'].prefill_s:.4f}) snapshot_state_bytes={snap} "
+        f"store={warm.prefix_store.stats().as_dict()}")
+    del warm, cold, job
+    free_card()
+    pre = rng.integers(0, cfg.vocab_size, CONT_PREAMBLE)
+    dprompts = [np.concatenate([pre, rng.integers(
+        0, cfg.vocab_size, CONT_TAILS[rid % len(CONT_TAILS)])])
+        for rid in range(8)]
+
+    def drain(**store_kw):
+        e = ServeEngine(params, cfg, **kw, **store_kw)
+        ContinuousScheduler(e, slots_per_bucket=4, chunk=8,
+                            prefill_chunks_per_tick=PREFILL_CHUNKS_PER_TICK)
+        for rid, toks in enumerate(dprompts):
+            e.submit(Request(rid=rid, tokens=toks, n_steps=GEN))
+        t0 = time.perf_counter()
+        d = e.drain()
+        torch.cuda.synchronize()
+        return d, time.perf_counter() - t0
+
+    cold_done, cold_wall = drain()
+    free_card()
+    wdone, wwall = drain(prefix_cache_mb=MAMBA_STORE_MB)
+    hits = [wdone[r].metrics.prefix_hit_tokens for r in range(8)]
+    for rid in range(8):
+        assert wdone[rid].status == cold_done[rid].status == STATUS_OK
+        assert np.array_equal(wdone[rid].tokens, cold_done[rid].tokens), rid
+    assert hits[0] == 0 and all(h > 0 for h in hits[1:]), hits
+    assert KN.launch_counts() == zero, KN.launch_counts()
+    total.update(KN.launch_counts())
+    lines.append(
+        f"prefix continuous: prefix_hit_tokens={hits} "
+        f"tokens_equal_cold_drain=True wall_s={wwall:.3f} (cold "
+        f"{cold_wall:.3f}) ttft_p50_s={wdone.summary['ttft_p50_s']:.3f} "
+        f"(cold {cold_done.summary['ttft_p50_s']:.3f}) "
+        f"launches={KN.launch_counts()}")
+    return {k: total[k] for k in zero}, lines
+
+
 def check_kernels(dev):
     """Phase 3: every kernel against its plain version on the card.
     Returns {arch: {kernel: max abs error at that arch's main shapes}}."""
     from repro_torch.configs import get_config
     errs = {}
-    for arch in (ARCH, STABLELM, GRANITE):
+    for arch in (ARCH, STABLELM, GRANITE, JAMBA):
         cfg = get_config(arch)
         errs[arch] = {}
         for name, (kern, plain, mutant, *_rest) in kernel_cases(
@@ -3645,6 +4019,15 @@ def check_kernels(dev):
         say(3, f"{name} bfloat16 ring main shapes max_abs_err={e:.3e} "
                f"limit_ratio={ratio_text(r)} "
                f"zeroed_tile_ratio={ratio_text(r_mut)}")
+    # jamba's attention layer (G = 8, D = 128) decoding over its SA ring
+    e, r, r_mut = ring_decode_check(dev, JAMBA)
+    assert max(r) < 1, f"{JAMBA} ring decode bf16: error {r} of the limit"
+    assert min(r_mut) > 1, f"{JAMBA} ring decode bf16: a zeroed tile is " \
+        f"within the limit {r_mut}"
+    errs[JAMBA]["decode_attention_ring"] = e
+    say(3, f"decode_attention bfloat16 {JAMBA} ring L=2176 D=128 G=8 "
+           f"max_abs_err={e:.3e} limit_ratio={ratio_text(r)} "
+           f"zeroed_tile_ratio={ratio_text(r_mut)}")
     for label, kern, plain, mutant in wgmma_cases(dev):
         out, want = kern(), plain()
         e, r = max_err(out, want), bf16_ratios(out, want)
@@ -3708,7 +4091,8 @@ def check_kernels(dev):
 def time_kernels(dev, parent=None):
     """Phase 4: each kernel's times at phi3-mini's main shapes (with the
     ring rows and the n_split and tiles sweeps), at stablelm's (D = 160,
-    G = 4), at granite's (D = 64, G = 3) and at deepseek's (the latent
+    G = 4), at granite's (D = 64, G = 3), at jamba's attention layer's
+    (D = 128, G = 8, with its ring decode) and at deepseek's (the latent
     decode at MLA_SHAPES, beside ``parent``'s kernel when given). Returns
     {arch: {kernel: row}}."""
     from repro_torch.configs import get_config
@@ -3772,7 +4156,7 @@ def time_kernels(dev, parent=None):
                        for n, (ms, plan) in by_n.items()) + " (* the plan's)")
     free_card()
     out = {ARCH: rows}
-    for arch in (STABLELM, GRANITE):
+    for arch in (STABLELM, GRANITE, JAMBA):
         cfg = get_config(arch)
         out[arch] = {}
         for name, (kern, plain, _, lib, n_bytes, flops) in kernel_cases(
@@ -3789,6 +4173,17 @@ def time_kernels(dev, parent=None):
                    f"({b_by}; {n_bytes} bytes, {flops} flops) "
                    f"roofline_share={b_ms / r['ms']:.3f}")
         free_card()
+    kern, plain, _, lib, n_bytes, flops = ring_decode_case(dev, JAMBA)
+    b_ms, b_by = bound(n_bytes, flops)
+    r = out[JAMBA]["decode_attention"]["ring"] = dict(
+        ms=time_ms(kern), plain_ms=time_ms(plain), library_ms=time_ms(lib),
+        bound_ms=b_ms, bound_by=b_by, call_ms=call_ms(kern))
+    say(4, f"decode_attention {JAMBA} ring L=2176 D=128 G=8 "
+           f"ms={r['ms']:.4f} call_ms={r['call_ms']:.4f} "
+           f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+           f"bound_ms={b_ms:.4f} ({b_by}; {n_bytes} bytes, {flops} flops) "
+           f"roofline_share={b_ms / r['ms']:.3f}")
+    free_card()
     out[DEEPSEEK] = {}
     cases = mla_kernel_cases(dev, torch.bfloat16, True)
     for name, (kern, plain, _, lib, n_bytes, flops, _) in cases.items():
@@ -4092,6 +4487,63 @@ def main(argv=None) -> int:
     del params
     free_card()
 
+    t0 = time.perf_counter()
+    for line in ssd_parity(dev):
+        say(24, line)
+    say(24, f"{MAMBA2} SSD pieces card = cpu done", t0)
+    free_card()
+
+    from repro_torch.configs import smoke_variant
+    from repro_torch.launch.serve import ROUTINGS
+    t0 = time.perf_counter()
+    fp32 = dict(dtype=torch.float32, param_dtype=torch.float32)
+    cfg = get_config(MAMBA2).replace(num_layers=2, **fp32)
+    say(25, f"{MAMBA2} 2 layers: " + path_parity(dev, cfg=cfg,
+                                                 routings=("router",)))
+    say(25, f"{MAMBA2} 2 layers: " + pool_parity(dev, cfg=cfg,
+                                                 routings=("router",)))
+    cfg = smoke_variant(get_config(JAMBA))
+    say(25, f"{JAMBA} smoke: " + path_parity(dev, cfg=cfg,
+                                             routings=ROUTINGS))
+    say(25, f"{JAMBA} smoke: " + pool_parity(dev, cfg=cfg))
+    free_card()
+    # jamba's smoke variant in bf16 on the card: exact counts of the five
+    # kernels (its attention layer) under every routing and in the pool
+    cfg = cfg.replace(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    jamba_counts, lines = main_path(dev, params, cfg, routings=ROUTINGS)
+    for line in lines:
+        say(25, f"{JAMBA} smoke bf16 batch " + line)
+    cont, lines = continuous_path(dev, params, cfg)
+    for line in lines:
+        say(25, f"{JAMBA} smoke bf16 continuous " + line)
+    counts["jamba_smoke"] = {k: v + cont[k] for k, v in jamba_counts.items()}
+    assert all(counts["jamba_smoke"][k] > 0 for k in (
+        "flash_attention", "streaming_attention", "block_sparse_attention",
+        "decode_attention", "decode_attention_pooled"))
+    del params
+    say(25, f"{MAMBA2} (2 layers) and {JAMBA} smoke card = cpu, and "
+            f"{JAMBA} smoke's launches, done", t0)
+    free_card()
+
+    cfg = get_config(MAMBA2)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    torch.cuda.synchronize()
+    say(26, f"{MAMBA2} full width and depth ({cfg.num_layers} layers, "
+            f"d_model {cfg.d_model}, {cfg.ssm_num_heads} SSM heads of "
+            f"{cfg.ssm_head_dim}, state {cfg.ssm_state_dim}), "
+            f"{cfg.param_count()} parameters, "
+            f"{torch.cuda.memory_allocated(dev)} bytes on the card", t0)
+    counts["mamba2"], lines = mamba_cells(dev, params, cfg)
+    for line in lines:
+        say(26, line)
+    say(26, f"{MAMBA2} batch, continuous and prefix cells done", t0)
+    del params
+    free_card()
+
     import repro_torch.kernels as KN
     kernels = []
     for name, replaces in REPLACES.items():
@@ -4125,7 +4577,15 @@ def main(argv=None) -> int:
             granite_moe_3b_a800m=dict(
                 launches=counts[f"granite_{own}"][name],
                 max_abs_err=errs[GRANITE][name], **rows[GRANITE][name]),
+            # full-width jamba does not fit one card: its attention
+            # layer's shapes are held and timed in phases 3 and 4 only
+            jamba_1_5_large_398b=dict(
+                launches=None, launches_note="phase 3 / 4 only",
+                max_abs_err=errs[JAMBA][name], **rows[JAMBA][name]),
             stress=stress_counts))
+        if name == "decode_attention":  # and its SA ring
+            kernels[-1]["jamba_1_5_large_398b"]["ring"]["max_abs_err"] = \
+                errs[JAMBA]["decode_attention_ring"]
         if name in errs[DEEPSEEK]:  # flash and streaming at (192, 128)
             kernels[-1]["deepseek_v2_236b"] = dict(
                 launches=counts["deepseek_batch"][name],

@@ -5,12 +5,13 @@ dataclasses with torch dtypes; ``register``/``get_config`` and
 ``smoke_variant`` keep their meaning. The port registers the archs
 whose every layer is global attention, GQA or Multi-head Latent
 Attention, with a dense or an MoE FFN (phi3-mini-3.8b, stablelm-12b,
-command-r-plus-104b, granite-moe-3b-a800m, deepseek-v2-236b), and the
-two whose requests carry a modality side input: phi-3-vision-4.2b
-(prefix embeddings) and whisper-tiny (an encoder over frame embeddings,
-and cross attention in every decoder layer). SSM and sliding-window
-layers come with the slices that port them (ROADMAP Queue 1 items 12 and
-14d).
+command-r-plus-104b, granite-moe-3b-a800m, deepseek-v2-236b), the two
+whose requests carry a modality side input: phi-3-vision-4.2b (prefix
+embeddings) and whisper-tiny (an encoder over frame embeddings, and
+cross attention in every decoder layer), and the two with Mamba2 SSD
+layers: mamba2-780m (every layer) and jamba-1.5-large-398b (seven of
+every eight, beside one routed attention layer). Sliding-window layers
+come with the slice that ports them (ROADMAP Queue 1 item 14d).
 """
 from __future__ import annotations
 
@@ -148,6 +149,14 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    @property
+    def ssm_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_num_heads(self) -> int:
+        return self.ssm_inner // self.ssm_head_dim if self.ssm_state_dim else 0
+
     def moe_layer_mask(self) -> Tuple[bool, ...]:
         if self.moe_layers == "all":
             return tuple(True for _ in range(self.num_layers))
@@ -160,26 +169,32 @@ class ModelConfig:
         return tuple(i for i, k in enumerate(self.layer_kinds) if k == "attn")
 
     def param_count(self, active_only: bool = False) -> int:
-        """The JAX package's count (embedding, attention, FFN or MoE,
-        norms; the final norm and the routers are not counted) for the
-        kinds the port serves: GQA or MLA attention layers with a dense
-        SwiGLU or an MoE FFN, and whisper's encoder layers and the
-        decoder's cross attention. ``active_only`` counts the top-k and
-        shared experts a token runs instead of every expert."""
+        """The JAX package's count (embedding, per layer its attention or
+        Mamba2 block, FFN or MoE, norms; the final norm, the routers and
+        a Mamba block's A_log / dt_bias / D / norm are not counted).
+        ``active_only`` counts the top-k and shared experts a token runs
+        instead of every expert."""
         d = self.d_model
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         mask = self.moe_layer_mask()
-        for i in range(self.num_layers):
-            if self.use_mla:
-                qr = self.q_lora_rank or d
-                qk_hd = self.qk_nope_head_dim + self.qk_rope_head_dim
-                n += d * qr + qr * self.num_heads * qk_hd  # q
-                n += d * (self.kv_lora_rank + self.qk_rope_head_dim)
-                n += self.kv_lora_rank * self.num_heads * (
-                    self.qk_nope_head_dim + self.v_head_dim)
-                n += self.num_heads * self.v_head_dim * d  # o
-            else:
-                n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        for i, kind in enumerate(self.layer_kinds):
+            if kind in ("attn", "local"):
+                if self.use_mla:
+                    qr = self.q_lora_rank or d
+                    qk_hd = self.qk_nope_head_dim + self.qk_rope_head_dim
+                    n += d * qr + qr * self.num_heads * qk_hd  # q
+                    n += d * (self.kv_lora_rank + self.qk_rope_head_dim)
+                    n += self.kv_lora_rank * self.num_heads * (
+                        self.qk_nope_head_dim + self.v_head_dim)
+                    n += self.num_heads * self.v_head_dim * d  # o
+                else:
+                    n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            elif kind == "mamba":
+                inner, N = self.ssm_inner, self.ssm_state_dim
+                # in_proj produces [z, x, B, C, dt]
+                n += d * (2 * inner + 2 * N + self.ssm_num_heads)
+                n += inner * d  # out_proj
+                n += self.ssm_conv_width * (inner + 2 * N)  # conv taps
             if mask[i]:
                 per_expert = 3 * d * self.moe_d_ff
                 experts = (self.top_k if active_only else self.num_experts)
@@ -212,6 +227,8 @@ ARCH_MODULES = {
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "phi-3-vision-4.2b": "repro_torch.configs.phi_3_vision_4_2b",
     "whisper-tiny": "repro_torch.configs.whisper_tiny",
+    "mamba2-780m": "repro_torch.configs.mamba2_780m",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
 }
 
 
@@ -223,9 +240,8 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     if name not in ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; the port serves the archs "
-                       f"{sorted(ARCH_MODULES)} (SSM and sliding-window "
-                       f"layers wait for ROADMAP Queue 1 items 12 and "
-                       f"14d)")
+                       f"{sorted(ARCH_MODULES)} (sliding-window layers "
+                       f"wait for ROADMAP Queue 1 item 14d)")
     importlib.import_module(ARCH_MODULES[name])
     return _REGISTRY[name]
 

@@ -22,6 +22,16 @@ engine (port of ``repro/launch/serve.py``).
         --arch deepseek-v2-236b --layers 4 --requests 4 \\
         --prompt-len 4096 --gen-len 32 --prefill-chunk 512
 
+    # mamba2-780m (Mamba2 SSD in every layer, no attention kernel), and
+    # jamba's hybrid period on the CPU (its 398 B parameters need more
+    # than one card)
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch mamba2-780m --requests 4 --prompt-len 4096 \\
+        --gen-len 32 --prefill-chunk 512
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba-1.5-large-398b --smoke --device cpu --requests 2 \\
+        --prompt-len 96 --gen-len 8 --prefill-chunk 32
+
     # shared-system-prompt traffic through the prefix cache: every
     # prompt opens with the same 2048 tokens; snapshots up to 8 GiB on
     # the card and 8 GiB in pinned host memory
@@ -34,7 +44,8 @@ Prompts are random tokens from a numpy generator seeded with 0
 (``--shared-prefix``'s preamble from one seeded with 2); weights are drawn
 from a ``torch.Generator`` seeded with 0. The decode caches hold shared
 prefix + prompt + generated tokens. Prints one JSON line per request (tokens,
-routing and times), then each kernel's launch count (0 on the CPU, where
+routing as one letter a layer, "-" at a Mamba layer, and times), then
+each kernel's launch count (0 on the CPU, where
 the kernels' plain versions run); ``--continuous`` adds TTFT, queue
 delay, decode tokens/s and preemptions per request, and a totals line
 with the number of cache geometries. With ``--prefix-cache-mb`` each
@@ -90,6 +101,12 @@ def routing_pattern(cfg, routing: str):
         return tuple("fa" if i % 2 == 0 else "sa"
                      for i in range(cfg.num_layers))
     return (routing,) * cfg.num_layers
+
+
+def routing_letters(pattern) -> str:
+    """A routing pattern as one letter a layer: f(a), s(a), d(uo), or
+    "-" at a layer that is not routed (a Mamba layer)."""
+    return "".join("-" if p is None else p[0] for p in pattern)
 
 
 # operators --profile lists, most time first: enough to reach a kernel of
@@ -366,7 +383,7 @@ def main(argv=None) -> None:
         line = {"rid": rid, "status": f.status, "tokens": f.tokens.tolist()}
         if f.result is not None:  # its bucket ran
             line.update(
-                routing="".join(p[0] for p in f.routing),
+                routing=routing_letters(f.routing),
                 msr=f.result.msr, wall_s=round(f.wall_s, 4),
                 prefill_s=round(f.result.prefill_s, 4),
                 decode_s=round(f.result.decode_s, 4),
@@ -395,7 +412,7 @@ def _continuous_main(engine, reqs, args, device) -> None:
         print(json.dumps({
             "rid": rid, "status": f.status, "prompt_len": m.prompt_len,
             "tokens": f.tokens.tolist(),
-            "routing": ("".join(p[0] for p in f.routing)
+            "routing": (routing_letters(f.routing)
                         if f.routing is not None else None),
             "ttft_s": round(m.ttft, 4),
             "queue_delay_s": round(m.queue_delay, 4),

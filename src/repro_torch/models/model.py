@@ -33,6 +33,12 @@ decode runs the absorbed attention on the latent decode kernel, and a
 streamed chunk at a full-cache layer the absorbed attention in plain
 torch, as the JAX package runs it in XLA.
 
+A layer is attention or a Mamba2 SSD block (``models/ssm.py``), as
+``cfg.layer_kinds`` says. A Mamba layer is never routed; its cache is a
+``MambaCache`` (the SSD state and the conv tail), which a prefill
+returns as (h, conv_tail), a streamed chunk carries through
+``mamba_apply`` and a decode step advances in place.
+
 A layer's FFN is a dense SwiGLU or, where ``cfg.moe_layer_mask()`` says
 so, the Mixture-of-Experts of ``models/moe.py``, called with the length
 of the call it is in (the route chunk, a streamed chunk, the monolithic
@@ -67,6 +73,7 @@ from repro_torch.kernels.decode_attention_pooled import \
     decode_attention_pooled_bh
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (dense_init, embed_init, ffn_apply,
                                        ffn_init, rms_norm, rms_norm_init)
 from repro_torch.serve import kv_cache as KC
@@ -79,16 +86,15 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The layer kinds the port runs: GQA or MLA global attention with a
-    dense SwiGLU or an MoE FFN, with or without an encoder and prefix
-    embeddings."""
-    kinds = set(cfg.layer_kinds) - {"attn"}
+    """The layer kinds the port runs: GQA or MLA global attention and
+    Mamba2 SSD blocks, with a dense SwiGLU, an MoE FFN or none, with or
+    without an encoder and prefix embeddings."""
+    kinds = set(cfg.layer_kinds) - {"attn", "mamba"}
     if kinds:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves models whose layers are all "
-            f"'attn' (GQA or MLA) with a dense or an MoE FFN; its "
-            f"{sorted(kinds)} layers wait for ROADMAP Queue 1 items 12 "
-            f"(SSM) and 14d (sliding-window)")
+            f"{cfg.name}: the port serves 'attn' (GQA or MLA) and 'mamba' "
+            f"layers; its {sorted(kinds)} layers wait for ROADMAP Queue 1 "
+            f"item 14d (sliding-window)")
 
 
 def has_ffn(cfg: ModelConfig, layer_idx: int) -> bool:
@@ -118,14 +124,17 @@ def sa_mode(cfg: ModelConfig) -> M.AttnMode:
 def _block_init(gen: torch.Generator, cfg: ModelConfig,
                 layer_idx: int) -> Params:
     dt, dev = cfg.param_dtype, gen.device
-    p: Params = {"norm1": rms_norm_init(cfg.d_model, dt, dev),
-                 "attn": (A.mla_init(gen, cfg) if cfg.use_mla
-                          else A.gqa_init(gen, cfg))}
-    if is_routed(cfg, layer_idx):
-        p["router"] = R.router_init(gen, router_in_dim(cfg), cfg.flux)
-    if cfg.num_encoder_layers:  # whisper's decoder: cross attention
-        p["norm_x"] = rms_norm_init(cfg.d_model, dt, dev)
-        p["xattn"] = _xattn_init(gen, cfg)
+    p: Params = {"norm1": rms_norm_init(cfg.d_model, dt, dev)}
+    if cfg.layer_kinds[layer_idx] == "mamba":
+        p["mamba"] = SSM.mamba_init(gen, cfg)
+    else:
+        p["attn"] = (A.mla_init(gen, cfg) if cfg.use_mla
+                     else A.gqa_init(gen, cfg))
+        if is_routed(cfg, layer_idx):
+            p["router"] = R.router_init(gen, router_in_dim(cfg), cfg.flux)
+        if cfg.num_encoder_layers:  # whisper's decoder: cross attention
+            p["norm_x"] = rms_norm_init(cfg.d_model, dt, dev)
+            p["xattn"] = _xattn_init(gen, cfg)
     if has_ffn(cfg, layer_idx):
         p["norm2"] = rms_norm_init(cfg.d_model, dt, dev)
         if cfg.moe_layer_mask()[layer_idx]:
@@ -298,12 +307,17 @@ def block_apply(bp, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
                 capacity_len: Optional[int] = None, enc_out=None):
     """One transformer block over a full sequence. Returns (h, r, cache):
     r is the routing record of a routed layer else None; cache is the
-    layer's (k, v), or an MLA layer's latent (ckv, kr), when
-    ``want_cache``. ``capacity_len`` sets an MoE layer's capacity from
-    another length than the sequence's (the fidelity probe's bucket).
+    layer's (k, v), an MLA layer's latent (ckv, kr) or a Mamba layer's
+    (SSD state, conv tail), when ``want_cache``. ``capacity_len`` sets an
+    MoE layer's capacity from another length than the sequence's (the
+    fidelity probe's bucket).
     ``enc_out`` (B, E, d): the encoder's output, which a decoder layer
     with cross attention attends after its self attention."""
     x = rms_norm(bp["norm1"], h, cfg.norm_eps)
+    if "mamba" in bp:
+        y, state = SSM.mamba_apply(bp["mamba"], cfg, x)
+        return (ffn_block(bp, cfg, layer_idx, h + y, capacity_len), None,
+                state if want_cache else None)
     if cfg.use_mla:
         ckv, kr = A.mla_latent(bp["attn"], cfg, x, positions)
         q, x_q = A.mla_q(bp["attn"], cfg, x, positions)
@@ -392,7 +406,8 @@ class ForwardOut:
     logits: torch.Tensor                 # (B, V) last-token logits
     routing: Optional[torch.Tensor]      # (n_routed,) int32 decisions
     p_fa: Optional[torch.Tensor]         # (n_routed,) f32 mean FA prob
-    caches: Optional[List] = None        # per layer (k, v) or (ckv, kr)
+    # per layer (k, v), an MLA layer's (ckv, kr), a Mamba layer's (h, tail)
+    caches: Optional[List] = None
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -607,6 +622,12 @@ def decode_core(params, cfg: ModelConfig, token: torch.Tensor,
     for i, bp in enumerate(params["layers"]):
         cache = caches[i]
         x = rms_norm(bp["norm1"], h, cfg.norm_eps)
+        if isinstance(cache, KC.MambaCache):
+            y, hs, tail = SSM.mamba_decode_step(bp["mamba"], cfg, x,
+                                                cache.h, cache.conv_tail)
+            KC.mamba_update(cache, hs, tail)
+            h = ffn_block(bp, cfg, i, h + y)
+            continue
         L = KC.capacity(cache)
         if KC.is_ring(cache):
             y, cache = _decode_attn_ring(bp, cfg, x, pos, rope_pos, cache,
@@ -791,6 +812,12 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
     for i, bp in enumerate(params["layers"]):
         cache = caches[i]
         x = rms_norm(bp["norm1"], h, cfg.norm_eps)
+        if isinstance(cache, KC.MambaCache):
+            y, (hs, tail) = SSM.mamba_apply(bp["mamba"], cfg, x,
+                                            (cache.h, cache.conv_tail))
+            KC.mamba_update(cache, hs, tail)
+            h = ffn_block(bp, cfg, i, h + y)
+            continue
         if KC.is_ring(cache):
             y, cache = _chunk_attn_ring(bp, cfg, x, positions, start, cache,
                                         flux.sink,

@@ -11,9 +11,11 @@ Admission is the chunked, cache-resident pipeline of the JAX engine:
   2. Decode-geometry caches are allocated from the pattern and seeded
      with the first chunk's KV (``seed_caches``): a ``FullKV`` per FA
      layer, a sink+local ``RingKV`` per SA layer (an MLA model's
-     ``LatentKV`` / ``RingLatentKV`` hold its latents). Later chunks stream
+     ``LatentKV`` / ``RingLatentKV`` hold its latents; a Mamba layer's
+     ``MambaCache`` its SSD state and conv tail). Later chunks stream
      through ``prefill_chunk`` straight into them (FA layers on the
-     block-sparse kernel, ring layers on a dense masked softmax).
+     block-sparse kernel, ring layers on a dense masked softmax, Mamba
+     layers through the chunked SSD with the state carried).
   3. ``decode_many`` generates greedily (or samples, given a seeded
      generator), a Python loop of decode steps on the decode kernel.
 ``prefill_route_repack`` (full prefill → repack) is the fallback for
@@ -121,11 +123,14 @@ def chunk_plan(seq_len: int, chunk: int) -> List[Tuple[int, int]]:
 def seed_caches(cfg: ModelConfig, prefill_caches, pattern, batch: int,
                 max_len: int, device) -> List:
     """Decode-geometry caches for ``pattern``, seeded with a routing
-    chunk's per-layer (k, v), or an MLA model's (ckv, kr), at position
-    0."""
+    chunk's per-layer (k, v), an MLA model's (ckv, kr) or a Mamba
+    layer's (SSD state, conv tail), at position 0."""
     caches = KC.init_decode_caches(cfg, pattern, batch, max_len, device)
     sink = cfg.flux.sink
     for kv, dec in zip(prefill_caches, caches):
+        if isinstance(dec, KC.MambaCache):
+            KC.mamba_update(dec, *kv)
+            continue
         local = KC.capacity(dec) - sink
         if isinstance(dec, KC.RingLatentKV):
             KC.ring_latent_insert_chunk(dec, *kv, 0, sink, local)
@@ -162,15 +167,20 @@ def _gather_ring(x: torch.Tensor, src: np.ndarray,
 
 def repack_caches(cfg: ModelConfig, prefill_caches, routing,
                   seq_len: int, max_len: int) -> List:
-    """Whole-prompt prefill KV (per layer (k, v), or an MLA model's
-    (ckv, kr)) → decode cache list. FALLBACK PATH for admissions
-    ``chunked_eligible`` excludes. routing[i] ∈ {"fa", "sa", ("duo", n),
-    None}: only "sa" makes a ring; a duo layer keeps its full cache."""
+    """Whole-prompt prefill KV (per layer (k, v), an MLA model's (ckv,
+    kr), a Mamba layer's (SSD state, conv tail)) → decode cache list.
+    FALLBACK PATH for admissions ``chunked_eligible`` excludes.
+    routing[i] ∈ {"fa", "sa", ("duo", n), None}: only "sa" makes a ring;
+    a duo layer keeps its full cache; a Mamba layer's state is its
+    cache."""
     flux = cfg.flux
     # the sequence axis of each buffer: ckv (B, S, R) holds it at 1
     axes = (1, 2) if cfg.use_mla else (2, 2)
     out = []
     for i, (a, b) in enumerate(prefill_caches):
+        if cfg.layer_kinds[i] == "mamba":
+            out.append(KC.MambaCache(a, b))
+            continue
         B = a.shape[0]
         length = torch.full((B,), seq_len, dtype=torch.int32,
                             device=a.device)
@@ -709,7 +719,8 @@ class ServeEngine:
     def _pool_layer_specs(self, pool) -> List[Tuple]:
         """Per-attention-layer (buffer_len, n_q_heads, n_kv_heads, d_k,
         d_v, dtype_bytes) of one slot pool, from its cache shapes, cached
-        per slot geometry."""
+        per slot geometry. Mamba layers run no attention and have no
+        spec."""
         key = pool.slot_geometry()
         specs = self._cost_specs.get(key)
         if specs is None:
@@ -721,7 +732,8 @@ class ServeEngine:
                  c.ckv.shape[-1], c.ckv.element_size())
                 if isinstance(c, (KC.LatentKV, KC.RingLatentKV)) else
                 (c.k.shape[2], hq, c.k.shape[1], c.k.shape[-1],
-                 c.v.shape[-1], c.k.element_size()) for c in pool.caches]
+                 c.v.shape[-1], c.k.element_size()) for c in pool.caches
+                if not isinstance(c, KC.MambaCache)]
         return specs
 
     def _expressed_decode_cost(self, pool, n_steps: int) -> Dict[str, Any]:

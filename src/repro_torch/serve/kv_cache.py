@@ -1,12 +1,14 @@
-"""Decode-time KV caches (port of the attention half of
-``repro/serve/kv_cache.py``).
+"""Decode-time caches (port of ``repro/serve/kv_cache.py``, its
+whisper ``CrossKV`` and sliding-window rings aside).
 
 FA layers keep the complete KV history (``FullKV``); SA layers keep only
 the sink+local ring (``RingKV``), whose size is independent of the
 context length. MLA layers cache the compressed latent and the one
 shared roped key instead of per-head K / V, in the same two geometries
 (``LatentKV``, ``RingLatentKV``). Keys are stored with RoPE already
-applied at absolute positions.
+applied at absolute positions. A Mamba2 layer's cache is its SSD state
+and conv tail (``MambaCache``), whose size is independent of the
+position.
 
 Unlike the JAX package, whose arrays are immutable, every insert here
 writes into the cache's own buffers in place and returns the same cache:
@@ -64,6 +66,24 @@ class RingLatentKV:
     kr: torch.Tensor   # (B, 1, ring, rope)
     positions: torch.Tensor  # (B, ring) int32
     length: torch.Tensor  # (B,) int32
+
+
+@dataclass
+class MambaCache:
+    """A Mamba2 layer's recurrent state: the SSD state and the last W-1
+    conv inputs. It has no positions and no capacity."""
+    h: torch.Tensor          # (B, H, P, N) f32 SSD state
+    conv_tail: torch.Tensor  # (B, W-1, inner + 2N)
+
+
+def mamba_update(cache: MambaCache, h: torch.Tensor,
+                 conv_tail: torch.Tensor) -> MambaCache:
+    """Write a chunk's or a decode step's new state into the cache's own
+    buffers (a slot pool's rows stay the pool's; a snapshot that copied
+    the old state keeps it)."""
+    cache.h.copy_(h)
+    cache.conv_tail.copy_(conv_tail)
+    return cache
 
 
 def ring_slot(pos, sink: int, local: int):
@@ -268,9 +288,11 @@ def latent_insert_chunk(cache: LatentKV, ckv_new: torch.Tensor,
 _FIELDS = {FullKV: ("k", "v", "length"),
            RingKV: ("k", "v", "positions", "length"),
            LatentKV: ("ckv", "kr", "length"),
-           RingLatentKV: ("ckv", "kr", "positions", "length")}
-# the KV payload among them; ``positions`` / ``length`` are bookkeeping
-_PAYLOAD = ("k", "v", "ckv", "kr")
+           RingLatentKV: ("ckv", "kr", "positions", "length"),
+           MambaCache: ("h", "conv_tail")}
+# the payload among them (KV, latents, SSD state); ``positions`` /
+# ``length`` are bookkeeping
+_PAYLOAD = ("k", "v", "ckv", "kr", "h", "conv_tail")
 
 
 def cache_fields(cache) -> Tuple[torch.Tensor, ...]:
@@ -284,7 +306,11 @@ def is_ring(cache) -> bool:
 
 
 def capacity(cache) -> int:
-    """The token slots of a cache's buffers (its ring size for a ring)."""
+    """The token slots of a cache's buffers (its ring size for a ring);
+    a ``MambaCache`` has none and raises."""
+    if isinstance(cache, MambaCache):
+        raise TypeError("capacity: a MambaCache holds a recurrent state, "
+                        "not token slots")
     if is_ring(cache):
         return cache.positions.shape[1]
     return (cache.k.shape[2] if isinstance(cache, FullKV)
@@ -316,8 +342,9 @@ def slot_geometry(caches: Sequence) -> Tuple:
 
 
 def kv_cache_bytes(caches: Sequence) -> int:
-    """KV *payload* bytes (k and v, or ckv and kr); ``positions`` /
-    ``length`` are bookkeeping and not counted, as in the JAX package."""
+    """*Payload* bytes (k and v, ckv and kr, a Mamba layer's h and conv
+    tail); ``positions`` / ``length`` are bookkeeping and not counted, as
+    in the JAX package."""
     return sum(getattr(c, f).nbytes for c in caches
                for f in _FIELDS[type(c)] if f in _PAYLOAD)
 
@@ -340,17 +367,27 @@ def sa_ring(flux: FluxConfig, max_len: int) -> Tuple[int, int]:
 
 def init_layer_cache(cfg: ModelConfig, kind: str, mode: str, batch: int,
                      max_len: int, device, dtype=None):
-    """Fresh (empty) cache for one layer; mode ∈ {"fa", "sa"}. An MLA
-    model's layers cache latents (``LatentKV`` / ``RingLatentKV``)."""
+    """Fresh (empty) cache for one layer; mode ∈ {"fa", "sa"} for an
+    attention layer (None for a Mamba layer). An MLA model's layers
+    cache latents (``LatentKV`` / ``RingLatentKV``), a Mamba layer a
+    zero ``MambaCache``."""
     if max_len <= 0:
         raise ValueError(f"init_layer_cache: max_len={max_len} must be "
                          f"positive")
+    dtype = dtype or cfg.dtype
+    if kind == "mamba":
+        return MambaCache(
+            h=torch.zeros((batch, cfg.ssm_num_heads, cfg.ssm_head_dim,
+                           cfg.ssm_state_dim), dtype=torch.float32,
+                          device=device),
+            conv_tail=torch.zeros(
+                (batch, cfg.ssm_conv_width - 1,
+                 cfg.ssm_inner + 2 * cfg.ssm_state_dim), dtype=dtype,
+                device=device))
     if kind != "attn":
         raise NotImplementedError(
-            f"layer kind {kind!r}: this slice caches global attention "
-            f"layers only; local and mamba layers wait for ROADMAP "
-            f"Queue 1 items 14d and 12")
-    dtype = dtype or cfg.dtype
+            f"layer kind {kind!r}: sliding-window layers wait for ROADMAP "
+            f"Queue 1 item 14d")
     H, D = cfg.num_kv_heads, cfg.head_dim
     length = torch.zeros((batch,), dtype=torch.int32, device=device)
     if cfg.use_mla:
@@ -382,6 +419,7 @@ def init_layer_cache(cfg: ModelConfig, kind: str, mode: str, batch: int,
 def init_decode_caches(cfg: ModelConfig, routing: Tuple[str, ...],
                        batch: int, max_len: int, device) -> List:
     """Per-layer cache list for a static routing pattern
-    (routing[i] ∈ {"fa", "sa"})."""
+    (routing[i] ∈ {"fa", "sa"} at an attention layer; a Mamba layer's
+    entry is not read)."""
     return [init_layer_cache(cfg, kind, routing[i], batch, max_len, device)
             for i, kind in enumerate(cfg.layer_kinds)]
