@@ -287,10 +287,31 @@ boolean mask, with the plain-torch antidiagonal scoring's device time.
      preamble drain), every attention kernel's launch count 0; prefill
      and decode tok/s, TTFT, the SSD state bytes a request, peak memory,
      and one prefill chunk's and one decode step's device time by
-     operator (torch.profiler).
+     operator (torch.profiler);
+  27. gemma3-12b's smoke variant (5 local layers with a window of 16,
+     then 1 routed; D = 32, G = 2) in fp32, card against CPU on the cases
+     of ``tests/test_torch_gemma3.py``: ``generate`` of 8, 16 and 100
+     tokens, 40 new ones (the local rings wrap), chunk 64 and
+     monolithic, router-driven, all-FA, all-SA and alternating, and a
+     drain with staggered arrivals and a preemption: routing, tokens,
+     statuses and preemptions equal, first logits within 2e-3;
+  28. gemma3-12b at full width and depth (48 layers: 40 local with a
+     1024-token window, 8 routed; D = 256, 16 heads over 8, 11.77 B
+     parameters), bf16, seeded weights: phase 6's batch cell
+     (router-driven, all-FA, all-SA), phase 7's continuous cell and phase
+     8's prefix cell (stores in snapshots of its routed geometry), exact
+     launch counts (streaming also once a local layer on a routing
+     chunk), nonzero for all five kernels; every local ring holds 1024
+     slots after a 4096-token admission.
 Phases 3 and 4 also hold and time the five kernels at jamba's attention
 layer (64 heads over 8 KV heads, D = 128) at the main shapes and its
-ring decode over 2176 slots.
+ring decode over 2176 slots, and at gemma3's (4 x 16 heads over 4 x 8
+KV heads, D = 256, G = 2), with its local layers' decode over a
+1024-slot ring with no sink and the window (the streaming kernel at sink
+0, local 1024) over 4 prompts of 4096 tokens; phase 2b stresses gemma3's
+flash, streaming and block-sparse and that window; phase 3 holds every
+kernel in fp32 at D = 256, G = 2, and the wgmma small cases cover
+D = 256.
 Phase 2b also stresses flash at whisper's encoder shape (causal=False,
 4 x 6 heads, D = 64, 1500 x 1500); phases 3 and 4 hold and time
 flash with causal=False at 1500 x 1500 and 384 x 1500 and the batch
@@ -308,7 +329,9 @@ rows under ``xa``, ``xa_stablelm_12b``, ``ta_streaming`` and
 with their launches on phase 23's path; launches by path also as
 ``phi3_vision``, ``whisper``, ``jamba_smoke`` (phase 25's bf16 runs)
 and ``mamba2`` (phase 26's three cells); jamba's G = 8 rows under
-``jamba_1_5_large_398b``, launches "phase 3 / 4 only"), the total
+``jamba_1_5_large_398b``, launches "phase 3 / 4 only"; gemma3's rows
+under ``gemma3_12b`` with its launches, the local ring's decode and the
+window under ``local_ring`` and ``window``), the total
 seconds, and the last line ``{"ok": true, "device": {...}}``.
 """
 import collections
@@ -337,6 +360,13 @@ MAMBA2 = "mamba2-780m"  # every layer Mamba2 SSD, no attention: 24-26
 # 7 Mamba : 1 routed attention layer a period, MoE on the even layers: its
 # smoke variant in phase 25, its attention shapes (G = 8) in phases 3-4
 JAMBA = "jamba-1.5-large-398b"
+# 5 local (sliding-window) layers to 1 routed global layer, D = 256,
+# G = 2: phases 27-28, its kernel shapes in phases 2b-4
+GEMMA3 = "gemma3-12b"
+# phase 28's prefix stores, in snapshots of the cold run's routed
+# geometry: the batch store's device and host tiers (A's 8 boundaries
+# fill both, so offload_all drops) and the continuous store
+GEMMA3_STORE_SNAPSHOTS = (3.5, 5.5, 6.5)
 # deepseek-v2 at 60 layers is 472 GB in bf16; 4 of them at full width
 # (1.05 B embedding and unembedding + 4 x 3.98 B = 16.97 B parameters,
 # ≈ 34 GB) fit
@@ -1010,18 +1040,24 @@ def stress_cases(dev):
     """Phase 2b's instances: [(label, kernel name, kernel call taking
     ``out=``, plain call, slots)], every bf16 wgmma instance the main
     paths run at their shapes: flash, streaming and block-sparse at
-    granite's (D = 64), phi3-mini's (96) and stablelm's (160), flash and
-    streaming at deepseek's (192, 128), the latent decode over POOL_LENS
-    and over the ring with holes, and flash with causal=False at
-    whisper's encoder shape (4 x 6 heads, D = 64, 1500 x 1500)."""
+    granite's (D = 64), phi3-mini's (96), stablelm's (160) and gemma3's
+    (256, G = 2), streaming at gemma3's window over a whole prompt (sink
+    0, local 1024), flash and streaming at deepseek's (192, 128), the
+    latent decode over POOL_LENS and over the ring with holes, and flash
+    with causal=False at whisper's encoder shape (4 x 6 heads, D = 64,
+    1500 x 1500)."""
     from repro_torch.configs import get_config
     cases = []
-    for arch in (GRANITE, ARCH, STABLELM):
+    for arch in (GRANITE, ARCH, STABLELM, GEMMA3):
         D = get_config(arch).head_dim
         kc = kernel_cases(dev, torch.bfloat16, True, arch)
         for name in ("flash_attention", "streaming_attention",
                      "block_sparse_attention"):
             cases.append((f"{name} {arch} D={D}", name, *kc[name][:2], 1))
+    kern, plain, *_ = window_case(dev)
+    cases.append((f"streaming_attention {GEMMA3} window D=256 sink=0 "
+                  f"local=1024 {PROMPT} tokens", "streaming_attention", kern,
+                  plain, 1))
     for name, c in mla_kernel_cases(dev, torch.bfloat16, True).items():
         kernel = "decode_attention_mla" if "mla" in name else name
         label = {"flash_attention": "flash_attention (192, 128)",
@@ -1218,17 +1254,19 @@ def time_mla(dev, parent=None):
     return rows
 
 
-def ring_decode_case(dev, arch=ARCH):
+def ring_decode_case(dev, arch=ARCH, window=False):
     """The decode kernel over a sink + local RingKV at the main path's
-    shapes of ``arch`` (bf16), the SA layers' decode: (kernel call, plain
-    call, plain call with one V tile zeroed, library call, bytes,
-    flops)."""
+    shapes of ``arch`` (bf16), the SA layers' decode, or (``window``) over
+    a local layer's ring of sliding_window slots with no sink: (kernel
+    call, plain call, plain call with one V tile zeroed, library call,
+    bytes, flops)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_bh
     from repro_torch.serve.engine import _ring_src
     cfg = get_config(arch)
-    sink, local = cfg.flux.sink, cfg.flux.local
+    sink, local = ((0, cfg.sliding_window) if window
+                   else (cfg.flux.sink, cfg.flux.local))
     ring, BH, D = sink + local, REQUESTS * cfg.num_heads, cfg.head_dim
     BHkv = REQUESTS * cfg.num_kv_heads
     G = BH // BHkv
@@ -1251,13 +1289,44 @@ def ring_decode_case(dev, arch=ARCH):
             *attn_work(BH, BHkv, 1, D, n_valid, BH * n_valid, 2))
 
 
-def ring_decode_check(dev, arch=ARCH):
+def ring_decode_check(dev, arch=ARCH, window=False):
     """(max abs error, bf16 ratio of the kernel, bf16 ratio of the plain
     version with one V tile zeroed) of ``ring_decode_case``."""
-    kern, plain, mutant, *_ = ring_decode_case(dev, arch)
+    kern, plain, mutant, *_ = ring_decode_case(dev, arch, window)
     out, want = kern(), plain()
     return (max_err(out, want), bf16_ratios(out, want),
             bf16_ratios(mutant(), want))
+
+
+def window_case(dev):
+    """gemma3's local layers over a whole prompt (the monolithic
+    admission's shape): the streaming kernel at sink 0 and local =
+    sliding_window (1024) over REQUESTS prompts of PROMPT tokens at its
+    widths (4 x 16 heads over 4 x 8 KV heads, D = 256), bf16: (kernel
+    call taking ``out=``, plain call, plain call with one V tile zeroed,
+    library call: SDPA's efficient backend under the band mask, bytes,
+    flops)."""
+    from torch.nn.attention import SDPBackend
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.streaming_attention import \
+        streaming_attention_bh
+    cfg = get_config(GEMMA3)
+    BH, BHkv = REQUESTS * cfg.num_heads, REQUESTS * cfg.num_kv_heads
+    S, D, w = PROMPT, cfg.head_dim, cfg.sliding_window
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(n, S, D, generator=g, device=dev).to(
+        torch.bfloat16) for n in (BH, BHkv, BHkv))
+    kp = torch.arange(S, device=dev)
+    band = (kp[None] <= kp[:, None]) & (kp[:, None] - kp[None] < w)
+    kw = dict(sink=0, local=w)
+    return (lambda **o: streaming_attention_bh(q, k, v, **kw, **o),
+            lambda: rows_plain(ref.streaming_attention_ref, q, k, v, **kw),
+            lambda: rows_plain(ref.streaming_attention_ref, q, k,
+                               zero_tile(v), **kw),
+            lambda: gqa_sdpa(q, k, v, band, SDPBackend.EFFICIENT_ATTENTION),
+            *attn_work(BH, BHkv, S, D, S,
+                       BH * streaming_pairs(range(S), 0, w), 2))
 
 
 SWEEP_REQUESTS = (1, 2, 4)  # batch buckets of the sweep: 32, 64, 128 rows
@@ -1647,10 +1716,10 @@ def path_parity(dev, arch=ARCH, cfg=None, routings=("router", "mixed")):
 
 def decode_launches(cfg, steps, pooled):
     """The decode kernels' launches for ``steps`` decode steps of every
-    attention layer (a Mamba layer launches none): an MLA model's latent
-    decode on both frontends, else the batch kernel (an int pos) or the
-    pooled one (a (B,) pos)."""
-    n = steps * sum(k == "attn" for k in cfg.layer_kinds)
+    attention layer, global or local (a Mamba layer launches none): an
+    MLA model's latent decode on both frontends, else the batch kernel
+    (an int pos) or the pooled one (a (B,) pos)."""
+    n = steps * sum(k in ("attn", "local") for k in cfg.layer_kinds)
     if cfg.use_mla:
         return dict(decode_attention=0, decode_attention_pooled=0,
                     decode_attention_mla=n)
@@ -1665,21 +1734,25 @@ def prefill_launches(cfg, admissions, repacks=()):
     (hit 0): flash (FA layers) and streaming (SA layers) once per layer
     on the routing chunk, block-sparse once per FA layer on every later
     chunk (an MLA model's full-cache layers run the absorbed attention
-    there, in plain torch). A hit skips the routing chunk and the chunks
-    it covers: block-sparse once per FA layer on each chunk past the
-    boundary. ``repacks`` are the (pattern, prompt length) of every
-    monolithic prefill (the repack fallback, which serves the xa and ta
-    SA modes), an admitted one also in ``admissions``: flash at each FA
-    layer; at each SA layer streaming (ssa), block-sparse (xa), or flash
-    and, past ta's chunk, streaming."""
+    there, in plain torch). A local (sliding-window) layer runs
+    streaming at sink 0 once on the routing chunk and its later chunks in
+    plain torch. A hit skips the routing chunk and the chunks it covers:
+    block-sparse once per FA layer on each chunk past the boundary.
+    ``repacks`` are the (pattern, prompt length) of every monolithic
+    prefill (the repack fallback, which serves the xa and ta SA modes),
+    an admitted one also in ``admissions``: flash at each FA layer; at
+    each SA layer streaming (ssa), block-sparse (xa), or flash and, past
+    ta's chunk, streaming; streaming at each local layer."""
     from repro_torch.serve.engine import chunk_plan
     want = {"flash_attention": 0, "streaming_attention": 0,
             "block_sparse_attention": 0}
     mode = cfg.flux.sa_mode
+    n_local = sum(k == "local" for k in cfg.layer_kinds)
     left = collections.Counter(repacks)
     for pattern, n in repacks:
         n_fa = sum(p == "fa" for p in pattern)
         n_sa = sum(p == "sa" for p in pattern)
+        want["streaming_attention"] += n_local
         want["flash_attention"] += n_fa + (n_sa if mode == "ta" else 0)
         if mode == "xa":
             want["block_sparse_attention"] += n_sa
@@ -1694,6 +1767,7 @@ def prefill_launches(cfg, admissions, repacks=()):
         if not hit:
             want["flash_attention"] += n_fa
             want["streaming_attention"] += sum(p == "sa" for p in pattern)
+            want["streaming_attention"] += n_local
         if not cfg.use_mla:
             want["block_sparse_attention"] += n_fa * (
                 len(chunk_plan(n, CHUNK)) - covered)
@@ -1799,8 +1873,8 @@ def pool_parity(dev, arch=ARCH, cfg=None, routings=("router", "mixed")):
 
 def main_path(dev, params, cfg, requests=REQUESTS,
               routings=("router", "mixed")):
-    """Phases 6 (phi3-mini), 10 (stablelm), 12 (command-r, depth cut) and
-    25 (jamba's smoke variant): ``cfg`` in bf16 through the batch
+    """Phases 6 (phi3-mini), 10 (stablelm), 12 (command-r, depth cut), 25
+    (jamba's smoke variant) and 28 (gemma3): ``cfg`` in bf16 through the batch
     frontend, ``requests`` prompts of PROMPT tokens, once per routing (the
     router, or a forced pattern)."""
     import repro_torch.kernels as KN
@@ -1831,7 +1905,9 @@ def main_path(dev, params, cfg, requests=REQUESTS,
         n_fa = sum(p == "fa" for p in gen.routing)
         n_sa = sum(p == "sa" for p in gen.routing)
         n_chunks = PROMPT // CHUNK
-        want = {"flash_attention": n_fa, "streaming_attention": n_sa,
+        n_local = sum(k == "local" for k in cfg.layer_kinds)
+        want = {"flash_attention": n_fa,
+                "streaming_attention": n_sa + n_local,
                 "block_sparse_attention": 0 if cfg.use_mla
                 else n_fa * (n_chunks - 1),
                 **decode_launches(cfg, GEN, pooled=False)}
@@ -1858,8 +1934,9 @@ def main_path(dev, params, cfg, requests=REQUESTS,
 
 
 def continuous_path(dev, params, cfg):
-    """Phases 7 (phi3-mini), 11 (stablelm) and 25 (jamba's smoke variant):
-    ``cfg`` at full depth in bf16 through the continuous frontend."""
+    """Phases 7 (phi3-mini), 11 (stablelm), 25 (jamba's smoke variant) and
+    28 (gemma3): ``cfg`` at full depth in bf16 through the continuous
+    frontend."""
     import repro_torch.kernels as KN
     from repro_torch.launch.serve import (PREFILL_CHUNKS_PER_TICK,
                                           routing_letters, routing_pattern)
@@ -1971,15 +2048,20 @@ def copy_times(eng, state):
     return n, {k: (v, n / v / 1e6) for k, v in ms.items()}
 
 
-def prefix_path(dev, params):
-    """Phase 8: the shared-prefix snapshot store on both frontends.
-    Returns (launch counts of the warm runs, report lines)."""
+def prefix_path(dev, params, cfg=None, snapshots=None):
+    """Phases 8 (phi3-mini) and 28 (gemma3, ``cfg``): the shared-prefix
+    snapshot store on both frontends, its budgets BATCH_STORE_MB and
+    CONT_STORE_MB, or (``snapshots``) the batch store's device and host
+    tiers and the continuous store in snapshots of the cold run's routed
+    geometry. Returns (launch counts of the warm runs, report lines)."""
     import repro_torch.kernels as KN
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import PREFILL_CHUNKS_PER_TICK
+    from repro_torch.launch.serve import (PREFILL_CHUNKS_PER_TICK,
+                                          routing_letters)
+    from repro_torch.serve import prefix_cache as PXC
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.scheduler import STATUS_OK, ContinuousScheduler
-    cfg = get_config(ARCH)
+    cfg = cfg or get_config(ARCH)
     V, L = cfg.vocab_size, cfg.num_layers
     kw = dict(max_len=PROMPT + GEN, prefill_chunk=CHUNK, device=dev)
     rng = np.random.default_rng(3)
@@ -1988,8 +2070,14 @@ def prefix_path(dev, params):
             [None] for _ in range(2))
     cold = ServeEngine(params, cfg, **kw)
     ref = {"A": cold.generate(A, GEN), "B": cold.generate(B, GEN)}
-    warm = ServeEngine(params, cfg, prefix_cache_mb=BATCH_STORE_MB[0],
-                       prefix_cache_host_mb=BATCH_STORE_MB[1], **kw)
+    batch_mb, cont_mb = BATCH_STORE_MB, CONT_STORE_MB
+    if snapshots:
+        mb = PXC.snapshot_spec_bytes(cfg, ref["A"].routing,
+                                     kw["max_len"]) / 2 ** 20
+        batch_mb, cont_mb = (snapshots[0] * mb, snapshots[1] * mb), \
+            snapshots[2] * mb
+    warm = ServeEngine(params, cfg, prefix_cache_mb=batch_mb[0],
+                       prefix_cache_host_mb=batch_mb[1], **kw)
     store = warm.prefix_store
     events = collections.Counter()
     store.on_event = lambda name: events.update([name])
@@ -2024,7 +2112,7 @@ def prefix_path(dev, params):
     job = cold.prefill_chunked(A)
     n, ms = copy_times(cold, (job.caches, job.logits))
     lines.append(
-        f"batch routing={''.join(p[0] for p in pattern)} snapshot_bytes={n} "
+        f"batch routing={routing_letters(pattern)} snapshot_bytes={n} "
         f"offloaded={offloaded} offload_all_s={t_off:.4f} "
         f"promotions={events['promotion']} "
         f"store={s.as_dict()} launches={counts}")
@@ -2053,7 +2141,7 @@ def prefix_path(dev, params):
     _, _, cold_done, cold_wall = drain()
     free_card()
     KN.reset_launch_counts()
-    eng, sched, done, wall = drain(prefix_cache_mb=CONT_STORE_MB)
+    eng, sched, done, wall = drain(prefix_cache_mb=cont_mb)
     cont = KN.launch_counts()
     hits = [done[r].metrics.prefix_hit_tokens for r in range(8)]
     for rid in range(8):
@@ -3973,12 +4061,145 @@ def mamba_cells(dev, params, cfg):
     return {k: total[k] for k in zero}, lines
 
 
+GEMMA3_LENS = (8, 16, 100)  # phase 27's prompts, against its window of 16
+
+
+def gemma_parity(dev):
+    """Phase 27: gemma3's smoke variant (6 layers: 5 local with a window of
+    16, then 1 routed; D = 32, G = 2) in fp32, the same seeded weights on
+    the card and on the CPU, on the cases of tests/test_torch_gemma3.py:
+    ``generate`` of 2 prompts of GEMMA3_LENS tokens, 40 new tokens (the
+    local rings wrap 2.5 times), chunk 64 and the monolithic repack,
+    router-driven, and all-FA, all-SA and alternating at 100 tokens; then
+    a slot-pool drain with staggered arrivals and a priority-9 arrival
+    that preempts. Routing, tokens, statuses and preemptions equal; the
+    first logits' gaps printed (within 2e-3: fp32 both, summation order
+    only). Returns report lines."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch.serve import routing_letters, routing_pattern
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import STATUS_OK
+    cfg = smoke_variant(get_config(GEMMA3))
+    params = MD.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    N, max_len, devs = 40, 160, (dev, torch.device("cpu"))
+    engines = {(d.type, c): ServeEngine(params, cfg, max_len=max_len,
+                                        prefill_chunk=c, device=d)
+               for d in devs for c in (64, None)}
+    card = engines["cuda", 64]
+    for seed in range(32):
+        rng = np.random.default_rng(seed)
+        prompts = {S: rng.integers(0, cfg.vocab_size, (2, S))
+                   for S in GEMMA3_LENS}
+        margin = min(float(np.abs(MD.prefill(
+            card.params, cfg, card._tokens(p[:, :64]),
+            routing_ctx="hard_prefix", want_cache=False).p_fa.numpy()
+            - 0.5).min()) for p in prompts.values())
+        if margin > 1e-3:
+            break
+    else:
+        raise AssertionError("no prompt seed with router margins > 1e-3")
+    lines = [f"prompt_seed={seed} min_margin={margin:.2e}"]
+    cases = ([(S, "router", c) for c in (64, None) for S in GEMMA3_LENS]
+             + [(100, r, c) for c in (64, None) for r in ("fa", "sa",
+                                                           "mixed")])
+    for S, routing, chunk in cases:
+        ov = routing_pattern(cfg, routing)
+        g, c = (engines[d.type, chunk].generate(prompts[S], N,
+                                                routing_override=ov)
+                for d in devs)
+        err = float((g.logits.cpu() - c.logits).abs().max())
+        assert g.routing == c.routing, (S, routing, chunk)
+        assert np.array_equal(g.tokens, c.tokens), (S, routing, chunk)
+        assert g.kv_bytes == c.kv_bytes and err < 2e-3, err
+        lines.append(f"S={S} {routing} chunk={chunk or 'monolithic'} "
+                     f"routing={routing_letters(g.routing)} "
+                     f"logits_err={err:.2e} "
+                     f"tokens0={g.tokens[0, :8].tolist()}")
+    out = {}
+    for d in devs:
+        eng = ServeEngine(params, cfg, max_len=max_len, prefill_chunk=16,
+                          device=d)
+        sched = eng.scheduler(slots_per_bucket=2, chunk=4,
+                              prefill_chunks_per_tick=2)
+        rng = np.random.default_rng(2)
+        ov = routing_pattern(cfg, "mixed")
+        reqs = [Request(rid=rid, tokens=rng.integers(0, cfg.vocab_size, n),
+                        n_steps=20, routing_override=ov)
+                for rid, n in enumerate((20, 28, 9, 24))]
+        eng.submit(reqs[0])
+        eng.submit(reqs[1])
+        eng.step()
+        eng.submit(reqs[2])
+        eng.submit(reqs[3])
+        for _ in range(8):
+            if sched.n_active() == 2:
+                break
+            eng.step()
+        assert sched.n_active() == 2, "the pool never filled"
+        eng.submit(Request(rid=9, tokens=rng.integers(0, cfg.vocab_size, 17),
+                           n_steps=6, priority=9, routing_override=ov))
+        out[d.type] = eng.drain()
+    g, c = out["cuda"], out["cpu"]
+    assert sorted(g) == sorted(c)
+    for rid in g:
+        assert g[rid].status == c[rid].status == STATUS_OK, rid
+        assert np.array_equal(g[rid].tokens, c[rid].tokens), rid
+        assert g[rid].metrics.preemptions == c[rid].metrics.preemptions
+    preempt = sum(f.metrics.preemptions for f in g.values())
+    assert preempt >= 1, "the drain did not preempt"
+    lines.append(f"drain: {len(g)} requests ok, preemptions={preempt}, "
+                 f"tokens equal")
+    return lines
+
+
+def gemma_cells(dev, params, cfg):
+    """Phase 28: gemma3-12b at full width and depth in bf16, seeded
+    weights: phase 6's batch cell (router-driven, all-FA and all-SA; the
+    alternating override would route every global layer, each at an odd
+    index, to SA), phase 7's continuous cell and phase 8's prefix cell
+    (stores of GEMMA3_STORE_SNAPSHOTS routed snapshots), each with exact
+    launch counts; then one PROMPT-token admission whose local rings must
+    hold the last sliding_window positions in sliding_window slots.
+    Returns ({cell: launch counts}, report lines)."""
+    from repro_torch.serve import kv_cache as KC
+    from repro_torch.serve.engine import ServeEngine
+    counts, lines = {}, []
+    counts["batch"], out = main_path(dev, params, cfg,
+                                     routings=("router", "fa", "sa"))
+    lines += [f"batch {line}" for line in out]
+    free_card()
+    counts["continuous"], out = continuous_path(dev, params, cfg)
+    lines += [f"continuous {line}" for line in out]
+    free_card()
+    counts["prefix"], out = prefix_path(dev, params, cfg,
+                                        GEMMA3_STORE_SNAPSHOTS)
+    lines += [f"prefix {line}" for line in out]
+    free_card()
+    eng = ServeEngine(params, cfg, max_len=PROMPT + GEN, prefill_chunk=CHUNK,
+                      device=dev)
+    job = eng.prefill_chunked(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, PROMPT)))
+    w = cfg.sliding_window
+    local = [c for c, k in zip(job.caches, cfg.layer_kinds) if k == "local"]
+    assert all(KC.capacity(c) == w for c in local)
+    for c in local:
+        pos = c.positions[0].tolist()
+        assert sorted(pos) == list(range(PROMPT - w, PROMPT))
+        assert all(p % w == slot for slot, p in enumerate(pos))
+    lines.append(f"local rings after a {PROMPT}-token admission: "
+                 f"{len(local)} x {w} slots holding positions "
+                 f"{PROMPT - w}-{PROMPT - 1}, {KC.kv_cache_bytes(local)} "
+                 f"bytes a request")
+    return counts, lines
+
+
 def check_kernels(dev):
     """Phase 3: every kernel against its plain version on the card.
     Returns {arch: {kernel: max abs error at that arch's main shapes}}."""
     from repro_torch.configs import get_config
     errs = {}
-    for arch in (ARCH, STABLELM, GRANITE, JAMBA):
+    for arch in (ARCH, STABLELM, GRANITE, JAMBA, GEMMA3):
         cfg = get_config(arch)
         errs[arch] = {}
         for name, (kern, plain, mutant, *_rest) in kernel_cases(
@@ -3996,7 +4217,7 @@ def check_kernels(dev):
                    f"G={cfg.num_heads // cfg.num_kv_heads} "
                    f"max_abs_err={e:.3e} limit_ratio={ratio_text(r)} "
                    f"zeroed_tile_ratio={ratio_text(r_mut)}")
-    for D, G in ((128, 4), (160, 4), (64, 3)):
+    for D, G in ((128, 4), (160, 4), (64, 3), (256, 2)):
         for name, (kern, plain, *_rest) in kernel_cases(
                 dev, torch.float32, False, small_d=D, small_g=G).items():
             out = kern()
@@ -4028,6 +4249,29 @@ def check_kernels(dev):
     say(3, f"decode_attention bfloat16 {JAMBA} ring L=2176 D=128 G=8 "
            f"max_abs_err={e:.3e} limit_ratio={ratio_text(r)} "
            f"zeroed_tile_ratio={ratio_text(r_mut)}")
+    # gemma3's local layers: the decode over a 1024-slot ring with no
+    # sink, and the window (sink 0) over a whole prompt
+    e, r, r_mut = ring_decode_check(dev, GEMMA3, window=True)
+    assert max(r) < 1, f"{GEMMA3} local ring decode bf16: error {r}"
+    assert min(r_mut) > 1, f"{GEMMA3} local ring decode bf16: a zeroed " \
+        f"tile is within the limit {r_mut}"
+    errs[GEMMA3]["decode_attention_local_ring"] = e
+    say(3, f"decode_attention bfloat16 {GEMMA3} local ring L=1024 sink=0 "
+           f"D=256 G=2 max_abs_err={e:.3e} limit_ratio={ratio_text(r)} "
+           f"zeroed_tile_ratio={ratio_text(r_mut)}")
+    kern, plain, mutant, *_ = window_case(dev)
+    out, want = kern(), plain()
+    errs[GEMMA3]["streaming_attention_window"] = e = max_err(out, want)
+    r, r_mut = bf16_ratios(out, want), bf16_ratios(mutant(), want)
+    assert max(r) < 1, f"{GEMMA3} window bf16: error {r} of the limit"
+    assert min(r_mut) > 1, f"{GEMMA3} window bf16: a zeroed tile is " \
+        f"within the limit {r_mut}"
+    say(3, f"streaming_attention bfloat16 {GEMMA3} window sink=0 local=1024"
+           f" over {PROMPT} tokens D=256 G=2 max_abs_err={e:.3e} "
+           f"limit_ratio={ratio_text(r)} "
+           f"zeroed_tile_ratio={ratio_text(r_mut)}")
+    del out, want
+    free_card()
     for label, kern, plain, mutant in wgmma_cases(dev):
         out, want = kern(), plain()
         e, r = max_err(out, want), bf16_ratios(out, want)
@@ -4156,7 +4400,7 @@ def time_kernels(dev, parent=None):
                        for n, (ms, plan) in by_n.items()) + " (* the plan's)")
     free_card()
     out = {ARCH: rows}
-    for arch in (STABLELM, GRANITE, JAMBA):
+    for arch in (STABLELM, GRANITE, JAMBA, GEMMA3):
         cfg = get_config(arch)
         out[arch] = {}
         for name, (kern, plain, _, lib, n_bytes, flops) in kernel_cases(
@@ -4184,6 +4428,24 @@ def time_kernels(dev, parent=None):
            f"bound_ms={b_ms:.4f} ({b_by}; {n_bytes} bytes, {flops} flops) "
            f"roofline_share={b_ms / r['ms']:.3f}")
     free_card()
+    for key, label, case in (
+            ("local_ring", "decode_attention local ring L=1024 sink=0",
+             ring_decode_case(dev, GEMMA3, window=True)),
+            ("window", f"streaming_attention window sink=0 local=1024 over "
+                       f"{PROMPT} tokens", window_case(dev))):
+        kern, plain, _, lib, n_bytes, flops = case
+        b_ms, b_by = bound(n_bytes, flops)
+        r = out[GEMMA3][label.split()[0]][key] = dict(
+            ms=time_ms(kern), plain_ms=time_ms(plain, reps=2, rounds=3),
+            library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+            call_ms=call_ms(kern))
+        say(4, f"{label} {GEMMA3} D=256 G=2 ms={r['ms']:.4f} "
+               f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+               f"library_ms={r['library_ms']:.4f} bound_ms={b_ms:.4f} "
+               f"({b_by}; {n_bytes} bytes, {flops} flops) "
+               f"roofline_share={b_ms / r['ms']:.3f}")
+        del case, kern, plain, lib
+        free_card()
     out[DEEPSEEK] = {}
     cases = mla_kernel_cases(dev, torch.bfloat16, True)
     for name, (kern, plain, _, lib, n_bytes, flops, _) in cases.items():
@@ -4544,6 +4806,36 @@ def main(argv=None) -> int:
     del params
     free_card()
 
+    t0 = time.perf_counter()
+    for line in gemma_parity(dev):
+        say(27, f"{GEMMA3} smoke " + line)
+    say(27, f"{GEMMA3} smoke card = cpu done", t0)
+    free_card()
+
+    cfg = get_config(GEMMA3)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    torch.cuda.synchronize()
+    say(28, f"{GEMMA3} full width and depth ({cfg.num_layers} layers: "
+            f"{cfg.layer_kinds.count('local')} local with a window of "
+            f"{cfg.sliding_window}, {len(cfg.routable_layers())} routed; "
+            f"D {cfg.head_dim}, {cfg.num_heads} heads over "
+            f"{cfg.num_kv_heads}), {cfg.param_count()} parameters, "
+            f"{torch.cuda.memory_allocated(dev)} bytes on the card", t0)
+    gemma_counts, lines = gemma_cells(dev, params, cfg)
+    for line in lines:
+        say(28, line)
+    for cell, c in gemma_counts.items():
+        counts[f"gemma3_{cell}"] = c
+    assert all(gemma_counts["batch"][k] > 0 for k in (
+        "flash_attention", "streaming_attention", "block_sparse_attention",
+        "decode_attention"))
+    assert gemma_counts["continuous"]["decode_attention_pooled"] > 0
+    say(28, f"{GEMMA3} batch, continuous and prefix cells done", t0)
+    del params
+    free_card()
+
     import repro_torch.kernels as KN
     kernels = []
     for name, replaces in REPLACES.items():
@@ -4582,7 +4874,18 @@ def main(argv=None) -> int:
             jamba_1_5_large_398b=dict(
                 launches=None, launches_note="phase 3 / 4 only",
                 max_abs_err=errs[JAMBA][name], **rows[JAMBA][name]),
+            gemma3_12b=dict(launches=counts[f"gemma3_{own}"][name],
+                            max_abs_err=errs[GEMMA3][name],
+                            **rows[GEMMA3][name]),
             stress=stress_counts))
+        # gemma3's local layers: the decode over the 1024-slot ring, and
+        # the window over a whole prompt (the monolithic admission's
+        # shape; on the chunked path the window runs at the route chunk,
+        # counted in gemma3_12b's streaming launches)
+        for key in ("local_ring", "window"):
+            if key in rows[GEMMA3][name]:
+                kernels[-1]["gemma3_12b"][key]["max_abs_err"] = \
+                    errs[GEMMA3][f"{name}_{key}"]
         if name == "decode_attention":  # and its SA ring
             kernels[-1]["jamba_1_5_large_398b"]["ring"]["max_abs_err"] = \
                 errs[JAMBA]["decode_attention_ring"]

@@ -8,10 +8,11 @@ Attention, with a dense or an MoE FFN (phi3-mini-3.8b, stablelm-12b,
 command-r-plus-104b, granite-moe-3b-a800m, deepseek-v2-236b), the two
 whose requests carry a modality side input: phi-3-vision-4.2b (prefix
 embeddings) and whisper-tiny (an encoder over frame embeddings, and
-cross attention in every decoder layer), and the two with Mamba2 SSD
+cross attention in every decoder layer), the two with Mamba2 SSD
 layers: mamba2-780m (every layer) and jamba-1.5-large-398b (seven of
-every eight, beside one routed attention layer). Sliding-window layers
-come with the slice that ports them (ROADMAP Queue 1 item 14d).
+every eight, beside one routed attention layer), and gemma3-12b, whose
+five of every six layers attend over a sliding window: every arch of
+the JAX package.
 """
 from __future__ import annotations
 
@@ -229,6 +230,7 @@ ARCH_MODULES = {
     "whisper-tiny": "repro_torch.configs.whisper_tiny",
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
+    "gemma3-12b": "repro_torch.configs.gemma3_12b",
 }
 
 
@@ -240,8 +242,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     if name not in ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; the port serves the archs "
-                       f"{sorted(ARCH_MODULES)} (sliding-window layers "
-                       f"wait for ROADMAP Queue 1 item 14d)")
+                       f"{sorted(ARCH_MODULES)}")
     importlib.import_module(ARCH_MODULES[name])
     return _REGISTRY[name]
 

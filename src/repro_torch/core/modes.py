@@ -7,13 +7,14 @@ hand-written CUDA kernels on CUDA tensors and run their plain versions
 on CPU tensors. ``masked_attention`` stays plain PyTorch: the JAX package
 computes it outside any Pallas kernel too.
 
-Kinds: ``full`` (flash), ``streaming`` (the SSA sparse mode, the
+Kinds: ``full`` (flash), ``window`` (a local layer's sliding window:
+the streaming kernel with no sink, where the JAX package runs its
+blocked engine in XLA), ``streaming`` (the SSA sparse mode, the
 sink+local kernel), ``triangle`` (TriangleMix, the ``ta`` mode: the
 streaming kernel over the rows before the last ``chunk`` rows, flash over
 those) and ``block_topk`` (XAttention, the ``xa`` mode: antidiagonal
 block scores in plain torch, as the JAX package scores them in XLA, and
-the block-sparse kernel over the per-query-head top-k selection). The
-``window`` kind waits for the slice that serves gemma3-style local layers.
+the block-sparse kernel over the per-query-head top-k selection).
 """
 from __future__ import annotations
 
@@ -50,6 +51,10 @@ FULL = AttnMode("full")
 BIDIRECTIONAL = AttnMode("full", causal=False)
 
 
+def window_mode(window: int) -> AttnMode:
+    return AttnMode("window", local=window)
+
+
 def ssa_mode(flux) -> AttnMode:
     return AttnMode("streaming", sink=flux.sink, local=flux.local)
 
@@ -79,10 +84,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention under ``mode`` over the whole of k/v.
 
     q (B,Hq,Sq,D); k, v (B,Hkv,Skv,D); query row r sits at position
-    ``q_offset + r``. ``full`` runs the flash kernel, ``streaming`` the
-    sink+local kernel, ``triangle`` both (``_triangle``), ``block_topk``
-    the block-sparse kernel (``_block_topk``). Returns (B,Hq,Sq,Dv) in
-    q's dtype."""
+    ``q_offset + r``. ``full`` runs the flash kernel, ``window`` and
+    ``streaming`` the sink+local kernel (``window`` at sink 0: position
+    p sees key c iff p - local < c <= p), ``triangle`` both
+    (``_triangle``), ``block_topk`` the block-sparse kernel
+    (``_block_topk``). Returns (B,Hq,Sq,Dv) in q's dtype."""
     B, Hq, Sq, D = q.shape
     if mode.kind == "triangle":
         return _triangle(q, k, v, mode, q_offset=q_offset, scale=scale)
@@ -93,14 +99,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mode.kind == "full":
         out = flash_attention_bh(qf, kf, vf, causal=mode.causal,
                                  scale=scale, q_offset=q_offset)
-    elif mode.kind == "streaming":
-        out = streaming_attention_bh(qf, kf, vf, sink=mode.sink,
+    elif mode.kind in ("window", "streaming"):
+        sink = mode.sink if mode.kind == "streaming" else 0
+        out = streaming_attention_bh(qf, kf, vf, sink=sink,
                                      local=max(mode.local, 1), scale=scale,
                                      q_offset=q_offset)
     else:
-        raise NotImplementedError(
-            f"attention mode {mode.kind!r}: the sliding-window kind waits "
-            f"for ROADMAP Queue 1 item 14d")
+        raise ValueError(f"unknown attention mode kind {mode.kind!r}")
     return out.reshape(B, Hq, Sq, out.shape[-1])
 
 

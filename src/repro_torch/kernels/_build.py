@@ -38,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (Dk, Dv) pairs with Dk != Dv of the flash and streaming kernels
 # (dispatch_head_dims): MLA's route chunk, nope + rope = 192 over v = 128
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 96, 128, 160)
+HEAD_DIMS = (32, 64, 96, 128, 160, 256)
 SPLIT_HEAD_DIMS = ((192, 128),)
 
 
@@ -249,9 +249,7 @@ def check_cuda(name: str, *tensors: torch.Tensor, dims=None) -> int:
     dims = (d, d) if dims is None else tuple(dims)
     if dims and dims[0] == dims[1] and dims[0] not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {dims[0]} not supported by the "
-                         f"kernel {HEAD_DIMS}; head dim 256 (gemma3's "
-                         f"global layers) waits for ROADMAP Queue 2 "
-                         f"instances item 2")
+                         f"kernel: it is built for {HEAD_DIMS}")
     if dims and dims[0] != dims[1] and dims not in SPLIT_HEAD_DIMS:
         raise ValueError(f"{name}: head dims (Dk, Dv) = {dims} not "
                          f"supported by the kernel: it is built for Dk = Dv "

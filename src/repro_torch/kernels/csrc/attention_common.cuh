@@ -4,7 +4,7 @@
 // fp32 scores and accumulators, the mask value -1e30 (not -inf), p rounded
 // to v's dtype before the PV product, and the final acc / max(l, 1e-20).
 // Inputs are fp32 or bf16 (one template instance each) with head dims 32,
-// 64, 96, 128 and 160; the flash and streaming kernels also at (Dk, Dv) =
+// 64, 96, 128, 160 and 256; the flash and streaming kernels also at (Dk, Dv) =
 // (192, 128), the route chunk of Multi-head Latent Attention (queries and
 // keys of nope + rope = 192 columns over values of 128). Kernels allocate
 // nothing and launch on the caller's stream; each C entry point returns
@@ -82,12 +82,13 @@ template <int D, int Dv = D> struct PrefillSmem {
       sizeof(float) * ((size_t)(kBQ + kBK) * kLd + (size_t)kBK * kVLd +
                        (size_t)kBQ * kPLd);
   // past 48 KB (D >= 64) the launch asks for it (allow_smem); 137 KB at
-  // D = 160 and 145 KB at (192, 128) still fit one CTA of an H100 (227 KB)
+  // D = 160, 145 KB at (192, 128) and 209 KB at D = 256 still fit one CTA
+  // of an H100 (227 KB)
   static_assert(kBytes <= 232448, "one CTA's shared memory on an H100");
 };
 
 template <typename T, int D, int Dv = D> struct PrefillBlock {
-  static_assert(D % 16 == 0 && D <= 192 && Dv % 16 == 0 && Dv <= 160,
+  static_assert(D % 16 == 0 && D <= 256 && Dv % 16 == 0 && Dv <= 256,
                 "head dims");
   static constexpr int kLd = PrefillSmem<D, Dv>::kLd;
   static constexpr int kVLd = PrefillSmem<D, Dv>::kVLd;
@@ -233,6 +234,7 @@ cudaError_t dispatch_head_dim(int D, A... a) {
     case 96: return Launcher<T, 96>::run(a...);
     case 128: return Launcher<T, 128>::run(a...);
     case 160: return Launcher<T, 160>::run(a...);
+    case 256: return Launcher<T, 256>::run(a...);
   }
   return cudaErrorInvalidValue;
 }
@@ -271,6 +273,7 @@ cudaError_t dispatch_head_dims(int Dk, int Dv, A... a) {
       case 96: return Launcher<T, 96, 96>::run(a...);
       case 128: return Launcher<T, 128, 128>::run(a...);
       case 160: return Launcher<T, 160, 160>::run(a...);
+      case 256: return Launcher<T, 256, 256>::run(a...);
     }
   }
   if (Dk == 192 && Dv == 128) return Launcher<T, 192, 128>::run(a...);

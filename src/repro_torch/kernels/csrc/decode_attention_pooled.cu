@@ -296,7 +296,7 @@ cudaError_t launch_pooled(dim3 grid, const void* q, const void* k,
                           void* part_m, void* part_l, int L, int G,
                           int kv_per_slot, int tiles, float scale_log2,
                           cudaStream_t stream) {
-  if (tiles > max_tiles<kG>()) return cudaErrorInvalidValue;
+  if (tiles > Plan<T, D, kG>::kMaxTiles) return cudaErrorInvalidValue;
   const size_t bytes = Plan<T, D, kG>::bytes(tiles);
   auto kernel = pooled_split_kernel<T, D, kG>;
   cudaError_t e = allow_smem(kernel, bytes);

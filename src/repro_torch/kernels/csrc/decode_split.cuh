@@ -18,9 +18,10 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxG = 8;  // query rows of one CTA when G > 1
 
-// The most tiles one split may hold, so that its scores and positions fit
-// in shared memory beside the stages (decode_attention.py: MAX_SPLIT_TILES):
-// with kG = 8 rows, fp32 at D = 160 fits 63 tiles (Plan::bytes).
+// The most tiles one split may hold where they fit in shared memory
+// beside the stages (decode_attention.py: MAX_SPLIT_TILES): with kG = 8
+// rows, fp32 at D = 160 fits 63 tiles (Plan::bytes). Plan::kMaxTiles is
+// the cap of one instance.
 template <int kG> constexpr int max_tiles() { return kG == 1 ? 256 : 56; }
 
 // Shared memory of one CTA, from a 128-byte aligned base: kStages slots of
@@ -42,10 +43,18 @@ template <typename T, int D, int kG> struct Plan {
   static size_t bytes(int tiles) {
     return kPos + (size_t)4 * kKeys * tiles * (1 + kG);
   }
+  // the tiles that fit one CTA's shared memory (227 KB on an H100)
+  static constexpr int kFit =
+      (int)((232448 - kPos) / (4 * kKeys * (1 + kG)));
+  // the most tiles one split holds (decode_attention.py:
+  // max_split_tiles): max_tiles<kG>() at every instance but fp32 at
+  // D = 256, whose two 64 KB stages leave room for 195 (kG = 1) and 40
+  // (kG = 8)
+  static constexpr int kMaxTiles = kFit < max_tiles<kG>() ? kFit
+                                                          : max_tiles<kG>();
   static_assert(kVecs % 2 == 0 && kGroups * D * 4 <= kBars, "layout");
-  static_assert(kPos + (size_t)4 * kKeys * max_tiles<kG>() * (1 + kG) <=
-                    232448,  // bytes(max_tiles), 227 KB on an H100
-                "the longest split does not fit one CTA's shared memory");
+  static_assert(kMaxTiles >= 8,  // decode_attention.py: POOL_TILES
+                "a split must hold the pooled plan's 8 tiles");
 };
 
 // Threads of a merge CTA, one an output column: kThreads up to D = 128

@@ -29,25 +29,52 @@ KERNEL = _build.CudaKernel("decode_attention", "decode_attention_fwd",
 
 TILE = 64        # keys of one tile (csrc/decode_attention.cu: kKeys)
 MAX_G = 8        # query rows of one CTA when G > 1 (kMaxG)
-# tiles a split may hold (max_tiles): its scores fit shared memory at every
-# built (dtype, D), the tightest fp32 at D = 160 with 8 rows a CTA
+# tiles a split may hold (max_tiles) where its scores fit shared memory:
+# at every built (dtype, D) but fp32 at D = 256 (max_split_tiles)
 MAX_SPLIT_TILES = {1: 256, MAX_G: 56}
 MIN_TILES = 2    # the fewest tiles a split gets when L is cut
+SMEM_BYTES = 232448  # one CTA's shared memory on an H100 (227 KB)
 
 
 def _tiles(L: int) -> int:
     return -(-L // TILE)
 
 
-def normalize_split(L: int, n_split: int, G: int = 1) -> int:
+def max_split_tiles(G: int = 1, dtype: Optional[torch.dtype] = None,
+                    D: Optional[int] = None) -> int:
+    """The most tiles a split of the (dtype, D) instance holds with G
+    query rows per KV row (``Plan::kMaxTiles`` of
+    csrc/decode_split.cuh): MAX_SPLIT_TILES where they fit one CTA's
+    shared memory beside the stages, else as many as fit. Only fp32 at
+    D = 256 holds fewer: 195 at G = 1, 40 at G > 1. Without (dtype, D)
+    (MLA's latent decode, which shares only the tile size):
+    MAX_SPLIT_TILES."""
+    rows = 1 if G == 1 else MAX_G
+    cap = MAX_SPLIT_TILES[rows]
+    if dtype is None or D is None:
+        return cap
+    chunk = TILE * D * dtype.itemsize
+    stages = 4 if 4 * chunk <= 65536 else 2
+    # Plan::kPos: the stages, their mbarriers, q (rows, D) and the
+    # reductions' partials (4 warps) in fp32
+    pos = stages * chunk + 8 * stages + 4 * rows * D + 4 * 4 * rows
+    return min(cap, (SMEM_BYTES - pos) // (4 * TILE * (1 + rows)))
+
+
+def normalize_split(L: int, n_split: int, G: int = 1,
+                    dtype: Optional[torch.dtype] = None,
+                    D: Optional[int] = None) -> int:
     """The number of key ranges the kernel launches for ``n_split``
     asked, with G query rows per KV row: at most one a tile, so none is
-    empty, and enough that no range holds more than MAX_SPLIT_TILES."""
-    cap = MAX_SPLIT_TILES[1 if G == 1 else MAX_G]
+    empty, and enough that no range holds more than the instance's
+    ``max_split_tiles``."""
+    cap = max_split_tiles(G, dtype, D)
     return max(1, -(-_tiles(L) // cap), min(int(n_split), _tiles(L)))
 
 
-def decode_split_plan(BHkv: int, G: int, L: int, sms: int) -> int:
+def decode_split_plan(BHkv: int, G: int, L: int, sms: int,
+                      dtype: Optional[torch.dtype] = None,
+                      D: Optional[int] = None) -> int:
     """How many key ranges each KV row of an (BHkv, L) cache is cut into,
     for G query rows per KV row on a card of ``sms`` multiprocessors: as
     many as still fit one CTA per multiprocessor (rows * n <= sms), so
@@ -57,7 +84,7 @@ def decode_split_plan(BHkv: int, G: int, L: int, sms: int) -> int:
     decode by n_split)."""
     rows = BHkv * -(-G // MAX_G)
     return normalize_split(L, min(max(1, sms // rows), _tiles(L) // MIN_TILES),
-                           G)
+                           G, dtype, D)
 
 
 @functools.lru_cache(maxsize=None)
@@ -78,15 +105,18 @@ def split_ranges(L: int, n_split: int) -> List[Tuple[int, int]]:
 POOL_TILES = 8   # tiles a range of the pooled decode holds (its plan)
 
 
-def normalize_tiles(L: int, tiles: int, G: int = 1) -> int:
+def normalize_tiles(L: int, tiles: int, G: int = 1,
+                    dtype: Optional[torch.dtype] = None,
+                    D: Optional[int] = None) -> int:
     """The tiles a range of the pooled decode kernel holds for ``tiles``
     asked over an L-slot buffer, with G query rows per KV row: at least
-    one, at most the buffer's and MAX_SPLIT_TILES."""
-    cap = MAX_SPLIT_TILES[1 if G == 1 else MAX_G]
-    return max(1, min(int(tiles), _tiles(L), cap))
+    one, at most the buffer's and the instance's ``max_split_tiles``."""
+    return max(1, min(int(tiles), _tiles(L), max_split_tiles(G, dtype, D)))
 
 
-def pooled_split_plan(L: int, G: int = 1) -> int:
+def pooled_split_plan(L: int, G: int = 1,
+                      dtype: Optional[torch.dtype] = None,
+                      D: Optional[int] = None) -> int:
     """How many whole 64-key tiles each range of the pooled decode kernel
     holds over an L-slot buffer (csrc/decode_attention_pooled.cu): the
     grid is built from the capacity, ceil(ceil(L / 64) / tiles) ranges a
@@ -99,7 +129,7 @@ def pooled_split_plan(L: int, G: int = 1) -> int:
     and 16 slots of phi3-mini's ragged pool (PERF.md, pooled decode by
     tiles): fewer tiles add CTA set-up and merge traffic, more leave the
     deepest slot's ranges running alone at the end."""
-    return normalize_tiles(L, POOL_TILES, G)
+    return normalize_tiles(L, POOL_TILES, G, dtype, D)
 
 
 def pooled_ranges(n: int, L: int, tiles: int) -> List[Tuple[int, int]]:
@@ -138,8 +168,10 @@ def decode_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_aligned16(name, "its TMA bulk loads", k, v)
     BH, _, D = q.shape
     BHkv = k.shape[0]
-    n = (decode_split_plan(BHkv, BH // BHkv, L, sm_count(q.device.index))
-         if n_split is None else normalize_split(L, n_split, BH // BHkv))
+    n = (decode_split_plan(BHkv, BH // BHkv, L, sm_count(q.device.index),
+                           q.dtype, D)
+         if n_split is None
+         else normalize_split(L, n_split, BH // BHkv, q.dtype, D))
     out = torch.empty_like(q)
     ptrs = (0, 0, 0)
     if n > 1:  # the splits' fp32 (acc, m, l), merged by the same entry

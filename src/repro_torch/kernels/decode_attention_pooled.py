@@ -65,14 +65,13 @@ def decode_attention_pooled_bh(q: torch.Tensor, k: torch.Tensor,
         raise NotImplementedError(
             f"{name}: (Dk, Dv) = ({Dk}, {Dv}): the kernel is built for "
             f"Dk = Dv in {_build.HEAD_DIMS}; MLA's latent decode runs on "
-            f"decode_attention_mla_bh, head dim 256 waits for ROADMAP "
-            f"Queue 2 instances item 2")
+            f"decode_attention_mla_bh")
     code = _build.check_cuda(name, q, k, v, lengths,
                              *(() if positions is None else (positions,)))
     _build.check_aligned16(name, "its TMA bulk loads", k, v)
     G = BH // BHkv
-    t = (pooled_split_plan(L, G) if tiles is None
-         else normalize_tiles(L, tiles, G))
+    t = (pooled_split_plan(L, G, q.dtype, Dk) if tiles is None
+         else normalize_tiles(L, tiles, G, q.dtype, Dk))
     n_split = -(-L // (t * TILE))  # ranges a KV row, from the capacity
     out = torch.empty((BH, 1, Dv), dtype=q.dtype, device=q.device)
     ptrs = (0, 0, 0)

@@ -32,6 +32,12 @@ engine (port of ``repro/launch/serve.py``).
         --arch jamba-1.5-large-398b --smoke --device cpu --requests 2 \\
         --prompt-len 96 --gen-len 8 --prefill-chunk 32
 
+    # gemma3-12b: 40 sliding-window (local) layers, never routed, and 8
+    # routed global layers; head dim 256
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch gemma3-12b --requests 4 --prompt-len 4096 \\
+        --gen-len 32 --prefill-chunk 512
+
     # shared-system-prompt traffic through the prefix cache: every
     # prompt opens with the same 2048 tokens; snapshots up to 8 GiB on
     # the card and 8 GiB in pinned host memory

@@ -33,11 +33,17 @@ decode runs the absorbed attention on the latent decode kernel, and a
 streamed chunk at a full-cache layer the absorbed attention in plain
 torch, as the JAX package runs it in XLA.
 
-A layer is attention or a Mamba2 SSD block (``models/ssm.py``), as
-``cfg.layer_kinds`` says. A Mamba layer is never routed; its cache is a
-``MambaCache`` (the SSD state and the conv tail), which a prefill
-returns as (h, conv_tail), a streamed chunk carries through
-``mamba_apply`` and a decode step advances in place.
+A layer is global attention, a sliding-window ("local") layer or a
+Mamba2 SSD block (``models/ssm.py``), as ``cfg.layer_kinds`` says. A
+local layer is never routed: its prefill runs ``window_mode`` (the
+streaming kernel with no sink), and its cache is a ring of
+min(sliding_window, max_len) slots with no sink, which a streamed chunk
+and a decode step read with sink 0 and a window of the ring's size (the
+sink is chosen by the layer's kind, not by the cache's type). A Mamba
+layer is never routed; its cache is a ``MambaCache`` (the SSD state and
+the conv tail), which a prefill returns as (h, conv_tail), a streamed
+chunk carries through ``mamba_apply`` and a decode step advances in
+place.
 
 A layer's FFN is a dense SwiGLU or, where ``cfg.moe_layer_mask()`` says
 so, the Mixture-of-Experts of ``models/moe.py``, called with the length
@@ -86,15 +92,15 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The layer kinds the port runs: GQA or MLA global attention and
-    Mamba2 SSD blocks, with a dense SwiGLU, an MoE FFN or none, with or
-    without an encoder and prefix embeddings."""
-    kinds = set(cfg.layer_kinds) - {"attn", "mamba"}
+    """The layer kinds the port runs: GQA or MLA global attention,
+    sliding-window local attention and Mamba2 SSD blocks, with a dense
+    SwiGLU, an MoE FFN or none, with or without an encoder and prefix
+    embeddings."""
+    kinds = set(cfg.layer_kinds) - {"attn", "local", "mamba"}
     if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves 'attn' (GQA or MLA) and 'mamba' "
-            f"layers; its {sorted(kinds)} layers wait for ROADMAP Queue 1 "
-            f"item 14d (sliding-window)")
+        raise ValueError(
+            f"{cfg.name}: unknown layer kinds {sorted(kinds)}; the port "
+            f"serves 'attn', 'local' and 'mamba' layers")
 
 
 def has_ffn(cfg: ModelConfig, layer_idx: int) -> bool:
@@ -103,6 +109,13 @@ def has_ffn(cfg: ModelConfig, layer_idx: int) -> bool:
 
 def is_routed(cfg: ModelConfig, layer_idx: int) -> bool:
     return cfg.flux.enabled and cfg.layer_kinds[layer_idx] == "attn"
+
+
+def ring_sink(cfg: ModelConfig, layer_idx: int) -> int:
+    """The sink of a ring cache at ``layer_idx``, by the layer's kind: 0
+    for a local layer's window ring, ``flux.sink`` for a routed SA
+    layer's."""
+    return 0 if cfg.layer_kinds[layer_idx] == "local" else cfg.flux.sink
 
 
 def router_in_dim(cfg: ModelConfig) -> int:
@@ -327,7 +340,9 @@ def block_apply(bp, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
         q, k, v, x_q = A.gqa_qkv(bp["attn"], cfg, x, positions)
         cache = (k, v) if want_cache else None
     r = None
-    if is_routed(cfg, layer_idx) and ctx[0] != "fa_only":
+    if cfg.layer_kinds[layer_idx] == "local":  # never routed
+        o = M.attention(q, k, v, M.window_mode(cfg.sliding_window))
+    elif is_routed(cfg, layer_idx) and ctx[0] != "fa_only":
         o, r = _route_and_attend(bp, cfg, q, k, v, x_q, ctx)
     else:
         o = M.attention(q, k, v, M.FULL)
@@ -618,7 +633,6 @@ def decode_core(params, cfg: ModelConfig, token: torch.Tensor,
     rope_pos = (pos[:, None] if pooled
                 else torch.full((1,), pos, device=h.device))
     slot_positions: Dict[int, torch.Tensor] = {}  # FullKV capacity → arange
-    flux = cfg.flux
     for i, bp in enumerate(params["layers"]):
         cache = caches[i]
         x = rms_norm(bp["norm1"], h, cfg.norm_eps)
@@ -630,8 +644,9 @@ def decode_core(params, cfg: ModelConfig, token: torch.Tensor,
             continue
         L = KC.capacity(cache)
         if KC.is_ring(cache):
+            sink = ring_sink(cfg, i)
             y, cache = _decode_attn_ring(bp, cfg, x, pos, rope_pos, cache,
-                                         flux.sink, L - flux.sink)
+                                         sink, L - sink)
         elif (duo_layers is not None and i in duo_layers
               and fa_heads is not None and not cfg.use_mla):
             y, cache = _decode_attn_headsplit(bp, cfg, x, pos, rope_pos,
@@ -806,7 +821,6 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
     Updates ``caches`` in place. Returns (last-token logits (B, V),
     caches)."""
     B, C = tokens.shape
-    flux = cfg.flux
     h = embed_tokens(params, cfg, tokens)
     positions = start + torch.arange(C, device=h.device)
     for i, bp in enumerate(params["layers"]):
@@ -819,9 +833,9 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
             h = ffn_block(bp, cfg, i, h + y)
             continue
         if KC.is_ring(cache):
+            sink = ring_sink(cfg, i)
             y, cache = _chunk_attn_ring(bp, cfg, x, positions, start, cache,
-                                        flux.sink,
-                                        KC.capacity(cache) - flux.sink)
+                                        sink, KC.capacity(cache) - sink)
         else:
             y, cache = _chunk_attn_full(bp, cfg, x, positions, start, cache)
         h = ffn_block(bp, cfg, i, _cross_residual(bp, cfg, h + y, enc_out))

@@ -124,13 +124,14 @@ def seed_caches(cfg: ModelConfig, prefill_caches, pattern, batch: int,
                 max_len: int, device) -> List:
     """Decode-geometry caches for ``pattern``, seeded with a routing
     chunk's per-layer (k, v), an MLA model's (ckv, kr) or a Mamba
-    layer's (SSD state, conv tail), at position 0."""
+    layer's (SSD state, conv tail), at position 0. A ring's sink is its
+    layer's (``MD.ring_sink``: none at a local layer)."""
     caches = KC.init_decode_caches(cfg, pattern, batch, max_len, device)
-    sink = cfg.flux.sink
-    for kv, dec in zip(prefill_caches, caches):
+    for i, (kv, dec) in enumerate(zip(prefill_caches, caches)):
         if isinstance(dec, KC.MambaCache):
             KC.mamba_update(dec, *kv)
             continue
+        sink = MD.ring_sink(cfg, i)
         local = KC.capacity(dec) - sink
         if isinstance(dec, KC.RingLatentKV):
             KC.ring_latent_insert_chunk(dec, *kv, 0, sink, local)
@@ -170,9 +171,10 @@ def repack_caches(cfg: ModelConfig, prefill_caches, routing,
     """Whole-prompt prefill KV (per layer (k, v), an MLA model's (ckv,
     kr), a Mamba layer's (SSD state, conv tail)) → decode cache list.
     FALLBACK PATH for admissions ``chunked_eligible`` excludes.
-    routing[i] ∈ {"fa", "sa", ("duo", n), None}: only "sa" makes a ring;
-    a duo layer keeps its full cache; a Mamba layer's state is its
-    cache."""
+    routing[i] ∈ {"fa", "sa", ("duo", n), None}: "sa" makes a sink +
+    local ring; a duo layer keeps its full cache; a local layer keeps a
+    ring of min(sliding_window, max_len) slots with no sink, whatever
+    its entry; a Mamba layer's state is its cache."""
     flux = cfg.flux
     # the sequence axis of each buffer: ckv (B, S, R) holds it at 1
     axes = (1, 2) if cfg.use_mla else (2, 2)
@@ -184,8 +186,10 @@ def repack_caches(cfg: ModelConfig, prefill_caches, routing,
         B = a.shape[0]
         length = torch.full((B,), seq_len, dtype=torch.int32,
                             device=a.device)
-        if routing[i] == "sa":
-            ring, sink = KC.sa_ring(flux, max_len)
+        local = cfg.layer_kinds[i] == "local"
+        if local or routing[i] == "sa":
+            ring, sink = ((min(cfg.sliding_window, max_len), 0) if local
+                          else KC.sa_ring(flux, max_len))
             src = _ring_src(seq_len, sink, ring - sink, ring)
             pos = torch.as_tensor(src, dtype=torch.int32, device=a.device)
             kind = KC.RingLatentKV if cfg.use_mla else KC.RingKV

@@ -1,14 +1,15 @@
 """Decode-time caches (port of ``repro/serve/kv_cache.py``, its
-whisper ``CrossKV`` and sliding-window rings aside).
+whisper ``CrossKV`` aside).
 
 FA layers keep the complete KV history (``FullKV``); SA layers keep only
 the sink+local ring (``RingKV``), whose size is independent of the
-context length. MLA layers cache the compressed latent and the one
-shared roped key instead of per-head K / V, in the same two geometries
-(``LatentKV``, ``RingLatentKV``). Keys are stored with RoPE already
-applied at absolute positions. A Mamba2 layer's cache is its SSD state
-and conv tail (``MambaCache``), whose size is independent of the
-position.
+context length, and a sliding-window ("local") layer a ``RingKV`` of
+min(sliding_window, max_len) slots with no sink. MLA layers cache the
+compressed latent and the one shared roped key instead of per-head K /
+V, in the same two geometries (``LatentKV``, ``RingLatentKV``). Keys are
+stored with RoPE already applied at absolute positions. A Mamba2 layer's
+cache is its SSD state and conv tail (``MambaCache``), whose size is
+independent of the position.
 
 Unlike the JAX package, whose arrays are immutable, every insert here
 writes into the cache's own buffers in place and returns the same cache:
@@ -368,9 +369,10 @@ def sa_ring(flux: FluxConfig, max_len: int) -> Tuple[int, int]:
 def init_layer_cache(cfg: ModelConfig, kind: str, mode: str, batch: int,
                      max_len: int, device, dtype=None):
     """Fresh (empty) cache for one layer; mode ∈ {"fa", "sa"} for an
-    attention layer (None for a Mamba layer). An MLA model's layers
-    cache latents (``LatentKV`` / ``RingLatentKV``), a Mamba layer a
-    zero ``MambaCache``."""
+    attention layer (not read for a local or a Mamba layer). An MLA
+    model's layers cache latents (``LatentKV`` / ``RingLatentKV``), a
+    local layer a ``RingKV`` of min(sliding_window, max_len) slots with
+    no sink, a Mamba layer a zero ``MambaCache``."""
     if max_len <= 0:
         raise ValueError(f"init_layer_cache: max_len={max_len} must be "
                          f"positive")
@@ -384,12 +386,18 @@ def init_layer_cache(cfg: ModelConfig, kind: str, mode: str, batch: int,
                 (batch, cfg.ssm_conv_width - 1,
                  cfg.ssm_inner + 2 * cfg.ssm_state_dim), dtype=dtype,
                 device=device))
-    if kind != "attn":
-        raise NotImplementedError(
-            f"layer kind {kind!r}: sliding-window layers wait for ROADMAP "
-            f"Queue 1 item 14d")
     H, D = cfg.num_kv_heads, cfg.head_dim
     length = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if kind == "local":
+        L = min(cfg.sliding_window, max_len)
+        return RingKV(
+            k=torch.zeros((batch, H, L, D), dtype=dtype, device=device),
+            v=torch.zeros((batch, H, L, D), dtype=dtype, device=device),
+            positions=torch.full((batch, L), -1, dtype=torch.int32,
+                                 device=device),
+            length=length)
+    if kind != "attn":
+        raise ValueError(f"init_layer_cache: unknown layer kind {kind!r}")
     if cfg.use_mla:
         R, rope = cfg.kv_lora_rank, cfg.qk_rope_head_dim
         L = sa_ring(cfg.flux, max_len)[0] if mode == "sa" else max_len
@@ -419,7 +427,7 @@ def init_layer_cache(cfg: ModelConfig, kind: str, mode: str, batch: int,
 def init_decode_caches(cfg: ModelConfig, routing: Tuple[str, ...],
                        batch: int, max_len: int, device) -> List:
     """Per-layer cache list for a static routing pattern
-    (routing[i] ∈ {"fa", "sa"} at an attention layer; a Mamba layer's
-    entry is not read)."""
+    (routing[i] ∈ {"fa", "sa"} at an attention layer; a local or a Mamba
+    layer's entry is not read)."""
     return [init_layer_cache(cfg, kind, routing[i], batch, max_len, device)
             for i, kind in enumerate(cfg.layer_kinds)]

@@ -16,8 +16,8 @@ drain: routing identical, greedy tokens identical, first-step logits
 within 1e-4 (float32 on both sides, summation order only). The router's
 hard decision is mean(p_fa) > 0.5 with a strict >, so every
 router-driven case first checks that each layer's mean p_fa is more than
-1e-3 from 0.5. The CUDA entries take head dim 160 and refuse 256 before
-any launch.
+1e-3 from 0.5. The CUDA entries take head dims 160 and 256 and refuse
+an unbuilt one before any launch.
 """
 import numpy as np
 import pytest
@@ -180,11 +180,12 @@ def test_drain_matches_jax(variant):
         assert np.array_equal(tout[rid].tokens, jout[rid].tokens), rid
 
 
-@pytest.mark.parametrize("D,ok", [(160, True), (256, False)])
+@pytest.mark.parametrize("D,ok", [(160, True), (256, True), (48, False)])
 def test_cuda_entries_take_head_dim_160_and_refuse_256(monkeypatch, D, ok):
     """With the device test answering "cuda", each of the five entries
-    launches its kernel at head dim 160 (G = 4) and raises at 256, naming
-    the ROADMAP item that waits for it, before any launch."""
+    launches its kernel at the built head dims 160 (stablelm) and 256
+    (gemma3's), G = 4, and raises at an unbuilt one (48), naming the
+    widths it is built for, before any launch."""
     from repro_torch.kernels import (_build, block_sparse_attention,
                                      decode_attention,
                                      decode_attention_pooled,
@@ -216,6 +217,6 @@ def test_cuda_entries_take_head_dim_160_and_refuse_256(monkeypatch, D, ok):
             call()
         else:
             with pytest.raises((ValueError, NotImplementedError),
-                               match="Queue 2 instances item 2"):
+                               match=r"built for .*160, 256\)"):
                 call()
     assert launched == (list(mods) if ok else [])

@@ -29,7 +29,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    TILE, decode_split_plan, normalize_split, split_ranges)
+    MAX_G, MAX_SPLIT_TILES, TILE, decode_split_plan, max_split_tiles,
+    normalize_split, normalize_tiles, split_ranges)
 
 TOL = 2e-5
 H100_SMS = 132  # multiprocessors of an H100 SXM
@@ -62,6 +63,40 @@ def test_split_plan_partitions_keys(L, BH, G):
     _check_partition(L, n)
     for asked in range(1, -(-L // TILE) + 3):  # forced counts, normalized
         _check_partition(L, normalize_split(L, asked, G))
+
+
+def _plan_bytes(dtype, D, rows, tiles):
+    """``Plan<T, D, kG>::bytes(tiles)`` of csrc/decode_split.cuh, counted
+    again: the stages (4 while 4 of them take at most 64 KB, else 2),
+    their mbarriers, q (rows, D) in fp32, 4 warps' partials a row, then
+    each tile's positions and scores."""
+    chunk = TILE * D * (4 if dtype == torch.float32 else 2)
+    stages = 4 if 4 * chunk <= 65536 else 2
+    return (stages * chunk + 8 * stages + 4 * rows * D + 16 * rows
+            + 4 * TILE * tiles * (1 + rows))
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 160, 256])
+def test_split_cap_fits_shared_memory(D, dtype, G):
+    """Every instance keeps the cap of MAX_SPLIT_TILES where it fits one
+    CTA's 227 KB; fp32 at D = 256 (two 64 KB stages) holds 195 tiles with
+    one row a CTA and 40 with 8, and its plan cuts a 4128-slot cache so
+    that no range holds more."""
+    rows = 1 if G == 1 else MAX_G
+    cap = max_split_tiles(G, dtype, D)
+    assert _plan_bytes(dtype, D, rows, cap) <= 232448
+    if (dtype, D) == (torch.float32, 256):
+        assert cap == (195 if G == 1 else 40)
+        assert _plan_bytes(dtype, D, rows, cap + 1) > 232448
+    else:
+        assert cap == MAX_SPLIT_TILES[rows]
+    assert max_split_tiles(G) == MAX_SPLIT_TILES[rows]
+    n = normalize_split(4128, 1, G, dtype, D)
+    assert -(-65 // n) <= cap
+    assert decode_split_plan(32, G, 4128, H100_SMS, dtype, D) >= n
+    assert normalize_tiles(16384, 1000, G, dtype, D) == cap
 
 
 @pytest.mark.parametrize("BHkv", [8, 32, 64, 128, 256])
