@@ -124,10 +124,11 @@ decode beside this tree's in phase 4. Phases, each printing one line
      of a host-tier restore (GB/s), cold and warm prefill seconds and
      TTFT p50, and the store's stats.
   9. stablelm-12b (head dim 160, G = 4) at full width, depth cut to 2
-     layers, fp32, card against CPU as in phase 5; 9b. the same weights
+     layers, fp32, card against CPU as in phase 5; 9b. one such layer
      through the slot-pool scheduler as in phase 5b;
-  10. the batch path of stablelm-12b at full width and depth (40
-     layers), bf16, as phase 6 (phi3-mini's weights freed first);
+  10. the batch path of stablelm-12b at full width, depth cut to
+     STABLELM_LAYERS = 20 of its 40 layers, bf16, as phase 6 (phi3-mini's
+     weights freed first);
   11. its continuous path, as phase 7;
   12. command-r-plus-104b (G = 12, tied embeddings) at full width, depth
      cut to 8 of its 64 layers (the whole model is 208 GB in bf16), bf16,
@@ -176,8 +177,8 @@ decode beside this tree's in phase 4. Phases, each printing one line
      layer 0's ``moe_apply`` over one chunk with drops (y within 1e-4,
      the same kept set), and a drain with one slot poisoned whose pool
      siblings stay bitwise equal to the drain without the fault;
-  16. granite at full width and depth (32 layers, 3.30 B parameters),
-     bf16, seeded weights: the batch path as phase 6, the continuous
+  16. granite at full width, depth cut to GRANITE_LAYERS = 4 of its 32
+     layers, bf16, seeded weights: the batch path as phase 6, the continuous
      path as phase 7 (every logit finite, exact launch counts, tok/s,
      TTFT p50, peak memory and KV bytes), and sampled ``generate``: one
      seed twice gives the same tokens, another seed others, and
@@ -235,9 +236,10 @@ boolean mask, with the plain-torch antidiagonal scoring's device time.
      whose smallest xa score gap at the keep-th place on the card
      exceeds XA_GAP); and a slot-pool drain under xa (XA_DRAIN: 4
      prompts, router-driven and mixed);
-  20. phi3-mini-3.8b at full width and depth, bf16, seeded weights: the
-     batch path of phase 6 under xa (router-driven and mixed) and with a
-     duo override (16 layers split at 16 of 32 KV heads) through
+  20. phi3-mini-3.8b at full width, depth cut to SA_MODES_LAYERS = 16 of
+     its 32 layers, bf16, seeded weights: the batch path of phase 6 under
+     xa (router-driven and mixed) and with a duo override (8 layers split
+     at 16 of 32 KV heads) through
      ``generate``, ta on one prompt of 18,432 tokens (boundary 2048 at
      the published chunk), and the continuous path of phase 7 under xa:
      every logit finite, exact launch counts (block-sparse once per SA
@@ -281,7 +283,8 @@ boolean mask, with the plain-torch antidiagonal scoring's device time.
      the even layers) fp32 card = CPU under the router, all-FA, all-SA
      and mixed and through a drain, then in bf16 with exact launch
      counts of the five kernels (its attention layer only);
-  26. mamba2-780m at full width and depth, bf16, seeded weights: phase
+  26. mamba2-780m at full width, depth cut to MAMBA2_LAYERS = 6 of its
+     48 layers, bf16, seeded weights: phase
      6's batch cell, phase 7's continuous cell and phase 8's prefix cell
      (warm = cold bitwise from the device and host tiers, a shared
      preamble drain), every attention kernel's launch count 0; prefill
@@ -295,9 +298,9 @@ boolean mask, with the plain-torch antidiagonal scoring's device time.
      monolithic, router-driven, all-FA, all-SA and alternating, and a
      drain with staggered arrivals and a preemption: routing, tokens,
      statuses and preemptions equal, first logits within 2e-3;
-  28. gemma3-12b at full width and depth (48 layers: 40 local with a
-     1024-token window, 8 routed; D = 256, 16 heads over 8, 11.77 B
-     parameters), bf16, seeded weights: phase 6's batch cell
+  28. gemma3-12b at full width, depth cut to GEMMA3_LAYERS = 6 of its 48
+     layers (one period: 5 local with a 1024-token window, 1 routed; D =
+     256, 16 heads over 8), bf16, seeded weights: phase 6's batch cell
      (router-driven, all-FA, all-SA), phase 7's continuous cell and phase
      8's prefix cell (stores in snapshots of its routed geometry), exact
      launch counts (streaming also once a local layer on a routing
@@ -317,6 +320,26 @@ Phase 2b also stresses flash at whisper's encoder shape (causal=False,
 flash with causal=False at 1500 x 1500 and 384 x 1500 and the batch
 decode over 1500 keys all visible, at those heads, beside SDPA without
 a mask (``side_kernel_cases``).
+Training (slice 16): phase 2 also prints the attention backward kernel's
+registers, spills and shared memory per instance; phase 3 holds it
+against the plain version's autograd (dq, dk and dv each to the bf16
+limit with rms per tensor, where the plain gradients with one V tile
+zeroed must break it on dk; fp32 within FP32_TOL at the unaligned G = 4
+case at every head dim) at phi3-mini's and stablelm-12b's training
+shapes, gemma3's window and whisper's bidirectional encoder, and checks
+that xa and MLA's (192, 128) raise NotImplementedError under grad;
+phase 4 times it at phi3-mini's shapes beside SDPA's forward + backward.
+  29. phi3-mini at 2 layers, fp32: three RouterTrainer steps, one
+     PretrainTrainer and one ContinuedTrainer step on the card and on
+     the CPU from the same weights, batches and Gumbel noise: losses,
+     gradients and states within TRAIN_TOL (its card side runs before
+     phase 28, its CPU side in a thread beside phases 28 and 30, and
+     the comparison after phase 30);
+  30. router training of phi3-mini-3.8b at full width and depth in bf16
+     through ``launch/train.py``'s code path: TRAIN_STEPS steps of
+     TRAIN_B x TRAIN_S tokens, exact launch counts, one step under the
+     profiler, the backbone bitwise unchanged, a checkpoint round trip
+     and one request served with the trained routers.
 Then one JSON line of per-kernel numbers (phi3-mini's, and stablelm's,
 granite's and deepseek's under ``stablelm_12b``, ``granite_moe_3b_a800m``
 and ``deepseek_v2_236b``; the latent decode its own entry at deepseek's
@@ -331,7 +354,8 @@ with their launches on phase 23's path; launches by path also as
 and ``mamba2`` (phase 26's three cells); jamba's G = 8 rows under
 ``jamba_1_5_large_398b``, launches "phase 3 / 4 only"; gemma3's rows
 under ``gemma3_12b`` with its launches, the local ring's decode and the
-window under ``local_ring`` and ``window``), the total
+window under ``local_ring`` and ``window``; the backward kernel's
+entry with its launches from phase 30 and its streaming row), the total
 seconds, and the last line ``{"ok": true, "device": {...}}``.
 """
 import collections
@@ -367,6 +391,16 @@ GEMMA3 = "gemma3-12b"
 # geometry: the batch store's device and host tiers (A's 8 boundaries
 # fill both, so offload_all drops) and the continuous store
 GEMMA3_STORE_SNAPSHOTS = (3.5, 5.5, 6.5)
+# phase 28's depth: 1 of gemma3's 8 periods (5 local + 1 global layers),
+# every layer kind and all five kernels kept, so that the whole script,
+# training phases 29-30 included, fits its time on a slower host
+GEMMA3_LAYERS = 6
+# the same, for phases 10-11 (stablelm-12b: 20 of 40 layers), 16
+# (granite-moe: 4 of 32), 20 (phi3-mini under xa / ta / duo: 16 of 32)
+# and 26 (mamba2-780m: 6 of 48); each arch is uniform over depth. Phase
+# 9b's slot-pool parity runs stablelm at 1 layer (phase 9 keeps 2)
+STABLELM_LAYERS, GRANITE_LAYERS, SA_MODES_LAYERS, MAMBA2_LAYERS = \
+    20, 4, 16, 6
 # deepseek-v2 at 60 layers is 472 GB in bf16; 4 of them at full width
 # (1.05 B embedding and unembedding + 4 x 3.98 B = 16.97 B parameters,
 # ≈ 34 GB) fit
@@ -1718,14 +1752,15 @@ def decode_launches(cfg, steps, pooled):
     """The decode kernels' launches for ``steps`` decode steps of every
     attention layer, global or local (a Mamba layer launches none): an
     MLA model's latent decode on both frontends, else the batch kernel
-    (an int pos) or the pooled one (a (B,) pos)."""
+    (an int pos) or the pooled one (a (B,) pos); and no launch of the
+    backward kernel, which serving never runs."""
     n = steps * sum(k in ("attn", "local") for k in cfg.layer_kinds)
     if cfg.use_mla:
         return dict(decode_attention=0, decode_attention_pooled=0,
-                    decode_attention_mla=n)
+                    decode_attention_mla=n, attention_backward=0)
     return dict(decode_attention=0 if pooled else n,
                 decode_attention_pooled=n if pooled else 0,
-                decode_attention_mla=0)
+                decode_attention_mla=0, attention_backward=0)
 
 
 def prefill_launches(cfg, admissions, repacks=()):
@@ -3350,8 +3385,9 @@ def gen_text(gen, rows, prompt):
 
 
 def sa_mode_paths(dev, params, cfg):
-    """Phase 20: phi3-mini at full width and depth, bf16: the batch path
-    of phase 6 under xa (router-driven and mixed), ta on one TA_PROMPT
+    """Phase 20: phi3-mini at full width (SA_MODES_LAYERS deep), bf16: the
+    batch path of phase 6 under xa (router-driven and mixed), ta on one
+    TA_PROMPT
     prompt (mixed), the duo override through ``generate``, and the
     continuous path of phase 7 under xa; ssa at the same prompts beside
     each for prefill tok/s. Every logit finite; exact launch counts:
@@ -3881,8 +3917,8 @@ def profile_text(name, prof):
 
 
 def mamba_cells(dev, params, cfg):
-    """Phase 26: mamba2-780m at full width and depth in bf16 on three
-    cells: phase 6's batch cell (REQUESTS x PROMPT, GEN tokens, chunk
+    """Phase 26: mamba2-780m at full width (MAMBA2_LAYERS deep) in bf16 on
+    three cells: phase 6's batch cell (REQUESTS x PROMPT, GEN tokens, chunk
     CHUNK), phase 7's continuous cell (8 requests, 4 slots, chunks of 8,
     a priority-9 preemption) and phase 8's prefix cell (warm = cold
     bitwise from the device and pinned host tiers, and a shared-preamble
@@ -4154,13 +4190,14 @@ def gemma_parity(dev):
 
 
 def gemma_cells(dev, params, cfg):
-    """Phase 28: gemma3-12b at full width and depth in bf16, seeded
-    weights: phase 6's batch cell (router-driven, all-FA and all-SA; the
-    alternating override would route every global layer, each at an odd
-    index, to SA), phase 7's continuous cell and phase 8's prefix cell
-    (stores of GEMMA3_STORE_SNAPSHOTS routed snapshots), each with exact
-    launch counts; then one PROMPT-token admission whose local rings must
-    hold the last sliding_window positions in sliding_window slots.
+    """Phase 28: gemma3-12b at full width, depth cut to GEMMA3_LAYERS, in
+    bf16, seeded weights: phase 6's batch cell (router-driven, all-FA and
+    all-SA; the alternating override would route every global layer,
+    each at an odd index, to SA), phase 7's continuous cell and phase
+    8's prefix cell (stores of GEMMA3_STORE_SNAPSHOTS routed snapshots),
+    each with exact launch counts; then one PROMPT-token admission whose
+    local rings must hold the last sliding_window positions in
+    sliding_window slots.
     Returns ({cell: launch counts}, report lines)."""
     from repro_torch.serve import kv_cache as KC
     from repro_torch.serve.engine import ServeEngine
@@ -4191,6 +4228,677 @@ def gemma_cells(dev, params, cfg):
                  f"{len(local)} x {w} slots holding positions "
                  f"{PROMPT - w}-{PROMPT - 1}, {KC.kv_cache_bytes(local)} "
                  f"bytes a request")
+    return counts, lines
+
+
+# ---------------------------------------------------------------------------
+# Training: the attention backward kernel (phases 2-4), the trainers card
+# against CPU (29) and router training at full width and depth (30)
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 2, 4096  # phase 30's batch and phase 4's shapes
+TRAIN_STEPS, TRAIN_SCHEDULE = 8, 300  # phase 30: 8 steps of a 300 schedule
+# phase 29 (card against CPU, 2 layers at full width, fp32): one row of
+# 3072 tokens, 896 past phi3-mini's sink + local (2176). Below that, FA
+# and SA agree and r's gradient, sum (o_fa - o_sa) . dL/do, is the
+# difference of two kernels' sums in different orders on the card and
+# an exact 0 on the CPU: at 2304 tokens (128 rows past) a router leaf
+# read 1.4e-4 of its largest value apart on an H100
+PARITY_B, PARITY_S, PARITY_ROUTER_STEPS = 1, 3072, 3
+# the PretrainTrainer and ContinuedTrainer steps of phase 29: their
+# gradients reach every weight whatever the routing, so a shorter row
+# (the CPU's dense plain attention is quadratic in it)
+PARITY_BACKBONE_S = 512
+TRAIN_TOL = 1e-4  # phase 29: relative to each leaf's largest CPU value
+BWD_SMALL_STREAM = ((0, 48), (16, 48), (100, 130))  # (sink, local)
+
+
+def backward_work(BH, BHkv, Sq, Skv, D, pairs, itemsize):
+    """Bytes (q, k, v, dO read once, dq, dk, dv written once) and
+    operations (S = QKᵀ, dP = dO Vᵀ, dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K:
+    2·D for each visible (query, key) pair, each)."""
+    return (itemsize * (3 * BH * Sq * D + 4 * BHkv * Skv * D),
+            5 * 2 * D * pairs)
+
+
+def backward_cases(dev, dtype, main):
+    """[{label, kern: kernel call → (dq, dk, dv), plain, mutant: the plain
+    call with one V tile zeroed, sdpa: SDPA forward + backward or None,
+    fwd_bwd: the entry under autograd and ``torch.autograd.grad``, bytes,
+    flops}].
+    ``main`` (bf16): phi3-mini's training shapes (2 x 32 heads, D = 96,
+    4096 tokens: causal, and streaming at sink 128 / local 2048),
+    stablelm-12b's (2 x 32 heads over 2 x 8, D = 160), gemma3-12b's
+    window (2 x 16 over 2 x 8, D = 256, sink 0, local 1024) and whisper's
+    bidirectional encoder (4 x 6 heads, D = 64, 1500 x 1500); else the
+    unaligned G = 4 case (200 queries at offset 100 over 300 keys) at
+    every head dim: flash causal and bidirectional, and streaming at
+    BWD_SMALL_STREAM."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._build import HEAD_DIMS
+    from repro_torch.kernels.attention_backward import (
+        attention_backward_bh, attention_backward_plain)
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+    from repro_torch.kernels.streaming_attention import \
+        streaming_attention_bh
+    g = torch.Generator(device=dev).manual_seed(5)
+    it = torch.tensor([], dtype=dtype).element_size()
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    shapes = []  # (label, B, H, Hkv, Sq, Skv, D, [(mode label, kw)])
+    if main:
+        for arch in (ARCH, STABLELM):
+            c = get_config(arch)
+            shapes.append((arch, TRAIN_B, c.num_heads, c.num_kv_heads,
+                           TRAIN_S, TRAIN_S, c.head_dim,
+                           [("causal", dict(causal=True)),
+                            (f"streaming sink={c.flux.sink} "
+                             f"local={c.flux.local}",
+                             dict(sink=c.flux.sink, local=c.flux.local))]))
+        c = get_config(GEMMA3)
+        shapes.append((GEMMA3, TRAIN_B, c.num_heads, c.num_kv_heads,
+                       TRAIN_S, TRAIN_S, c.head_dim,
+                       [(f"window sink=0 local={c.sliding_window}",
+                         dict(sink=0, local=c.sliding_window))]))
+        c = get_config(WHISPER)
+        shapes.append((WHISPER, WHISPER_REQUESTS, c.num_heads, c.num_heads,
+                       c.encoder_ctx, c.encoder_ctx, c.head_dim,
+                       [("bidirectional", dict(causal=False))]))
+    else:
+        modes = [("causal q_offset=100", dict(causal=True, q_offset=100)),
+                 ("bidirectional", dict(causal=False))]
+        modes += [(f"streaming sink={s} local={w} q_offset=100",
+                   dict(sink=s, local=w, q_offset=100))
+                  for s, w in BWD_SMALL_STREAM]
+        shapes = [(f"unaligned D={D}", 1, 8, 2, 200, 300, D, modes)
+                  for D in HEAD_DIMS]
+    cases = []
+    for label, B, H, Hkv, Sq, Skv, D, modes in shapes:
+        BH, BHkv = B * H, B * Hkv
+        q, k, v = rnd(BH, Sq, D), rnd(BHkv, Skv, D), rnd(BHkv, Skv, D)
+        do = rnd(BH, Sq, D)
+        for mode, kw in modes:
+            if "local" in kw:
+                pos = kw.get("q_offset", 0) + np.arange(Sq)
+                pairs = BH * streaming_pairs(pos, kw["sink"], kw["local"])
+            else:
+                off = kw.get("q_offset", 0)
+                pairs = BH * (int(np.minimum(off + np.arange(Sq) + 1,
+                                             Skv).sum())
+                              if kw["causal"] else Sq * Skv)
+            entry = streaming_attention_bh if "local" in kw \
+                else flash_attention_bh
+            n_bytes, flops = backward_work(BH, BHkv, Sq, Skv, D, pairs, it)
+            cases.append(dict(
+                label=f"{label} {mode} BH={BH} G={H // Hkv} D={D} Sq={Sq} "
+                      f"Skv={Skv}",
+                kern=lambda q=q, k=k, v=v, do=do, kw=kw:
+                    attention_backward_bh(q, k, v, do, **kw),
+                plain=lambda q=q, k=k, v=v, do=do, kw=kw:
+                    attention_backward_plain(q, k, v, do, **kw),
+                mutant=lambda q=q, k=k, v=v, do=do, kw=kw:
+                    attention_backward_plain(q, k, zero_tile(v), do, **kw),
+                sdpa=(sdpa_train_call(q, k, v, do, B, H, Hkv, kw) if main
+                      else None),
+                fwd_bwd=lambda q=q, k=k, v=v, do=do, kw=kw, entry=entry:
+                    fwd_bwd_call(entry, q, k, v, do, kw),
+                bytes=n_bytes, flops=flops))
+    return cases
+
+
+def fwd_bwd_call(entry, q, k, v, do, kw):
+    """The port's forward + backward: ``entry`` on copies of q, k, v that
+    require grad (so it goes through the autograd function), then
+    ``torch.autograd.grad`` (the backward kernel)."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    return torch.autograd.grad(entry(q, k, v, **kw), (q, k, v), do)
+
+
+def sdpa_train_call(q, k, v, do, B, H, Hkv, kw):
+    """SDPA forward + backward at the same shapes, the yardstick: the
+    flash backend when causal or bidirectional, the efficient one with
+    the sink + local boolean mask for streaming. KV heads repeated for
+    G > 1 (``repeat_interleave``; the backward sums them)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    F = torch.nn.functional
+    S, Skv, D = q.shape[1], k.shape[1], q.shape[2]
+    G = H // Hkv
+    q4 = q.view(B, H, S, D).detach().requires_grad_()
+    k4 = k.view(B, Hkv, Skv, D).detach().requires_grad_()
+    v4 = v.view(B, Hkv, Skv, D).detach().requires_grad_()
+    do4 = do.view(B, H, S, D)
+
+    def rep(x):
+        return x.repeat_interleave(G, dim=1) if G > 1 else x
+
+    if "local" in kw:
+        pos = torch.arange(S, device=q.device)
+        mask = (pos[None] <= pos[:, None]) & (
+            (pos[None] < kw["sink"])
+            | (pos[:, None] - pos[None] < kw["local"]))
+        backend, args = SDPBackend.EFFICIENT_ATTENTION, dict(attn_mask=mask)
+    else:
+        backend, args = SDPBackend.FLASH_ATTENTION, dict(
+            is_causal=kw["causal"])
+
+    def call():
+        with sdpa_kernel(backend):
+            o = F.scaled_dot_product_attention(q4, rep(k4), rep(v4), **args)
+        return torch.autograd.grad(o, (q4, k4, v4), do4)
+    return call
+
+
+def backward_report():
+    """One line per backward kernel instance: registers, spill bytes and
+    static shared memory from the compiler's report (the dynamic shared
+    memory is in the .cu: ``Tiles<D>``)."""
+    from repro_torch.kernels import _build
+    lib = _build.library_path("attention_backward")
+    report = compiler_report(lib, "bwd")
+    if not report:
+        return [f"attention_backward: no compiler report at {lib.name}.log"]
+    lines = []
+    for name, r in sorted(report.items()):
+        kind = "dq" if "dq_kernel" in name else "dkdv"
+        dt = "bf16" if "bfloat16" in name else "fp32"
+        dims = re.findall(r"Li(\d+)E", name)
+        pol = "streaming" if "Streaming" in name else "flash"
+        lines.append(f"attention_backward {kind} {dt} "
+                     f"D={dims[0] if dims else '?'}"
+                     f" {pol}: registers={r.get('registers')} "
+                     f"spill_stores/loads={r.get('spill')} bytes "
+                     f"static_smem={r.get('smem')}")
+    return lines
+
+
+def check_backward(dev):
+    """Phase 3: the backward kernel against the plain version's autograd:
+    dq, dk and dv each held to the bf16 limit (rms per tensor) at the
+    main shapes and the unaligned cases, where the plain gradients with
+    one 64-key V tile zeroed must break it on dk; fp32 within FP32_TOL at
+    the unaligned cases.
+    Then xa and MLA's (192, 128) with an operand that requires grad must
+    raise NotImplementedError on the card. Returns (lines, {label:
+    (max abs err, limit ratios, zeroed-tile ratio on dk)})."""
+    lines, errs = [], {}
+    for c in (backward_cases(dev, torch.bfloat16, True)
+              + backward_cases(dev, torch.bfloat16, False)):
+        label = c["label"]
+        got, want = c["kern"](), c["plain"]()
+        r = [bf16_ratios(a, b)[0] for a, b in zip(got, want)]
+        r_mut = bf16_ratios(c["mutant"]()[1], want[1])[0]
+        e = max(max_err(a, b) for a, b in zip(got, want))
+        assert max(r) < 1, f"backward {label}: dq/dk/dv at {r} of the limit"
+        assert r_mut > 1, f"backward {label}: a zeroed V tile is within " \
+            f"the limit on dk ({r_mut})"
+        errs[label] = (e, r, r_mut)
+        lines.append(f"attention_backward bfloat16 {label} max_abs_err="
+                     f"{e:.3e} limit_ratio dq/dk/dv={ratio_text(r)} "
+                     f"zeroed_tile_ratio(dk)={r_mut:.2f}")
+        del got, want
+        free_card()
+    for c in backward_cases(dev, torch.float32, False):
+        e = max(max_err(a, b) for a, b in zip(c["kern"](), c["plain"]()))
+        assert e < FP32_TOL, f"backward fp32 {c['label']}: max abs err {e}"
+        lines.append(f"attention_backward float32 {c['label']} max_abs_err="
+                     f"{e:.3e} tol={FP32_TOL}")
+    lines += refusal_checks(dev)
+    return lines, errs
+
+
+def refusal_checks(dev):
+    """xa (``block_topk``) and flash / streaming at MLA's (192, 128) on the
+    card with operands that require grad raise NotImplementedError naming
+    ROADMAP item 15b; the same calls without grad run."""
+    from repro_torch.core import modes as M
+    g = torch.Generator(device=dev).manual_seed(6)
+    lines = []
+    q, k, v = (torch.randn(1, 2, 256, 96, generator=g, device=dev,
+                           dtype=torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    qm, km = (torch.randn(1, 2, 256, 192, generator=g, device=dev,
+                          dtype=torch.bfloat16).requires_grad_()
+              for _ in range(2))
+    vm = torch.randn(1, 2, 256, 128, generator=g, device=dev,
+                     dtype=torch.bfloat16).requires_grad_()
+    xa = M.AttnMode("block_topk", sink=16, local=64, block=128, stride=16,
+                    threshold=0.5)
+    for label, call in (
+            ("xa (block_topk)", lambda: M.attention(q, k, v, xa)),
+            ("flash (192, 128)", lambda: M.attention(qm, km, vm, M.FULL)),
+            ("streaming (192, 128)", lambda: M.attention(
+                qm, km, vm, M.AttnMode("streaming", sink=16, local=64)))):
+        try:
+            call()
+        except NotImplementedError as e:
+            assert "15b" in str(e), f"{label}: {e}"
+            with torch.no_grad():
+                out = call()
+            assert bool(torch.isfinite(out).all()), label
+            lines.append(f"{label} with requires_grad raises "
+                         f"NotImplementedError (item 15b); without grad "
+                         f"it runs")
+            continue
+        raise AssertionError(f"{label}: trained through a kernel with no "
+                             f"backward")
+    return lines
+
+
+def time_backward(dev):
+    """Phase 4: the backward kernel at phi3-mini's training shapes, causal
+    and streaming: device ms and call ms, the port's forward + backward
+    (the entry under autograd, then ``torch.autograd.grad``), the bound,
+    the plain version's ms and SDPA forward + backward. Returns {mode:
+    row}."""
+    rows = {}
+    for c in backward_cases(dev, torch.bfloat16, True)[:2]:
+        label = c["label"]
+        mode = "causal" if "causal" in label else "streaming"
+        n_bytes, flops = c["bytes"], c["flops"]
+        b_ms, b_by = bound(n_bytes, flops)
+        rows[mode] = r = dict(
+            ms=time_ms(c["kern"], reps=3, rounds=3, warmup=1),
+            call_ms=call_ms(c["kern"], reps=3, warmup=1),
+            fwd_bwd_ms=time_ms(c["fwd_bwd"], reps=3, rounds=3, warmup=1),
+            plain_ms=time_ms(c["plain"], reps=1, rounds=3, warmup=1),
+            library_ms=time_ms(c["sdpa"], reps=3, rounds=3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by)
+        say(4, f"attention_backward {label} ms={r['ms']:.4f} "
+               f"call_ms={r['call_ms']:.4f} fwd_bwd_ms={r['fwd_bwd_ms']:.4f}"
+               f" plain_ms={r['plain_ms']:.4f} sdpa_fwd_bwd_ms="
+               f"{r['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}; "
+               f"{n_bytes} bytes, {flops} flops) "
+               f"roofline_share={b_ms / r['ms']:.4f}")
+        free_card()
+    return rows
+
+
+def leaf_rel(a, b):
+    """max |a - b| over max |b| (1e-30 where b is all zeros), in float64
+    on ``a``'s device (the card's, where the CPU would take seconds a
+    full-width leaf)."""
+    a = a.detach().double()
+    b = b.detach().to(a.device).double()
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+class Rel(float):
+    """A relative error that names the leaf it was read at."""
+    leaf = ""
+
+    def __format__(self, spec):
+        return f"{float(self):{spec}}" + (f" ({self.leaf})" if self.leaf
+                                          else "")
+
+
+def tree_rel(a, b):
+    """The largest ``leaf_rel`` over two trees' paired tensors, naming
+    its leaf."""
+    from repro_torch.train.checkpoint import flatten
+    fa, fb = flatten(a), flatten(b)
+    assert fa.keys() == fb.keys(), (sorted(fa)[:4], sorted(fb)[:4])
+    worst = Rel(0.0)
+    for k in fa:
+        if isinstance(fa[k], torch.Tensor):
+            r = leaf_rel(fa[k], fb[k])
+            if r > worst:
+                worst = Rel(r)
+                worst.leaf = k
+    return worst
+
+
+def train_side(cfg, d, params, batches, noise):
+    """One device's side of phase 29 from ``params``: PARITY_ROUTER_STEPS
+    RouterTrainer steps (each step's metrics, router and λ gradients, the
+    metrics after the update and the state without its frozen weights),
+    then one PretrainTrainer and one ContinuedTrainer step from
+    ``params`` (loss, gradients, new state; the router checked bitwise
+    unchanged), and each part's seconds. The batches and noise are the
+    same on both sides."""
+    from repro_torch.train import (ContinuedTrainer, PretrainTrainer,
+                                   RouterTrainer)
+    from repro_torch.train.optimizer import tree_leaves
+
+    def on(b):
+        return [torch.as_tensor(np.asarray(x), device=d)
+                for x in (b.tokens, b.labels, b.loss_mask, b.task_type)]
+
+    def sync():
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+    out = {"router": []}
+    rt = RouterTrainer(cfg, total_steps=TRAIN_SCHEDULE)
+    state = rt.init(params, torch.Generator().manual_seed(1))
+    for i in range(PARITY_ROUTER_STEPS):
+        t0 = time.perf_counter()
+        _, m, gr, gl = rt.loss_and_grads(state, *on(batches[i]),
+                                         gumbel=noise[i].to(d))
+        state, m2 = rt.update(state, m, gr, gl)
+        sync()
+        out["router"].append((m, gr, gl, m2, {
+            k: v for k, v in state.items() if k != "frozen"},
+            time.perf_counter() - t0))
+    for name, trainer in (("pretrain", PretrainTrainer(cfg, TRAIN_SCHEDULE)),
+                          ("continued", ContinuedTrainer(cfg,
+                                                         TRAIN_SCHEDULE))):
+        i = PARITY_ROUTER_STEPS + (name == "continued")
+        t0 = time.perf_counter()
+        st = trainer.init(params)
+        loss, m, grads = trainer.loss_and_grads(st, *on(batches[i])[:3],
+                                                gumbel=noise[i].to(d))
+        new, _ = (trainer.update(st, loss, m, grads) if name == "pretrain"
+                  else trainer.update(st, m, grads))
+        if name == "continued":
+            assert all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(new["router"]), tree_leaves(st["router"]))), \
+                "ContinuedTrainer moved the router"
+        sync()
+        out[name] = (loss, grads, new, time.perf_counter() - t0)
+    return out
+
+
+def resolved_moments(mu, tol=TRAIN_TOL):
+    """{state path: bool mask} of the router parameters whose CPU first
+    moment m is resolved, |m| above ``tol`` of its leaf's largest: where
+    it is not, the card's and the CPU's m may differ in sign within the
+    gradients' tolerance, and Adam's step lr·m̂/(√v̂ + eps) is then ±lr
+    either way."""
+    from repro_torch.train.checkpoint import flatten
+    return {f"trainable/{k}": v.abs() > tol * v.abs().max()
+            for k, v in flatten(mu).items()}
+
+
+def state_rel(card, cpu, resolved):
+    """``tree_rel`` of two router-training states, each parameter leaf
+    of ``resolved`` compared on its resolved elements only (its moments
+    everywhere). Returns (the error, the share of parameter elements
+    left out)."""
+    from repro_torch.train.checkpoint import flatten
+    fa, fb = flatten(card), flatten(cpu)
+    assert fa.keys() == fb.keys()
+    worst, skipped, total = Rel(0.0), 0, 0
+    for k in fa:
+        a, b = fa[k], fb[k]
+        if k in resolved:
+            mask = resolved[k]
+            total += mask.numel()
+            skipped += int((~mask).sum())
+            a, b = a[mask.to(a.device)], b[mask]
+            if not a.numel():
+                continue
+        r = leaf_rel(a, b)
+        if r > worst:
+            worst = Rel(r)
+            worst.leaf = k
+    return worst, skipped / max(total, 1)
+
+
+def train_parity_start(dev):
+    """Phase 29: phi3-mini at full width with its depth cut to 2 layers, in
+    fp32: the same weights, batches (``mixture_iterator``) and Gumbel
+    noise (drawn once on the CPU) on the card and on the CPU
+    (``train_side``): three RouterTrainer steps on PARITY_S tokens, one
+    PretrainTrainer and one ContinuedTrainer step on PARITY_BACKBONE_S
+    tokens. The card's side runs now; the CPU's, which takes minutes
+    and launches no kernel, runs in a thread meanwhile, while phases
+    28 and 30 run on the card. Returns ``finish``, which waits for it and
+    compares: each
+    step's loss, router and λ gradients and metrics, and the state after
+    it (``state_rel``), the pretrain and continued steps' loss, every
+    weight gradient and the new state, each within TRAIN_TOL relative
+    to its leaf's largest CPU value; it returns the report lines."""
+    import threading
+    from repro_torch.configs import get_config
+    from repro_torch.core.router import gumbel_noise
+    from repro_torch.data import mixture_iterator
+    from repro_torch.models.model import init_params, params_to, soft_layers
+    cfg = get_config(ARCH).replace(num_layers=2, dtype=torch.float32,
+                                   param_dtype=torch.float32)
+    p_dev = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    p_cpu = params_to(p_dev, torch.device("cpu"))
+    data = mixture_iterator(cfg.vocab_size, PARITY_B, PARITY_S, seed=0)
+    batches = [next(data) for _ in range(PARITY_ROUTER_STEPS)]
+    data = mixture_iterator(cfg.vocab_size, PARITY_B, PARITY_BACKBONE_S,
+                            seed=1)
+    batches += [next(data) for _ in range(2)]
+    noise_gen = torch.Generator().manual_seed(7)
+    noise = [gumbel_noise((len(soft_layers(cfg)), PARITY_B, 2), noise_gen)
+             for _ in batches]
+    card = train_side(cfg, dev, p_dev, batches, noise)
+    cpu, failed = {}, []
+
+    def cpu_side():
+        try:
+            cpu.update(train_side(cfg, torch.device("cpu"), p_cpu, batches,
+                                  noise))
+        except BaseException as e:  # re-raised by finish
+            failed.append(e)
+
+    thread = threading.Thread(target=cpu_side, name="phase29-cpu")
+    thread.start()
+
+    def finish():
+        t0 = time.perf_counter()
+        thread.join()
+        if failed:
+            raise failed[0]
+        lines, resolved = [], None
+        for i, ((md, grd, gld, m2d, sd, td), (mc, grc, glc, m2c, sc, tc)) \
+                in enumerate(zip(card["router"], cpu["router"])):
+            mask = resolved_moments(sc["opt_router"].mu)
+            resolved = mask if resolved is None else {  # at every step
+                k: v & resolved[k] for k, v in mask.items()}
+            st_err, left_out = state_rel(sd, sc, resolved)
+            errs = dict(loss=leaf_rel(md["loss"], mc["loss"]),
+                        router_grad=tree_rel(grd, grc),
+                        lagrange_grad=tree_rel(gld, glc),
+                        metrics=max(leaf_rel(m2d[k], m2c[k]) for k in m2c),
+                        state=st_err)
+            lines.append(
+                f"router step {i}: loss card={float(md['loss']):.6f} "
+                f"cpu={float(mc['loss']):.6f} rel_err " + " ".join(
+                    f"{k}={v:.2e}" for k, v in errs.items())
+                + f" (router parameters compared where the CPU's first "
+                  f"moment is resolved: {100 * left_out:.4f} % left out; "
+                  f"cpu {tc:.1f} s, card {td:.1f} s)")
+            assert max(errs.values()) < TRAIN_TOL, lines[-1]
+        for name in ("pretrain", "continued"):
+            (ld, gd, nd, td), (lc, gc, nc, tc) = card[name], cpu[name]
+            errs = dict(loss=leaf_rel(ld, lc), grad=tree_rel(gd, gc),
+                        state=tree_rel(nd, nc))
+            lines.append(f"{name} step: loss card={float(ld):.6f} rel_err "
+                         + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+                         + (" router bitwise unchanged"
+                            if name == "continued" else "")
+                         + f" (cpu {tc:.1f} s, card {td:.1f} s)")
+            assert max(errs.values()) < TRAIN_TOL, lines[-1]
+        lines.append(f"the CPU side ran beside phases 28-30; waited "
+                     f"{time.perf_counter() - t0:.1f} s for it after")
+        card.clear()
+        cpu.clear()
+        return lines
+
+    return finish
+
+
+def device_kernels_profile(fn, dev, top=PROFILE_TOP_OPS):
+    """``fn`` once under torch.profiler: (wall ms, device busy ms, the
+    ``top`` device kernels by their own device time as (name, calls,
+    ms)). The hand-written kernels launch through ctypes, so they show as
+    device kernels, not as aten operators."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    key = ("self_device_time_total"
+           if rows and hasattr(rows[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    busy = sum(getattr(e, key) for e in rows) / 1e3
+    rows.sort(key=lambda e: -getattr(e, key))
+    return (1e3 * wall, busy, [(e.key[:60], e.count, getattr(e, key) / 1e3)
+                               for e in rows[:top]])
+
+
+def train_launches(cfg, n_steps):
+    """The kernels' launches of ``n_steps`` router-training steps with
+    every layer recomputed (remat): at each routed layer the flash and
+    streaming forwards twice a step (the forward and its recompute) and
+    the backward kernel twice (FA and SA), but for the first routed
+    layer, whose q, k and v need no gradient (the embedding and the
+    backbone are frozen); at a local layer the window (streaming) twice;
+    no other kernel."""
+    from repro_torch.models.model import soft_layers
+    routed = soft_layers(cfg)
+    n_local = sum(k == "local" for k in cfg.layer_kinds)
+    want = {k: 0 for k in ("flash_attention", "streaming_attention",
+                           "block_sparse_attention", "decode_attention",
+                           "decode_attention_pooled", "decode_attention_mla",
+                           "attention_backward")}
+    want["flash_attention"] = n_steps * 2 * len(routed)
+    want["streaming_attention"] = n_steps * 2 * (len(routed) + n_local)
+    want["attention_backward"] = n_steps * 2 * max(len(routed) - 1, 0)
+    return want
+
+
+def train_path(dev, params, cfg):
+    """Phase 30: router training of phi3-mini-3.8b at full width and depth
+    in bf16 through ``launch/train.py``'s code path (``router_training``:
+    RouterTrainer, λ from a generator, Gumbel noise from the card's
+    generator): TRAIN_STEPS steps of a TRAIN_SCHEDULE-step schedule over
+    ``mixture_iterator`` batches of TRAIN_B x TRAIN_S; each step's loss,
+    ce, soft_msr, τ, λ and wall s; train tokens/s after the first step;
+    peak memory; exact launch counts; then one more step's gradients
+    under torch.profiler (finite, each routed layer's router gradient
+    nonzero; the device's busy share and its top kernels); router
+    parameters moved, the backbone bitwise unchanged; the checkpoint
+    saved and loaded back bitwise; one request served through
+    ``ServeEngine.generate`` with the trained routers."""
+    import repro_torch.kernels as KN
+    from repro_torch.data import mixture_iterator
+    from repro_torch.launch.train import router_training
+    from repro_torch.models.model import router_param_filter
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import checkpoint
+    from repro_torch.train.optimizer import partition, tree_leaves
+    lines = []
+    router0, backbone = partition(params, router_param_filter(params))
+    router0 = [x.clone() for x in tree_leaves(router0)]
+    backbone0 = [x.clone() for x in tree_leaves(backbone)]
+    data = mixture_iterator(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0)
+    stamps = [time.perf_counter()]
+    logs = []
+
+    def log(msg):
+        stamps.append(time.perf_counter())
+        logs.append(msg)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    KN.reset_launch_counts()
+    rt, state, history = router_training(
+        cfg, params, data, steps=TRAIN_STEPS, total_steps=TRAIN_SCHEDULE,
+        log_every=1, log_fn=log)
+    counts = KN.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    walls = np.diff(stamps)
+    want = train_launches(cfg, TRAIN_STEPS)
+    assert counts == want, (counts, want)
+    tok = TRAIN_B * TRAIN_S
+    for rec, wall in zip(history, walls):
+        assert all(np.isfinite(rec[k]) for k in ("loss", "ce", "soft_msr"))
+        lines.append(f"step {rec['step']}: loss={rec['loss']:.4f} "
+                     f"ce={rec['ce']:.4f} soft_msr={rec['soft_msr']:.4f} "
+                     f"tau={rec['tau']:.4f} lambda1={rec['lambda1']} "
+                     f"lambda2={rec['lambda2']} wall_s={wall:.3f}")
+    lines.append(f"train_tok_s={tok * (len(walls) - 1) / walls[1:].sum():.1f}"
+                 f" (steps 1-{len(walls) - 1}, {tok} tokens a step) "
+                 f"first_step_s={walls[0]:.3f} peak_mem_bytes={peak} "
+                 f"launches({TRAIN_STEPS} steps)={counts}")
+
+    batch = next(data)
+    b = [torch.as_tensor(np.asarray(x), device=dev)
+         for x in (batch.tokens, batch.labels, batch.loss_mask,
+                   batch.task_type)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+
+    def one_step():
+        out["r"] = rt.loss_and_grads(state, *b, generator=gen)
+
+    KN.reset_launch_counts()
+    wall, busy, top = device_kernels_profile(one_step, dev)
+    assert KN.launch_counts() == train_launches(cfg, 1)
+    loss, _, g_router, g_lagrange = out["r"]
+    assert bool(torch.isfinite(loss))
+    n_routed = 0
+    for i, layer in enumerate(g_router["layers"]):
+        if "router" not in layer:
+            continue
+        n_routed += 1
+        gs = list(layer["router"].values())
+        assert all(bool(torch.isfinite(x).all()) for x in gs), i
+        assert any(bool(x.abs().max() > 0) for x in gs), \
+            f"layer {i}: router gradient is zero"
+    assert all(bool(torch.isfinite(x).all()) for x in g_lagrange.values())
+    lines.append(f"one step's gradients: {n_routed} routed layers, every "
+                 f"router gradient finite and nonzero; wall_ms={wall:.1f} "
+                 f"device_busy_ms={busy:.1f} busy_share={busy / wall:.3f} "
+                 f"top_kernels=" + ", ".join(
+                     f"{k} x{c} {ms:.1f} ms" for k, c, ms in top))
+    del out
+
+    trained = rt.params(state)
+    r1, bb = partition(trained, router_param_filter(trained))
+    moved = sum(not torch.equal(a, b) for a, b in zip(tree_leaves(r1),
+                                                      router0))
+    assert moved > 0, "no router parameter moved"
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(bb),
+                                                 backbone0)), \
+        "the frozen backbone changed"
+    lines.append(f"router leaves moved: {moved} of {len(router0)}; backbone "
+                 f"({len(backbone0)} tensors) bitwise unchanged")
+    del backbone0, router0, bb
+    free_card()
+
+    ck = ROOT / "artifacts" / "train" / f"{cfg.name}.pt"
+    t0 = time.perf_counter()
+    checkpoint.save(str(ck), trained)
+    loaded = checkpoint.load(str(ck), trained)
+    same = all(torch.equal(a, b) and a.dtype == b.dtype
+               for a, b in zip(tree_leaves(loaded), tree_leaves(trained)))
+    assert same, "checkpoint round trip is not bitwise"
+    size = ck.stat().st_size
+    ck.unlink()
+    lines.append(f"checkpoint {size} bytes saved and loaded back bitwise "
+                 f"[{time.perf_counter() - t0:.1f} s]")
+    del trained
+    free_card()
+
+    KN.reset_launch_counts()
+    eng = ServeEngine(loaded, cfg, max_len=PROMPT + GEN, prefill_chunk=CHUNK,
+                      device=dev)
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (1, PROMPT))
+    gen_res = eng.generate(torch.as_tensor(prompt, device=dev), GEN)
+    assert bool(torch.isfinite(gen_res.logits).all())
+    assert bool(torch.isfinite(gen_res.final_logits).all())
+    served = KN.launch_counts()
+    assert served["attention_backward"] == 0, served
+    lines.append(f"served 1 request of {PROMPT} tokens + {GEN} with the "
+                 f"trained routers: routing={gen_res.routing} "
+                 f"msr={gen_res.msr:.3f} launches={served}")
+    del eng, loaded
+    free_card()
     return counts, lines
 
 
@@ -4506,7 +5214,7 @@ def main(argv=None) -> int:
     say(2, "built " + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()),
         t0)
     for line in (wgmma_report(-(-(PROMPT + GEN) // 64)) + decode_report()
-                 + mla_report()):
+                 + mla_report() + backward_report()):
         say(2, line)
 
     t0 = time.perf_counter()
@@ -4526,11 +5234,16 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     errs = check_kernels(dev)
+    bwd_lines, bwd_errs = check_backward(dev)
+    for line in bwd_lines:
+        say(3, line)
     say(3, "kernels agree with their plain versions", t0)
 
     t0 = time.perf_counter()
     rows = time_kernels(
         dev, None if parent_src is None else parent_mla(parent_src))
+    free_card()
+    bwd_rows = time_backward(dev)
     free_card()
     say(4, f"timed at {card}", t0)
 
@@ -4572,15 +5285,17 @@ def main(argv=None) -> int:
     say(9, path_parity(dev, STABLELM), t0)
     free_card()
     t0 = time.perf_counter()
-    say("9b", pool_parity(dev, STABLELM), t0)
+    say("9b", pool_parity(dev, STABLELM, cfg=get_config(STABLELM).replace(
+        num_layers=1, dtype=torch.float32, param_dtype=torch.float32)), t0)
     free_card()
 
-    cfg = get_config(STABLELM)
+    cfg = get_config(STABLELM).replace(num_layers=STABLELM_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
     torch.cuda.synchronize()
-    say(10, f"{STABLELM} full width and depth ({cfg.num_layers} layers), "
+    say(10, f"{STABLELM} full width, depth cut to {cfg.num_layers} of "
+            f"{get_config(STABLELM).num_layers} layers, "
             f"{cfg.param_count()} parameters, "
             f"{torch.cuda.memory_allocated(dev)} bytes on the card", t0)
     t0 = time.perf_counter()
@@ -4636,12 +5351,13 @@ def main(argv=None) -> int:
     say(15, f"{GRANITE} card = cpu done", t0)
     free_card()
 
-    cfg = get_config(GRANITE)
+    cfg = get_config(GRANITE).replace(num_layers=GRANITE_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
     torch.cuda.synchronize()
-    say(16, f"{GRANITE} full width and depth ({cfg.num_layers} layers, "
+    say(16, f"{GRANITE} full width, depth cut to {cfg.num_layers} of "
+            f"{get_config(GRANITE).num_layers} layers ("
             f"{cfg.num_experts} experts top-{cfg.top_k}), "
             f"{cfg.param_count()} parameters "
             f"({cfg.param_count(active_only=True)} active a token), "
@@ -4695,7 +5411,7 @@ def main(argv=None) -> int:
     say(19, "xa, ta, duo and head-split card = cpu done", t0)
     free_card()
 
-    cfg = get_config(ARCH)
+    cfg = get_config(ARCH).replace(num_layers=SA_MODES_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
@@ -4789,12 +5505,13 @@ def main(argv=None) -> int:
             f"{JAMBA} smoke's launches, done", t0)
     free_card()
 
-    cfg = get_config(MAMBA2)
+    cfg = get_config(MAMBA2).replace(num_layers=MAMBA2_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
     torch.cuda.synchronize()
-    say(26, f"{MAMBA2} full width and depth ({cfg.num_layers} layers, "
+    say(26, f"{MAMBA2} full width, depth cut to {cfg.num_layers} of "
+            f"{get_config(MAMBA2).num_layers} layers ("
             f"d_model {cfg.d_model}, {cfg.ssm_num_heads} SSM heads of "
             f"{cfg.ssm_head_dim}, state {cfg.ssm_state_dim}), "
             f"{cfg.param_count()} parameters, "
@@ -4812,12 +5529,22 @@ def main(argv=None) -> int:
     say(27, f"{GEMMA3} smoke card = cpu done", t0)
     free_card()
 
-    cfg = get_config(GEMMA3)
+    # phase 29's card side runs here, and its CPU side (minutes of CPU
+    # work, no kernel launched) in a thread beside phases 28 and 30, which
+    # keep the card busy and the host's cores mostly free
+    t29 = time.perf_counter()
+    parity_finish = train_parity_start(dev)
+    say(29, f"{ARCH} (2 layers, fp32) card side done; its CPU side runs "
+            f"beside phases 28-30", t29)
+    free_card()
+
+    cfg = get_config(GEMMA3).replace(num_layers=GEMMA3_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
     torch.cuda.synchronize()
-    say(28, f"{GEMMA3} full width and depth ({cfg.num_layers} layers: "
+    say(28, f"{GEMMA3} full width, depth cut to {cfg.num_layers} of "
+            f"{get_config(GEMMA3).num_layers} layers ({cfg.num_layers}: "
             f"{cfg.layer_kinds.count('local')} local with a window of "
             f"{cfg.sliding_window}, {len(cfg.routable_layers())} routed; "
             f"D {cfg.head_dim}, {cfg.num_heads} heads over "
@@ -4834,6 +5561,24 @@ def main(argv=None) -> int:
     assert gemma_counts["continuous"]["decode_attention_pooled"] > 0
     say(28, f"{GEMMA3} batch, continuous and prefix cells done", t0)
     del params
+    free_card()
+
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    counts["train"], lines = train_path(dev, params, cfg)
+    for line in lines:
+        say(30, line)
+    say(30, f"{ARCH} router training at full width and depth "
+            f"({cfg.num_layers} layers, bf16, {TRAIN_STEPS} steps of "
+            f"{TRAIN_B} x {TRAIN_S}) done", t0)
+    del params
+    free_card()
+    for line in parity_finish():
+        say(29, line)
+    say(29, f"{ARCH} (2 layers, fp32) router, pretrain and continued "
+            f"training card = cpu done", t29)
     free_card()
 
     import repro_torch.kernels as KN
@@ -4909,6 +5654,25 @@ def main(argv=None) -> int:
                 kernels[-1][key] = dict(launches=side_launches[case],
                                         max_abs_err=errs[WHISPER][case],
                                         **rows[WHISPER][case])
+    # the backward kernel: no TPU counterpart; its launches from phase 30
+    c = bwd_errs[next(k for k in bwd_errs if k.startswith(f"{ARCH} causal"))]
+    s_err = bwd_errs[next(k for k in bwd_errs
+                          if k.startswith(f"{ARCH} streaming"))]
+    kernels.append(dict(
+        name="attention_backward", route="cuda",
+        source=str((_build.CSRC / "attention_backward.cu").relative_to(
+            ROOT)),
+        replaces="none: the gradient of flash and streaming (the JAX "
+                 "package differentiates src/repro/core/modes.py:120 by "
+                 "XLA's autodiff)",
+        launches=counts["train"]["attention_backward"],
+        launches_by_path={k: c_["attention_backward"]
+                          for k, c_ in counts.items()},
+        max_abs_err=c[0], limit_ratios_dq_dk_dv=c[1],
+        zeroed_tile_ratio_dk=c[2], **bwd_rows["causal"],
+        streaming=dict(max_abs_err=s_err[0], limit_ratios_dq_dk_dv=s_err[1],
+                       zeroed_tile_ratio_dk=s_err[2],
+                       **bwd_rows["streaming"])))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

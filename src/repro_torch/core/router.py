@@ -1,13 +1,12 @@
-"""The paper's Layer Router (§3.1), inference half
-(port of ``repro/core/router.py``).
+"""The paper's Layer Router (§3.1) (port of ``repro/core/router.py``).
 
 Prefix(-suffix) pooling over the boundary ``pool_size`` tokens of the
 layer's incoming query tensor → Context-Encoder MLP → Router-Head MLP →
-2 routing logits (π_FA, π_SA); inference takes the argmax (§3.3). Router
-params are float32. Gumbel soft routing waits for the training slice
-(ROADMAP Queue 1 item 15). The serving telemetry's decision margins and
-their drift per sparsity rung (``decision_margin``,
-``MarginDriftTracker``) are pure host arithmetic.
+2 routing logits (π_FA, π_SA); inference takes the argmax (§3.3),
+training the Gumbel-Softmax relaxation (``soft_route``, Eq. 4) at the
+annealed temperature (``anneal_tau``). Router params are float32. The
+serving telemetry's decision margins and their drift per sparsity rung
+(``decision_margin``, ``MarginDriftTracker``) are pure host arithmetic.
 """
 from __future__ import annotations
 
@@ -68,6 +67,38 @@ def router_logits(params: Dict[str, torch.Tensor], x_q: torch.Tensor,
     h = F.gelu(h @ params["head_w1"] + params["head_b1"],
                approximate="tanh")
     return h @ params["head_w2"] + params["head_b2"]
+
+
+def gumbel_noise(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard Gumbel draws -log(-log(u)) of ``shape`` in float32 on the
+    generator's device, u uniform in [tiny, 1) (the lower bound keeps
+    both logs finite, as ``jax.random.gumbel`` keeps u above 0)."""
+    u = torch.rand(shape, generator=generator, device=generator.device,
+                   dtype=torch.float32)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def soft_route(params: Dict[str, torch.Tensor], x_q: torch.Tensor,
+               flux: FluxConfig, tau, gumbel: torch.Tensor) -> torch.Tensor:
+    """Gumbel-Softmax relaxed routing weight r_soft ∈ (0, 1), the
+    probability of selecting FA (paper Eq. 4). ``gumbel`` (B, 2) float32
+    is the layer's Gumbel sample, drawn by the caller (``gumbel_noise``
+    from an explicit generator, or handed over by a test), so a
+    recomputed forward sees the same noise. Returns (B,) float32."""
+    logits = router_logits(params, x_q, flux.pool_size)  # (B, 2)
+    tau = torch.as_tensor(tau, dtype=torch.float32, device=logits.device)
+    z = (logits + gumbel.to(logits.device)) / torch.clamp(tau, min=1e-6)
+    return torch.softmax(z, dim=-1)[:, 0]
+
+
+def anneal_tau(flux: FluxConfig, step, total_steps: int) -> torch.Tensor:
+    """Linear temperature decay from ``tau_start`` to ``tau_end`` over
+    ``total_steps`` (paper §3.1), in float32 as the JAX package computes
+    it from its int32 step. Returns a 0-d float32 tensor."""
+    frac = torch.clamp(torch.as_tensor(step, dtype=torch.float32)
+                       / max(total_steps, 1), 0.0, 1.0)
+    return flux.tau_start + (flux.tau_end - flux.tau_start) * frac
 
 
 def hard_route(params: Dict[str, torch.Tensor], x_q: torch.Tensor,

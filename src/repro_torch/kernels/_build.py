@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("flash_attention", "streaming_attention",
            "block_sparse_attention", "decode_attention",
-           "decode_attention_pooled")
+           "decode_attention_pooled", "attention_backward")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -289,6 +289,14 @@ def check_out(name: str, out, shape, like: torch.Tensor):
             f"on {like.device}; got {tuple(out.shape)} {out.dtype} on "
             f"{out.device}{'' if out.is_contiguous() else ', strided'}")
     return out
+
+
+def check_no_out_with_grad(name: str, out) -> None:
+    """``out=`` (a test's hook) writes in place, which autograd cannot
+    record: raise when it comes with operands that require grad."""
+    if out is not None:
+        raise ValueError(f"{name}: out= cannot be given when an operand "
+                         f"requires grad")
 
 
 def into(out, result: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,153 @@
+"""The gradient of the flash and streaming kernels, and the autograd
+function that trains through them.
+
+No TPU kernel is replaced: the JAX package trains through XLA's autodiff
+of its blocked ``modes.attention`` (``repro/core/modes.py:120``). The
+port's forward runs the hand-written flash and streaming kernels, whose
+outputs PyTorch cannot differentiate, so on CUDA tensors
+``attention_backward_bh`` launches the hand-written kernel
+``csrc/attention_backward.cu`` (dq, dk and dv on the CUDA cores in fp32
+for both dtypes) or raises. On CPU tensors it runs the plain version:
+``torch.autograd.grad`` through ``ref.flash_attention_ref`` /
+``ref.streaming_attention_ref``, whose rounding of p to V's dtype
+passes the gradient straight through, with the row max a constant
+(``ref._masked_attention``).
+
+``differentiable`` wraps one forward launch in a ``torch.autograd.Function``
+whose backward is that kernel. The flash and streaming entries take it
+only on CUDA tensors when grad is enabled and q, k or v requires grad;
+otherwise they launch exactly as before. ``ctx.needs_input_grad`` decides
+whether the backward launches at all.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# q, k, v, dout, dq, dk, dv, stats, BH, BHkv, Sq, Skv, D, dtype, kind,
+# causal, sink, local, q_offset, scale
+KERNEL = _build.CudaKernel("attention_backward", "attention_backward",
+                           [_P] * 8 + [_I] * 11 + [_F])
+FLASH, STREAMING = 0, 1  # the C entry's kinds
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """True when autograd will record a call on these operands."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when a CUDA call of a kernel with no backward would be
+    recorded by autograd: its output would have no ``grad_fn``, so a loss
+    through it would be silently wrong."""
+    if needs_grad(*tensors) and not _build.on_cpu(name, tensors[0]):
+        raise NotImplementedError(
+            f"{name}: an operand requires grad, and this kernel has no "
+            f"backward kernel on the card (ROADMAP Queue 1 item 15b); "
+            f"training runs the flash and streaming kernels")
+
+
+def attention_backward_plain(q, k, v, dout, *, causal: bool = True,
+                             sink: Optional[int] = None,
+                             local: Optional[int] = None, q_offset: int = 0,
+                             scale: Optional[float] = None):
+    """(dq, dk, dv) of the plain version (flash when ``local`` is None,
+    else streaming at ``sink`` / ``local``) by ``torch.autograd.grad``."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        if local is None:
+            o = ref.flash_attention_ref(qq, kk, vv, causal=causal,
+                                        q_offset=q_offset, scale=scale)
+        else:
+            o = ref.streaming_attention_ref(qq, kk, vv, sink=sink,
+                                            local=local, q_offset=q_offset,
+                                            scale=scale)
+        return torch.autograd.grad(o, (qq, kk, vv), dout)
+
+
+def attention_backward_bh(q, k, v, dout, *, causal: bool = True,
+                          sink: Optional[int] = None,
+                          local: Optional[int] = None, q_offset: int = 0,
+                          scale: Optional[float] = None):
+    """dq, dk, dv of o = softmax(q kᵀ · scale, masked) v, given ``dout``.
+
+    q, dout (BH, Sq, D); k, v (BHkv, Skv, D), BH = BHkv·G; the mask of
+    ``flash_attention_bh`` (``local`` None: ``causal``, ``q_offset``) or of
+    ``streaming_attention_bh`` (``sink`` / ``local``, ``q_offset``). The
+    kernel recomputes each row's softmax statistics and D_i = dO_i · O_i
+    itself, so it needs no forward output. Returns (dq, dk, dv) in the
+    operands' dtype. The card takes Dk = Dv in ``_build.HEAD_DIMS``;
+    (192, 128) raises ``NotImplementedError`` (ROADMAP item 15b)."""
+    name = "attention_backward_bh"
+    _build.check_operands(name, q, k, v, dv_free=True)
+    _build.check_common(name, q, k, v, dout)
+    want = (*q.shape[:2], v.shape[2])
+    if tuple(dout.shape) != want:
+        raise ValueError(f"{name}: dout must be {want}; got "
+                         f"{tuple(dout.shape)}")
+    if q_offset < 0 or (local is not None and (sink < 0 or local < 1)):
+        raise ValueError(f"{name}: need q_offset >= 0, sink >= 0 and "
+                         f"local >= 1; got q_offset={q_offset} sink={sink} "
+                         f"local={local}")
+    kw = dict(causal=causal, sink=sink, local=local, q_offset=q_offset,
+              scale=scale)
+    if _build.on_cpu(name, q):
+        return attention_backward_plain(q, k, v, dout, **kw)
+    BH, Sq, D = q.shape
+    BHkv, Skv, Dv = v.shape
+    if Dv != D:
+        raise NotImplementedError(
+            f"{name}: head dims (Dk, Dv) = {(D, Dv)}: the backward kernel is "
+            f"built for Dk = Dv only (ROADMAP Queue 1 item 15b)")
+    code = _build.check_cuda(name, q, k, v, dout)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    stats = torch.empty((3, BH, Sq), dtype=torch.float32, device=q.device)
+    kind = FLASH if local is None else STREAMING
+    KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  dout.data_ptr(), dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), BH, BHkv,
+                  Sq, Skv, D, code, kind, int(causal), int(sink or 0),
+                  int(local or 1), int(q_offset),
+                  _build.default_scale(D, scale))
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """One forward kernel launch (``forward``, a closure over its mask)
+    with ``attention_backward_bh`` as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, forward: Callable, mask: dict):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = mask
+        return forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        want = ctx.needs_input_grad[:3]
+        if not any(want):
+            return None, None, None, None, None
+        grads = attention_backward_bh(q, k, v, dout.contiguous(),
+                                      **ctx.mask)
+        return (*(g if w else None for g, w in zip(grads, want)), None,
+                None)
+
+
+def differentiable(name: str, q, k, v, forward: Callable, **mask):
+    """``forward(q, k, v)`` (a CUDA launch of the flash or streaming kernel
+    under ``mask``, ``attention_backward_bh``'s keywords) recorded for
+    autograd, its backward on the backward kernel. (Dk, Dv) pairs the
+    backward kernel is not built for raise here, before the forward."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    if Dv != D:
+        raise NotImplementedError(
+            f"{name}: training at head dims (Dk, Dv) = {(D, Dv)} (MLA) has "
+            f"no backward kernel on the card (ROADMAP Queue 1 item 15b)")
+    return _Attention.apply(q, k, v, forward, mask)

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import attention_backward as AB
 from repro_torch.kernels.ref import \
     block_sparse_attention_ref as block_sparse_attention_plain  # noqa: F401
 
@@ -71,6 +72,7 @@ def block_sparse_attention_bh(q: torch.Tensor, k: torch.Tensor,
         return _build.into(out, block_sparse_attention_plain(
             q, k, v, sel, block=KERNEL_BLOCK, q_offset=q_offset,
             scale=scale))
+    AB.refuse_grad(name, q, k, v)
     code = _build.check_cuda(name, q, k, v, sel)
     if q.dtype == torch.bfloat16:
         _build.check_tma_aligned(name, q, k, v)

@@ -17,6 +17,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import attention_backward as AB
 from repro_torch.kernels.ref import \
     decode_attention_ref as decode_attention_plain  # noqa: F401
 
@@ -164,6 +165,7 @@ def decode_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _build.on_cpu(name, q):
         return decode_attention_plain(q, k, v, positions, cur_pos,
                                       scale=scale)
+    AB.refuse_grad(name, q, k, v)
     code = _build.check_cuda(name, q, k, v, positions)
     _build.check_aligned16(name, "its TMA bulk loads", k, v)
     BH, _, D = q.shape

@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import attention_backward as AB
 from repro_torch.kernels.decode_attention import (TILE, normalize_tiles,
                                                   sm_count)
 from repro_torch.kernels.ref import decode_attention_pooled_ref
@@ -148,6 +149,7 @@ def decode_attention_mla_bh(q: torch.Tensor, ckv: torch.Tensor,
     if _build.on_cpu(name, q):
         return _build.into(out, decode_attention_mla_plain(
             q, ckv, kr, positions, lengths, n_heads=n_heads, scale=scale))
+    AB.refuse_grad(name, q, ckv, kr)
     rope = kr.shape[-1]
     if (R, rope) not in BUILT_WIDTHS:
         raise NotImplementedError(

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import attention_backward as AB
 from repro_torch.kernels.decode_attention import (TILE, normalize_tiles,
                                                   pooled_split_plan)
 from repro_torch.kernels.ref import \
@@ -59,6 +60,7 @@ def decode_attention_pooled_bh(q: torch.Tensor, k: torch.Tensor,
     if _build.on_cpu(name, q):
         return decode_attention_pooled_plain(q, k, v, positions, lengths,
                                              n_heads=n_heads, scale=scale)
+    AB.refuse_grad(name, q, k, v)
     BH, _, Dk = q.shape
     BHkv, L, Dv = v.shape
     if Dk != Dv or Dk not in _build.HEAD_DIMS:

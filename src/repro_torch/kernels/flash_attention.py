@@ -6,7 +6,10 @@ tensors the entry launches the hand-written kernel
 engine (``csrc/prefill_wgmma.cuh``, TMA + wgmma; their bases must be
 16-byte aligned), fp32 operands on its CUDA-core loop. On CPU tensors it
 runs the plain version, the dense masked softmax of
-``ref.flash_attention_ref``.
+``ref.flash_attention_ref``, which autograd differentiates. On CUDA
+tensors that autograd records (grad enabled, q, k or v requiring grad)
+the launch goes through ``attention_backward.differentiable``, whose
+backward is the hand-written kernel ``csrc/attention_backward.cu``.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import attention_backward as AB
 from repro_torch.kernels.ref import \
     flash_attention_ref as flash_attention_plain  # noqa: F401
 
@@ -48,9 +52,18 @@ def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     code = _build.check_cuda(name, q, k, v, dims=(D, Dv))
     if q.dtype == torch.bfloat16:
         _build.check_tma_aligned(name, q, k, v)
-    if out is None:
-        out = torch.empty((BH, Sq, Dv), dtype=q.dtype, device=q.device)
-    KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), BH, BHkv, Sq, Skv, D, Dv, code, int(causal),
-                  int(q_offset), _build.default_scale(D, scale))
-    return out
+
+    def launch(q, k, v, out=out):
+        if out is None:
+            out = torch.empty((BH, Sq, Dv), dtype=q.dtype, device=q.device)
+        KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), BH, BHkv, Sq, Skv, D, Dv, code,
+                      int(causal), int(q_offset),
+                      _build.default_scale(D, scale))
+        return out
+
+    if AB.needs_grad(q, k, v):
+        _build.check_no_out_with_grad(name, out)
+        return AB.differentiable(name, q, k, v, launch, causal=causal,
+                                 q_offset=q_offset, scale=scale)
+    return launch(q, k, v)

@@ -17,7 +17,15 @@ def _masked_attention(q, k, v, mask, scale=None):
     The kernels' arithmetic in one dense pass: f32 scores, the -1e30
     mask, p = exp(s - rowmax) rounded to v's dtype before the PV product
     (a no-op in float32), and the sum divided by max(l, 1e-20) at the end,
-    where l sums the unrounded p."""
+    where l sums the unrounded p.
+
+    Under autograd, the gradient the backward kernel computes: the row
+    max is a constant (the softmax is invariant to it) and the rounding
+    of p passes the gradient straight through in float32. Autograd
+    through the cast itself would round p's cotangent to v's dtype, and
+    through the max would hand the argmax key the gradient the rounding
+    leaves there; in bf16 both move dq and dk at the first rows of a
+    causal mask, where the true gradient nearly cancels."""
     BH, Sq, D = q.shape
     BHkv = k.shape[0]
     G = BH // BHkv
@@ -27,9 +35,13 @@ def _masked_attention(q, k, v, mask, scale=None):
     if mask.dim() == 3:
         mask = mask.reshape(BHkv, G, *mask.shape[1:])
     s = torch.where(mask, s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True).detach())
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("hgqk,hkd->hgqd", p.to(v.dtype).float(), v.float())
+    if p.requires_grad:  # the same values: pr - p is exact
+        p = p + (p.to(v.dtype).float() - p).detach()
+    else:
+        p = p.to(v.dtype).float()
+    o = torch.einsum("hgqk,hkd->hgqd", p, v.float())
     o = o / torch.clamp(l, min=1e-20)
     return o.reshape(BH, Sq, v.shape[-1]).to(q.dtype)
 

@@ -4,8 +4,8 @@ tree's, function by function.
     python -m repro_torch.kernels.sass_diff PARENT_SRC
 
 PARENT_SRC is the ``src`` directory of another checkout (for example a
-``git archive`` of the parent commit). Both trees' five libraries are
-built (the other tree's in a subprocess, with its own ``_build``), each
+``git archive`` of the parent commit). Both trees' libraries are built
+(the other tree's in a subprocess, with its own ``_build``), each
 is disassembled with the CUDA toolkit's ``cuobjdump -sass``, and every
 kernel symbol the two share is compared instruction by instruction,
 whitespace aside: ``cuobjdump`` pads its columns to the longest

@@ -6,7 +6,10 @@ On CUDA tensors the entry launches the hand-written kernel
 tensor-core engine (``csrc/prefill_wgmma.cuh``, TMA + wgmma; their bases
 must be 16-byte aligned), fp32 operands on its CUDA-core loop. On CPU
 tensors it runs the plain version, the dense masked softmax of
-``ref.streaming_attention_ref``.
+``ref.streaming_attention_ref``, which autograd differentiates. On CUDA
+tensors that autograd records (grad enabled, q, k or v requiring grad)
+the launch goes through ``attention_backward.differentiable``, whose
+backward is the hand-written kernel ``csrc/attention_backward.cu``.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import attention_backward as AB
 from repro_torch.kernels.ref import \
     streaming_attention_ref as streaming_attention_plain  # noqa: F401
 
@@ -51,9 +55,18 @@ def streaming_attention_bh(q: torch.Tensor, k: torch.Tensor,
     code = _build.check_cuda(name, q, k, v, dims=(D, Dv))
     if q.dtype == torch.bfloat16:
         _build.check_tma_aligned(name, q, k, v)
-    if out is None:
-        out = torch.empty((BH, Sq, Dv), dtype=q.dtype, device=q.device)
-    KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), BH, BHkv, Sq, Skv, D, Dv, code, int(sink),
-                  int(local), int(q_offset), _build.default_scale(D, scale))
-    return out
+
+    def launch(q, k, v, out=out):
+        if out is None:
+            out = torch.empty((BH, Sq, Dv), dtype=q.dtype, device=q.device)
+        KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), BH, BHkv, Sq, Skv, D, Dv, code,
+                      int(sink), int(local), int(q_offset),
+                      _build.default_scale(D, scale))
+        return out
+
+    if AB.needs_grad(q, k, v):
+        _build.check_no_out_with_grad(name, out)
+        return AB.differentiable(name, q, k, v, launch, sink=sink,
+                                 local=local, q_offset=q_offset, scale=scale)
+    return launch(q, k, v)

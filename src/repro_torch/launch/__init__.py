@@ -1,1 +1,2 @@
-"""Command-line entry points (``python -m repro_torch.launch.serve``)."""
+"""Command-line entry points (``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train``)."""

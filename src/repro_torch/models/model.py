@@ -1,4 +1,5 @@
-"""Model assembly for the serving path (port of ``repro/models/model.py``).
+"""Model assembly: init, the training forward, prefill and decode (port of
+``repro/models/model.py``).
 
 Parameters are a plain dictionary of tensors. The JAX package stacks its
 trunk by period position for ``lax.scan``; the port keeps one dictionary
@@ -6,7 +7,11 @@ per layer in ``params["layers"]`` and walks them in a Python loop
 (``repro_torch.bridge.params_from_jax`` un-stacks a JAX pytree into this
 layout).
 
-Flux routing contexts of ``prefill`` (as in the JAX package):
+Flux routing contexts (as in the JAX package):
+  ("soft", tau, gumbel)   — training: the Gumbel-Softmax blend
+                            r·FA + (1 - r)·SA of every routed layer
+                            (Eq. 4-5), ``gumbel`` the layer's (B, 2)
+                            sample (``forward_train``);
   ("hard", [thr])         — router decision per layer over prefix+suffix
                             pooling, batch consensus mean(p_fa) > thr;
   ("hard_prefix", [thr])  — the same with prefix-only pooling (the
@@ -16,7 +21,8 @@ Flux routing contexts of ``prefill`` (as in the JAX package):
                             first n_fa_kv KV heads of every routed layer
                             run FA, the rest the SA mode;
   ("fa_only",)            — backbone as-is.
-The Gumbel soft routing of training waits for the training slice.
+``prefill`` takes every context but the soft one, which is
+``forward_train``'s.
 
 A layer's SA mode is ``flux.sa_mode``: ``ssa`` (the streaming kernel),
 ``xa`` (XAttention's top-k blocks on the block-sparse kernel) or ``ta``
@@ -63,11 +69,12 @@ decode kernel with every one of the E keys visible at a decode step.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -271,10 +278,18 @@ def _cross_residual(bp, cfg: ModelConfig, h: torch.Tensor, enc_out,
 
 def _route_and_attend(bp, cfg: ModelConfig, q, k, v, x_q, ctx,
                       q_offset: int = 0):
-    """Run FA, SA or a head split per the routing context. Returns
-    (attn_out, r) with r = (decision 0/1, p_fa mean) for the hard and
-    fixed contexts, None for the others."""
+    """Run FA, SA, their soft blend or a head split per the routing
+    context. Returns (attn_out, r) with r the (B,) float32 r_soft of the
+    soft context, (decision 0/1, p_fa mean) for the hard and fixed
+    contexts, None for the others."""
     kind = ctx[0]
+    if kind == "soft":
+        _, tau, gumbel = ctx
+        r = R.soft_route(bp["router"], x_q, cfg.flux, tau, gumbel)  # (B,)
+        o_fa = M.attention(q, k, v, M.FULL, q_offset=q_offset)
+        o_sa = M.attention(q, k, v, sa_mode(cfg), q_offset=q_offset)
+        rb = r[:, None, None, None].to(o_fa.dtype)  # JAX's rounding point
+        return rb * o_fa + (1 - rb) * o_sa, r
     if kind == "fa_only":
         return M.attention(q, k, v, M.FULL, q_offset=q_offset), None
     if kind == "head_split":
@@ -293,23 +308,28 @@ def _route_and_attend(bp, cfg: ModelConfig, q, k, v, x_q, ctx,
         decision = int(ctx[1])
         p_mean = float(decision)
     else:
-        raise NotImplementedError(
-            f"routing context {kind!r}: the soft (training) context waits "
-            f"for ROADMAP Queue 1 item 15")
+        raise ValueError(f"unknown routing context {kind!r}")
     mode = M.FULL if decision > 0 else sa_mode(cfg)
     return M.attention(q, k, v, mode, q_offset=q_offset), (decision, p_mean)
 
 
 def ffn_block(bp, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
-              capacity_len: Optional[int] = None) -> torch.Tensor:
+              capacity_len: Optional[int] = None,
+              aux: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """The residual FFN of a layer: h + FFN(norm2(h)), dense or MoE
     (``capacity_len``: see ``moe.moe_apply``); h itself at a layer with
-    no FFN."""
+    no FFN. Given ``aux``, an MoE layer writes its ``balance_loss`` and
+    ``drop_fraction`` there as ``moe_balance`` / ``moe_drop`` (training;
+    serving skips the diagnostics)."""
     if not has_ffn(cfg, layer_idx):
         return h
     x2 = rms_norm(bp["norm2"], h, cfg.norm_eps)
     if "moe" in bp:
-        y2, _ = MOE.moe_ffn(bp["moe"], cfg, x2, capacity_len=capacity_len)
+        y2, d = MOE.moe_ffn(bp["moe"], cfg, x2, capacity_len=capacity_len)
+        if aux is not None:
+            diag = MOE.moe_aux(cfg, d)
+            aux["moe_balance"] = diag["balance_loss"]
+            aux["moe_drop"] = diag["drop_fraction"]
     else:
         y2 = ffn_apply(bp["ffn"], x2)
     return h + y2
@@ -317,7 +337,8 @@ def ffn_block(bp, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
 
 def block_apply(bp, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
                 positions: torch.Tensor, ctx, want_cache: bool = False,
-                capacity_len: Optional[int] = None, enc_out=None):
+                capacity_len: Optional[int] = None, enc_out=None,
+                aux: Optional[Dict[str, torch.Tensor]] = None):
     """One transformer block over a full sequence. Returns (h, r, cache):
     r is the routing record of a routed layer else None; cache is the
     layer's (k, v), an MLA layer's latent (ckv, kr) or a Mamba layer's
@@ -325,12 +346,13 @@ def block_apply(bp, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
     MoE layer's capacity from another length than the sequence's (the
     fidelity probe's bucket).
     ``enc_out`` (B, E, d): the encoder's output, which a decoder layer
-    with cross attention attends after its self attention."""
+    with cross attention attends after its self attention. ``aux``: see
+    ``ffn_block``."""
     x = rms_norm(bp["norm1"], h, cfg.norm_eps)
     if "mamba" in bp:
         y, state = SSM.mamba_apply(bp["mamba"], cfg, x)
-        return (ffn_block(bp, cfg, layer_idx, h + y, capacity_len), None,
-                state if want_cache else None)
+        return (ffn_block(bp, cfg, layer_idx, h + y, capacity_len, aux),
+                None, state if want_cache else None)
     if cfg.use_mla:
         ckv, kr = A.mla_latent(bp["attn"], cfg, x, positions)
         q, x_q = A.mla_q(bp["attn"], cfg, x, positions)
@@ -348,7 +370,7 @@ def block_apply(bp, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
         o = M.attention(q, k, v, M.FULL)
     h = h + (A.mla_out if cfg.use_mla else A.gqa_out)(bp["attn"], cfg, o)
     h = _cross_residual(bp, cfg, h, enc_out)
-    return ffn_block(bp, cfg, layer_idx, h, capacity_len), r, cache
+    return ffn_block(bp, cfg, layer_idx, h, capacity_len, aux), r, cache
 
 
 # ---------------------------------------------------------------------------
@@ -418,11 +440,15 @@ def logits_from_hidden(params, cfg: ModelConfig,
 
 @dataclass
 class ForwardOut:
-    logits: torch.Tensor                 # (B, V) last-token logits
+    logits: torch.Tensor                 # (B, V) prefill-last / (B, S, V)
+                                         # or (B, S, d) hidden, training
     routing: Optional[torch.Tensor]      # (n_routed,) int32 decisions
     p_fa: Optional[torch.Tensor]         # (n_routed,) f32 mean FA prob
     # per layer (k, v), an MLA layer's (ckv, kr), a Mamba layer's (h, tail)
     caches: Optional[List] = None
+    r_soft: Optional[torch.Tensor] = None  # (B, n_routed) FA probs, train
+    # training diagnostics by period: moe_balance / moe_drop (n_periods,)
+    aux: Dict[str, torch.Tensor] = field(default_factory=dict)
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -450,8 +476,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if routing_ctx not in ("hard", "hard_prefix", "fixed", "fa_only",
                            "head_split"):
         raise NotImplementedError(
-            f"routing_ctx={routing_ctx!r}: the soft (training) context "
-            f"waits for ROADMAP Queue 1 item 15")
+            f"routing_ctx={routing_ctx!r}: prefill routes hard, by a fixed "
+            f"pattern, by head split or not at all; the soft context is "
+            f"training's, forward_train")
     if enc_out is None:
         enc_out = encode_side_input(params, cfg, encoder_frames)
     h = embed_tokens(params, cfg, tokens, prefix_embeddings)
@@ -479,6 +506,109 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         p_fa = torch.tensor([r[1] for r in rs], dtype=torch.float32)
     return ForwardOut(logits=logits, routing=routing, p_fa=p_fa,
                       caches=caches if want_cache else None)
+
+
+# ---------------------------------------------------------------------------
+# Training forward (Gumbel soft routing)
+# ---------------------------------------------------------------------------
+
+def router_param_filter(params) -> Any:
+    """A tree of ``params``' shape with True on the Layer-Router leaves
+    (every leaf under a ``"router"`` key), False elsewhere: the only
+    trainable part of the paper's parameter-efficient recipe."""
+    def mark(tree, inside: bool):
+        if isinstance(tree, dict):
+            return {k: mark(v, inside or k == "router")
+                    for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(mark(v, inside) for v in tree)
+        return inside
+    return mark(params, False)
+
+
+def soft_layers(cfg: ModelConfig) -> List[int]:
+    """The layers ``forward_train`` routes softly, in layer order: every
+    global attention layer ("attn") when flux is enabled."""
+    if not cfg.flux.enabled:
+        return []
+    return [i for i, k in enumerate(cfg.layer_kinds) if k == "attn"]
+
+
+def _train_layer(bp, cfg: ModelConfig, i: int, h: torch.Tensor,
+                 positions: torch.Tensor, ctx, enc_out):
+    aux: Dict[str, torch.Tensor] = {}
+    h, r, _ = block_apply(bp, cfg, i, h, positions, ctx, enc_out=enc_out,
+                          aux=aux)
+    return h, r, aux
+
+
+def forward_train(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                  gumbel: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None,
+                  tau=1.0, prefix_embeddings: Optional[torch.Tensor] = None,
+                  encoder_frames: Optional[torch.Tensor] = None,
+                  remat: bool = True, flux_soft: bool = True,
+                  output_hidden: bool = False) -> ForwardOut:
+    """Training forward with Gumbel-Softmax soft routing (Eq. 4-5) over
+    ``tokens`` (B, S), after ``prefix_embeddings`` (B, P, d) when given;
+    a model with an encoder takes ``encoder_frames`` (B, E, d).
+
+    Each routed layer (``soft_layers``) blends FA and SA by its r_soft
+    at temperature ``tau``. Its Gumbel sample is ``gumbel[j]`` of
+    ``gumbel`` (n_routed, B, 2) float32, or drawn from ``generator`` for
+    all routed layers at once before the trunk (``router.gumbel_noise``),
+    so a recomputed layer sees the same noise; with neither, or with
+    ``flux_soft`` False or flux disabled, every layer runs FA. ``remat``
+    recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant), as the JAX package
+    checkpoints each period. ``output_hidden`` returns the final-normed
+    hidden states (B, S, d) in ``.logits`` instead of the vocabulary
+    logits (B, S, V), for ``chunked_cross_entropy``. Returns a
+    ``ForwardOut`` with ``r_soft`` (B, n_routed) in layer order (None
+    when nothing routed softly) and ``aux`` the MoE layers'
+    ``moe_balance`` / ``moe_drop`` summed over each period, (n_periods,)
+    as the JAX scan stacks them."""
+    B, Stok = tokens.shape
+    enc_out = encode_side_input(params, cfg, encoder_frames)
+    h = embed_tokens(params, cfg, tokens, prefix_embeddings)
+    positions = torch.arange(h.shape[1], device=h.device)
+    routed = soft_layers(cfg)
+    use_soft = flux_soft and bool(routed) and (gumbel is not None
+                                               or generator is not None)
+    if use_soft and gumbel is None:
+        gumbel = R.gumbel_noise((len(routed), B, 2), generator)
+    if use_soft and tuple(gumbel.shape) != (len(routed), B, 2):
+        raise ValueError(f"gumbel must be ({len(routed)}, {B}, 2): one "
+                         f"(B, 2) sample per routed layer; got "
+                         f"{tuple(gumbel.shape)}")
+    slot = {i: j for j, i in enumerate(routed)}
+    P = len(cfg.layer_pattern)
+    rs, auxes = [], {}
+    for i, bp in enumerate(params["layers"]):
+        ctx = (("soft", tau, gumbel[slot[i]]) if use_soft and i in slot
+               else ("fa_only",))
+        args = (bp, cfg, i, h, positions, ctx, enc_out)
+        if remat:
+            h, r, aux = torch.utils.checkpoint.checkpoint(
+                _train_layer, *args, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            h, r, aux = _train_layer(*args)
+        if r is not None:
+            rs.append(r)
+        for k_, v_ in aux.items():  # summed within a period, by position
+            per = auxes.setdefault(k_, [None] * (cfg.num_layers // P))
+            j = i // P
+            per[j] = v_ if per[j] is None else per[j] + v_
+    prefix = h.shape[1] - Stok
+    h = h[:, prefix:] if prefix else h
+    if output_hidden:
+        logits = rms_norm(params["final_norm"], h, cfg.norm_eps)
+    else:
+        logits = logits_from_hidden(params, cfg, h)
+    return ForwardOut(logits=logits, routing=None, p_fa=None,
+                      r_soft=torch.stack(rs, dim=1) if rs else None,
+                      aux={k_: torch.stack(v_) for k_, v_ in auxes.items()})
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,341 @@
+"""The gradient of the port's attention against JAX's autodiff, and the
+backward kernel's plumbing, on seeded numpy inputs in float32.
+
+Held:
+
+- ``repro_torch.core.modes.attention`` under autograd (the CPU path: the
+  plain versions' autograd) against ``jax.vjp`` of
+  ``repro.core.modes.attention`` for ``full`` (causal and bidirectional),
+  ``streaming``, ``window``, ``triangle`` and ``block_topk``, at G = 1
+  and 2 and with a query offset: dq, dk and dv within 1e-5 · max(1,
+  max |JAX|) (float32, summation order only);
+- ``attention_backward_plain`` against the same vjp, and the autograd
+  function ``differentiable`` (the card's route, here with the plain
+  forward) against the plain version's autograd bitwise,
+  ``needs_input_grad`` honoured; in bf16 the plain version's gradient
+  is the straight-through one with the row max a constant (the
+  kernel's), at the same values as the forward;
+- the tile walks of ``csrc/attention_backward.cu`` (``key_tiles`` /
+  ``query_tiles`` of its flash and streaming policies, transcribed
+  below) cover every visible (query, key) pair from both sides, at
+  steps 64 and 32, unaligned sizes, offsets, sinks straddling a tile
+  and windows narrower and wider than a tile;
+- with the device test answering "cuda": the flash and streaming
+  entries record their launch for autograd only when an operand
+  requires grad, launch exactly as before otherwise, and raise for
+  (Dk, Dv) = (192, 128) under grad; block-sparse, xa and the decode
+  kernels raise ``NotImplementedError`` naming ROADMAP item 15b under
+  grad; the backward entry launches once with the operands' pointers.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# one thread: as fast at these small shapes, and it leaves the other
+# cores to the test processes running beside this one
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import modes as JM  # noqa: E402
+from repro_torch.core import modes as TM  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import attention_backward as AB  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+
+TOL = 1e-5  # relative to max(1, max |JAX grad|): f32, summation order
+SINK, LOCAL = 8, 32  # the smoke configs' flux geometry
+
+MODES = {
+    "full causal": dict(kind="full"),
+    "full bidirectional": dict(kind="full", causal=False),
+    "streaming": dict(kind="streaming", sink=SINK, local=LOCAL),
+    "window": dict(kind="window", local=LOCAL),
+    "triangle": dict(kind="triangle", sink=SINK, local=LOCAL, chunk=16),
+    "block_topk": dict(kind="block_topk", sink=SINK, local=LOCAL, block=16,
+                       stride=4, threshold=0.5),
+}
+# (B, Hq, Hkv, Sq, Skv, q_offset): G = 1 and 2, 80 > sink + local so SA
+# differs from FA, and a chunk of 48 queries at offset 32 over 80 keys
+SHAPES = {"G1": (2, 4, 4, 80, 80, 0), "G2": (1, 4, 2, 80, 80, 0),
+          "offset": (1, 4, 2, 48, 80, 32)}
+
+
+def _inputs(seed, B, Hq, Hkv, Sq, Skv, D=32):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=s).astype(np.float32)
+                 for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
+                           (B, Hkv, Skv, D), (B, Hq, Sq, D)))
+
+
+def _jax_grads(q, k, v, do, mode, q_offset):
+    jm = JM.AttnMode(**mode)
+    _, vjp = jax.vjp(lambda a, b, c: JM.attention(a, b, c, jm,
+                                                  q_offset=q_offset),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _close(got, want):
+    for g, w in zip(got, want):
+        g = g.detach().numpy() if isinstance(g, torch.Tensor) else g
+        assert np.abs(g - w).max() <= TOL * max(1.0, np.abs(w).max()), \
+            np.abs(g - w).max()
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_attention_grads_match_jax(mode, shape):
+    B, Hq, Hkv, Sq, Skv, off = SHAPES[shape]
+    q, k, v, do = _inputs(len(mode) + Sq, B, Hq, Hkv, Sq, Skv)
+    want = _jax_grads(q, k, v, do, MODES[mode], off)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = TM.attention(tq, tk, tv, TM.AttnMode(**MODES[mode]), q_offset=off)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    assert all(np.abs(g.numpy()).max() > 0 for g in got)
+    _close(got, want)
+
+
+def _flat(x):
+    return torch.from_numpy(x.reshape(-1, *x.shape[2:]))
+
+
+@pytest.mark.parametrize("kind", ["flash", "flash_bidirectional",
+                                  "streaming", "window"])
+def test_backward_plain_matches_jax(kind):
+    """The backward entry's plain version (what a CPU tensor runs) in the
+    kernels' flattened (B·H, S, D) layout, at G = 2 and an offset."""
+    B, Hq, Hkv, Sq, Skv, off = SHAPES["offset"]
+    q, k, v, do = _inputs(3, B, Hq, Hkv, Sq, Skv)
+    mode, kw = {
+        "flash": (dict(kind="full"), dict(causal=True)),
+        "flash_bidirectional": (dict(kind="full", causal=False),
+                                dict(causal=False)),
+        "streaming": (dict(kind="streaming", sink=SINK, local=LOCAL),
+                      dict(sink=SINK, local=LOCAL)),
+        "window": (dict(kind="window", local=LOCAL),
+                   dict(sink=0, local=LOCAL)),
+    }[kind]
+    if kind == "flash_bidirectional":
+        off = 0
+    want = _jax_grads(q, k, v, do, mode, off)
+    got = AB.attention_backward_bh(_flat(q), _flat(k), _flat(v), _flat(do),
+                                   q_offset=off, **kw)
+    _close([g.reshape(w.shape) for g, w in zip(got, want)], want)
+
+
+@pytest.mark.parametrize("need", [(True, True, True), (False, False, True),
+                                  (True, False, False)])
+def test_autograd_function_matches_plain_autograd(need):
+    """``differentiable`` with the plain forward in place of a launch: the
+    same output and, bitwise, the same gradients as autograd through the
+    plain version; inputs that need no grad get None."""
+    q, k, v, do = (_flat(x) for x in _inputs(5, 1, 4, 2, 48, 80))
+    kw = dict(sink=SINK, local=LOCAL, q_offset=32)
+    ins = [t.clone().requires_grad_(n) for t, n in zip((q, k, v), need)]
+    out = AB.differentiable(
+        "test", *ins, lambda a, b, c: ref.streaming_attention_ref(a, b, c,
+                                                                  **kw),
+        **kw)
+    assert out.grad_fn is not None
+    out.backward(do)
+    ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref.streaming_attention_ref(*ref_ins, **kw).backward(do)
+    for t, r, n in zip(ins, ref_ins, need):
+        assert (t.grad is not None) == n
+        if n:
+            assert torch.equal(t.grad, r.grad)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's tile walks (csrc/attention_backward.cu, FlashPolicy and
+# StreamingPolicy), transcribed
+# ---------------------------------------------------------------------------
+
+ROWS = 64  # bwd::kRows
+
+
+def _floor_div(a, b):
+    return a // b
+
+
+def _visible(kind, r, key, q_offset, causal, sink, local):
+    p = q_offset + r
+    if kind == "flash":
+        return not causal or key <= p
+    return key <= p and (key < sink or p - key < local)
+
+
+def _key_tiles(kind, r0, r1, Skv, step, q_offset, causal, sink, local):
+    n = -(-Skv // step)
+    if kind == "flash":
+        if causal:
+            n = min(n, (q_offset + r1) // step + 1)
+        return list(range(n))
+    last = min(n - 1, (q_offset + r1) // step)
+    a1 = min(-(-sink // step), last + 1)
+    w0 = max(_floor_div(q_offset + r0 - (local - 1), step), 0)
+    return list(range(a1)) + list(range(max(w0, a1), last + 1))
+
+
+def _query_tiles(kind, c0, c1, Sq, step, q_offset, causal, sink, local):
+    t1 = -(-Sq // step)
+    if kind == "flash":
+        t0 = max(c0 - q_offset, 0) // step if causal else 0
+        return list(range(t0, t1))
+    t0 = max(c0 - q_offset, 0) // step
+    if c0 >= sink:
+        hi = c1 + local - 1 - q_offset
+        t1 = 0 if hi < 0 else min(t1, hi // step + 1)
+    return list(range(t0, t1))
+
+
+WALKS = [  # (kind, Sq, Skv, q_offset, causal, sink, local)
+    ("flash", 200, 300, 100, True, 0, 1),
+    ("flash", 200, 300, 0, False, 0, 1),
+    ("flash", 4096 // 16, 4096 // 16, 0, True, 0, 1),
+    ("flash", 130, 130, 0, True, 0, 1),
+    ("streaming", 200, 300, 100, True, 16, 48),
+    ("streaming", 200, 300, 100, True, 100, 130),
+    ("streaming", 200, 300, 100, True, 0, 48),
+    ("streaming", 300, 300, 0, True, 8, 32),
+    ("streaming", 300, 300, 0, True, 70, 200),
+    ("streaming", 257, 257, 0, True, 128, 64),
+    ("streaming", 96, 400, 300, True, 0, 1),
+]
+
+
+@pytest.mark.parametrize("step", [64, 32])
+@pytest.mark.parametrize("walk", range(len(WALKS)))
+def test_tile_walks_cover_every_visible_pair(walk, step):
+    kind, Sq, Skv, off, causal, sink, local = WALKS[walk]
+    pol = (off, causal, sink, local)
+    vis = np.array([[_visible(kind, r, c, *pol) for c in range(Skv)]
+                    for r in range(Sq)])
+    by_rows = np.zeros_like(vis)  # dq_kernel: a CTA of 64 rows, tiles of step
+    for r0 in range(0, Sq, ROWS):
+        r1 = min(r0 + ROWS, Sq) - 1
+        tiles = _key_tiles(kind, r0, r1, Skv, step, *pol)
+        assert len(tiles) == len(set(tiles)), "a tile walked twice"
+        for t in tiles:
+            by_rows[r0:r1 + 1, t * step:(t + 1) * step] = True
+    by_keys = np.zeros_like(vis)  # dkdv_kernel: 64 keys, query tiles of step
+    for c0 in range(0, Skv, ROWS):
+        c1 = min(c0 + ROWS, Skv) - 1
+        for t in _query_tiles(kind, c0, c1, Sq, step, *pol):
+            by_keys[t * step:(t + 1) * step, c0:c1 + 1] = True
+    assert vis.any()
+    assert not (vis & ~by_rows).any(), "dq misses a visible pair"
+    assert not (vis & ~by_keys).any(), "dk / dv miss a visible pair"
+
+
+# ---------------------------------------------------------------------------
+# The CUDA route, with the device test answering "cuda"
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """``_build.on_cpu`` answers False and every kernel binding records
+    its launches instead of launching."""
+    import repro_torch.kernels as KN
+    from repro_torch.kernels import decode_attention
+    launched = []
+    monkeypatch.setattr(_build, "on_cpu", lambda name, t: False)
+    monkeypatch.setattr(decode_attention, "sm_count", lambda index: 132)
+    for name, k in KN.KERNELS.items():
+        monkeypatch.setattr(k, "launch", lambda dev, *a, _n=name:
+                            launched.append((_n, a)))
+    return launched
+
+
+def test_entries_record_for_autograd_only_under_grad(fake_card):
+    from repro_torch.kernels.flash_attention import flash_attention_bh
+    from repro_torch.kernels.streaming_attention import \
+        streaming_attention_bh
+    q = torch.zeros((4, 64, 32))
+    out = flash_attention_bh(q, q, q)
+    assert out.grad_fn is None and fake_card[-1][0] == "flash_attention"
+    qg = q.clone().requires_grad_()
+    out = flash_attention_bh(qg, q, q, q_offset=3)
+    assert type(out.grad_fn).__name__ == "_AttentionBackward"
+    assert [n for n, _ in fake_card] == ["flash_attention"] * 2
+    out = streaming_attention_bh(q, qg, q, sink=4, local=8)
+    assert out.grad_fn is not None
+    with torch.no_grad():
+        assert streaming_attention_bh(qg, q, q, sink=4, local=8).grad_fn \
+            is None
+    assert [n for n, _ in fake_card][2:] == ["streaming_attention"] * 2
+    out.sum().backward()  # the backward entry launches (recorded)
+    name, args = fake_card[-1]
+    assert name == "attention_backward" and len(args) == 20
+    # q, k, v, dout, dq, dk, dv, stats, BH, BHkv, Sq, Skv, D, dtype, kind,
+    # causal, sink, local, q_offset, scale
+    assert args[0] == q.data_ptr() and args[8:14] == (4, 4, 64, 64, 32, 0)
+    assert args[14] == AB.STREAMING and args[16:19] == (4, 8, 0)
+    with pytest.raises(NotImplementedError, match="15b"):
+        flash_attention_bh(torch.zeros((4, 64, 192)).requires_grad_(),
+                           torch.zeros((4, 64, 192)),
+                           torch.zeros((4, 64, 128)))
+    with pytest.raises(ValueError, match="out="):
+        flash_attention_bh(qg, q, q, out=torch.empty_like(q))
+
+
+def test_kernels_without_backward_refuse_grad(fake_card):
+    from repro_torch.kernels.block_sparse_attention import \
+        block_sparse_attention_bh
+    from repro_torch.kernels.decode_attention import decode_attention_bh
+    from repro_torch.kernels.decode_attention_pooled import \
+        decode_attention_pooled_bh
+    q = torch.zeros((4, 64, 32))
+    qg = q.clone().requires_grad_()
+    sel = torch.zeros((4, 1, 1), dtype=torch.int32)
+    pos = torch.arange(64, dtype=torch.int32)
+    lengths = torch.full((4,), 64, dtype=torch.int32)
+    q4 = torch.zeros((1, 4, 128, 32))  # two 64-key blocks for xa's top-2
+    calls = [
+        lambda a: block_sparse_attention_bh(a, q, q, sel),
+        lambda a: decode_attention_bh(a[:, :1].contiguous(), q, q, pos, 9),
+        lambda a: decode_attention_pooled_bh(a[:, :1].contiguous(), q, q,
+                                             None, lengths, n_heads=1),
+        lambda a: TM.attention(torch.cat([a, a], 1).reshape(1, 4, 128, 32),
+                               q4, q4, TM.AttnMode("block_topk", block=64,
+                                                   stride=4, threshold=0.5)),
+    ]
+    for call in calls:
+        n = len(fake_card)
+        with pytest.raises(NotImplementedError, match="15b"):
+            call(qg)
+        assert len(fake_card) == n, "launched before refusing"
+        call(q)  # without grad: launched as before
+        assert len(fake_card) > n
+
+
+def test_plain_bf16_gradient_is_straight_through():
+    """In bf16 the plain version's gradient is that of its arithmetic
+    with the rounding of p as the identity and the row max a constant,
+    the backward kernel's: here against that formula in float64, each
+    gradient within half a bf16 ulp (a correct rounding) plus 5 % of the
+    tensor's rms, i.e. under 0.5 of phase 3's bf16 limit. Autograd
+    through the cast and the max reads 0.6-0.8 of the limit at this
+    shape."""
+    g = torch.Generator().manual_seed(0)
+    BH, S, D = 4, 256, 64
+    q, k, v, do = (torch.randn(BH, S, D, generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    got = AB.attention_backward_plain(q, k, v, do, causal=True)
+    qf, kf, vf, dof = (t.double() for t in (q, k, v, do))
+    s = torch.einsum("hqd,hkd->hqk", qf, kf) * D ** -0.5
+    mask = torch.ones(S, S, dtype=torch.bool).tril()
+    e = torch.exp(s - s.masked_fill(~mask, -1e30).amax(-1, keepdim=True))
+    e = e * mask
+    l = e.sum(-1, keepdim=True)
+    P, Pr = e / l, e.float().to(torch.bfloat16).double() / l
+    dP = torch.einsum("hqd,hkd->hqk", dof, vf)
+    dS = P * (dP - (Pr * dP).sum(-1, keepdim=True))
+    want = (torch.einsum("hqk,hkd->hqd", dS, kf) * D ** -0.5,
+            torch.einsum("hqk,hqd->hkd", dS, qf) * D ** -0.5,
+            torch.einsum("hqk,hqd->hkd", Pr, dof))
+    for a, w in zip(got, want):
+        limit = 0.05 * w.square().mean().sqrt() + 2.0 ** -7 * w.abs()
+        assert float(((a.double() - w).abs() / limit).max()) < 0.5

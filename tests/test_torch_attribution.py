@@ -205,7 +205,8 @@ def test_knobs_off_calls_each_kernel_as_the_path_needs(on_off):
     want = _prefill_calls(cfg, sched.admissions, 16)
     want.update(decode_attention=0, decode_attention_mla=0,
                 decode_attention_pooled=sum(
-        p.steps for p in sched.pools.values()) * cfg.num_layers)
+        p.steps for p in sched.pools.values()) * cfg.num_layers,
+                attention_backward=0)  # serving runs no backward
     assert calls == want
 
 

@@ -54,8 +54,9 @@ def test_sources_name_no_jax_import():
         assert not hits, f"{f}: {hits}"
 
 
-def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch import train as launch_train
     from repro_torch.models.model import init_params
     from repro_torch.serve.engine import ServeEngine
 
@@ -68,6 +69,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         ServeEngine(params, cfg)
     eng = ServeEngine(params, cfg, max_len=64, device="cpu")
     assert eng.device.type == "cpu"
+    args = ["--arch", "phi3-mini-3.8b", "--smoke", "--steps", "1",
+            "--batch", "1", "--seq", "16", "--out", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(args)
+    assert not any(tmp_path.iterdir())
+    launch_train.main(args + ["--device", "cpu"])
+    assert (tmp_path / "phi3-mini-3.8b.pt").exists()
 
 
 def test_wrappers_raise_on_other_devices():
