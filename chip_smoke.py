@@ -5,8 +5,9 @@
 
 ``--parent SRC`` (another checkout's ``src``, e.g. a ``git archive`` of
 the parent commit) builds that tree's kernels too and times its latent
-decode beside this tree's in phase 4. Phases, each printing one line
-(any failure raises and exits non-zero; nothing falls back to the CPU):
+decode and its attention backward beside this tree's in phase 4. Phases,
+each printing one line (any failure raises and exits non-zero; nothing
+falls back to the CPU):
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA;
   2. build the hand-written attention kernels from ``csrc/``, and
      print the compiler's report (registers, spills, shared memory) and
@@ -18,7 +19,8 @@ decode beside this tree's in phase 4. Phases, each printing one line
      CUDA cores and the bf16 one on the tensor cores (its registers,
      spills, shared memory and SASS HGMMA / UTMALDG counts, which must be
      > 0);
-  2b. the stress phase, first after the build: every bf16 wgmma instance
+  2b. the stress phase (run after phase 30, beside phase 29's CPU side,
+     which the script would otherwise wait for): every bf16 wgmma instance
      the main paths run (flash, streaming and block-sparse at D = 64, 96
      and 160 at granite's, phi3-mini's and stablelm's main shapes, flash
      and streaming at (192, 128), the latent decode over POOL_LENS and
@@ -320,26 +322,36 @@ Phase 2b also stresses flash at whisper's encoder shape (causal=False,
 flash with causal=False at 1500 x 1500 and 384 x 1500 and the batch
 decode over 1500 keys all visible, at those heads, beside SDPA without
 a mask (``side_kernel_cases``).
-Training (slice 16): phase 2 also prints the attention backward kernel's
-registers, spills and shared memory per instance; phase 3 holds it
-against the plain version's autograd (dq, dk and dv each to the bf16
-limit with rms per tensor, where the plain gradients with one V tile
-zeroed must break it on dk; fp32 within FP32_TOL at the unaligned G = 4
-case at every head dim) at phi3-mini's and stablelm-12b's training
-shapes, gemma3's window and whisper's bidirectional encoder, and checks
-that xa and MLA's (192, 128) raise NotImplementedError under grad;
-phase 4 times it at phi3-mini's shapes beside SDPA's forward + backward.
+Training (slices 16-17): phase 2 also prints the attention backward
+kernel's registers, spills and shared memory per instance, and for its
+bf16 tensor-core instances (``csrc/backward_wgmma.cuh``) the dynamic
+shared memory and the SASS's HGMMA / UTMALDG counts, which must be > 0,
+with no spill; phase 2b stresses the bf16 backward at phi3-mini's
+training shapes (causal and streaming), whisper's encoder and the
+unaligned G = 4 case (causal and one streaming mask at every head dim)
+into NaN-prefilled dq / dk / dv and a NaN-prefilled stats scratch;
+phase 3 holds it against the plain version's autograd (dq, dk and dv
+each to the bf16 limit with rms per tensor, where the plain gradients
+with one V tile zeroed must break it on dk; fp32 within FP32_TOL at the
+unaligned G = 4 case at every head dim) at phi3-mini's and
+stablelm-12b's training shapes, gemma3's window and whisper's
+bidirectional encoder, and checks that xa and MLA's (192, 128) raise
+NotImplementedError under grad; phase 4 times it at every one of those
+main shapes and at the unaligned D = 128 causal case beside SDPA's
+forward + backward (and the parent's kernel with ``--parent``).
   29. phi3-mini at 2 layers, fp32: three RouterTrainer steps, one
      PretrainTrainer and one ContinuedTrainer step on the card and on
      the CPU from the same weights, batches and Gumbel noise: losses,
      gradients and states within TRAIN_TOL (its card side runs before
-     phase 28, its CPU side in a thread beside phases 28 and 30, and
-     the comparison after phase 30);
+     phase 28, its CPU side in a thread beside phases 28, 30 and 2b,
+     and the comparison after them);
   30. router training of phi3-mini-3.8b at full width and depth in bf16
      through ``launch/train.py``'s code path: TRAIN_STEPS steps of
      TRAIN_B x TRAIN_S tokens, exact launch counts, one step under the
      profiler, the backbone bitwise unchanged, a checkpoint round trip
-     and one request served with the trained routers.
+     and one request served with the trained routers; after phase 29's
+     comparison, QUIET_STEPS more steps and one more profiled step, timed
+     with the host to the script alone.
 Then one JSON line of per-kernel numbers (phi3-mini's, and stablelm's,
 granite's and deepseek's under ``stablelm_12b``, ``granite_moe_3b_a800m``
 and ``deepseek_v2_236b``; the latent decode its own entry at deepseek's
@@ -355,7 +367,9 @@ and ``mamba2`` (phase 26's three cells); jamba's G = 8 rows under
 ``jamba_1_5_large_398b``, launches "phase 3 / 4 only"; gemma3's rows
 under ``gemma3_12b`` with its launches, the local ring's decode and the
 window under ``local_ring`` and ``window``; the backward kernel's
-entry with its launches from phase 30 and its streaming row), the total
+entry with its launches from phase 30, its phase-2b counts and its rows:
+phi3-mini's causal as the entry's own, ``streaming``, ``stablelm_12b``,
+``gemma3_12b_window``, ``whisper_encoder`` and ``unaligned``), the total
 seconds, and the last line ``{"ok": true, "device": {...}}``.
 """
 import collections
@@ -1072,14 +1086,19 @@ STRESS_CALLS = 1000  # calls of each instance in phase 2b
 
 def stress_cases(dev):
     """Phase 2b's instances: [(label, kernel name, kernel call taking
-    ``out=``, plain call, slots)], every bf16 wgmma instance the main
-    paths run at their shapes: flash, streaming and block-sparse at
-    granite's (D = 64), phi3-mini's (96), stablelm's (160) and gemma3's
+    ``out=``, plain call, slots: the number of equal parts the limit's
+    rms is taken over, or the parts' sizes)], every bf16 wgmma instance
+    the main paths run at their shapes: flash, streaming and
+    block-sparse at granite's (D = 64), phi3-mini's (96), stablelm's (160) and gemma3's
     (256, G = 2), streaming at gemma3's window over a whole prompt (sink
     0, local 1024), flash and streaming at deepseek's (192, 128), the
-    latent decode over POOL_LENS and over the ring with holes, and flash
+    latent decode over POOL_LENS and over the ring with holes, flash
     with causal=False at whisper's encoder shape (4 x 6 heads, D = 64,
-    1500 x 1500)."""
+    1500 x 1500), and the backward (dq, dk and dv flattened into one
+    output, one part each, its scratch NaN-filled on the NaN-filled calls)
+    at phi3-mini's training shapes, causal and streaming, at whisper's
+    encoder and at the unaligned G = 4 case of every head dim, whose
+    query rows end inside a 64-row block."""
     from repro_torch.configs import get_config
     cases = []
     for arch in (GRANITE, ARCH, STABLELM, GEMMA3):
@@ -1104,24 +1123,42 @@ def stress_cases(dev):
     c = side_kernel_cases(dev)[name]
     cases.append((f"{name} {WHISPER} D=64 bidirectional 1500x1500",
                    "flash_attention", c[0], c[1], 1))
-    return cases
+    return cases + backward_stress_cases(dev)
 
 
-def stress(dev, calls=STRESS_CALLS):
-    """Phase 2b: each of ``stress_cases`` ``calls`` times, every other call
-    into an output pre-filled with NaN (the entries' ``out=``), so that an
-    element the kernel leaves unwritten shows on every such call; the
+def backward_stress_cases(dev):
+    """``stress_cases``' bf16 backward instances (the limit's rms taken
+    per gradient): phi3-mini's training shapes, causal and streaming,
+    whisper's encoder (1500 rows, not a multiple of 64), and the
+    unaligned G = 4 case, causal and the first streaming mask, at every
+    head dim."""
+    main = backward_cases(dev, torch.bfloat16, True)
+    small = [c for c in backward_cases(dev, torch.bfloat16, False)
+             if "causal" in c["label"] or f"sink={BWD_SMALL_STREAM[0][0]} "
+             f"local={BWD_SMALL_STREAM[0][1]} " in c["label"]]
+    return [(f"attention_backward {c['label']}", "attention_backward",
+             c["flat"], c["plain_flat"], c["sizes"])
+            for c in main[:2] + [main[-1]] + small]
+
+
+def stress(dev, calls=STRESS_CALLS, cases=stress_cases):
+    """Phase 2b: each of ``cases(dev)`` (``stress_cases``, or a part of
+    it) ``calls`` times, every other call into an output pre-filled with
+    NaN (the entries' ``out=``), so that an element the kernel leaves
+    unwritten shows on every such call; the
     others into a fresh ``torch.empty``, as the main paths call them.
     Counts the outputs that hold a non-finite element and the elements
     past phase 3's bf16 limit against the plain version (computed once).
     Returns {label: counts} and the kernel each label belongs to."""
     rows, kernel_of = {}, {}
-    for label, kernel, kern, plain, slots in stress_cases(dev):
+    for label, kernel, kern, plain, slots in cases(dev):
         t0 = time.perf_counter()
         want = plain().float()
-        p = want.reshape(slots, -1)
-        limit = (BF16_ATOL_RMS * p.square().mean(1, keepdim=True).sqrt()
-                 + BF16_RTOL * p.abs()).reshape(want.shape)
+        parts = want.reshape(slots, -1) if isinstance(slots, int) \
+            else want.split(list(slots))
+        rms = torch.cat([x.square().mean().sqrt().expand(x.numel())
+                         for x in parts]).view(want.shape)
+        limit = BF16_ATOL_RMS * rms + BF16_RTOL * want.abs()
         buf = torch.empty_like(kern())
         nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
         past = torch.zeros((), dtype=torch.int64, device=dev)
@@ -1179,16 +1216,15 @@ def mla_small_checks(dev):
     return lines
 
 
-def parent_mla(src):
-    """The latent decode entry of another tree (``src``: its ``src``
-    directory, e.g. a ``git archive`` of the parent), built by that tree's
-    own ``_build`` in a subprocess: a callable taking
+def parent_mla(libs):
+    """The latent decode entry of another tree (``libs``: its libraries,
+    ``sass_diff.other_libraries`` of its ``src`` directory, e.g. a ``git
+    archive`` of the parent): a callable taking
     ``decode_attention_mla_bh``'s arguments that launches that tree's
     ``decode_attention_mla_fwd`` (bf16, 4 tiles a range unless ``tiles``
     says)."""
     from repro_torch.kernels.decode_attention import normalize_tiles
-    from repro_torch.kernels.sass_diff import other_libraries
-    lib = other_libraries(Path(src))["decode_attention_pooled"]
+    lib = libs["decode_attention_pooled"]
     fn = ctypes.CDLL(str(lib)).decode_attention_mla_fwd
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p]
@@ -1212,6 +1248,22 @@ def parent_mla(src):
                   torch.cuda.current_stream().cuda_stream)
         assert code == 0, f"{lib.name}: decode_attention_mla_fwd {code}"
         return o
+    return call
+
+
+def parent_backward(libs):
+    """The backward entry of another tree (``libs`` as ``parent_mla``
+    takes them): a callable taking ``attention_backward_bh``'s arguments
+    that launches that tree's ``attention_backward`` C entry through this
+    tree's ``attention_backward.launch`` (the C interface is unchanged)
+    and returns (dq, dk, dv)."""
+    from repro_torch.kernels import attention_backward as AB
+    kernel = AB.KERNEL.of(libs["attention_backward"])
+
+    def call(q, k, v, do, **kw):
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        AB.launch(kernel, q, k, v, do, grads, **kw)
+        return grads
     return call
 
 
@@ -4238,6 +4290,7 @@ def gemma_cells(dev, params, cfg):
 
 TRAIN_B, TRAIN_S = 2, 4096  # phase 30's batch and phase 4's shapes
 TRAIN_STEPS, TRAIN_SCHEDULE = 8, 300  # phase 30: 8 steps of a 300 schedule
+QUIET_STEPS = 2  # phase 30's steps timed again after phase 29's CPU side
 # phase 29 (card against CPU, 2 layers at full width, fp32): one row of
 # 3072 tokens, 896 past phi3-mini's sink + local (2176). Below that, FA
 # and SA agree and r's gradient, sum (o_fa - o_sa) . dL/do, is the
@@ -4263,9 +4316,13 @@ def backward_work(BH, BHkv, Sq, Skv, D, pairs, itemsize):
 
 def backward_cases(dev, dtype, main):
     """[{label, kern: kernel call → (dq, dk, dv), plain, mutant: the plain
-    call with one V tile zeroed, sdpa: SDPA forward + backward or None,
-    fwd_bwd: the entry under autograd and ``torch.autograd.grad``, bytes,
-    flops}].
+    call with one V tile zeroed, sdpa: SDPA forward + backward, fwd_bwd:
+    the entry under autograd and ``torch.autograd.grad``, other(entry): the
+    same call through another tree's entry (``parent_backward``), flat /
+    plain_flat: the kernel's and the plain version's (dq, dk, dv)
+    flattened into one tensor (``flat(out=buf)`` writes the kernel's into
+    buf's views and returns buf), sizes: the three parts' sizes in it,
+    bytes, flops}].
     ``main`` (bf16): phi3-mini's training shapes (2 x 32 heads, D = 96,
     4096 tokens: causal, and streaming at sink 128 / local 2048),
     stablelm-12b's (2 x 32 heads over 2 x 8, D = 160), gemma3-12b's
@@ -4340,12 +4397,36 @@ def backward_cases(dev, dtype, main):
                     attention_backward_plain(q, k, v, do, **kw),
                 mutant=lambda q=q, k=k, v=v, do=do, kw=kw:
                     attention_backward_plain(q, k, zero_tile(v), do, **kw),
-                sdpa=(sdpa_train_call(q, k, v, do, B, H, Hkv, kw) if main
-                      else None),
+                sdpa=sdpa_train_call(q, k, v, do, B, H, Hkv, kw),
                 fwd_bwd=lambda q=q, k=k, v=v, do=do, kw=kw, entry=entry:
                     fwd_bwd_call(entry, q, k, v, do, kw),
+                other=lambda other, q=q, k=k, v=v, do=do, kw=kw:
+                    other(q, k, v, do, **kw),
+                flat=lambda out=None, q=q, k=k, v=v, do=do, kw=kw:
+                    flat_grads(attention_backward_bh, (q, k, v, do), kw,
+                               out),
+                plain_flat=lambda q=q, k=k, v=v, do=do, kw=kw: flat_grads(
+                    attention_backward_plain, (q, k, v, do), kw),
+                sizes=(q.numel(), k.numel(), v.numel()),
                 bytes=n_bytes, flops=flops))
     return cases
+
+
+def flat_grads(entry, args, kw, out=None):
+    """``entry(*args, **kw)``'s (dq, dk, dv) as one flat tensor: with
+    ``out`` (a flat buffer of their sizes), written in place into its
+    views through the kernel entry's ``out=``, its scratch a NaN-filled
+    ``stats=`` (so that a row the kernels read and never wrote shows in
+    the gradients, the padding rows past Sq too), and returned."""
+    q, k, v = args[:3]
+    if out is None:
+        return torch.cat([g.flatten() for g in entry(*args, **kw)])
+    views = tuple(part.view(t.shape) for part, t in zip(
+        out.split([q.numel(), k.numel(), v.numel()]), (q, k, v)))
+    stats = torch.full((3, q.shape[0], -(-q.shape[1] // 64) * 64),
+                       float("nan"), device=q.device)
+    entry(*args, out=views, stats=stats, **kw)
+    return out
 
 
 def fwd_bwd_call(entry, q, k, v, do, kw):
@@ -4358,9 +4439,10 @@ def fwd_bwd_call(entry, q, k, v, do, kw):
 
 def sdpa_train_call(q, k, v, do, B, H, Hkv, kw):
     """SDPA forward + backward at the same shapes, the yardstick: the
-    flash backend when causal or bidirectional, the efficient one with
-    the sink + local boolean mask for streaming. KV heads repeated for
-    G > 1 (``repeat_interleave``; the backward sums them)."""
+    flash backend when causal from position 0 or bidirectional, the
+    efficient one with a boolean mask for streaming (sink + local) and for
+    a causal call at a query offset. KV heads repeated for G > 1
+    (``repeat_interleave``; the backward sums them)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     F = torch.nn.functional
     S, Skv, D = q.shape[1], k.shape[1], q.shape[2]
@@ -4379,6 +4461,12 @@ def sdpa_train_call(q, k, v, do, B, H, Hkv, kw):
             (pos[None] < kw["sink"])
             | (pos[:, None] - pos[None] < kw["local"]))
         backend, args = SDPBackend.EFFICIENT_ATTENTION, dict(attn_mask=mask)
+    elif kw["causal"] and (S != Skv or kw.get("q_offset", 0)):
+        # SDPA's is_causal aligns query 0 with key 0: a query offset needs
+        # the mask written out
+        pos = kw.get("q_offset", 0) + torch.arange(S, device=q.device)
+        mask = torch.arange(Skv, device=q.device)[None] <= pos[:, None]
+        backend, args = SDPBackend.EFFICIENT_ATTENTION, dict(attn_mask=mask)
     else:
         backend, args = SDPBackend.FLASH_ATTENTION, dict(
             is_causal=kw["causal"])
@@ -4392,24 +4480,39 @@ def sdpa_train_call(q, k, v, do, B, H, Hkv, kw):
 
 def backward_report():
     """One line per backward kernel instance: registers, spill bytes and
-    static shared memory from the compiler's report (the dynamic shared
-    memory is in the .cu: ``Tiles<D>``)."""
+    static shared memory from the compiler's report. The bf16 tensor-core
+    instances (``*_wgmma_kernel``, ``csrc/backward_wgmma.cuh``) also give
+    the dynamic shared memory a CTA asks for and their SASS's tensor-core
+    (HGMMA) and TMA-load (UTMALDG) counts, which must be > 0, with no
+    spill; the fp32 ones ask for ``Tiles<D>``'s bytes (in the .cu)."""
     from repro_torch.kernels import _build
     lib = _build.library_path("attention_backward")
     report = compiler_report(lib, "bwd")
-    if not report:
-        return [f"attention_backward: no compiler report at {lib.name}.log"]
+    assert report, f"attention_backward: no compiler report at {lib.name}.log"
+    sass = sass_counts(lib)
+    smem = ctypes.CDLL(str(lib)).flux_backward_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
     lines = []
     for name, r in sorted(report.items()):
-        kind = "dq" if "dq_kernel" in name else "dkdv"
-        dt = "bf16" if "bfloat16" in name else "fp32"
+        kind = "dq" if "dq_" in name else "dkdv"
         dims = re.findall(r"Li(\d+)E", name)
+        D = int(dims[0]) if dims else 0
         pol = "streaming" if "Streaming" in name else "flash"
-        lines.append(f"attention_backward {kind} {dt} "
-                     f"D={dims[0] if dims else '?'}"
-                     f" {pol}: registers={r.get('registers')} "
+        if "wgmma_kernel" not in name:
+            lines.append(f"attention_backward {kind} fp32 D={D} {pol}: "
+                         f"registers={r.get('registers')} "
+                         f"spill_stores/loads={r.get('spill')} bytes "
+                         f"static_smem={r.get('smem')}")
+            continue
+        hgmma, tma, shapes = sass.get(name, (0, 0, []))
+        assert hgmma > 0 and tma > 0, \
+            f"{name}: HGMMA={hgmma} UTMALDG={tma}, not on the tensor cores"
+        assert r.get("spill") == "0/0", f"{name}: spills {r.get('spill')}"
+        lines.append(f"attention_backward {kind} bf16 wgmma D={D} {pol}: "
+                     f"registers={r.get('registers')} "
                      f"spill_stores/loads={r.get('spill')} bytes "
-                     f"static_smem={r.get('smem')}")
+                     f"static_smem={r.get('smem')} dynamic_smem={smem(D, D)}"
+                     f" sass HGMMA={hgmma} {shapes} UTMALDG={tma}")
     return lines
 
 
@@ -4486,31 +4589,46 @@ def refusal_checks(dev):
     return lines
 
 
-def time_backward(dev):
-    """Phase 4: the backward kernel at phi3-mini's training shapes, causal
-    and streaming: device ms and call ms, the port's forward + backward
-    (the entry under autograd, then ``torch.autograd.grad``), the bound,
-    the plain version's ms and SDPA forward + backward. Returns {mode:
-    row}."""
+BWD_UNALIGNED_TIMED = "unaligned D=128 causal"  # phase 4's small row
+
+
+def time_backward(dev, parent=None):
+    """Phase 4: the backward kernel at every main shape (phi3-mini's
+    training shapes, causal and streaming; stablelm-12b's; gemma3-12b's
+    window; whisper's bidirectional encoder) and at the unaligned G = 4
+    case's D = 128 causal row: device ms and call ms, the port's forward +
+    backward (the entry under autograd, then ``torch.autograd.grad``),
+    the bound, the plain version's ms, SDPA forward + backward and, with
+    ``parent`` (a ``parent_backward`` callable), the other tree's kernel
+    in the same process. Returns {label: row}."""
     rows = {}
-    for c in backward_cases(dev, torch.bfloat16, True)[:2]:
+    cases = backward_cases(dev, torch.bfloat16, True) + [
+        c for c in backward_cases(dev, torch.bfloat16, False)
+        if c["label"].startswith(BWD_UNALIGNED_TIMED)]
+    for c in cases:
         label = c["label"]
-        mode = "causal" if "causal" in label else "streaming"
         n_bytes, flops = c["bytes"], c["flops"]
         b_ms, b_by = bound(n_bytes, flops)
-        rows[mode] = r = dict(
+        rows[label] = r = dict(
             ms=time_ms(c["kern"], reps=3, rounds=3, warmup=1),
             call_ms=call_ms(c["kern"], reps=3, warmup=1),
             fwd_bwd_ms=time_ms(c["fwd_bwd"], reps=3, rounds=3, warmup=1),
             plain_ms=time_ms(c["plain"], reps=1, rounds=3, warmup=1),
             library_ms=time_ms(c["sdpa"], reps=3, rounds=3, warmup=1),
             bound_ms=b_ms, bound_by=b_by)
+        if parent is not None:
+            got, want = c["other"](parent), c["plain"]()
+            r["parent_limit_ratios"] = [bf16_ratios(a, b)[0]
+                                        for a, b in zip(got, want)]
+            del got, want
+            r["parent_ms"] = time_ms(lambda: c["other"](parent), reps=1,
+                                     rounds=3, warmup=1)
         say(4, f"attention_backward {label} ms={r['ms']:.4f} "
                f"call_ms={r['call_ms']:.4f} fwd_bwd_ms={r['fwd_bwd_ms']:.4f}"
                f" plain_ms={r['plain_ms']:.4f} sdpa_fwd_bwd_ms="
-               f"{r['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}; "
-               f"{n_bytes} bytes, {flops} flops) "
-               f"roofline_share={b_ms / r['ms']:.4f}")
+               f"{r['library_ms']:.4f} parent_ms={r.get('parent_ms')} "
+               f"bound_ms={b_ms:.4f} ({b_by}; {n_bytes} bytes, {flops} "
+               f"flops) roofline_share={b_ms / r['ms']:.4f}")
         free_card()
     return rows
 
@@ -4644,7 +4762,8 @@ def train_parity_start(dev):
     PretrainTrainer and one ContinuedTrainer step on PARITY_BACKBONE_S
     tokens. The card's side runs now; the CPU's, which takes minutes
     and launches no kernel, runs in a thread meanwhile, while phases
-    28 and 30 run on the card. Returns ``finish``, which waits for it and
+    28, 30 and 2b run on the card. Returns ``finish``, which waits for it
+    and
     compares: each
     step's loss, router and λ gradients and metrics, and the state after
     it (``state_rel``), the pretrain and continued steps' loss, every
@@ -4715,7 +4834,7 @@ def train_parity_start(dev):
                             if name == "continued" else "")
                          + f" (cpu {tc:.1f} s, card {td:.1f} s)")
             assert max(errs.values()) < TRAIN_TOL, lines[-1]
-        lines.append(f"the CPU side ran beside phases 28-30; waited "
+        lines.append(f"the CPU side ran beside phases 28, 30 and 2b; waited "
                      f"{time.perf_counter() - t0:.1f} s for it after")
         card.clear()
         cpu.clear()
@@ -4782,7 +4901,9 @@ def train_path(dev, params, cfg):
     nonzero; the device's busy share and its top kernels); router
     parameters moved, the backbone bitwise unchanged; the checkpoint
     saved and loaded back bitwise; one request served through
-    ``ServeEngine.generate`` with the trained routers."""
+    ``ServeEngine.generate`` with the trained routers. Returns (launch
+    counts, lines, ``quiet``: the call that times the steps again once
+    phase 29's CPU side has finished, giving its line)."""
     import repro_torch.kernels as KN
     from repro_torch.data import mixture_iterator
     from repro_torch.launch.train import router_training
@@ -4855,7 +4976,7 @@ def train_path(dev, params, cfg):
                  f"device_busy_ms={busy:.1f} busy_share={busy / wall:.3f} "
                  f"top_kernels=" + ", ".join(
                      f"{k} x{c} {ms:.1f} ms" for k, c, ms in top))
-    del out
+    out.clear()
 
     trained = rt.params(state)
     r1, bb = partition(trained, router_param_filter(trained))
@@ -4899,7 +5020,28 @@ def train_path(dev, params, cfg):
                  f"msr={gen_res.msr:.3f} launches={served}")
     del eng, loaded
     free_card()
-    return counts, lines
+
+    def quiet():
+        """QUIET_STEPS more steps and one more profiled step's gradients,
+        for when nothing else runs on the host (phase 29's CPU side
+        shares it with the steps above): each step's wall s, and the
+        profiled step's wall and busy ms."""
+        torch.cuda.synchronize(dev)
+        marks = [time.perf_counter()]
+        _, recs = rt.run(state, data, QUIET_STEPS, log_every=1,
+                         log_fn=lambda msg: marks.append(time.perf_counter()))
+        assert all(np.isfinite(r["loss"]) for r in recs)
+        walls = np.diff(marks)
+        KN.reset_launch_counts()
+        wall, busy, _ = device_kernels_profile(one_step, dev)
+        assert KN.launch_counts() == train_launches(cfg, 1)
+        out.clear()
+        return (f"with the host to itself: steps wall_s="
+                + "/".join(f"{w:.3f}" for w in walls)
+                + f" train_tok_s={tok * len(walls) / sum(walls):.1f}; one "
+                f"step's gradients profiled: wall_ms={wall:.1f} "
+                f"device_busy_ms={busy:.1f} busy_share={busy / wall:.3f}")
+    return counts, lines, quiet
 
 
 def check_kernels(dev):
@@ -5217,19 +5359,6 @@ def main(argv=None) -> int:
                  + mla_report() + backward_report()):
         say(2, line)
 
-    t0 = time.perf_counter()
-    stressed, stress_kernel = stress(dev)
-    for label, c in stressed.items():
-        say("2b", f"{label}: {c['calls']} calls ({c['nan_prefilled']} into "
-                  f"a NaN-filled out) nonfinite_outputs="
-                  f"{c['nonfinite_outputs']} past_limit={c['past_limit']} "
-                  f"[{c['seconds']:.1f} s]")
-    bad = {k: c for k, c in stressed.items()
-           if c["nonfinite_outputs"] or c["past_limit"]}
-    assert not bad, f"stress: outputs non-finite or past the limit: {bad}"
-    say("2b", f"{len(stressed)} wgmma instances x {STRESS_CALLS} calls: no "
-              f"non-finite output, no element past the limit", t0)
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -5240,10 +5369,14 @@ def main(argv=None) -> int:
     say(3, "kernels agree with their plain versions", t0)
 
     t0 = time.perf_counter()
-    rows = time_kernels(
-        dev, None if parent_src is None else parent_mla(parent_src))
+    parent = None
+    if parent_src is not None:
+        from repro_torch.kernels.sass_diff import other_libraries
+        parent = other_libraries(Path(parent_src))
+    rows = time_kernels(dev, None if parent is None else parent_mla(parent))
     free_card()
-    bwd_rows = time_backward(dev)
+    bwd_rows = time_backward(
+        dev, None if parent is None else parent_backward(parent))
     free_card()
     say(4, f"timed at {card}", t0)
 
@@ -5530,12 +5663,12 @@ def main(argv=None) -> int:
     free_card()
 
     # phase 29's card side runs here, and its CPU side (minutes of CPU
-    # work, no kernel launched) in a thread beside phases 28 and 30, which
-    # keep the card busy and the host's cores mostly free
+    # work, no kernel launched) in a thread beside phases 28, 30 and 2b,
+    # which keep the card busy and the host's cores mostly free
     t29 = time.perf_counter()
     parity_finish = train_parity_start(dev)
     say(29, f"{ARCH} (2 layers, fp32) card side done; its CPU side runs "
-            f"beside phases 28-30", t29)
+            f"beside phases 28, 30 and 2b", t29)
     free_card()
 
     cfg = get_config(GEMMA3).replace(num_layers=GEMMA3_LAYERS)
@@ -5567,7 +5700,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
-    counts["train"], lines = train_path(dev, params, cfg)
+    counts["train"], lines, train_quiet = train_path(dev, params, cfg)
     for line in lines:
         say(30, line)
     say(30, f"{ARCH} router training at full width and depth "
@@ -5575,10 +5708,27 @@ def main(argv=None) -> int:
             f"{TRAIN_B} x {TRAIN_S}) done", t0)
     del params
     free_card()
+    # phase 2b's card work fills the wait for phase 29's CPU side
+    t0 = time.perf_counter()
+    stressed, stress_kernel = stress(dev)
+    for label, c in stressed.items():
+        say("2b", f"{label}: {c['calls']} calls ({c['nan_prefilled']} into "
+                  f"a NaN-filled out) nonfinite_outputs="
+                  f"{c['nonfinite_outputs']} past_limit={c['past_limit']} "
+                  f"[{c['seconds']:.1f} s]")
+    bad = {k: c for k, c in stressed.items()
+           if c["nonfinite_outputs"] or c["past_limit"]}
+    assert not bad, f"stress: outputs non-finite or past the limit: {bad}"
+    say("2b", f"{len(stressed)} wgmma instances x {STRESS_CALLS} calls: no "
+              f"non-finite output, no element past the limit", t0)
+    free_card()
     for line in parity_finish():
         say(29, line)
     say(29, f"{ARCH} (2 layers, fp32) router, pretrain and continued "
             f"training card = cpu done", t29)
+    t0 = time.perf_counter()
+    say(30, train_quiet(), t0)
+    del train_quiet
     free_card()
 
     import repro_torch.kernels as KN
@@ -5654,13 +5804,20 @@ def main(argv=None) -> int:
                 kernels[-1][key] = dict(launches=side_launches[case],
                                         max_abs_err=errs[WHISPER][case],
                                         **rows[WHISPER][case])
-    # the backward kernel: no TPU counterpart; its launches from phase 30
-    c = bwd_errs[next(k for k in bwd_errs if k.startswith(f"{ARCH} causal"))]
-    s_err = bwd_errs[next(k for k in bwd_errs
-                          if k.startswith(f"{ARCH} streaming"))]
+    # the backward kernel: no TPU counterpart; its launches from phase 30,
+    # its rows phase 3's errors beside phase 4's times
+
+    def bwd_row(prefix):
+        label = next(k for k in bwd_rows if k.startswith(prefix))
+        e, ratios, mutant = bwd_errs[label]
+        return dict(label=label, max_abs_err=e, limit_ratios_dq_dk_dv=ratios,
+                    zeroed_tile_ratio_dk=mutant, **bwd_rows[label])
+
     kernels.append(dict(
         name="attention_backward", route="cuda",
         source=str((_build.CSRC / "attention_backward.cu").relative_to(
+            ROOT)),
+        bf16_engine=str((_build.CSRC / "backward_wgmma.cuh").relative_to(
             ROOT)),
         replaces="none: the gradient of flash and streaming (the JAX "
                  "package differentiates src/repro/core/modes.py:120 by "
@@ -5668,11 +5825,15 @@ def main(argv=None) -> int:
         launches=counts["train"]["attention_backward"],
         launches_by_path={k: c_["attention_backward"]
                           for k, c_ in counts.items()},
-        max_abs_err=c[0], limit_ratios_dq_dk_dv=c[1],
-        zeroed_tile_ratio_dk=c[2], **bwd_rows["causal"],
-        streaming=dict(max_abs_err=s_err[0], limit_ratios_dq_dk_dv=s_err[1],
-                       zeroed_tile_ratio_dk=s_err[2],
-                       **bwd_rows["streaming"])))
+        **bwd_row(f"{ARCH} causal"),
+        streaming=bwd_row(f"{ARCH} streaming"),
+        stablelm_12b=dict(causal=bwd_row(f"{STABLELM} causal"),
+                          streaming=bwd_row(f"{STABLELM} streaming")),
+        gemma3_12b_window=bwd_row(f"{GEMMA3} window"),
+        whisper_encoder=bwd_row(f"{WHISPER} bidirectional"),
+        unaligned=bwd_row(BWD_UNALIGNED_TIMED),
+        stress={k: c_ for k, c_ in stressed.items()
+                if stress_kernel[k] == "attention_backward"}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 
@@ -108,20 +108,27 @@ class CudaKernel:
     nothing else changes it but ``reset``."""
 
     def __init__(self, source: str, symbol: str,
-                 argtypes: Sequence[type]):
+                 argtypes: Sequence[type], library: Optional[Path] = None):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]  # + stream
+        self.library = library  # None: this tree's build of ``source``
         self._lib = None
         self._fn = None
         self.launches = 0
+
+    def of(self, library: Path) -> "CudaKernel":
+        """The same entry point in another build of its source (e.g. an
+        earlier tree's library), with a count of its own."""
+        return CudaKernel(self.source, self.symbol, self.argtypes[:-1],
+                          library)
 
     def reset(self) -> None:
         self.launches = 0
 
     def _bind(self) -> None:
-        path = library_path(self.source)
-        if not path.exists():
+        path = self.library or library_path(self.source)
+        if self.library is None and not path.exists():
             build((self.source,))
         lib = ctypes.CDLL(str(path))
         fn = getattr(lib, self.symbol)
@@ -269,8 +276,9 @@ def check_aligned16(name: str, why: str, *tensors: torch.Tensor) -> None:
 
 
 def check_tma_aligned(name: str, *tensors: torch.Tensor) -> None:
-    """The bf16 prefill kernels load their operands with TMA, which needs a
-    16-byte aligned base (csrc/prefill_wgmma.cuh: make_map)."""
+    """The bf16 prefill and backward kernels load their operands with TMA,
+    which needs a 16-byte aligned base (csrc/prefill_wgmma.cuh:
+    make_map)."""
     check_aligned16(name, "its TMA loads", *tensors)
 
 

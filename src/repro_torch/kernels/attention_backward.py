@@ -6,8 +6,10 @@ of its blocked ``modes.attention`` (``repro/core/modes.py:120``). The
 port's forward runs the hand-written flash and streaming kernels, whose
 outputs PyTorch cannot differentiate, so on CUDA tensors
 ``attention_backward_bh`` launches the hand-written kernel
-``csrc/attention_backward.cu`` (dq, dk and dv on the CUDA cores in fp32
-for both dtypes) or raises. On CPU tensors it runs the plain version:
+``csrc/attention_backward.cu`` or raises: bf16 operands run on its
+tensor-core engine (``csrc/backward_wgmma.cuh``, TMA + wgmma; their bases
+must be 16-byte aligned), fp32 operands on its CUDA-core kernels. On CPU
+tensors it runs the plain version:
 ``torch.autograd.grad`` through ``ref.flash_attention_ref`` /
 ``ref.streaming_attention_ref``, whose rounding of p to V's dtype
 passes the gradient straight through, with the row max a constant
@@ -74,7 +76,8 @@ def attention_backward_plain(q, k, v, dout, *, causal: bool = True,
 def attention_backward_bh(q, k, v, dout, *, causal: bool = True,
                           sink: Optional[int] = None,
                           local: Optional[int] = None, q_offset: int = 0,
-                          scale: Optional[float] = None):
+                          scale: Optional[float] = None, out=None,
+                          stats=None):
     """dq, dk, dv of o = softmax(q kᵀ · scale, masked) v, given ``dout``.
 
     q, dout (BH, Sq, D); k, v (BHkv, Skv, D), BH = BHkv·G; the mask of
@@ -83,7 +86,11 @@ def attention_backward_bh(q, k, v, dout, *, causal: bool = True,
     kernel recomputes each row's softmax statistics and D_i = dO_i · O_i
     itself, so it needs no forward output. Returns (dq, dk, dv) in the
     operands' dtype. The card takes Dk = Dv in ``_build.HEAD_DIMS``;
-    (192, 128) raises ``NotImplementedError`` (ROADMAP item 15b)."""
+    (192, 128) raises ``NotImplementedError`` (ROADMAP item 15b). ``out``
+    (a test's hook): None or (dq, dk, dv), each checked as
+    ``_build.check_out`` checks one, written in place and returned.
+    ``stats`` (a test's hook, CUDA only): the kernels' scratch, as
+    ``launch`` takes it."""
     name = "attention_backward_bh"
     _build.check_operands(name, q, k, v, dv_free=True)
     _build.check_common(name, q, k, v, dout)
@@ -97,25 +104,60 @@ def attention_backward_bh(q, k, v, dout, *, causal: bool = True,
                          f"local={local}")
     kw = dict(causal=causal, sink=sink, local=local, q_offset=q_offset,
               scale=scale)
+    if out is not None:
+        if len(out) != 3:
+            raise ValueError(f"{name}: out must be (dq, dk, dv); got "
+                             f"{len(out)} tensors")
+        out = tuple(_build.check_out(name, o, t.shape, t)
+                    for o, t in zip(out, (q, k, v)))
     if _build.on_cpu(name, q):
-        return attention_backward_plain(q, k, v, dout, **kw)
+        grads = attention_backward_plain(q, k, v, dout, **kw)
+        return grads if out is None else tuple(
+            _build.into(o, g) for o, g in zip(out, grads))
     BH, Sq, D = q.shape
     BHkv, Skv, Dv = v.shape
     if Dv != D:
         raise NotImplementedError(
             f"{name}: head dims (Dk, Dv) = {(D, Dv)}: the backward kernel is "
             f"built for Dk = Dv only (ROADMAP Queue 1 item 15b)")
-    code = _build.check_cuda(name, q, k, v, dout)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    stats = torch.empty((3, BH, Sq), dtype=torch.float32, device=q.device)
-    kind = FLASH if local is None else STREAMING
-    KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  dout.data_ptr(), dq.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), BH, BHkv,
-                  Sq, Skv, D, code, kind, int(causal), int(sink or 0),
-                  int(local or 1), int(q_offset),
+    _build.check_cuda(name, q, k, v, dout)
+    if q.dtype == torch.bfloat16:
+        _build.check_tma_aligned(name, q, k, v, dout)
+    out = out or tuple(torch.empty_like(t) for t in (q, k, v))
+    launch(KERNEL, q, k, v, dout, out, stats=stats, **kw)
+    return out
+
+
+def launch(kernel: _build.CudaKernel, q, k, v, dout, out, *,
+           causal: bool = True, sink: Optional[int] = None,
+           local: Optional[int] = None, q_offset: int = 0,
+           scale: Optional[float] = None, stats=None) -> None:
+    """One launch of ``kernel`` (``KERNEL``, or its entry in another
+    build, ``KERNEL.of``) on operands ``attention_backward_bh`` checked,
+    into ``out`` = (dq, dk, dv). ``stats``: the rows' m, l (or 1 / l) and
+    D, a (3, BH, Sq rounded up to 64) float32 scratch, so that each row
+    block's 64 rows are one 256-byte bulk copy of the bf16 engine; None
+    makes a fresh one."""
+    BH, Sq, D = q.shape
+    BHkv, Skv = k.shape[:2]
+    want = (3, BH, -(-Sq // 64) * 64)
+    if stats is None:
+        stats = torch.empty(want, dtype=torch.float32, device=q.device)
+    elif (tuple(stats.shape) != want or stats.dtype != torch.float32
+          or stats.device != q.device or not stats.is_contiguous()
+          or stats.data_ptr() % 16):
+        raise ValueError(f"attention_backward: stats must be a contiguous "
+                         f"float32 {want} on {q.device}, 16-byte aligned; "
+                         f"got {stats.dtype} {tuple(stats.shape)} on "
+                         f"{stats.device}")
+    dq, dk, dv = out
+    kernel.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), stats.data_ptr(), BH, BHkv, Sq, Skv, D,
+                  _build.DTYPE_CODES[q.dtype],
+                  FLASH if local is None else STREAMING, int(causal),
+                  int(sink or 0), int(local or 1), int(q_offset),
                   _build.default_scale(D, scale))
-    return dq, dk, dv
 
 
 class _Attention(torch.autograd.Function):

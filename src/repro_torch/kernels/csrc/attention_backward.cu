@@ -1,5 +1,6 @@
 // Attention backward (dq, dk, dv) of the flash and streaming kernels, for
-// Hopper (sm_90a), on the CUDA cores.
+// Hopper (sm_90a): bf16 on the tensor cores (backward_wgmma.cuh), fp32 on
+// the CUDA cores (this file).
 //
 // Replaces no TPU kernel. The JAX package trains through XLA's autodiff of
 // its blocked `modes.attention` (src/repro/core/modes.py:120); the port's
@@ -15,7 +16,15 @@
 // One mask policy per kind: causal or bidirectional with q_offset (flash),
 // sink + local with q_offset (streaming; a sliding window at sink 0).
 //
-// Two kernels, one launch of the C entry:
+// Two engines, chosen by the operands' dtype (never a retry on failure).
+// bf16 operands run wg::launch (backward_wgmma.cuh): TMA loads and wgmma
+// products, 13-16 products of 2·D a visible pair against the 5 that bound
+// it (its note says why). fp32 operands run the two kernels below on the
+// CUDA cores, since the tensor cores offer fp32 products only as TF32;
+// they are what the card is held to the CPU with in training (chip_smoke
+// phase 29).
+//
+// The fp32 kernels, two in one launch of the C entry:
 // 1. dq_kernel: one CTA per (query head, 64 query rows). A first pass over
 //    the visible key tiles recomputes each row's max m_i and sum l_i (the
 //    forward kernels write neither); a second accumulates dQ in registers
@@ -30,22 +39,21 @@
 // A streaming query tile walks the sink tiles [0, n_sink), then the window
 // tiles from max(w0, n_sink): the tile that straddles `sink` is walked once,
 // under the whole mask (the forward walks it twice under disjoint masks).
+// The mask policies and their walks are backward_wgmma.cuh's.
 //
-// fp32 arithmetic on the CUDA cores for both dtypes; operands are staged in
-// shared memory as fp32 with an odd row stride (conflict-free column reads),
-// and the outputs are written in the operands' dtype. A row with no visible
-// key gives no gradient (the plain version's dense softmax would spread dV
-// evenly over its masked keys); no training call has one (Sq <= Skv,
-// q_offset >= 0, causal).
+// fp32 arithmetic on the CUDA cores; operands are staged in shared memory
+// with an odd row stride (conflict-free column reads). A row with no
+// visible key gives no gradient (the plain version's dense softmax would
+// spread dV evenly over its masked keys); no training call has one (Sq <=
+// Skv, q_offset >= 0, causal).
 //
 // What bounds it: 5 products of 2·D operations per visible (query, key)
 // pair (this kernel runs 9: S three times, dP twice, and dQ as two
 // products) against the bytes of q, k, v, dO, dq, dk and dv; at training
 // shapes (4096 tokens, D = 96) the operations, by far. fp32 FMAs on the
-// CUDA cores reach a small share of the tensor cores' bf16 rate: wgmma and
-// TMA, and the forward writing the row statistics, are later work (ROADMAP
-// Queue 2).
+// CUDA cores reach a small share of the fp32 rate.
 #include "attention_common.cuh"
+#include "backward_wgmma.cuh"
 
 namespace flux {
 namespace bwd {
@@ -69,56 +77,6 @@ template <int D> struct Tiles {
                        (size_t)2 * kRows * kSLd + 3 * kStep);
   static_assert(kDqBytes <= 232448 && kDkdvBytes <= 232448,
                 "one CTA's shared memory on an H100");
-};
-
-// Causal or bidirectional, query row r at position q_offset + r.
-struct FlashPolicy {
-  int causal, q_offset;
-  __device__ bool visible(int r, int key) const {
-    return !causal || key <= q_offset + r;
-  }
-  // key tiles of `step` keys seen by rows [r0, r1]: [0, a1) and [b0, b1)
-  __device__ void key_tiles(int r0, int r1, int Skv, int step, int& a1,
-                            int& b0, int& b1) const {
-    int n = (Skv + step - 1) / step;
-    if (causal) n = min(n, (q_offset + r1) / step + 1);
-    a1 = n;
-    b0 = b1 = 0;
-  }
-  // query tiles of `step` rows that see a key of [c0, c1]: [t0, t1)
-  __device__ void query_tiles(int c0, int c1, int Sq, int step, int& t0,
-                              int& t1) const {
-    t1 = (Sq + step - 1) / step;
-    t0 = causal ? max(c0 - q_offset, 0) / step : 0;
-  }
-};
-
-// Sink + local: position p sees key c iff c <= p and (c < sink or
-// p - c < local).
-struct StreamingPolicy {
-  int sink, local, q_offset;
-  __device__ bool visible(int r, int key) const {
-    const int p = q_offset + r;
-    return key <= p && (key < sink || p - key < local);
-  }
-  __device__ void key_tiles(int r0, int r1, int Skv, int step, int& a1,
-                            int& b0, int& b1) const {
-    const int n = (Skv + step - 1) / step;
-    const int last = min(n - 1, (q_offset + r1) / step);  // causal bound
-    a1 = min((sink + step - 1) / step, last + 1);
-    const int w0 = max(floor_div(q_offset + r0 - (local - 1), step), 0);
-    b0 = max(w0, a1);
-    b1 = last + 1;
-  }
-  __device__ void query_tiles(int c0, int c1, int Sq, int step, int& t0,
-                              int& t1) const {
-    t0 = max(c0 - q_offset, 0) / step;
-    t1 = (Sq + step - 1) / step;
-    if (c0 >= sink) {  // window keys only: rows up to c1 + local - 1
-      const int hi = c1 + local - 1 - q_offset;
-      t1 = hi < 0 ? 0 : min(t1, hi / step + 1);
-    }
-  }
 };
 
 // Rows [row0, row0 + n_rows) of a row-major (n, D) matrix into a staged
@@ -492,14 +450,44 @@ template <typename T, int D> struct BackwardLaunch {
   }
 };
 
+// bf16: the tensor-core engine at Dk = Dv (wg::launch; stats (3, BH,
+// Sq rounded up to 64)).
+template <typename T, int D> struct BackwardWgmmaLaunch {
+  static cudaError_t run(const void* q, const void* k, const void* v,
+                         const void* dout, void* dq, void* dk,
+                         void* dv, float* stats, int BH, int BHkv, int Sq,
+                         int Skv, int kind, int causal, int sink, int local,
+                         int q_offset, float scale, cudaStream_t stream) {
+    if (kind == 0)
+      return wg::launch<D, D>(q, k, v, dout, dq, dk, dv, stats, BH, BHkv, Sq,
+                              Skv, scale, FlashPolicy{causal, q_offset},
+                              stream);
+    return wg::launch<D, D>(q, k, v, dout, dq, dk, dv, stats, BH, BHkv, Sq,
+                            Skv, scale, StreamingPolicy{sink, local, q_offset},
+                            stream);
+  }
+};
+
+// flux_backward_smem_bytes' answer for the head dims dispatch_head_dim
+// builds.
+template <typename T, int D> struct BackwardSmem {
+  static cudaError_t run(int* bytes) {
+    *bytes = (int)wg::Layout<D, D>::kBytes;
+    return cudaSuccess;
+  }
+};
+
 }  // namespace bwd
 }  // namespace flux
 
-// q, dout, dq (BH, Sq, D); k, v, dk, dv (BHkv, Skv, D); stats (3, BH, Sq)
-// float32 scratch (the rows' m, l and D); all contiguous, q..dv of one
-// dtype (0 = fp32, 1 = bf16), D a built head dim (Dk = Dv). kind 0: flash
-// (`causal`, `q_offset`); kind 1: streaming (`sink` >= 0, `local` >= 1,
-// `q_offset`). Returns a cudaError_t code.
+// q, dout, dq (BH, Sq, D); k, v, dk, dv (BHkv, Skv, D); stats float32
+// scratch of 3 x BH x Sq_pad floats, Sq_pad = Sq rounded up to 64 (the
+// rows' m, l and D: the fp32 kernels use it as (3, BH, Sq), the bf16
+// engine as (3, BH, Sq_pad) with 1 / l); all contiguous, q..dv of one
+// dtype (0 = fp32, 1 = bf16; bf16 bases and stats 16-byte aligned, for
+// TMA), D a built head dim (Dk = Dv). kind 0: flash (`causal`,
+// `q_offset`); kind 1: streaming (`sink` >= 0, `local` >= 1, `q_offset`).
+// Returns a cudaError_t code.
 extern "C" int attention_backward(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   void* dq, void* dk,
@@ -507,8 +495,19 @@ extern "C" int attention_backward(const void* q, const void* k,
                                   int Sq, int Skv, int D, int dtype, int kind,
                                   int causal, int sink, int local,
                                   int q_offset, float scale, void* stream) {
-  return flux::dispatch<flux::bwd::BackwardLaunch>(
+  return flux::dispatch_by_dtype<flux::bwd::BackwardLaunch,
+                                 flux::bwd::BackwardWgmmaLaunch>(
       dtype, D, q, k, v, dout, dq, dk, dv, static_cast<float*>(stats), BH,
       BHkv, Sq, Skv, kind, causal, sink, local, q_offset, scale,
       static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory one CTA of the bf16 engine asks for at head dims
+// (Dk, Dv); -1 for a pair not built.
+extern "C" int flux_backward_smem_bytes(int Dk, int Dv) {
+  int bytes = -1;
+  if (Dk == Dv)
+    flux::dispatch_head_dim<flux::bwd::BackwardSmem, __nv_bfloat16>(Dk,
+                                                                    &bytes);
+  return bytes;
 }

@@ -195,3 +195,109 @@ def decode_attention_pooled_split_ref(q, k, v, positions, lengths, *,
         acc = sum(wi * a for wi, (_, _, a) in zip(w, parts))
         out[b, 0] = acc / torch.clamp(l, min=1e-20)
     return out.to(q.dtype)
+
+
+LOG2E = 1.4426950408889634
+BWD_TILE = 64  # rows and keys of the bf16 backward engine's tiles
+
+
+def _backward_visible(rows, keys, *, causal, sink, local, q_offset):
+    """(len(rows), len(keys)) bool: query row r sees key c."""
+    p = q_offset + rows[:, None]
+    c = keys[None, :]
+    if local is None:
+        return (c <= p) if causal else torch.ones(
+            (len(rows), len(keys)), dtype=torch.bool, device=rows.device)
+    return (c <= p) & ((c < sink) | (p - c < local))
+
+
+def attention_backward_tiled_ref(q, k, v, dout, *, causal=True, sink=None,
+                                 local=None, q_offset=0, scale=None):
+    """The bf16 backward engine's arithmetic step by step
+    (``csrc/backward_wgmma.cuh``), for tests only: the gradient of
+    ``flash_attention_ref`` (``local`` None) or ``streaming_attention_ref``
+    as the kernel forms it. Scores in log2 units (s · scale · log2 e,
+    exp2). dq by blocks of 64 query rows over 64-key tiles: pass 1 the
+    rows' max m and sum l, online; pass 2 D_i = (1 / l_i) Σ_j round(p_ij)
+    dP_ij; pass 3 dS = p / l (dP - D_i), dQ += dS K. dk / dv by blocks of
+    64 keys, for each of the G query heads over 64-row tiles, from dq's m,
+    1 / l and D: dV += (round(p) / l)ᵀ dO and dK += dSᵀ Q. dS and round(p)
+    / l enter their products as the kernel's A operands do, as two parts
+    in v's dtype, hi = round(x) and lo = round(x - hi) (no rounding in
+    float32). A hidden pair's p is 0, so a row with no visible key gives
+    no gradient. Every tile is walked under the mask: the tiles the
+    kernel's walks skip are hidden whole and add exact zeros."""
+    BH, Sq, D = q.shape
+    BHkv, Skv, Dv = v.shape
+    G = BH // BHkv
+    scale = D ** -0.5 if scale is None else scale
+    c = torch.tensor(scale * LOG2E, dtype=torch.float32).item()
+    mask = dict(causal=causal, sink=sink, local=local, q_offset=q_offset)
+    dev, T = q.device, BWD_TILE
+
+    def rnd(x):
+        return x.to(v.dtype).float()
+
+    def split(x):  # hi + lo
+        hi = rnd(x)
+        return hi + rnd(x - hi)
+
+    qf, dof = q.float(), dout.float()
+    kf = k.float().repeat_interleave(G, 0)  # (BH, Skv, D): row b's kv row
+    vf = v.float().repeat_interleave(G, 0)
+    m = torch.full((BH, Sq), NEG_INF, device=dev)
+    il = torch.zeros((BH, Sq), device=dev)
+    dd = torch.zeros((BH, Sq), device=dev)
+    dq = torch.zeros((BH, Sq, D), device=dev)
+    for r0 in range(0, Sq, T):
+        rows = torch.arange(r0, min(r0 + T, Sq), device=dev)
+        steps = []
+        for k0 in range(0, Skv, T):
+            keys = torch.arange(k0, min(k0 + T, Skv), device=dev)
+            vis = _backward_visible(rows, keys, **mask)
+            s = torch.einsum("hqd,hkd->hqk", qf[:, rows], kf[:, keys]) * c
+            s = torch.where(vis, s, NEG_INF)
+            dp = torch.einsum("hqd,hkd->hqk", dof[:, rows], vf[:, keys])
+            steps.append((keys, vis, s, dp))
+        mr = torch.full((BH, len(rows)), NEG_INF, device=dev)
+        lr = torch.zeros((BH, len(rows)), device=dev)
+        for _, vis, s, _ in steps:  # pass 1
+            m_new = torch.maximum(mr, s.amax(-1))
+            lr = lr * torch.exp2(mr - m_new) + torch.where(
+                vis, torch.exp2(s - m_new[..., None]), 0.).sum(-1)
+            mr = m_new
+        ilr = 1 / torch.clamp(lr, min=1e-20)
+        dr = torch.zeros((BH, len(rows)), device=dev)
+        for _, vis, s, dp in steps:  # pass 2
+            p = torch.where(vis, torch.exp2(s - mr[..., None]), 0.)
+            dr = dr + (rnd(p) * dp).sum(-1)
+        dr = ilr * dr
+        for keys, vis, s, dp in steps:  # pass 3
+            p = torch.where(vis, torch.exp2(s - mr[..., None]), 0.)
+            ds = split(p * ilr[..., None] * (dp - dr[..., None]))
+            dq[:, rows] += torch.einsum("hqk,hkd->hqd", ds, kf[:, keys])
+        m[:, rows], il[:, rows], dd[:, rows] = mr, ilr, dr
+
+    dk = torch.zeros((BHkv, Skv, D), device=dev)
+    dv = torch.zeros((BHkv, Skv, Dv), device=dev)
+    kv_heads = torch.arange(BHkv, device=dev) * G
+    for c0 in range(0, Skv, T):
+        keys = torch.arange(c0, min(c0 + T, Skv), device=dev)
+        for g in range(G):
+            heads = kv_heads + g
+            for t0 in range(0, Sq, T):
+                rows = torch.arange(t0, min(t0 + T, Sq), device=dev)
+                vis = _backward_visible(rows, keys, **mask).T
+                qt, dot = qf[heads][:, rows], dof[heads][:, rows]
+                st = torch.einsum("hkd,hqd->hkq", k.float()[:, keys], qt) * c
+                dpt = torch.einsum("hkd,hqd->hkq", v.float()[:, keys], dot)
+                mq, ilq, dq_ = (x[heads][:, rows][:, None, :]
+                                for x in (m, il, dd))
+                p = torch.where(vis, torch.exp2(st - mq), 0.)
+                dv[:, keys] += torch.einsum("hkq,hqd->hkd",
+                                            split(rnd(p) * ilq), dot)
+                dk[:, keys] += torch.einsum("hkq,hqd->hkd",
+                                            split(p * ilq * (dpt - dq_)),
+                                            qt)
+    return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype),
+            dv.to(v.dtype))

@@ -25,7 +25,15 @@ Held:
   requires grad, launch exactly as before otherwise, and raise for
   (Dk, Dv) = (192, 128) under grad; block-sparse, xa and the decode
   kernels raise ``NotImplementedError`` naming ROADMAP item 15b under
-  grad; the backward entry launches once with the operands' pointers.
+  grad; the backward entry launches once with the operands' pointers,
+  bf16 with the dtype code of its tensor-core engine (and its TMA
+  alignment checked), fp32 with the CUDA cores' code;
+- the bf16 engine's arithmetic (``ref.attention_backward_tiled_ref``:
+  three dq passes, the transposed dk / dv walk, the two-part bf16 A
+  operands) against ``jax.vjp`` in float32 and against
+  ``attention_backward_plain`` in bf16 under chip_smoke phase 3's limit,
+  the first rows of a causal mask included; the tiles its walks run
+  unmasked (``full``, transcribed below) against the mask.
 """
 import numpy as np
 import pytest
@@ -339,3 +347,211 @@ def test_plain_bf16_gradient_is_straight_through():
     for a, w in zip(got, want):
         limit = 0.05 * w.square().mean().sqrt() + 2.0 ** -7 * w.abs()
         assert float(((a.double() - w).abs() / limit).max()) < 0.5
+
+
+# ---------------------------------------------------------------------------
+# The bf16 engine's arithmetic (ref.attention_backward_tiled_ref) and its
+# walks and masks (csrc/backward_wgmma.cuh)
+# ---------------------------------------------------------------------------
+
+# kind → (JAX mode, the backward entry's keywords); sinks straddle a
+# 64-key tile (16, 100) or sit on its edge (64), windows narrower and
+# wider than a tile
+TILED = {
+    "flash causal": (dict(kind="full"), dict(causal=True)),
+    "flash bidirectional": (dict(kind="full", causal=False),
+                            dict(causal=False)),
+    "streaming 16/48": (dict(kind="streaming", sink=16, local=48),
+                        dict(sink=16, local=48)),
+    "streaming 100/130": (dict(kind="streaming", sink=100, local=130),
+                          dict(sink=100, local=130)),
+    "streaming 64/80": (dict(kind="streaming", sink=64, local=80),
+                        dict(sink=64, local=80)),
+    "window 70": (dict(kind="window", local=70), dict(sink=0, local=70)),
+}
+# (B, Hq, Hkv, Sq, Skv, q_offset): unaligned rows and keys at an offset
+# (G = 2), and a causal square from position 0 (G = 1), whose first rows
+# see one to a few keys: the gradient cancels there
+TILED_SHAPES = {"unaligned": (1, 4, 2, 200, 300, 100),
+                "square": (1, 2, 2, 150, 150, 0)}
+
+
+@pytest.mark.parametrize("shape", sorted(TILED_SHAPES))
+@pytest.mark.parametrize("kind", sorted(TILED))
+def test_tiled_ref_matches_jax(kind, shape):
+    """The bf16 engine's step-by-step arithmetic in float32 (its packings
+    are then no-ops) against ``jax.vjp`` of ``repro.core.modes.attention``
+    at TOL: the three dq passes with their online max, D_i from round(p),
+    and the transposed dk / dv walk over the G heads' query tiles."""
+    B, Hq, Hkv, Sq, Skv, off = TILED_SHAPES[shape]
+    mode, kw = TILED[kind]
+    if not mode.get("causal", True):
+        off = 0
+    q, k, v, do = _inputs(len(kind) + Sq, B, Hq, Hkv, Sq, Skv)
+    want = _jax_grads(q, k, v, do, mode, off)
+    got = ref.attention_backward_tiled_ref(_flat(q), _flat(k), _flat(v),
+                                           _flat(do), q_offset=off, **kw)
+    assert all(float(g.abs().max()) > 0 for g in got)
+    _close([g.reshape(w.shape) for g, w in zip(got, want)], want)
+
+
+def _bf16_limit_ratio(got, want):
+    """phase 3's bf16 limit: max |got - want| / (0.05 rms(want) + 2^-7
+    |want|), below 1 passes."""
+    w = want.double()
+    limit = 0.05 * w.square().mean().sqrt() + 2.0 ** -7 * w.abs()
+    return float(((got.double() - w).abs() / limit).max())
+
+
+@pytest.mark.parametrize("kind", sorted(TILED))
+def test_tiled_ref_bf16_within_limit_of_plain(kind):
+    """In bf16 the engine's arithmetic, with round(p) / l and dS in two
+    bf16 parts where the kernel splits them, holds
+    ``attention_backward_plain`` within phase 3's limit (each of dq, dk, dv
+    at under 0.75 of it), the
+    first rows of a causal square included: row 0 sees key 0 alone, so
+    dP - D_i is 0 there and its dq is exactly 0."""
+    _, kw = TILED[kind]
+    g = torch.Generator().manual_seed(len(kind))
+    BH, BHkv, S, D = 4, 2, 192, 64
+    q, do = (torch.randn(BH, S, D, generator=g).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(BHkv, S, D, generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    got = ref.attention_backward_tiled_ref(q, k, v, do, **kw)
+    want = AB.attention_backward_plain(q, k, v, do, **kw)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        assert _bf16_limit_ratio(a, w) < 0.75
+    if kw.get("causal", True):  # every kind but bidirectional flash
+        assert not got[0][:, 0].any()
+        assert _bf16_limit_ratio(got[0][:, :8], want[0][:, :8]) < 0.75
+
+
+def _full(kind, r0, r1, k0, k1, q_offset, causal, sink, local):
+    """``Policy::full`` (csrc/backward_wgmma.cuh), transcribed."""
+    if kind == "flash":
+        return not causal or k1 <= q_offset + r0
+    return k1 <= q_offset + r0 and (k1 < sink or q_offset + r1 - k0 < local)
+
+
+@pytest.mark.parametrize("walk", range(len(WALKS)))
+def test_engine_walks_and_unmasked_tiles(walk):
+    """The engine walks the policies' tiles above at 64 (dq's three
+    passes repeat one row block's walk, dk / dv's repeats its query tiles
+    for each of the G heads). A tile that runs with no mask (``full``,
+    inside Sq and Skv) holds visible pairs only, in dq's walk and in dk /
+    dv's, and the masked tiles are few: at most two a row block along a
+    causal diagonal or a window's two edges, plus the ragged edges."""
+    kind, Sq, Skv, off, causal, sink, local = WALKS[walk]
+    pol = (off, causal, sink, local)
+    vis = np.array([[_visible(kind, r, c, *pol) for c in range(Skv)]
+                    for r in range(Sq)])
+    for r0 in range(0, Sq, ROWS):
+        r1 = min(r0 + ROWS, Sq) - 1
+        masked = 0
+        for t in _key_tiles(kind, r0, r1, Skv, ROWS, *pol):
+            k0, k1 = t * ROWS, t * ROWS + ROWS - 1
+            if k1 < Skv and _full(kind, r0, r0 + ROWS - 1, k0, k1, *pol):
+                assert vis[r0:r1 + 1, k0:k1 + 1].all(), (r0, t)
+            else:
+                masked += 1
+        assert masked <= (2 if kind == "flash" else 4) + 1 + (sink % ROWS > 0)
+    for c0 in range(0, Skv, ROWS):
+        c1 = min(c0 + ROWS, Skv) - 1
+        for t in _query_tiles(kind, c0, c1, Sq, ROWS, *pol):
+            r0, r1 = t * ROWS, t * ROWS + ROWS - 1
+            if (r1 < Sq and c0 + ROWS <= Skv
+                    and _full(kind, r0, r1, c0, c0 + ROWS - 1, *pol)):
+                assert vis[r0:r1 + 1, c0:c0 + ROWS].all(), (c0, t)
+
+
+def _misaligned(shape, dtype):
+    """A contiguous tensor of ``shape`` whose base is one element past a
+    16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+def test_backward_entry_launches_by_dtype(fake_card):
+    """bf16 operands launch the C entry with dtype code 1 (its TMA + wgmma
+    engine, so their bases must be 16-byte aligned: an unaligned dout
+    raises before any launch); fp32 operands launch code 0 (the CUDA-core
+    kernels, no alignment needed); ``out=`` hands the kernel its tensors;
+    (Dk, Dv) = (192, 128) raises NotImplementedError naming item 15b."""
+    q = torch.zeros((4, 100, 64), dtype=torch.bfloat16)
+    k = torch.zeros((2, 130, 64), dtype=torch.bfloat16)
+    outs = tuple(torch.empty_like(t) for t in (q, k, k))
+    got = AB.attention_backward_bh(q, k, k, q, sink=16, local=48,
+                                   q_offset=30, out=outs)
+    assert all(a is b for a, b in zip(got, outs))
+    name, args = fake_card[-1]
+    assert name == "attention_backward"
+    assert args[4:7] == tuple(t.data_ptr() for t in outs)
+    # BH, BHkv, Sq, Skv, D, dtype, kind, causal, sink, local, q_offset
+    assert args[8:19] == (4, 2, 100, 130, 64, 1, AB.STREAMING, 1, 16, 48,
+                          30)
+    n = len(fake_card)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        AB.attention_backward_bh(q, k, k, _misaligned(q.shape, q.dtype))
+    assert len(fake_card) == n, "launched before refusing"
+    qf, kf = q.float(), k.float()
+    AB.attention_backward_bh(qf, kf, kf, _misaligned(qf.shape, qf.dtype),
+                             causal=False)
+    name, args = fake_card[-1]
+    assert len(fake_card) == n + 1 and args[13:16] == (0, AB.FLASH, 0)
+    with pytest.raises(NotImplementedError, match="15b"):
+        AB.attention_backward_bh(torch.zeros((4, 64, 192)),
+                                 torch.zeros((4, 64, 192)),
+                                 torch.zeros((4, 64, 128)),
+                                 torch.zeros((4, 64, 128)))
+
+
+def test_backward_entry_takes_padded_stats(fake_card):
+    """The kernels' scratch is (3, BH, Sq rounded up to 64) float32: a
+    fresh one by default, or the test's ``stats=`` handed through as it
+    is (phase 2b's NaN-filled scratch); any other raises before a
+    launch."""
+    q = torch.zeros((4, 100, 64), dtype=torch.bfloat16)
+    k = torch.zeros((2, 130, 64), dtype=torch.bfloat16)
+    stats = torch.full((3, 4, 128), float("nan"))
+    AB.attention_backward_bh(q, k, k, q, stats=stats)
+    assert fake_card[-1][1][7] == stats.data_ptr()
+    n = len(fake_card)
+    for bad in (torch.zeros((3, 4, 100)), torch.zeros((3, 4, 128),
+                                                      dtype=torch.float64),
+                torch.zeros((3, 128, 4)).transpose(1, 2)):
+        with pytest.raises(ValueError, match="stats must be"):
+            AB.attention_backward_bh(q, k, k, q, stats=bad)
+    assert len(fake_card) == n, "launched before refusing"
+
+
+def test_kernel_of_another_build_binds_that_library(monkeypatch, tmp_path):
+    """``CudaKernel.of`` names the same entry point in another library
+    (an earlier tree's build, as chip_smoke's ``--parent`` times it):
+    same argument types, a count of its own, and a missing library is an
+    error, never a build of this tree's source."""
+    other = AB.KERNEL.of(tmp_path / "libattention_backward-parent.so")
+    assert (other.source, other.symbol) == (AB.KERNEL.source,
+                                            AB.KERNEL.symbol)
+    assert other.argtypes == AB.KERNEL.argtypes
+    assert other.launches == 0 and other is not AB.KERNEL
+
+    def no_build(names):
+        raise AssertionError(f"built {names}")
+    monkeypatch.setattr(_build, "build", no_build)
+    with pytest.raises(OSError):
+        other._bind()
+
+
+def test_backward_out_on_cpu_is_the_plain_gradient():
+    """On CPU tensors ``out=`` receives the plain version's gradients."""
+    q, k, v, do = (_flat(x) for x in _inputs(7, 1, 4, 2, 48, 80))
+    kw = dict(sink=SINK, local=LOCAL, q_offset=32)
+    outs = tuple(torch.full_like(t, float("nan")) for t in (q, k, v))
+    got = AB.attention_backward_bh(q, k, v, do, out=outs, **kw)
+    want = AB.attention_backward_plain(q, k, v, do, **kw)
+    assert all(a is b for a, b in zip(got, outs))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="out must be"):
+        AB.attention_backward_bh(q, k, v, do, out=(q, k, q), **kw)
