@@ -352,6 +352,22 @@ forward + backward (and the parent's kernel with ``--parent``).
      and one request served with the trained routers; after phase 29's
      comparison, QUIET_STEPS more steps and one more profiled step, timed
      with the host to the script alone.
+  31. tensor-parallel serving (slice 18), run after phase 27 and before
+     phase 29's CPU thread starts: TP_WORLD = 2 ranks (processes,
+     ``distributed/group.py`` ``launch``) on the one card over gloo (NCCL
+     refuses two ranks on one device), each holding half of the heads,
+     KV heads and FFN width. (a) phi3-mini at full width, 2 layers,
+     fp32: ``generate`` and a 4-request drain with a priority arrival
+     that preempts, router-driven and mixed, on the ranks and on one
+     device: tokens, routing and statuses equal, logits within 1e-4 of
+     the largest; (b) phi3-mini at full width and depth in bf16: 2 x
+     TP_PROMPT tokens through ``generate`` (TP_GEN steps, router-driven
+     and mixed) and TP_REQUESTS requests on TP_SLOTS slots through the
+     drain, finite, each rank's exact launches of all five kernels, its
+     KV bytes half the one-device pool's, a decode step's all-reduces 2
+     x layers of (B, 1, d_model); per-rank peak memory and tok/s,
+     labelled "2 ranks on one card over gloo" (they say nothing of TP
+     speed over several cards).
 Then one JSON line of per-kernel numbers (phi3-mini's, and stablelm's,
 granite's and deepseek's under ``stablelm_12b``, ``granite_moe_3b_a800m``
 and ``deepseek_v2_236b``; the latent decode its own entry at deepseek's
@@ -369,7 +385,8 @@ under ``gemma3_12b`` with its launches, the local ring's decode and the
 window under ``local_ring`` and ``window``; the backward kernel's
 entry with its launches from phase 30, its phase-2b counts and its rows:
 phi3-mini's causal as the entry's own, ``streaming``, ``stablelm_12b``,
-``gemma3_12b_window``, ``whisper_encoder`` and ``unaligned``), the total
+``gemma3_12b_window``, ``whisper_encoder`` and ``unaligned``; phase 31's
+per-rank launches as ``tp2_rank0`` / ``tp2_rank1``), the total
 seconds, and the last line ``{"ok": true, "device": {...}}``.
 """
 import collections
@@ -428,6 +445,12 @@ DEEPSEEK_NARROW = dict(num_layers=2, d_model=1024, num_heads=16,
 # command-r at 64 layers is 208 GB in bf16; 8 of them at full width
 # (3.15 B tied embedding + 8 x 1.573 B = 15.7 B parameters, 31.5 GB) fit
 COMMAND_R_LAYERS, COMMAND_R_REQUESTS = 8, 2
+# phase 31: tensor-parallel ranks on the one card, (a)'s prompt lengths
+# and decode steps (phase 5b's), (b)'s load
+TP_WORLD, TP_LABEL = 2, "2 ranks on one card over gloo"
+TP_PARITY_LENS, TP_PARITY_N = (2304, 1536, 1000, 700, 2304), 8
+TP_PROMPT, TP_GEN, TP_REQUESTS, TP_SLOTS = 2048, 16, 4, 2
+TP_DRAIN_LENS = (2048, 1024, 1536, 512)
 REQUESTS, PROMPT, GEN, CHUNK = 4, 4096, 32, 512
 POOL_LENS = (4112, 2080, 1400, 1)  # live lengths of the timed slot pool
 PREAMBLE = 3072  # phase 8 batch: A and B share it, 1024-token tails
@@ -5324,6 +5347,237 @@ def time_kernels(dev, parent=None):
     return out
 
 
+def tp_parity_runs(dev, params, cfg, prompts, tp=None):
+    """Phase 31a's runs on one engine (``tp`` a rank's group, or None on
+    one device): ``generate`` of prompts[0] and a drain of prompts[:4]
+    into 2 slots with prompts[4] arriving at priority 9 once a slot is
+    taken, router-driven and mixed. Returns host results."""
+    from repro_torch.launch.serve import (PREFILL_CHUNKS_PER_TICK,
+                                          routing_pattern)
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import ContinuousScheduler
+    N = TP_PARITY_N
+    eng = ServeEngine(params, cfg, max_len=max(TP_PARITY_LENS) + N,
+                      prefill_chunk=CHUNK, device=dev, tp=tp)
+    out = {}
+    for name in ("router", "mixed"):
+        ov = routing_pattern(cfg, name)
+        g = eng.generate(prompts[0][None], N, routing_override=ov)
+        out[name] = dict(tokens=g.tokens, routing=g.routing,
+                         logits=g.logits.float().cpu().numpy(),
+                         final=g.final_logits.float().cpu().numpy())
+        sched = ContinuousScheduler(
+            eng, slots_per_bucket=2, chunk=4,
+            prefill_chunks_per_tick=PREFILL_CHUNKS_PER_TICK)
+        for rid in range(4):
+            eng.submit(Request(rid=rid, tokens=prompts[rid], n_steps=N,
+                               routing_override=ov))
+        while not sched.n_active():
+            eng.step()
+        eng.submit(Request(rid=4, tokens=prompts[4], n_steps=N, priority=9,
+                           routing_override=ov))
+        out[f"{name} drain"] = {
+            rid: (f.status, f.tokens.tolist(), f.routing,
+                  f.metrics.preemptions)
+            for rid, f in eng.drain().items()}
+    return out
+
+
+def tp_full_runs(dev, cfg, prompts, drain_prompts, tp):
+    """Phase 31b on one rank: the full model's share (drawn layer by
+    layer from the seed of every phase, ``init_params_tp``), then
+    ``generate`` router-driven and mixed, the drain, and a decode step's
+    all-reduces. Returns the rank's host results."""
+    import repro_torch.kernels as KN
+    from repro_torch.distributed.pool_sharding import cache_bytes
+    from repro_torch.distributed.sharding import (init_params_tp,
+                                                  tensor_parallel)
+    from repro_torch.launch.serve import (PREFILL_CHUNKS_PER_TICK,
+                                          routing_pattern)
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import ContinuousScheduler
+    t0 = time.perf_counter()
+    params = init_params_tp(cfg, torch.Generator(device=dev).manual_seed(0),
+                            tp.rank, tp.world, dev)
+    torch.cuda.synchronize()
+    out = dict(rank=tp.rank, init_s=time.perf_counter() - t0,
+               params_bytes=torch.cuda.memory_allocated(dev), runs={})
+    eng = ServeEngine(params, cfg, max_len=TP_PROMPT + TP_GEN,
+                      prefill_chunk=CHUNK, device=dev, tp=tp)
+    mixed = routing_pattern(cfg, "mixed")
+    torch.cuda.reset_peak_memory_stats(dev)
+    KN.reset_launch_counts()
+    for name in ("router", "mixed"):
+        before = KN.launch_counts()
+        g = eng.generate(prompts, TP_GEN,
+                         routing_override=routing_pattern(cfg, name))
+        assert bool(torch.isfinite(g.logits).all()), "first logits"
+        assert bool(torch.isfinite(g.final_logits).all()), "last logits"
+        delta = {k: v - before[k] for k, v in KN.launch_counts().items()}
+        want = prefill_launches(cfg, [(g.routing, TP_PROMPT, 0)])
+        want.update(decode_launches(cfg, TP_GEN, pooled=False))
+        B = prompts.shape[0]
+        out["runs"][name] = dict(
+            tokens=g.tokens, routing=g.routing, launches=delta, want=want,
+            prefill_tok_s=B * TP_PROMPT / g.prefill_s,
+            decode_tok_s=B * TP_GEN / g.decode_s, kv_bytes=g.kv_bytes)
+    before = KN.launch_counts()
+    sched = ContinuousScheduler(
+        eng, slots_per_bucket=TP_SLOTS, chunk=8,
+        prefill_chunks_per_tick=PREFILL_CHUNKS_PER_TICK)
+    for rid, toks in enumerate(drain_prompts):
+        eng.submit(Request(rid=rid, tokens=toks, n_steps=TP_GEN,
+                           routing_override=mixed))
+    t0 = time.perf_counter()
+    done = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = {k: v - before[k] for k, v in KN.launch_counts().items()}
+    want = prefill_launches(cfg, sched.admissions)
+    want.update(decode_launches(cfg, sum(p.steps for p in
+                                         sched.pools.values()),
+                                pooled=True))
+    (pool,) = sched.pools.values()
+    kv = cache_bytes(pool.caches, tp.world)
+    out["runs"]["drain"] = dict(
+        done={rid: (f.status, f.tokens.tolist()) for rid, f in done.items()},
+        launches=delta, want=want, wall_s=wall,
+        tok_s=sum(f.metrics.n_generated for f in done.values()) / wall,
+        pattern=pool.pattern, kv_shard=kv.payload_shard, kv_global=kv.payload)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    counts = KN.launch_counts()
+    # a decode step's collectives after a chunked admission
+    job = eng.prefill_chunked(prompts, mixed)
+    tp.reset_counts()
+    with tensor_parallel(tp):
+        MD.decode_many(eng.params, eng.model_cfg, job.logits, job.caches,
+                       TP_PROMPT, n_steps=4)
+    out["collectives"] = (tp.reduce_calls, tp.reduce_bytes, 4)
+    out["counts"] = counts
+    return out
+
+
+def tp_rank(tp, parity_prompts, prompts, drain_prompts):
+    """Phase 31 on one rank (a spawned process): (a), then (b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import init_params_tp
+    dev = tp.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(ARCH).replace(num_layers=2, dtype=torch.float32,
+                                   param_dtype=torch.float32)
+    params = init_params_tp(cfg, torch.Generator(device=dev).manual_seed(0),
+                            tp.rank, tp.world, dev)
+    parity = tp_parity_runs(dev, params, cfg, parity_prompts, tp)
+    del params
+    free_card()
+    return parity, tp_full_runs(dev, get_config(ARCH), prompts,
+                                drain_prompts, tp)
+
+
+def tp_phase(dev):
+    """Phase 31: TP_WORLD ranks on the one card over gloo against the
+    one-device port. Returns (each rank's launches, report lines)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.group import launch
+    from repro_torch.launch.serve import routing_letters, routing_pattern
+    from repro_torch.models import model as MD
+    from repro_torch.serve import kv_cache as KC
+    from repro_torch.serve.engine import ServeEngine
+    cfg2 = get_config(ARCH).replace(num_layers=2, dtype=torch.float32,
+                                    param_dtype=torch.float32)
+    params = MD.init_params(cfg2, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    probe = ServeEngine(params, cfg2, max_len=max(TP_PARITY_LENS),
+                        prefill_chunk=CHUNK, device=dev)
+    seed, parity_prompts, margin = router_margin_seed(probe, TP_PARITY_LENS)
+    one = tp_parity_runs(dev, params, cfg2, parity_prompts)
+    del probe, params
+    free_card()
+    cfg = get_config(ARCH)
+    rng = np.random.default_rng(31)
+    prompts = rng.integers(0, cfg.vocab_size, (2, TP_PROMPT))
+    drain_prompts = [rng.integers(0, cfg.vocab_size, n)
+                     for n in TP_DRAIN_LENS]
+    t0 = time.perf_counter()
+    ranks = launch(tp_rank, TP_WORLD, "gloo",
+                   args=(parity_prompts, prompts, drain_prompts),
+                   device=dev.type)
+    wall = time.perf_counter() - t0
+    lines = [f"(a) {ARCH} 2 layers fp32, prompt_seed={seed} "
+             f"min_margin={margin:.2e}"]
+    for name in ("router", "mixed"):
+        for r, (parity, _) in enumerate(ranks):
+            got, want = parity[name], one[name]
+            assert got["routing"] == want["routing"], (r, name)
+            assert np.array_equal(got["tokens"], want["tokens"]), (r, name)
+            errs = [float(np.abs(got[k] - want[k]).max()
+                          / np.abs(want[k]).max()) for k in ("logits",
+                                                             "final")]
+            assert max(errs) < FP32_TOL, (r, name, errs)
+            d = parity[f"{name} drain"]
+            assert d == one[f"{name} drain"], (r, name)
+            assert all(v[0] == "ok" for v in d.values()), d
+        preempt = sum(v[3] for v in one[f"{name} drain"].values())
+        if name == "mixed":
+            assert preempt >= 1, "the mixed drain did not preempt"
+        lines.append(
+            f"(a) {name}: routing={routing_letters(want['routing'])} "
+            f"tokens equal on both ranks and one device, logits rel err "
+            f"{max(errs):.2e} (limit {FP32_TOL}); drain of 5 on 2 slots: "
+            f"statuses, tokens and routing equal, preemptions={preempt}")
+    max_len = TP_PROMPT + TP_GEN
+    mixed = routing_pattern(cfg, "mixed")
+    one_pool = KC.kv_cache_bytes(KC.init_decode_caches(
+        cfg, mixed, TP_SLOTS, max_len, "meta"))
+    counts = {}
+    first = ranks[0][1]
+    for r, (_, full) in enumerate(ranks):
+        for name in ("router", "mixed"):
+            run = full["runs"][name]
+            assert run["launches"] == run["want"], (r, name, run)
+            assert run["routing"] == first["runs"][name]["routing"]
+            assert np.array_equal(run["tokens"],
+                                  first["runs"][name]["tokens"]), (r, name)
+        drain = full["runs"]["drain"]
+        assert drain["launches"] == drain["want"], (r, drain)
+        assert drain["done"] == first["runs"]["drain"]["done"], r
+        assert all(v[0] == "ok" for v in drain["done"].values())
+        assert drain["kv_shard"] * TP_WORLD == one_pool == drain["kv_global"]
+        calls, nbytes, steps = full["collectives"]
+        L, B = cfg.num_layers, prompts.shape[0]
+        assert calls == 2 * L * steps, (calls, L)
+        assert nbytes == (2 * L * steps * B * cfg.d_model
+                          * cfg.dtype.itemsize), nbytes
+        served = full["counts"]
+        for k in ("flash_attention", "streaming_attention",
+                  "block_sparse_attention", "decode_attention",
+                  "decode_attention_pooled"):
+            assert served[k] > 0, f"rank {r}: {k} never launched"
+        counts[f"tp{TP_WORLD}_rank{r}"] = served
+        runs = full["runs"]
+        lines.append(
+            f"(b) {TP_LABEL}: rank {r} of {TP_WORLD}, {ARCH} full width and "
+            f"depth bf16, params share {full['params_bytes']} bytes (drawn "
+            f"in {full['init_s']:.1f} s), peak_mem_bytes="
+            f"{full['peak_mem_bytes']}; generate 2 x {TP_PROMPT} + "
+            f"{TP_GEN}: " + "; ".join(
+                f"{n} routing={routing_letters(runs[n]['routing'])} "
+                f"prefill_tok_s={runs[n]['prefill_tok_s']:.0f} "
+                f"decode_tok_s={runs[n]['decode_tok_s']:.1f} "
+                f"launches={runs[n]['launches']}" for n in ("router",
+                                                            "mixed"))
+            + f"; drain {TP_REQUESTS} on {TP_SLOTS} slots: tok_s="
+            f"{drain['tok_s']:.1f} wall_s={drain['wall_s']:.3f} "
+            f"launches={drain['launches']} kv_shard_bytes="
+            f"{drain['kv_shard']} (one device {one_pool}); decode step "
+            f"all-reduces {calls // steps} of {nbytes // calls} bytes")
+    lines.append(f"{TP_LABEL}: launch of {TP_WORLD} ranks {wall:.1f} s; "
+                 f"these rates say nothing of TP speed over several cards")
+    return counts, lines
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--parent"] and len(argv) == 2:
@@ -5660,6 +5914,14 @@ def main(argv=None) -> int:
     for line in gemma_parity(dev):
         say(27, f"{GEMMA3} smoke " + line)
     say(27, f"{GEMMA3} smoke card = cpu done", t0)
+    free_card()
+
+    t0 = time.perf_counter()
+    tp_counts, lines = tp_phase(dev)
+    counts.update(tp_counts)
+    for line in lines:
+        say(31, line)
+    say(31, f"tensor-parallel serving, {TP_LABEL}, done", t0)
     free_card()
 
     # phase 29's card side runs here, and its CPU side (minutes of CPU

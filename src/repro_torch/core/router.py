@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import FluxConfig
+from repro_torch.distributed.sharding import tp_reduce
 from repro_torch.models.layers import dense_init
 
 
@@ -58,11 +59,17 @@ def router_logits(params: Dict[str, torch.Tensor], x_q: torch.Tensor,
     """x_q (B, S, F) → logits (B, 2) = (π_FA, π_SA).
 
     ``jax.nn.gelu`` defaults to the tanh approximation, so the port's
-    GELU is ``approximate="tanh"``, not torch's exact-erf default."""
+    GELU is ``approximate="tanh"``, not torch's exact-erf default.
+
+    Under tensor parallelism x_q holds the rank's heads' columns and
+    ``enc_w`` the matching rows of each pooling half; pooling is per
+    column, so the partial products sum over the ranks before the bias
+    (a reduce point, ``distributed/sharding.py``) and every rank reads
+    the same logits."""
     pool = {"prefix_suffix": pool_prefix_suffix,
             "prefix": pool_prefix}[pooling]
     pooled = pool(x_q, pool_size)
-    h = F.gelu(pooled @ params["enc_w"] + params["enc_b"],
+    h = F.gelu(tp_reduce(pooled @ params["enc_w"]) + params["enc_b"],
                approximate="tanh")
     h = F.gelu(h @ params["head_w1"] + params["head_b1"],
                approximate="tanh")

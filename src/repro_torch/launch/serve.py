@@ -38,6 +38,17 @@ engine (port of ``repro/launch/serve.py``).
         --arch gemma3-12b --requests 4 --prompt-len 4096 \\
         --gen-len 32 --prefill-chunk 512
 
+    # tensor-parallel serving: 2 ranks (processes), each with half of the
+    # heads, KV heads and FFN width; on the CPU over gloo, on one card
+    # over gloo (NCCL refuses two ranks on one device), on 2 cards over
+    # nccl
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke \\
+        --device cpu --requests 2 --prompt-len 96 --gen-len 8 \\
+        --prefill-chunk 32 --mesh-model 2 --dist-backend gloo
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch command-r-plus-104b --requests 4 --prompt-len 4096 \\
+        --gen-len 32 --mesh-model 4 --dist-backend nccl
+
     # shared-system-prompt traffic through the prefix cache: every
     # prompt opens with the same 2048 tokens; snapshots up to 8 GiB on
     # the card and 8 GiB in pinned host memory
@@ -75,11 +86,21 @@ repro_torch.serve.tracing t.json``. ``--profile-every N`` samples every
 Nth tick for the cost profiler, ``--fidelity-probe-every N`` probes every
 Nth admission's attention-mass coverage, and ``--ledger-out l.json``
 writes the memory ledger's reconciled report.
+
+``--mesh-model N`` (the JAX launcher's name) serves tensor-parallel on N
+ranks (``distributed/group.py`` ``launch``, one process a rank) over
+``--dist-backend`` (nccl or gloo, the caller's choice): each rank draws
+the seeded weights layer by layer and keeps its share
+(``init_params_tp``); on the card rank 0 builds the kernels before the
+others load them. Only rank 0 prints and writes files; a rank that fails
+fails the run. MoE, MLA, Mamba and encoder archs refuse (item 16c).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import time
 
 import numpy as np
@@ -87,6 +108,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ALL_ARCHS, get_config, smoke_variant
+from repro_torch.distributed.group import BACKENDS, launch
+from repro_torch.distributed.sharding import init_params_tp
 from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 from repro_torch.models.model import init_params
 from repro_torch.serve.engine import (Request, ServeEngine,
@@ -180,18 +203,20 @@ def serve_continuous(engine, reqs, *, slots: int, chunk: int,
                      mean_gap: float):
     """Submit ``reqs`` to a fresh slot-pool scheduler at Poisson arrival
     times (mean gap ``mean_gap`` s, numpy generator seeded with 1) and
-    tick until all have retired. Returns (finished by rid, wall s,
-    scheduler)."""
+    tick until all have retired. Arrivals go by the scheduler's clock
+    (under tensor parallelism rank 0's, so every rank submits alike).
+    Returns (finished by rid, wall s, scheduler)."""
     # a scheduler registers with its engine: engine.submit / step use it
     sched = ContinuousScheduler(
         engine, slots_per_bucket=slots, chunk=chunk,
         prefill_chunks_per_tick=PREFILL_CHUNKS_PER_TICK, slo=engine.slo)
     arrivals = np.cumsum(np.random.default_rng(1).exponential(
         mean_gap, len(reqs)))
-    t0 = time.monotonic()
+    clock = sched.clock
+    t0 = clock()
     pending, done = list(reqs), {}
     while pending or sched.waiting or sched.n_active():
-        now = time.monotonic() - t0
+        now = clock() - t0
         while pending and arrivals[len(reqs) - len(pending)] <= now:
             engine.submit(pending.pop(0))
         if sched.waiting or sched.n_active():
@@ -200,7 +225,7 @@ def serve_continuous(engine, reqs, *, slots: int, chunk: int,
         elif pending:  # idle until the next arrival
             time.sleep(min(max(arrivals[len(reqs) - len(pending)] - now,
                                0.0), 0.05))
-    return done, time.monotonic() - t0, sched
+    return done, clock() - t0, sched
 
 
 def print_prefix_cache(engine, hits, reqs) -> None:
@@ -338,18 +363,51 @@ def main(argv=None) -> None:
                     help="turn the memory ledger on and write its "
                          "reconciled report (with the profiler table when "
                          "--profile-every is set) here as JSON")
+    # tensor parallelism
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="tensor-parallel ranks (one process each), each "
+                         "holding 1/N of the heads and FFN width")
+    ap.add_argument("--dist-backend", choices=BACKENDS, default=None,
+                    help="the ranks' collective backend: nccl (a card a "
+                         "rank) or gloo (the CPU, or ranks sharing a card)")
     args = ap.parse_args(argv)
+    if args.mesh_model < 1:
+        ap.error("--mesh-model must be >= 1")
+    if args.mesh_model == 1:
+        serve(args)
+        return
+    if args.dist_backend is None:
+        ap.error("--mesh-model N > 1 needs --dist-backend nccl or gloo")
+    launch(_serve_rank, args.mesh_model, args.dist_backend, args=(args,),
+           device=args.device)
 
-    device = resolve_device(args.device)
+
+def _serve_rank(group, args) -> None:
+    """One rank of ``--mesh-model``: serve, printing on rank 0 only."""
+    if group.rank == 0:
+        serve(args, group)
+        return
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        serve(args, group)
+
+
+def serve(args, tp=None) -> None:
+    """Serve ``args``' requests on one device, or as rank ``tp.rank`` of
+    a tensor-parallel group (files written by rank 0 only)."""
+    device = resolve_device(args.device) if tp is None else tp.device
     if device.type == "cuda":
-        _build.build()  # every kernel now, one nvcc each, side by side
+        if tp is None or tp.rank == 0:
+            _build.build()  # every kernel now, one nvcc each, side by side
+        if tp is not None:
+            tp.barrier()  # the other ranks load rank 0's libraries
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
     if args.layers:
         cfg = cfg.replace(num_layers=args.layers)
     gen = torch.Generator(device=device).manual_seed(0)
-    params = init_params(cfg, gen, device)
+    params = (init_params(cfg, gen, device) if tp is None
+              else init_params_tp(cfg, gen, tp.rank, tp.world, device))
     engine = ServeEngine(
         params, cfg,
         max_len=args.shared_prefix + args.prompt_len + args.gen_len,
@@ -366,7 +424,8 @@ def main(argv=None) -> None:
         telemetry=bool(args.metrics_out or args.trace_out),
         profile_every=args.profile_every,
         fidelity_probe_every=args.fidelity_probe_every,
-        memory_ledger=bool(args.ledger_out), device=device)
+        memory_ledger=bool(args.ledger_out), device=device, tp=tp)
+    writer = tp is None or tp.rank == 0
     rng = np.random.default_rng(0)
     shared = np.random.default_rng(2).integers(0, cfg.vocab_size,
                                                args.shared_prefix)
@@ -381,7 +440,8 @@ def main(argv=None) -> None:
     reset_launch_counts()
     if args.continuous:
         _continuous_main(engine, reqs, args, device)
-        write_telemetry(engine, args)
+        if writer:
+            write_telemetry(engine, args)
         return
     done = serve_batch_finished(engine, reqs)
     for rid in sorted(done):
@@ -402,7 +462,8 @@ def main(argv=None) -> None:
                                 if f.result is not None}, reqs)
     if args.profile:
         print(json.dumps({"profile": profile_batch(engine, reqs, device)}))
-    write_telemetry(engine, args)
+    if writer:
+        write_telemetry(engine, args)
 
 
 def _continuous_main(engine, reqs, args, device) -> None:

@@ -17,6 +17,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import tp_reduce
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import (apply_rope, dense_init, rms_norm,
                                        rms_norm_init)
@@ -58,10 +59,12 @@ def gqa_qkv(params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def gqa_out(params, cfg: ModelConfig, attn: torch.Tensor) -> torch.Tensor:
-    """attn (B,H,S,hd) → (B,S,d)."""
+    """attn (B,H,S,hd) → (B,S,d). Under tensor parallelism ``wo`` holds
+    the rows of the rank's heads, and the partial products sum over the
+    ranks here (a reduce point, ``distributed/sharding.py``)."""
     B, H, S, hd = attn.shape
     y = attn.transpose(1, 2).reshape(B, S, H * hd)
-    return y @ params["wo"]
+    return tp_reduce(y @ params["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import tp_reduce
+
 
 # ---------------------------------------------------------------------------
 # Init helpers (the JAX package's scales; a torch.Generator draws them)
@@ -16,14 +18,14 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
                dtype) -> torch.Tensor:
     w = torch.randn((in_dim, out_dim), generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (w * in_dim ** -0.5).to(dtype)
+    return w.mul_(in_dim ** -0.5).to(dtype)  # in place: one fp32 copy
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
                dtype) -> torch.Tensor:
     w = torch.randn((vocab, dim), generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (w * 0.02).to(dtype)
+    return w.mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -87,5 +89,8 @@ def ffn_init(gen: torch.Generator, d_model: int, d_ff: int,
 
 def ffn_apply(params: Dict[str, torch.Tensor],
               x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU. Under tensor parallelism the rank holds a slice of the FFN
+    width, and ``down``'s partial products sum over the ranks here (a
+    reduce point, ``distributed/sharding.py``)."""
     h = F.silu(x @ params["gate"]) * (x @ params["up"])
-    return h @ params["down"]
+    return tp_reduce(h @ params["down"])

@@ -184,14 +184,19 @@ def _enc_block_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                device=None) -> Params:
+                device=None, *, block_map=None) -> Params:
     """Random weights at the JAX package's init scales, drawn from
     ``gen`` on the generator's device and placed on ``device`` (default
-    cuda). The same generator seed gives the same weights."""
+    cuda). The same generator seed gives the same weights. ``block_map``
+    maps each layer's dictionary as soon as it is drawn, before the next
+    one is (a tensor-parallel rank keeps its share only:
+    ``distributed.sharding.init_params_tp``)."""
     device = resolve_device(device)
     check_supported(cfg)
+    keep = block_map or (lambda bp: bp)
     params: Params = {
-        "layers": [_block_init(gen, cfg, i) for i in range(cfg.num_layers)],
+        "layers": [params_to(keep(_block_init(gen, cfg, i)), device)
+                   for i in range(cfg.num_layers)],
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
                             cfg.param_dtype),
         "final_norm": rms_norm_init(cfg.d_model, cfg.param_dtype,

@@ -54,7 +54,18 @@ memory ledger and routing-fidelity probes (``profiler_report``,
 ``inject_fault`` on the slot pool. Off, the engine runs exactly the
 kernels and device reads it runs without them.
 
-Not ported yet: device meshes (ROADMAP Queue 1 item 16b).
+Tensor parallelism (``tp``, a ``distributed.group.TPGroup``; JAX's
+``mesh=``): one engine a rank, each holding 1/N of the heads, KV heads
+and FFN width (``distributed/sharding.py``; ``self.cfg`` stays the
+whole model's config, ``self.model_cfg`` is the rank's share) and slot
+pools whose k / v hold its KV heads (``distributed/pool_sharding.py``).
+Every model call runs under ``tensor_parallel(tp)``, so the reduce
+points sum over the ranks; every rank runs the same host code on the
+same submissions, the scheduler's clock is rank 0's, and each tick ends
+with a digest check of the ranks' decisions. The byte figures (the
+prefix store's budget, ``kv_bytes``, the ledger) count global bytes, as
+JAX's sharded arrays report them, with per-rank figures beside them.
+``tp=None`` runs exactly as a single-device engine.
 """
 from __future__ import annotations
 
@@ -71,6 +82,8 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import router as RT
+from repro_torch.distributed import pool_sharding as PSH
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import launch_counts
 from repro_torch.launch import hlo_costs as HL
 from repro_torch.models import model as MD
@@ -226,28 +239,36 @@ class KVStats:
     ``overhead_bytes`` the bookkeeping (``positions`` / ``length``) every
     geometry has. ``prefix_device_bytes`` / ``prefix_host_bytes`` report
     the prefix store's tiers beside them: the store holds whole boundary
-    states, which are neither payload nor overhead of a live request."""
+    states, which are neither payload nor overhead of a live request.
+    Under tensor parallelism the payload and overhead are global, the
+    whole model's (head-sharded k / v counted on every rank), and
+    ``payload_shard_bytes`` / ``overhead_shard_bytes`` what one rank
+    holds; on one device they are equal."""
     payload_bytes: int
     overhead_bytes: int
     prefix_device_bytes: int = 0
     prefix_host_bytes: int = 0
+    payload_shard_bytes: int = 0
+    overhead_shard_bytes: int = 0
 
     @property
     def total_bytes(self) -> int:
         return self.payload_bytes + self.overhead_bytes
 
 
-def kv_cache_stats(caches, prefix_store=None) -> KVStats:
+def kv_cache_stats(caches, prefix_store=None, world: int = 1) -> KVStats:
     """``KVStats`` of a list of caches (of one request or several pools)
-    and of the prefix store's tiers."""
-    payload = KC.kv_cache_bytes(caches)
-    total = sum(t.nbytes for c in caches for t in KC.cache_fields(c))
+    and of the prefix store's tiers; ``world`` the tensor-parallel ranks
+    the caches are one rank's share of."""
+    b = PSH.cache_bytes(caches, world)
     return KVStats(
-        payload_bytes=payload, overhead_bytes=total - payload,
+        payload_bytes=b.payload, overhead_bytes=b.overhead,
         prefix_device_bytes=(prefix_store.device_bytes
                              if prefix_store is not None else 0),
         prefix_host_bytes=(prefix_store.host_bytes
-                           if prefix_store is not None else 0))
+                           if prefix_store is not None else 0),
+        payload_shard_bytes=b.payload_shard,
+        overhead_shard_bytes=b.overhead_shard)
 
 
 # ---------------------------------------------------------------------------
@@ -307,20 +328,22 @@ class ChunkedPrefill:
         if self.idx == 0:
             self._route_chunk(chunk)
         else:
-            self.logits, self.caches = MD.prefill_chunk(
-                eng.params, eng.cfg, chunk, self.caches, start)
+            with SH.tensor_parallel(eng.tp):
+                self.logits, self.caches = MD.prefill_chunk(
+                    eng.params, eng.model_cfg, chunk, self.caches, start)
             self.dispatches += 1
         self.chunks_streamed += 1
         self.idx += 1
         eng._maybe_publish(self, start, size)
 
     def _route_chunk(self, chunk: torch.Tensor) -> None:
-        eng, cfg = self.engine, self.engine.cfg
+        eng, cfg = self.engine, self.engine.model_cfg
         routing_ctx, fixed = eng._routing_ctx(self.override)
-        pf = MD.prefill(eng.params, cfg, chunk, routing_ctx=routing_ctx,
-                        fixed_pattern=fixed,
-                        fa_threshold=eng._rung_threshold(self.sa_level,
-                                                         routing_ctx))
+        with SH.tensor_parallel(eng.tp):
+            pf = MD.prefill(eng.params, cfg, chunk, routing_ctx=routing_ctx,
+                            fixed_pattern=fixed,
+                            fa_threshold=eng._rung_threshold(self.sa_level,
+                                                             routing_ctx))
         decisions = (pf.routing.numpy() if pf.routing is not None
                      else None)
         self.pattern = eng._pattern(decisions, self.override)
@@ -368,6 +391,11 @@ class ServeEngine:
     ``fidelity_probe_every`` > 0 probes every Nth admission's attention
     mass coverage; ``memory_ledger`` the device-byte ledger. Each of the
     last three turns telemetry on.
+
+    ``tp``: this rank's ``TPGroup`` for tensor-parallel serving (see the
+    module's docstring); ``params`` are the whole model's (sharded here)
+    or already the rank's share, and ``device`` defaults to the group's.
+    Unsupported configs raise ``NotImplementedError`` (ROADMAP item 16c).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_len: int = 4096,
@@ -381,7 +409,7 @@ class ServeEngine:
                  flight_recorder_ticks: int = 512,
                  profile_every: int = 0,
                  fidelity_probe_every: int = 0,
-                 memory_ledger: bool = False, device=None):
+                 memory_ledger: bool = False, device=None, tp=None):
         if routing_pooling not in ("prefix", "prefix_suffix"):
             raise ValueError(
                 f"routing_pooling={routing_pooling!r}: expected 'prefix' "
@@ -392,9 +420,19 @@ class ServeEngine:
                 f"profile_every={profile_every} / fidelity_probe_every="
                 f"{fidelity_probe_every} must be >= 0 (0 disables)")
         MD.check_supported(cfg)
-        self.device = resolve_device(device)
+        self.tp = tp
+        self.world = 1 if tp is None else tp.world
+        SH.check_tp_supported(cfg, self.world,
+                              routing_override=routing_override,
+                              fidelity_probe_every=fidelity_probe_every)
+        self.device = resolve_device(
+            tp.device if device is None and tp is not None else device)
+        if not SH.params_are_local(params, cfg, self.world):
+            params = SH.shard_params_tp(params, cfg, tp.rank, tp.world)
         self.params = MD.params_to(params, self.device)
         self.cfg = cfg
+        # the rank's share of the model: what the model functions run
+        self.model_cfg = SH.tp_config(cfg, self.world)
         self.max_len = max_len
         self.sparse_decode = sparse_decode
         self.routing_override = routing_override
@@ -402,7 +440,8 @@ class ServeEngine:
         self.routing_pooling = routing_pooling
         # the encoder's call over a request's frames (whisper; a
         # ValueError naming encoder_frames without them), else None
-        self._encode = (partial(MD.encode_side_input, self.params, cfg)
+        self._encode = (partial(MD.encode_side_input, self.params,
+                                self.model_cfg)
                         if cfg.num_encoder_layers else None)
         self._scheduler = None  # ContinuousScheduler, created by scheduler()
         # geometries whose over-budget publication was already warned of
@@ -428,7 +467,9 @@ class ServeEngine:
         # _record_routing from host floats
         self.margin_drift = (RT.MarginDriftTracker() if telemetry
                              else None)
-        self.ledger = (TM.MemoryLedger(params_bytes=self._params_cost()[1])
+        self.ledger = (TM.MemoryLedger(params_bytes=(
+            self._params_cost()[1] if self.world == 1
+            else SH.global_param_bytes(self.params, self.world)))
                        if memory_ledger else None)
         # off, every instrumented path is one ``is not None`` test, so the
         # engine launches and reads exactly what it does without telemetry
@@ -728,7 +769,7 @@ class ServeEngine:
         key = pool.slot_geometry()
         specs = self._cost_specs.get(key)
         if specs is None:
-            hq = self.cfg.num_heads
+            hq = self.model_cfg.num_heads
             specs = self._cost_specs[key] = [
                 # absorbed MLA decode: one latent "kv head", scores over
                 # ckv ‖ kr, values read from the latent
@@ -797,11 +838,18 @@ class ServeEngine:
                               decision=pattern[i]).observe(float(cov[j]))
         return cov
 
+    def mesh_shape(self) -> Optional[Tuple[int, int]]:
+        """The serving mesh JAX's engine would report, (1, world), for
+        the flight recorder; None on the single-device path."""
+        return None if self.tp is None else self.tp.mesh_shape()
+
     def ledger_report(self) -> Dict[str, Any]:
         """A fresh ledger snapshot reconciled against an independent
         ``kv_cache_stats`` walk of the same pools and prefix store: pool
         payload and prefix tiers agree exactly, and the ledger's overhead
-        exceeds the walk's by the pools' aux buffers (logits, pos)."""
+        exceeds the walk's by the pools' aux buffers (logits, pos). Under
+        tensor parallelism both count global bytes; the walk's per-rank
+        figures stand beside them."""
         if self.ledger is None:
             raise ValueError(
                 "ledger_report: the memory ledger is disabled — construct "
@@ -812,7 +860,8 @@ class ServeEngine:
                 else self.ledger.last())
         pools = list(sched.pools.values()) if sched is not None else []
         stats = kv_cache_stats([c for p in pools for c in p.caches],
-                               self.prefix_store)
+                               self.prefix_store, self.world)
+        mesh = self.mesh_shape()
         out: Dict[str, Any] = {
             "snapshot": snap.as_dict() if snap is not None else None,
             "kv_cache_stats": {
@@ -820,7 +869,12 @@ class ServeEngine:
                 "overhead_bytes": stats.overhead_bytes,
                 "prefix_device_bytes": stats.prefix_device_bytes,
                 "prefix_host_bytes": stats.prefix_host_bytes,
+                # one rank's bytes: below the global ones when k / v are
+                # head-sharded, equal on one device
+                "payload_shard_bytes": stats.payload_shard_bytes,
+                "overhead_shard_bytes": stats.overhead_shard_bytes,
             },
+            "mesh": list(mesh) if mesh is not None else None,
             "reconciliation": None,
             "aux_bytes": 0,
         }
@@ -875,6 +929,7 @@ class ServeEngine:
                 f"routing override must give 'fa', 'sa' or ('duo', n) with "
                 f"0 <= n <= {cfg.num_kv_heads} for each of "
                 f"{cfg.num_layers} layers; got {override!r}")
+        SH.check_tp_supported(cfg, self.world, routing_override=override)
 
     def chunked_eligible(self, seq_len: int, override=None, *,
                          prefix_embeddings=None,
@@ -1066,7 +1121,7 @@ class ServeEngine:
         key = PXC.routing_key(override, sa_level)
         if store.covered(toks, boundary, key):
             return False  # already published (LRU slot bumped)
-        nbytes = PXC.state_bytes(caches, logits)
+        nbytes = PXC.state_bytes(caches, logits, self.world)
         whole = store.budget_bytes + store.host_budget_bytes
         if nbytes > whole:
             geom = KC.cache_geometry(caches)
@@ -1099,13 +1154,14 @@ class ServeEngine:
                     else self.routing_override)
         self._check_override(override)
         routing_ctx, fixed = self._routing_ctx(override)
-        pf = MD.prefill(self.params, self.cfg, tokens,
-                        routing_ctx=routing_ctx, fixed_pattern=fixed,
-                        prefix_embeddings=prefix_embeddings,
-                        encoder_frames=self._side_input(encoder_frames),
-                        fa_threshold=self._rung_threshold(self.sa_level,
-                                                          routing_ctx),
-                        enc_out=enc_out)
+        with SH.tensor_parallel(self.tp):
+            pf = MD.prefill(self.params, self.model_cfg, tokens,
+                            routing_ctx=routing_ctx, fixed_pattern=fixed,
+                            prefix_embeddings=prefix_embeddings,
+                            encoder_frames=self._side_input(encoder_frames),
+                            fa_threshold=self._rung_threshold(
+                                self.sa_level, routing_ctx),
+                            enc_out=enc_out)
         decisions = pf.routing.numpy() if pf.routing is not None else None
         pattern = self._pattern(decisions, override)
         if self.telemetry is not None:
@@ -1124,7 +1180,7 @@ class ServeEngine:
                     f"max_len={self.max_len} at full-cache layer "
                     f"{off[0]}; raise the engine's max_len or truncate "
                     f"the prompt")
-        caches = repack_caches(self.cfg, pf.caches, pattern, seq_len,
+        caches = repack_caches(self.model_cfg, pf.caches, pattern, seq_len,
                                self.max_len)
         return pf, pattern, caches, seq_len
 
@@ -1193,14 +1249,16 @@ class ServeEngine:
                 f"generate: prompt ({seq_len}) + n_steps ({n_steps}) = "
                 f"{seq_len + n_steps} exceeds the cache capacity "
                 f"max_len={self.max_len} of the full-cache layers")
-        kv_bytes = KC.kv_cache_bytes(caches)
+        kv_bytes = PSH.cache_bytes(caches, self.world).payload
         self._sync()
         t1 = time.perf_counter()
         fa_heads, duo_layers = MD.routing_head_split(self.cfg, pattern)
-        toks, final, _ = MD.decode_many(
-            self.params, self.cfg, logits, caches, seq_len, n_steps=n_steps,
-            greedy=greedy, generator=None if greedy else rng,
-            fa_heads=fa_heads, duo_layers=duo_layers, enc_out=enc_out)
+        with SH.tensor_parallel(self.tp):
+            toks, final, _ = MD.decode_many(
+                self.params, self.model_cfg, logits, caches, seq_len,
+                n_steps=n_steps, greedy=greedy,
+                generator=None if greedy else rng, fa_heads=fa_heads,
+                duo_layers=duo_layers, enc_out=enc_out)
         toks = toks.cpu().numpy()  # waits for the decode to finish
         t2 = time.perf_counter()
         dispatches += 1  # and the decode
@@ -1274,7 +1332,7 @@ class ServeEngine:
         sched = self._scheduler
         pools = list(sched.pools.values()) if sched is not None else []
         stats = kv_cache_stats([c for p in pools for c in p.caches],
-                               self.prefix_store)
+                               self.prefix_store, self.world)
         prompt_tokens = sum(m.prompt_len for m in ms)
         hit_tokens = sum(m.prefix_hit_tokens for m in ms)
         fid = [m.fidelity for m in ms if m.fidelity is not None]
@@ -1383,6 +1441,8 @@ def serve_batch_finished(engine: ServeEngine, requests: Sequence[Request],
     bucket decodes keeps its tokens but is marked ``timeout`` all the
     same. Shedding, preemption and quarantine are scheduler concepts."""
     from repro_torch.serve.scheduler import RequestMetrics
+    if engine.tp is not None:  # every rank decides on rank 0's clock
+        clock = engine.tp.host_clock(clock)
     t0 = clock()
 
     def _deadline(r: Request) -> Optional[float]:

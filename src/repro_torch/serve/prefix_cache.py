@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import pool_sharding as PSH
 from repro_torch.serve import kv_cache as KC
 
 
@@ -66,10 +67,13 @@ def routing_key(override, sa_level: int = 0) -> Tuple:
     return ("router", int(sa_level))
 
 
-def state_bytes(caches, logits: torch.Tensor) -> int:
-    """Bytes of one boundary state (every cache buffer and the logits)."""
-    return (sum(t.nbytes for c in caches for t in KC.cache_fields(c))
-            + logits.nbytes)
+def state_bytes(caches, logits: torch.Tensor, world: int = 1) -> int:
+    """Bytes of one boundary state (every cache buffer and the logits).
+    Under ``world``-way tensor parallelism ``caches`` are one rank's
+    share and the count is global, as a sharded JAX array reports it, so
+    the same budget keeps the same snapshots as on one device."""
+    b = PSH.cache_bytes(caches, world)
+    return b.payload + b.overhead + logits.nbytes
 
 
 def snapshot_spec_bytes(cfg: ModelConfig, pattern, max_len: int) -> int:

@@ -61,6 +61,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.group import digest
 from repro_torch.models import model as MD
 from repro_torch.serve import kv_cache as KC
 from repro_torch.serve import slo as SLO
@@ -198,7 +200,14 @@ class ContinuousScheduler:
         self.slots_per_bucket = int(slots_per_bucket)
         self.chunk = int(chunk)
         self.prefill_chunks_per_tick = int(prefill_chunks_per_tick)
-        self.clock = clock
+        # under tensor parallelism every rank runs this scheduler on the
+        # same submissions: the clock is rank 0's reading, and the ranks
+        # compare a digest of their decisions at each tick's start
+        # (submissions and cancels since the last tick) and end
+        tp = engine.tp
+        self.clock = clock if tp is None else tp.host_clock(clock)
+        self._decisions: Optional[List[Tuple]] = \
+            None if tp is None else []
         self.slo = slo if slo is not None else SLO.SLOConfig()
         # one source of truth for the sparsity ladder: the engine's dial
         # (generate and chunked admissions) follows this config
@@ -267,6 +276,10 @@ class ContinuousScheduler:
             prompt_len=len(req.tokens), arrival_t=now),
             deadline_t=(now + deadline) if deadline is not None else None)
         eng = self.engine
+        self._note("submit", req.rid,
+                   digest(np.asarray(req.tokens).tobytes()), req.n_steps,
+                   req.priority, req.routing_override, req.prefix_reuse,
+                   deadline)
         if eng.telemetry is not None:
             eng.telemetry.counter("serve_requests_submitted_total").inc()
         if eng.tracer is not None:
@@ -297,6 +310,21 @@ class ContinuousScheduler:
                      key=lambda w: (w.req.priority, -w.metrics.arrival_t))
         return victim if victim.req.priority < inf.req.priority else inf
 
+    # -- tensor-parallel agreement ------------------------------------------
+    def _note(self, *event) -> None:
+        """Record a host decision for the ranks' digest check."""
+        if self._decisions is not None:
+            self._decisions.append(event)
+
+    def _check_decisions(self, what: str) -> None:
+        """Every rank compares a digest of the decisions noted since the
+        last check (``TPGroup.check_agree``); a mismatch raises
+        ``TPDivergence`` naming ``what``."""
+        if self._decisions is None:
+            return
+        events, self._decisions = self._decisions, []
+        self.engine.tp.check_agree(digest(*events), what)
+
     # -- terminal transitions ----------------------------------------------
     def _retire(self, inf: _InFlight, status: str, now: float, *,
                 pool: Optional[SlotPool] = None,
@@ -308,6 +336,7 @@ class ContinuousScheduler:
         m.finish_t = now
         m.n_generated = len(inf.generated)
         inf.job = None
+        self._note("retire", inf.req.rid, status)
         if pool is not None:
             pool.active.pop(slot)
             pool.free.append(slot)
@@ -527,7 +556,7 @@ class ContinuousScheduler:
         pool = self.pools.get(key)
         if pool is None:
             pool = SlotPool.create(eng.cfg, pattern, self.slots_per_bucket,
-                                   eng.max_len, logits)
+                                   eng.max_len, logits, world=eng.world)
             self.pools[key] = pool
         if pool.free:
             slot = pool.free.pop()
@@ -542,6 +571,7 @@ class ContinuousScheduler:
         inf.pattern, inf.cached_key = pattern, None
         pool.write(slot, caches, logits, seq_len)
         pool.active[slot] = inf
+        self._note("admit", inf.req.rid, slot, seq_len, hit)
         self.admissions.append((pattern, seq_len, hit))
         if eng.fidelity_probe_every:
             cov = eng._maybe_fidelity_probe(self._prefill_tokens(inf),
@@ -572,6 +602,7 @@ class ContinuousScheduler:
         if victim.req.priority >= priority:
             return None
         pool.active.pop(slot)
+        self._note("preempt", victim.req.rid, slot)
         m = victim.metrics
         m.preemptions += 1
         victim.cached_key = None  # its tokens grew; routing may change
@@ -601,6 +632,8 @@ class ContinuousScheduler:
         is idle at the start) and its ``host_s`` the enqueue inside it."""
         eng = self.engine
         self.ticks += 1
+        self._check_decisions(f"submissions and cancels before tick "
+                              f"{self.ticks}")
         now = self.clock()
         tm_on = eng.telemetry is not None
         prof = eng.profiler
@@ -657,9 +690,10 @@ class ContinuousScheduler:
             if not pool.active:
                 continue
             t_decode = self.clock() if tm_on else 0.0
-            toks, pool.logits, pool.caches = MD.decode_many(
-                eng.params, eng.cfg, pool.logits, pool.caches, pool.pos,
-                n_steps=self.chunk)
+            with SH.tensor_parallel(eng.tp):
+                toks, pool.logits, pool.caches = MD.decode_many(
+                    eng.params, eng.model_cfg, pool.logits, pool.caches,
+                    pool.pos, n_steps=self.chunk)
             eng.dispatch_count += 1
             t_disp = self.clock() if prof_on else 0.0
             pool.advance(self.chunk)
@@ -708,6 +742,7 @@ class ContinuousScheduler:
                     inf.metrics.first_token_t = now
                 take = min(self.chunk, inf.req.n_steps - len(inf.generated))
                 new = _trim_eos(toks_np[slot, :take], inf.req.eos_id).tolist()
+                self._note("tokens", inf.req.rid, new)
                 inf.generated.extend(new)
                 self.tokens_generated += len(new)
                 if len(new) < take or len(inf.generated) >= inf.req.n_steps \
@@ -715,6 +750,7 @@ class ContinuousScheduler:
                     self._retire(inf, STATUS_OK, now, pool=pool, slot=slot)
         if tm_on:
             self._tm_tick(t0=tm_t0, d0=tm_d0, p0=tm_p0, tok0=tm_tok0)
+        self._check_decisions(f"tick {self.ticks}")
         done, self._announce = self._announce, []
         return done
 
@@ -821,6 +857,7 @@ class ContinuousScheduler:
                                  if snap is not None else 0),
             ledger_fragmentation_bytes=(snap.fragmentation_bytes
                                         if snap is not None else 0),
+            mesh=eng.mesh_shape(),
             events=tuple(self._tm_events)))
         self._tm_events = []
 

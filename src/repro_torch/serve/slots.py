@@ -20,6 +20,11 @@ The pool also carries what the serving guardrails and telemetry read:
 its byte split for the memory ledger (per slot row, fixed at
 ``create``) and ``poison_slot``,
 the fault-injection hook behind ``ServeEngine.inject_fault``.
+
+Under ``world``-way tensor parallelism a pool holds one rank's share:
+``create`` builds its caches from ``sharding.tp_config`` (k / v hold the
+rank's KV heads; positions, lengths, logits and pos are replicated,
+``distributed/pool_sharding.py``), and its ledger bytes are global.
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import pool_sharding as PSH
+from repro_torch.distributed.sharding import tp_config
 from repro_torch.serve import kv_cache as KC
 
 
@@ -46,31 +53,33 @@ class SlotPool:
     steps: int = 0            # decode steps run over the pool's lifetime
     # byte accounting for the memory ledger (telemetry.PoolLedgerEntry),
     # fixed at create() from the buffers' shapes: ``slot_*`` per slot
-    # row, ``aux_bytes`` the pool's logits and pos, which
-    # ``kv_cache_stats`` never sees
+    # row (global under tensor parallelism), ``aux_bytes`` the pool's
+    # logits and pos, which ``kv_cache_stats`` never sees
     slot_payload_bytes: int = 0
     slot_overhead_bytes: int = 0
     aux_bytes: int = 0
 
     @classmethod
     def create(cls, cfg: ModelConfig, pattern, capacity: int, max_len: int,
-               logits_like: torch.Tensor) -> "SlotPool":
+               logits_like: torch.Tensor, world: int = 1) -> "SlotPool":
+        """An empty pool for ``pattern``; ``cfg`` the whole model's, the
+        caches one rank's share of ``world``."""
         dev = logits_like.device
-        caches = KC.init_decode_caches(cfg, pattern, capacity, max_len, dev)
+        caches = KC.init_decode_caches(tp_config(cfg, world), pattern,
+                                       capacity, max_len, dev)
         logits = torch.zeros((capacity,) + tuple(logits_like.shape[1:]),
                              dtype=logits_like.dtype, device=dev)
         pos = torch.zeros((capacity,), dtype=torch.int32, device=dev)
         # every buffer's leading axis is ``capacity``, so the division is
         # exact: the ledger's slot bytes reconcile with kv_cache_stats to
         # the byte at any occupancy
-        payload = KC.kv_cache_bytes(caches)
-        total = sum(t.nbytes for c in caches for t in KC.cache_fields(c))
+        b = PSH.cache_bytes(caches, world)
         return cls(
             caches=caches, logits=logits, pos=pos,
             pattern=pattern, capacity=capacity,
             free=list(range(capacity - 1, -1, -1)),  # pop() → slot 0 first
-            slot_payload_bytes=payload // capacity,
-            slot_overhead_bytes=(total - payload) // capacity,
+            slot_payload_bytes=b.payload // capacity,
+            slot_overhead_bytes=b.overhead // capacity,
             aux_bytes=logits.nbytes + pos.nbytes)
 
     def geometry(self) -> Tuple:

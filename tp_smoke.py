@@ -1,0 +1,220 @@
+#!/usr/bin/env python3
+"""Tensor-parallel serving over NCCL, one card a rank.
+
+    python3 tp_smoke.py [--world N]
+
+Needs N cards of one host (default 4; ``chip_smoke.py`` phase 31 runs 2
+ranks on one card over gloo instead). Builds the five serving kernels,
+then:
+  1. phi3-mini at 2 layers, fp32 (phase 31a's runs, ``tp_parity_runs``):
+     ``generate`` and a preempting drain, router-driven and mixed, on N
+     ranks over nccl equal the one-card port's: tokens, routing and
+     statuses, logits within 1e-4 of the largest;
+  2. command-r-plus-104b at full width, COMMAND_R_LAYERS layers, bf16,
+     mixed routing: 2 x TP_LONG tokens and TP_LONG_GEN decode steps
+     through ``generate`` on card 0 alone and on N ranks, their prefill
+     and decode tok/s side by side, each rank's launches exact, and the
+     first decode step where the two runs' tokens part (their bf16 sums
+     are added in another order);
+  3. command-r-plus-104b at full width and depth (64 layers, 208 GB of
+     bf16 weights, which no one card holds) on N ranks, the same load:
+     finite logits, exact launches, a decode step's all-reduces 2 x
+     layers of (B, 1, d_model), per-rank peak memory and tok/s.
+Prints each card's name and power limit, one line a step, and one JSON
+line of the numbers; exits non-zero on any failure, in any rank.
+"""
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+TP_LONG, TP_LONG_GEN = 4096, 32
+SERVING_KERNELS = ("flash_attention", "streaming_attention",
+                   "block_sparse_attention", "decode_attention",
+                   "decode_attention_pooled")
+
+
+def parity_rank(tp, prompts):
+    """Step 1 on one rank."""
+    import chip_smoke as CS
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import init_params_tp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(CS.ARCH).replace(num_layers=2, dtype=torch.float32,
+                                      param_dtype=torch.float32)
+    params = init_params_tp(cfg, torch.Generator(
+        device=tp.device).manual_seed(0), tp.rank, tp.world, tp.device)
+    return CS.tp_parity_runs(tp.device, params, cfg, prompts, tp)
+
+
+def serve_long(dev, cfg, prompts, tp=None):
+    """Steps 2 and 3: ``cfg``'s seeded weights (a rank's share under
+    ``tp``), then ``generate`` of ``prompts`` under the mixed routing.
+    Returns host results."""
+    import chip_smoke as CS
+    import repro_torch.kernels as KN
+    from repro_torch.distributed.sharding import (init_params_tp,
+                                                  tensor_parallel)
+    from repro_torch.launch.serve import routing_pattern
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import ServeEngine
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = (MD.init_params(cfg, gen, dev) if tp is None else
+              init_params_tp(cfg, gen, tp.rank, tp.world, dev))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated(dev)
+    eng = ServeEngine(params, cfg, max_len=TP_LONG + TP_LONG_GEN,
+                      prefill_chunk=CS.CHUNK, device=dev, tp=tp)
+    mixed = routing_pattern(cfg, "mixed")
+    eng.generate(prompts[:, :CS.CHUNK], 2, routing_override=mixed)  # warm
+    torch.cuda.reset_peak_memory_stats(dev)
+    KN.reset_launch_counts()
+    g = eng.generate(prompts, TP_LONG_GEN, routing_override=mixed)
+    assert bool(torch.isfinite(g.logits).all()), "first logits"
+    assert bool(torch.isfinite(g.final_logits).all()), "last logits"
+    counts = KN.launch_counts()
+    want = CS.prefill_launches(cfg, [(g.routing, TP_LONG, 0)])
+    want.update(CS.decode_launches(cfg, TP_LONG_GEN, pooled=False))
+    assert counts == want, (counts, want)
+    B = prompts.shape[0]
+    out = dict(init_s=init_s, weights_bytes=weights,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+               prefill_s=g.prefill_s, decode_s=g.decode_s,
+               prefill_tok_s=B * TP_LONG / g.prefill_s,
+               decode_tok_s=B * TP_LONG_GEN / g.decode_s,
+               tokens=g.tokens, launches=counts, kv_bytes=g.kv_bytes)
+    if tp is not None:
+        job = eng.prefill_chunked(prompts, mixed)
+        tp.reset_counts()
+        with tensor_parallel(tp):
+            MD.decode_many(eng.params, eng.model_cfg, job.logits,
+                           job.caches, TP_LONG, n_steps=4)
+        calls, nbytes = tp.reduce_calls, tp.reduce_bytes
+        assert calls == 2 * cfg.num_layers * 4, calls
+        assert nbytes == calls * B * cfg.d_model * cfg.dtype.itemsize
+        out["step_all_reduces"] = (calls // 4, nbytes // calls)
+    return out
+
+
+def long_rank(tp, prompts, layers):
+    """Steps 2 (``layers`` > 0) and 3 (the whole depth) on one rank."""
+    import chip_smoke as CS
+    from repro_torch.configs import get_config
+    cfg = get_config(CS.COMMAND_R)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    return serve_long(tp.device, cfg, prompts, tp)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    world = int(argv[1]) if argv[:1] == ["--world"] else 4
+    if not torch.cuda.is_available():
+        raise SystemExit("tp_smoke: no CUDA device")
+    if torch.cuda.device_count() < world:
+        raise SystemExit(f"tp_smoke: {world} ranks need {world} cards; "
+                         f"{torch.cuda.device_count()} found")
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "src"))
+    import chip_smoke as CS
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.group import launch
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import ServeEngine
+    t_all = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    print(f"built {_build.build(SERVING_KERNELS)}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    report = {"world": world, "cards": smi.splitlines()}
+
+    t0 = time.perf_counter()
+    cfg2 = get_config(CS.ARCH).replace(num_layers=2, dtype=torch.float32,
+                                       param_dtype=torch.float32)
+    params = MD.init_params(cfg2, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    probe = ServeEngine(params, cfg2, max_len=max(CS.TP_PARITY_LENS),
+                        prefill_chunk=CS.CHUNK, device=dev)
+    seed, prompts, margin = CS.router_margin_seed(probe, CS.TP_PARITY_LENS)
+    one = CS.tp_parity_runs(dev, params, cfg2, prompts)
+    del probe, params
+    CS.free_card()
+    ranks = launch(parity_rank, world, "nccl", args=(prompts,),
+                   device="cuda")
+    errs = []
+    for r, got in enumerate(ranks):
+        for name in ("router", "mixed"):
+            assert got[name]["routing"] == one[name]["routing"], (r, name)
+            assert np.array_equal(got[name]["tokens"],
+                                  one[name]["tokens"]), (r, name)
+            errs += [float(np.abs(got[name][k] - one[name][k]).max()
+                           / np.abs(one[name][k]).max())
+                     for k in ("logits", "final")]
+            assert got[f"{name} drain"] == one[f"{name} drain"], (r, name)
+    assert max(errs) < CS.FP32_TOL, errs
+    assert sum(v[3] for v in one["mixed drain"].values()) >= 1
+    report["parity_max_rel_err"] = max(errs)
+    print(f"step 1: {CS.ARCH} 2 layers fp32 on {world} ranks over nccl = "
+          f"one card (prompt seed {seed}, margin {margin:.2e}): tokens, "
+          f"routing and statuses equal, logits rel err {max(errs):.2e} "
+          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+
+    rng = np.random.default_rng(12)
+    cfg = get_config(CS.COMMAND_R)
+    long_prompts = rng.integers(0, cfg.vocab_size, (2, TP_LONG))
+    t0 = time.perf_counter()
+    alone = serve_long(dev, cfg.replace(num_layers=CS.COMMAND_R_LAYERS),
+                       long_prompts)
+    CS.free_card()
+    cut = launch(long_rank, world, "nccl",
+                 args=(long_prompts, CS.COMMAND_R_LAYERS), device="cuda")
+    for r in cut:
+        assert np.array_equal(r["tokens"], cut[0]["tokens"])
+    diff = np.flatnonzero((alone["tokens"] != cut[0]["tokens"]).any(0))
+    report["command_r_cut"] = dict(
+        layers=CS.COMMAND_R_LAYERS, one_card={
+            k: v for k, v in alone.items() if k != "tokens"},
+        ranks=[{k: v for k, v in r.items() if k != "tokens"} for r in cut],
+        first_token_step_apart=int(diff[0]) if diff.size else None)
+    print(f"step 2: {CS.COMMAND_R} {CS.COMMAND_R_LAYERS} layers bf16, 2 x "
+          f"{TP_LONG} + {TP_LONG_GEN}: one card prefill "
+          f"{alone['prefill_tok_s']:.0f} tok/s decode "
+          f"{alone['decode_tok_s']:.1f} tok/s; {world} ranks prefill "
+          f"{cut[0]['prefill_tok_s']:.0f} decode "
+          f"{cut[0]['decode_tok_s']:.1f}; tokens apart from step "
+          f"{report['command_r_cut']['first_token_step_apart']} "
+          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+
+    t0 = time.perf_counter()
+    full = launch(long_rank, world, "nccl", args=(long_prompts, 0),
+                  device="cuda")
+    for r in full:
+        assert np.array_equal(r["tokens"], full[0]["tokens"])
+    report["command_r_full"] = [{k: v for k, v in r.items()
+                                 if k != "tokens"} for r in full]
+    print(f"step 3: {CS.COMMAND_R} full depth bf16 on {world} ranks: "
+          + "; ".join(f"rank {i} weights {r['weights_bytes']} bytes peak "
+                      f"{r['peak_mem_bytes']} prefill "
+                      f"{r['prefill_tok_s']:.0f} tok/s decode "
+                      f"{r['decode_tok_s']:.1f} tok/s"
+                      for i, r in enumerate(full))
+          + f"; a decode step's all-reduces {full[0]['step_all_reduces']} "
+          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+    print(json.dumps(report, default=str), flush=True)
+    print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
