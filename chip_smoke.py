@@ -150,8 +150,9 @@ falls back to the CPU):
      count), coverage within 1e-4 per routed layer; the faulted
      request's pool siblings equal, bitwise, the same drain without the
      fault on the card;
-  14. the guarded drain at full width and depth: phi3-mini-3.8b's seeded
-     bf16 weights (loaded again after phase 12), 12 requests of 4096 //
+  14. the guarded drain at full width, GUARD_LAYERS = 16 of 32 layers:
+     phi3-mini-3.8b's seeded bf16 weights (drawn again after phase
+     12), 12 requests of 4096 //
      (1 + rid % 3) tokens, 32 new tokens, 4 slots a pool, chunks of 8, 16
      prefill chunks a tick, on the real clock, with telemetry, the
      profiler every 4 ticks, the probe every 4 admissions and the memory
@@ -360,7 +361,8 @@ forward + backward (and the parent's kernel with ``--parent``).
      fp32: ``generate`` and a 4-request drain with a priority arrival
      that preempts, router-driven and mixed, on the ranks and on one
      device: tokens, routing and statuses equal, logits within 1e-4 of
-     the largest; (b) phi3-mini at full width and depth in bf16: 2 x
+     the largest; (b) phi3-mini at full width, TP_LAYERS = 16 of 32
+     layers, in bf16: 2 x
      TP_PROMPT tokens through ``generate`` (TP_GEN steps, router-driven
      and mixed) and TP_REQUESTS requests on TP_SLOTS slots through the
      drain, finite, each rank's exact launches of all five kernels, its
@@ -368,10 +370,31 @@ forward + backward (and the parent's kernel with ``--parent``).
      x layers of (B, 1, d_model); per-rank peak memory and tok/s,
      labelled "2 ranks on one card over gloo" (they say nothing of TP
      speed over several cards).
+  32. tensor-parallel serving of the MoE, MLA, Mamba and encoder archs
+     (slice 19), after phase 31, its TP_WORLD = 2 ranks spawned once:
+     (a) fp32, each of granite-moe at full width and 2 layers, deepseek
+     narrowed as in phase 17, mamba2 at 2 layers, jamba's smoke variant
+     and whisper at 2 + 2 layers, drawn as each rank's share
+     (``init_params_tp``): ``generate`` router-driven and mixed and, but
+     for whisper (the slot pool refuses an encoder), a 4-request drain
+     with a preempting arrival, against the one-device card run on the
+     same weights: routing, tokens, every MoE call's experts, statuses
+     and preemptions equal, logits within 1e-4 of the largest (the
+     prompt seed the first whose router margins exceed 1e-3 and whose
+     top-k gate gaps exceed MOE_GAP); (b) deepseek-v2-236b at full
+     width, DEEPSEEK_LAYERS layers, bf16, each rank's share drawn layer
+     by layer: phase 31b's ``generate`` and drain with exact launches
+     (the latent decode at 64 heads a rank), finite logits, the latent
+     KV bytes equal to one device's on each rank, a decode step's
+     all-reduces 2 x layers of (B, 1, 5120), per-rank weight bytes, peak
+     memory and tok/s, labelled as phase 31's. Phases 3 and 4 hold and
+     time the bf16 latent decode at a rank's head counts (MLA_TP_HEADS:
+     64, 32 and 8) at the pool's shape.
 Then one JSON line of per-kernel numbers (phi3-mini's, and stablelm's,
 granite's and deepseek's under ``stablelm_12b``, ``granite_moe_3b_a800m``
 and ``deepseek_v2_236b``; the latent decode its own entry at deepseek's
-shapes with its ring, long-context and high-batch rows; launches by
+shapes with its ring, long-context and high-batch rows and its
+``tp_heads`` rows at 64, 32 and 8 heads; launches by
 path, phase 14's as ``guardrails`` and phase 20's as ``xa_batch``,
 ``duo``, ``ta`` and ``xa_continuous``; each kernel's phase-2b counts
 under ``stress``; block-sparse's xa rows and streaming's and flash's ta
@@ -386,7 +409,8 @@ window under ``local_ring`` and ``window``; the backward kernel's
 entry with its launches from phase 30, its phase-2b counts and its rows:
 phi3-mini's causal as the entry's own, ``streaming``, ``stablelm_12b``,
 ``gemma3_12b_window``, ``whisper_encoder`` and ``unaligned``; phase 31's
-per-rank launches as ``tp2_rank0`` / ``tp2_rank1``), the total
+per-rank launches as ``tp2_rank0`` / ``tp2_rank1``, phase 32's as
+``tp2_archs_rank*`` (a) and ``tp2_deepseek_rank*`` (b)), the total
 seconds, and the last line ``{"ok": true, "device": {...}}``.
 """
 import collections
@@ -432,6 +456,9 @@ GEMMA3_LAYERS = 6
 # 9b's slot-pool parity runs stablelm at 1 layer (phase 9 keeps 2)
 STABLELM_LAYERS, GRANITE_LAYERS, SA_MODES_LAYERS, MAMBA2_LAYERS = \
     20, 4, 16, 6
+# and, since phase 32 joined them, phase 14's guarded drains and phase
+# 31b's 2 ranks over gloo: phi3-mini at 16 of its 32 layers
+GUARD_LAYERS = TP_LAYERS = 16
 # deepseek-v2 at 60 layers is 472 GB in bf16; 4 of them at full width
 # (1.05 B embedding and unembedding + 4 x 3.98 B = 16.97 B parameters,
 # ≈ 34 GB) fit
@@ -451,6 +478,9 @@ TP_WORLD, TP_LABEL = 2, "2 ranks on one card over gloo"
 TP_PARITY_LENS, TP_PARITY_N = (2304, 1536, 1000, 700, 2304), 8
 TP_PROMPT, TP_GEN, TP_REQUESTS, TP_SLOTS = 2048, 16, 4, 2
 TP_DRAIN_LENS = (2048, 1024, 1536, 512)
+# phase 32a: the parity prompts of the MoE, MLA and Mamba archs (whisper's
+# one prompt of TP_WHISPER_LEN tokens over 1500 frames, as phase 23's)
+TP_ARCH_LENS, TP_WHISPER_LEN = (1536, 1024, 700, 400, 1536), 384
 REQUESTS, PROMPT, GEN, CHUNK = 4, 4096, 32, 512
 POOL_LENS = (4112, 2080, 1400, 1)  # live lengths of the timed slot pool
 PREAMBLE = 3072  # phase 8 batch: A and B share it, 1024-token tails
@@ -1239,6 +1269,36 @@ def mla_small_checks(dev):
     return lines
 
 
+def mla_tp_checks(dev):
+    """Phase 3's bf16 latent decode at a tensor-parallel rank's head
+    counts (MLA_TP_HEADS) at the main pool's shape (POOL_LENS, L PROMPT +
+    GEN), at the plan's tiles and at one range a slot: under the bf16
+    limit (rms per slot), a zeroed ckv tile above it. Returns ({"h<H>":
+    max abs error at the plan's tiles}, the lines)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    errs, lines = {}, []
+    L = PROMPT + GEN
+    for H in MLA_TP_HEADS:
+        for tiles in (None, -(-L // 64)):
+            kern, plain, mutant, *_, slots = mla_decode_case(
+                dev, torch.bfloat16, POOL_LENS, L, H, False, g, tiles)
+            out, want = kern(), plain()
+            e = max_err(out, want)
+            r = bf16_ratios(out, want, slots)
+            r_mut = bf16_ratios(mutant(), want, slots)
+            label = (f"decode_attention_mla bfloat16 {DEEPSEEK} rank heads "
+                     f"H={H} lens={POOL_LENS} L={L} tiles={tiles or 'plan'}")
+            assert max(r) < 1, f"{label}: error {r} of the limit"
+            assert min(r_mut) > 1, \
+                f"{label}: a zeroed tile is within the limit {r_mut}"
+            if tiles is None:
+                errs[f"h{H}"] = e
+            lines.append(f"{label} max_abs_err={e:.3e} limit_ratio="
+                         f"{ratio_text(r)} zeroed_tile_ratio="
+                         f"{ratio_text(r_mut)}")
+    return errs, lines
+
+
 def parent_mla(libs):
     """The latent decode entry of another tree (``libs``: its libraries,
     ``sass_diff.other_libraries`` of its ``src`` directory, e.g. a ``git
@@ -1303,7 +1363,8 @@ def sdpa_efficient_ms(lib):
 
 
 def time_mla(dev, parent=None):
-    """Phase 4's latent decode rows, one per MLA_SHAPES entry: the
+    """Phase 4's latent decode rows, one per MLA_SHAPES entry (128 heads,
+    and a tensor-parallel rank's MLA_TP_HEADS at the pool's shape): the
     kernel's device time and call_ms, its plain version's, the library
     call's (SDPA; at the two large shapes its memory-efficient backend
     alone), the bound, the other tree's kernel (``parent``, a
@@ -1314,9 +1375,9 @@ def time_mla(dev, parent=None):
     from repro_torch.kernels import decode_attention_mla as DM
     g = torch.Generator(device=dev).manual_seed(0)
     rows = {}
-    for shape, (lens, L, ring) in MLA_SHAPES.items():
+    for shape, (lens, L, ring, H) in MLA_SHAPES.items():
         kern, plain, mutant, lib, n_bytes, flops, slots = mla_decode_case(
-            dev, torch.bfloat16, lens, L, 128, ring, g)
+            dev, torch.bfloat16, lens, L, H, ring, g)
         out, want = kern(), plain()
         r = bf16_ratios(out, want, slots)
         r_mut = bf16_ratios(mutant(), want, slots)
@@ -1332,7 +1393,8 @@ def time_mla(dev, parent=None):
             call_ms=call_ms(kern), plain_ms=time_ms(plain),
             library_ms=sdpa_efficient_ms(lib) if large else time_ms(lib),
             bound_ms=b_ms, bound_by=b_by,
-            tiles=DM.mla_plan(len(lens), L, 128, torch.bfloat16,
+            heads=H,
+            tiles=DM.mla_plan(len(lens), L, H, torch.bfloat16,
                               sms=torch.cuda.get_device_properties(
                                   dev).multi_processor_count).tiles)
         if not large:
@@ -1347,7 +1409,7 @@ def time_mla(dev, parent=None):
             for t in sorted({*MLA_SWEEP_TILES, row["tiles"]})
             if t <= -(-L // 64)}
         say(4, f"decode_attention_mla {shape} lens={row['lens']} L={L} "
-               f"H=128 ms={row['ms']:.4f} call_ms={row['call_ms']:.4f} "
+               f"H={H} ms={row['ms']:.4f} call_ms={row['call_ms']:.4f} "
                f"parent_ms={row.get('parent_ms')} plain_ms="
                f"{row['plain_ms']:.4f} library_ms={row['library_ms']} "
                f"bound_ms={b_ms:.4f} ({b_by}; {n_bytes} bytes, {flops} "
@@ -1578,13 +1640,20 @@ def decode_split_cases(dev):
 
 
 RING_POOL_LENS = (4112, 2080, 1400, 100)  # depths of the timed ring pool
-# the latent decode's timed shapes, 128 heads: (slot lengths, capacity L,
-# ring with holes); long context and many concurrent decodes fill the card
+# a tensor-parallel rank's heads of deepseek's 128: 64 at TP 2, 32 at TP
+# 4, and 8 at TP 2 of phase 17's narrowing (16 heads); below 64 the bf16
+# kernel's one CTA a slot runs a partial head block
+MLA_TP_HEADS = (64, 32, 8)
+# the latent decode's timed shapes: (slot lengths, capacity L, ring with
+# holes, heads); long context and many concurrent decodes fill the card,
+# and the pool at a tensor-parallel rank's head counts
 MLA_SHAPES = {
-    "pool": (POOL_LENS, PROMPT + GEN, False),
-    "ring": (RING_POOL_LENS, 2176, True),
-    "long_context": ((32768,) * 4, 32768, False),
-    "high_batch": ((4096,) * 64, 4096, False),
+    "pool": (POOL_LENS, PROMPT + GEN, False, 128),
+    "ring": (RING_POOL_LENS, 2176, True, 128),
+    "long_context": ((32768,) * 4, 32768, False, 128),
+    "high_batch": ((4096,) * 64, 4096, False, 128),
+    **{f"pool_h{H}": (POOL_LENS, PROMPT + GEN, False, H)
+       for H in MLA_TP_HEADS},
 }
 MLA_SWEEP_TILES = (1, 2, 4, 8, 16, 32, 64)
 
@@ -2514,9 +2583,9 @@ def pool_bytes(sched):
 
 def guarded_path(dev, params, cfg):
     """Phase 14: the guarded drain of phi3-mini-3.8b at full width and
-    depth, bf16, on the real clock (phi3-mini's seeded weights, reloaded
-    after phase 12). Returns (launch counts of the drain with telemetry,
-    report lines)."""
+    ``cfg``'s depth, bf16, on the real clock (phi3-mini's seeded weights,
+    drawn again after phase 12). Returns (launch counts of the drain with
+    telemetry, report lines)."""
     import repro_torch.kernels as KN
     from repro_torch.launch.serve import (PREFILL_CHUNKS_PER_TICK,
                                           routing_pattern)
@@ -5198,6 +5267,11 @@ def check_kernels(dev):
                f"{e:.3e} tol={FP32_TOL}{extra}")
     for line in mla_small_checks(dev):
         say(3, line)
+    tp_errs, lines = mla_tp_checks(dev)
+    for h, e in tp_errs.items():
+        errs[DEEPSEEK][f"decode_attention_mla_{h}"] = e
+    for line in lines:
+        say(3, line)
     errs["sa_modes"] = sa_mode_checks(dev)
     errs[WHISPER], lines = side_kernel_checks(dev)
     for line in lines:
@@ -5347,25 +5421,36 @@ def time_kernels(dev, parent=None):
     return out
 
 
-def tp_parity_runs(dev, params, cfg, prompts, tp=None):
-    """Phase 31a's runs on one engine (``tp`` a rank's group, or None on
-    one device): ``generate`` of prompts[0] and a drain of prompts[:4]
-    into 2 slots with prompts[4] arriving at priority 9 once a slot is
-    taken, router-driven and mixed. Returns host results."""
+def tp_parity_runs(dev, params, cfg, prompts, tp=None, frames=None):
+    """Phase 31a's and 32a's runs on one engine (``tp`` a rank's group,
+    or None on one device): ``generate`` of prompts[0] (with an encoder's
+    ``frames`` (1, E, d)) and, for a model the slot pool serves (not an
+    encoder's), a drain of prompts[:4] into 2 slots with prompts[4]
+    arriving at priority 9 once a slot is taken, router-driven and mixed.
+    Each generate run records every MoE call's experts (numpy: a rank's
+    results cross a process boundary) and its smallest top-k gate gap
+    (``MoeRecorder``). Returns host results."""
     from repro_torch.launch.serve import (PREFILL_CHUNKS_PER_TICK,
                                           routing_pattern)
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.scheduler import ContinuousScheduler
     N = TP_PARITY_N
-    eng = ServeEngine(params, cfg, max_len=max(TP_PARITY_LENS) + N,
+    eng = ServeEngine(params, cfg, max_len=max(map(len, prompts)) + N,
                       prefill_chunk=CHUNK, device=dev, tp=tp)
     out = {}
     for name in ("router", "mixed"):
         ov = routing_pattern(cfg, name)
-        g = eng.generate(prompts[0][None], N, routing_override=ov)
+        with MoeRecorder() as rec:
+            g = eng.generate(prompts[0][None], N, routing_override=ov,
+                             encoder_frames=frames)
         out[name] = dict(tokens=g.tokens, routing=g.routing,
                          logits=g.logits.float().cpu().numpy(),
-                         final=g.final_logits.float().cpu().numpy())
+                         final=g.final_logits.float().cpu().numpy(),
+                         experts=[tuple(t.numpy() for t in c)
+                                  for c in rec.calls], min_gap=(
+                             rec.min_gap() if rec.gaps else float("inf")))
+        if frames is not None:
+            continue  # the slot pool refuses a model with an encoder
         sched = ContinuousScheduler(
             eng, slots_per_bucket=2, chunk=4,
             prefill_chunks_per_tick=PREFILL_CHUNKS_PER_TICK)
@@ -5472,8 +5557,128 @@ def tp_rank(tp, parity_prompts, prompts, drain_prompts):
     parity = tp_parity_runs(dev, params, cfg, parity_prompts, tp)
     del params
     free_card()
-    return parity, tp_full_runs(dev, get_config(ARCH), prompts,
-                                drain_prompts, tp)
+    return parity, tp_full_runs(
+        dev, get_config(ARCH).replace(num_layers=TP_LAYERS), prompts,
+        drain_prompts, tp)
+
+
+def tp_parity_check(arch, one, ranks, drains=True):
+    """Phase 31a's and 32a's comparison of each rank's ``tp_parity_runs``
+    with the one-device runs: routing, tokens, every MoE call's experts
+    and (``drains``) the drains' statuses, tokens, routing and
+    preemptions equal, logits within FP32_TOL of the largest, a
+    preemption in the mixed drain. Returns the report lines."""
+    from repro_torch.launch.serve import routing_letters
+    lines = []
+    for name in ("router", "mixed"):
+        want = one[name]
+        errs = []
+        for r, parity in enumerate(ranks):
+            got = parity[name]
+            assert got["routing"] == want["routing"], (arch, r, name)
+            assert np.array_equal(got["tokens"], want["tokens"]), \
+                (arch, r, name)
+            assert len(got["experts"]) == len(want["experts"]), (arch, r)
+            assert all(np.array_equal(a, b) for g, w in zip(
+                got["experts"], want["experts"]) for a, b in zip(g, w)), \
+                f"{arch} rank {r} {name}: an MoE call chose other experts"
+            errs += [float(np.abs(got[k] - want[k]).max()
+                           / np.abs(want[k]).max()) for k in ("logits",
+                                                              "final")]
+            if drains:
+                d = parity[f"{name} drain"]
+                assert d == one[f"{name} drain"], (arch, r, name)
+                assert all(v[0] == "ok" for v in d.values()), d
+        assert max(errs) < FP32_TOL, (arch, name, errs)
+        line = (f"{name}: routing={routing_letters(want['routing'])} tokens "
+                f"equal on the ranks and one device, logits rel err "
+                f"{max(errs):.2e} (limit {FP32_TOL})")
+        if want["experts"]:
+            line += (f", {len(want['experts'])} MoE calls' experts equal "
+                     f"(min top-k gap {want['min_gap']:.2e})")
+        if drains:
+            preempt = sum(v[3] for v in one[f"{name} drain"].values())
+            if name == "mixed":
+                assert preempt >= 1, f"{arch}: the mixed drain did not " \
+                    f"preempt"
+            line += (f"; drain of 5 on 2 slots: statuses, tokens and "
+                     f"routing equal, preemptions={preempt}")
+        lines.append(line)
+    return lines
+
+
+def tp_reduces(cfg):
+    """A decode step's all-reduces under tensor parallelism: one at each
+    attention or MLA layer and at each cross attention, one at each FFN
+    or MoE, none at a Mamba block."""
+    from repro_torch.models.model import has_ffn
+    return sum((kind != "mamba") * (1 + bool(cfg.num_encoder_layers))
+               + has_ffn(cfg, i) for i, kind in enumerate(cfg.layer_kinds))
+
+
+def tp_full_check(cfg, fulls, B, must_launch):
+    """Phase 31b's and 32b's checks of each rank's ``tp_full_runs`` of
+    ``cfg`` (B prompts of TP_PROMPT tokens): exact launches, the ranks'
+    tokens and routing alike, the drain's statuses, its pool's KV bytes
+    (global = one device's pool; a rank holds 1/TP_WORLD of k / v and
+    the whole of a latent cache), a decode step's all-reduces (2 x
+    layers for these models, ``tp_reduces``) of (B, 1, d_model), each of
+    ``must_launch`` launched. Returns (each rank's launches, report
+    lines)."""
+    from repro_torch.launch.serve import routing_letters, routing_pattern
+    from repro_torch.serve import kv_cache as KC
+    one_pool = KC.kv_cache_bytes(KC.init_decode_caches(
+        cfg, routing_pattern(cfg, "mixed"), TP_SLOTS, TP_PROMPT + TP_GEN,
+        "meta"))
+    shard_pool = one_pool if cfg.use_mla else one_pool // TP_WORLD
+    counts, lines = [], []
+    first = fulls[0]
+    for r, full in enumerate(fulls):
+        for name in ("router", "mixed"):
+            run = full["runs"][name]
+            assert run["launches"] == run["want"], (r, name, run)
+            assert run["routing"] == first["runs"][name]["routing"]
+            assert np.array_equal(run["tokens"],
+                                  first["runs"][name]["tokens"]), (r, name)
+        drain = full["runs"]["drain"]
+        assert drain["launches"] == drain["want"], (r, drain)
+        assert drain["done"] == first["runs"]["drain"]["done"], r
+        assert all(v[0] == "ok" for v in drain["done"].values())
+        assert drain["kv_global"] == one_pool, (drain["kv_global"], one_pool)
+        assert drain["kv_shard"] == shard_pool, (drain["kv_shard"],
+                                                 shard_pool)
+        calls, nbytes, steps = full["collectives"]
+        assert calls == tp_reduces(cfg) * steps, (calls, cfg.num_layers)
+        assert nbytes == calls * B * cfg.d_model * cfg.dtype.itemsize, \
+            nbytes
+        served = full["counts"]
+        for k in must_launch:
+            assert served[k] > 0, f"rank {r}: {k} never launched"
+        counts.append(served)
+        runs = full["runs"]
+        lines.append(
+            f"(b) {TP_LABEL}: rank {r} of {TP_WORLD}, {cfg.name} full width "
+            f"({cfg.num_layers} layers) bf16, params share "
+            f"{full['params_bytes']} bytes (drawn in {full['init_s']:.1f} "
+            f"s), peak_mem_bytes={full['peak_mem_bytes']}; generate "
+            f"{B} x {TP_PROMPT} + {TP_GEN}: " + "; ".join(
+                f"{n} routing={routing_letters(runs[n]['routing'])} "
+                f"prefill_tok_s={runs[n]['prefill_tok_s']:.0f} "
+                f"decode_tok_s={runs[n]['decode_tok_s']:.1f} "
+                f"launches={runs[n]['launches']}" for n in ("router",
+                                                            "mixed"))
+            + f"; drain {TP_REQUESTS} on {TP_SLOTS} slots: tok_s="
+            f"{drain['tok_s']:.1f} wall_s={drain['wall_s']:.3f} "
+            f"launches={drain['launches']} kv_shard_bytes="
+            f"{drain['kv_shard']} kv_global_bytes={drain['kv_global']} "
+            f"(one device {one_pool}); decode step all-reduces "
+            f"{calls // steps} of {nbytes // calls} bytes")
+    return counts, lines
+
+
+SERVING_KERNELS = ("flash_attention", "streaming_attention",
+                   "block_sparse_attention", "decode_attention",
+                   "decode_attention_pooled")
 
 
 def tp_phase(dev):
@@ -5481,9 +5686,7 @@ def tp_phase(dev):
     one-device port. Returns (each rank's launches, report lines)."""
     from repro_torch.configs import get_config
     from repro_torch.distributed.group import launch
-    from repro_torch.launch.serve import routing_letters, routing_pattern
     from repro_torch.models import model as MD
-    from repro_torch.serve import kv_cache as KC
     from repro_torch.serve.engine import ServeEngine
     cfg2 = get_config(ARCH).replace(num_layers=2, dtype=torch.float32,
                                     param_dtype=torch.float32)
@@ -5495,7 +5698,7 @@ def tp_phase(dev):
     one = tp_parity_runs(dev, params, cfg2, parity_prompts)
     del probe, params
     free_card()
-    cfg = get_config(ARCH)
+    cfg = get_config(ARCH).replace(num_layers=TP_LAYERS)
     rng = np.random.default_rng(31)
     prompts = rng.integers(0, cfg.vocab_size, (2, TP_PROMPT))
     drain_prompts = [rng.integers(0, cfg.vocab_size, n)
@@ -5507,72 +5710,144 @@ def tp_phase(dev):
     wall = time.perf_counter() - t0
     lines = [f"(a) {ARCH} 2 layers fp32, prompt_seed={seed} "
              f"min_margin={margin:.2e}"]
-    for name in ("router", "mixed"):
-        for r, (parity, _) in enumerate(ranks):
-            got, want = parity[name], one[name]
-            assert got["routing"] == want["routing"], (r, name)
-            assert np.array_equal(got["tokens"], want["tokens"]), (r, name)
-            errs = [float(np.abs(got[k] - want[k]).max()
-                          / np.abs(want[k]).max()) for k in ("logits",
-                                                             "final")]
-            assert max(errs) < FP32_TOL, (r, name, errs)
-            d = parity[f"{name} drain"]
-            assert d == one[f"{name} drain"], (r, name)
-            assert all(v[0] == "ok" for v in d.values()), d
-        preempt = sum(v[3] for v in one[f"{name} drain"].values())
-        if name == "mixed":
-            assert preempt >= 1, "the mixed drain did not preempt"
-        lines.append(
-            f"(a) {name}: routing={routing_letters(want['routing'])} "
-            f"tokens equal on both ranks and one device, logits rel err "
-            f"{max(errs):.2e} (limit {FP32_TOL}); drain of 5 on 2 slots: "
-            f"statuses, tokens and routing equal, preemptions={preempt}")
-    max_len = TP_PROMPT + TP_GEN
-    mixed = routing_pattern(cfg, "mixed")
-    one_pool = KC.kv_cache_bytes(KC.init_decode_caches(
-        cfg, mixed, TP_SLOTS, max_len, "meta"))
+    lines += ["(a) " + line for line in tp_parity_check(
+        ARCH, one, [parity for parity, _ in ranks])]
+    served, full_lines = tp_full_check(cfg, [full for _, full in ranks],
+                                       prompts.shape[0], SERVING_KERNELS)
+    counts = {f"tp{TP_WORLD}_rank{r}": c for r, c in enumerate(served)}
+    lines += full_lines
+    lines.append(f"{TP_LABEL}: launch of {TP_WORLD} ranks {wall:.1f} s; "
+                 f"these rates say nothing of TP speed over several cards")
+    return counts, lines
+
+
+def tp_arch_configs():
+    """Phase 32a's models, fp32: granite-moe at full width and 2 layers,
+    deepseek narrowed as in phase 17 (the latent decode is built only at
+    deepseek's (R, rope) = (512, 64)), mamba2 at 2 layers, jamba's smoke
+    variant (one period, as phase 25) and whisper at 2 encoder + 2
+    decoder layers (as phase 21)."""
+    from repro_torch.configs import get_config, smoke_variant
+    fp32 = dict(dtype=torch.float32, param_dtype=torch.float32)
+    return {
+        GRANITE: get_config(GRANITE).replace(num_layers=2, **fp32),
+        DEEPSEEK: get_config(DEEPSEEK).replace(**DEEPSEEK_NARROW, **fp32),
+        MAMBA2: get_config(MAMBA2).replace(num_layers=2, **fp32),
+        JAMBA: smoke_variant(get_config(JAMBA)),
+        WHISPER: get_config(WHISPER).replace(num_layers=2,
+                                             num_encoder_layers=2, **fp32)}
+
+
+def tp_arch_seed(dev, params, cfg, lens):
+    """Phase 32a's prompts for ``cfg`` and their one-device runs: the
+    first seed whose router margins on the card exceed 1e-3 and whose
+    generate runs keep every MoE top-k gate gap above MOE_GAP (a closer
+    pair could choose another expert once the ranks sum in another
+    order). Returns (seed, prompts, frames, router margin, gap,
+    one-device results)."""
+    from repro_torch.models import model as MD
+    routed = bool(cfg.flux.enabled and cfg.routable_layers())
+    for seed in range(MOE_SEEDS):
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+        frames = (side_inputs(cfg, 1, seed)["encoder_frames"]
+                  if cfg.num_encoder_layers else None)
+        side = ({} if frames is None else
+                dict(encoder_frames=torch.as_tensor(frames, device=dev)))
+        margin = float("inf")
+        if routed:
+            margin = min(float(np.abs(MD.prefill(
+                params, cfg, torch.as_tensor(t[None, :CHUNK], device=dev),
+                routing_ctx="hard_prefix", want_cache=False,
+                **side).p_fa.numpy() - 0.5).min()) for t in prompts)
+            if margin <= 1e-3:
+                continue
+        one = tp_parity_runs(dev, params, cfg, prompts, frames=frames)
+        gap = min(one[n]["min_gap"] for n in ("router", "mixed"))
+        if gap > MOE_GAP:
+            return seed, prompts, frames, margin, gap, one
+    raise AssertionError(f"{cfg.name}: no prompt seed with router margins "
+                         f"> 1e-3 and top-k gaps > {MOE_GAP}")
+
+
+def tp_arch_rank(tp, parity, prompts, drain_prompts):
+    """Phase 32 on one rank (a spawned process): (a) each of
+    ``tp_arch_configs``' models drawn as the rank's share and run as on
+    one device, then (b) deepseek at full width. Returns ((a)'s results
+    by arch, its launches, (b)'s results)."""
+    import repro_torch.kernels as KN
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import init_params_tp
+    dev = tp.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    KN.reset_launch_counts()
+    out = {}
+    for arch, cfg in tp_arch_configs().items():
+        params = init_params_tp(cfg, torch.Generator(
+            device=dev).manual_seed(0), tp.rank, tp.world, dev)
+        toks, frames = parity[arch]
+        out[arch] = tp_parity_runs(dev, params, cfg, toks, tp, frames)
+        del params
+        free_card()
+    counts = KN.launch_counts()
+    return out, counts, tp_full_runs(
+        dev, get_config(DEEPSEEK).replace(num_layers=DEEPSEEK_LAYERS),
+        prompts, drain_prompts, tp)
+
+
+def tp_arch_phase(dev):
+    """Phase 32: TP_WORLD ranks on the one card over gloo, spawned once:
+    (a) the MoE, MLA, Mamba and encoder archs of ``tp_arch_configs`` in
+    fp32 against the one-device port on the same weights; (b)
+    deepseek-v2-236b at full width, DEEPSEEK_LAYERS layers, bf16.
+    Returns (each rank's launches, report lines)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.group import launch
+    from repro_torch.models import model as MD
+    parity, ones, lines = {}, {}, []
+    for arch, cfg in tp_arch_configs().items():
+        t0 = time.perf_counter()
+        params = MD.init_params(cfg, torch.Generator(
+            device=dev).manual_seed(0), dev)
+        lens = (TP_WHISPER_LEN,) if cfg.num_encoder_layers else TP_ARCH_LENS
+        seed, prompts, frames, margin, gap, ones[arch] = tp_arch_seed(
+            dev, params, cfg, lens)
+        parity[arch] = (prompts, frames)
+        enc = cfg.num_encoder_layers
+        lines.append(f"(a) {arch} ({cfg.num_layers} layers"
+                     f"{f' + {enc} encoder' if enc else ''}"
+                     f", d_model {cfg.d_model}, {cfg.num_heads} heads over "
+                     f"{cfg.num_kv_heads}, fp32) one device: prompt_seed="
+                     f"{seed} router_min_margin={margin:.2e} "
+                     f"min_topk_gap={gap:.2e} "
+                     f"[{time.perf_counter() - t0:.1f} s]")
+        del params
+        free_card()
+    cfg = get_config(DEEPSEEK).replace(num_layers=DEEPSEEK_LAYERS)
+    rng = np.random.default_rng(32)
+    prompts = rng.integers(0, cfg.vocab_size, (2, TP_PROMPT))
+    drain_prompts = [rng.integers(0, cfg.vocab_size, n)
+                     for n in TP_DRAIN_LENS]
+    t0 = time.perf_counter()
+    ranks = launch(tp_arch_rank, TP_WORLD, "gloo",
+                   args=(parity, prompts, drain_prompts), device=dev.type)
+    wall = time.perf_counter() - t0
+    for arch, cfg_a in tp_arch_configs().items():
+        lines += [f"(a) {arch}: {line}" for line in tp_parity_check(
+            arch, ones[arch], [a[arch] for a, _, _ in ranks],
+            drains=not cfg_a.num_encoder_layers)]
     counts = {}
-    first = ranks[0][1]
-    for r, (_, full) in enumerate(ranks):
-        for name in ("router", "mixed"):
-            run = full["runs"][name]
-            assert run["launches"] == run["want"], (r, name, run)
-            assert run["routing"] == first["runs"][name]["routing"]
-            assert np.array_equal(run["tokens"],
-                                  first["runs"][name]["tokens"]), (r, name)
-        drain = full["runs"]["drain"]
-        assert drain["launches"] == drain["want"], (r, drain)
-        assert drain["done"] == first["runs"]["drain"]["done"], r
-        assert all(v[0] == "ok" for v in drain["done"].values())
-        assert drain["kv_shard"] * TP_WORLD == one_pool == drain["kv_global"]
-        calls, nbytes, steps = full["collectives"]
-        L, B = cfg.num_layers, prompts.shape[0]
-        assert calls == 2 * L * steps, (calls, L)
-        assert nbytes == (2 * L * steps * B * cfg.d_model
-                          * cfg.dtype.itemsize), nbytes
-        served = full["counts"]
-        for k in ("flash_attention", "streaming_attention",
-                  "block_sparse_attention", "decode_attention",
-                  "decode_attention_pooled"):
-            assert served[k] > 0, f"rank {r}: {k} never launched"
-        counts[f"tp{TP_WORLD}_rank{r}"] = served
-        runs = full["runs"]
-        lines.append(
-            f"(b) {TP_LABEL}: rank {r} of {TP_WORLD}, {ARCH} full width and "
-            f"depth bf16, params share {full['params_bytes']} bytes (drawn "
-            f"in {full['init_s']:.1f} s), peak_mem_bytes="
-            f"{full['peak_mem_bytes']}; generate 2 x {TP_PROMPT} + "
-            f"{TP_GEN}: " + "; ".join(
-                f"{n} routing={routing_letters(runs[n]['routing'])} "
-                f"prefill_tok_s={runs[n]['prefill_tok_s']:.0f} "
-                f"decode_tok_s={runs[n]['decode_tok_s']:.1f} "
-                f"launches={runs[n]['launches']}" for n in ("router",
-                                                            "mixed"))
-            + f"; drain {TP_REQUESTS} on {TP_SLOTS} slots: tok_s="
-            f"{drain['tok_s']:.1f} wall_s={drain['wall_s']:.3f} "
-            f"launches={drain['launches']} kv_shard_bytes="
-            f"{drain['kv_shard']} (one device {one_pool}); decode step "
-            f"all-reduces {calls // steps} of {nbytes // calls} bytes")
+    for r, (_, served, _) in enumerate(ranks):
+        for k in SERVING_KERNELS + ("decode_attention_mla",):
+            assert served[k] > 0, f"(a) rank {r}: {k} never launched"
+        counts[f"tp{TP_WORLD}_archs_rank{r}"] = served
+    served, full_lines = tp_full_check(
+        cfg, [full for _, _, full in ranks], prompts.shape[0],
+        ("flash_attention", "streaming_attention", "decode_attention_mla"))
+    counts.update({f"tp{TP_WORLD}_deepseek_rank{r}": c
+                   for r, c in enumerate(served)})
+    lines += full_lines
     lines.append(f"{TP_LABEL}: launch of {TP_WORLD} ranks {wall:.1f} s; "
                  f"these rates say nothing of TP speed over several cards")
     return counts, lines
@@ -5719,9 +5994,8 @@ def main(argv=None) -> int:
     free_card()
 
     # phi3-mini's seeded weights again (phases 6-8 dropped them for
-    # stablelm's and command-r's): the same generator seed, the same
-    # weights
-    cfg = get_config(ARCH)
+    # stablelm's and command-r's), GUARD_LAYERS of them
+    cfg = get_config(ARCH).replace(num_layers=GUARD_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
@@ -5924,6 +6198,15 @@ def main(argv=None) -> int:
     say(31, f"tensor-parallel serving, {TP_LABEL}, done", t0)
     free_card()
 
+    t0 = time.perf_counter()
+    tp_counts, lines = tp_arch_phase(dev)
+    counts.update(tp_counts)
+    for line in lines:
+        say(32, line)
+    say(32, f"tensor-parallel MoE, MLA, Mamba and encoder archs, "
+            f"{TP_LABEL}, done", t0)
+    free_card()
+
     # phase 29's card side runs here, and its CPU side (minutes of CPU
     # work, no kernel launched) in a thread beside phases 28, 30 and 2b,
     # which keep the card busy and the host's cores mostly free
@@ -6008,6 +6291,11 @@ def main(argv=None) -> int:
                 **{**mla["pool"], "max_abs_err": errs[DEEPSEEK][name]},
                 ring={**mla["ring"],
                       "max_abs_err": errs[DEEPSEEK][f"{name}_ring"]},
+                # a tensor-parallel rank's heads (phase 32: 64 at TP 2)
+                tp_heads={f"h{H}": {
+                    **mla[f"pool_h{H}"],
+                    "max_abs_err": errs[DEEPSEEK][f"{name}_h{H}"]}
+                    for H in MLA_TP_HEADS},
                 long_context=mla["long_context"],
                 high_batch=mla["high_batch"], stress=stress_counts))
             continue

@@ -6,8 +6,12 @@ B, Hkv / world, S, D) hold the KV heads of its query heads, so each
 rank's attention over its cache is complete for its heads and the cache
 never moves; the only per-step collectives are the reduce points'
 activation sums (``distributed/sharding.py``). Every other buffer is
-replicated, the same on every rank: ``positions``, ``length``, a slot
-pool's ``logits`` and ``pos``, which the scheduler reads on the host.
+replicated, the same on every rank: MLA's ``LatentKV`` / ``RingLatentKV``
+(``ckv`` has no head axis; its R is the score product's contraction, so
+sharding it would sum cache-sized scores every step), Mamba's
+``MambaCache`` (its blocks are replicated), ``positions``, ``length``, a
+slot pool's ``logits`` and ``pos``, which the scheduler reads on the
+host.
 A slot pool (``serve/slots.py`` ``SlotPool.create``) and a request's
 caches (``serve/kv_cache.py`` ``init_decode_caches`` under
 ``sharding.tp_config``) are built in the local shape.

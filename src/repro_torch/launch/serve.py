@@ -93,7 +93,9 @@ ranks (``distributed/group.py`` ``launch``, one process a rank) over
 the seeded weights layer by layer and keeps its share
 (``init_params_tp``); on the card rank 0 builds the kernels before the
 others load them. Only rank 0 prints and writes files; a rank that fails
-fails the run. MoE, MLA, Mamba and encoder archs refuse (item 16c).
+fails the run. Every arch the one-device path serves serves here; a GQA
+model whose KV heads do not divide by N (KV replication), a duo override
+and ``--fidelity-probe-every`` refuse (item 16c).
 """
 from __future__ import annotations
 

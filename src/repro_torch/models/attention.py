@@ -125,9 +125,14 @@ def mla_expand_kv(params, cfg: ModelConfig, ckv: torch.Tensor,
 
 
 def mla_out(params, cfg: ModelConfig, attn: torch.Tensor) -> torch.Tensor:
-    """attn (B,H,S,v) → (B,S,d)."""
+    """attn (B,H,S,v) → (B,S,d). Under tensor parallelism ``wo`` holds
+    the rows of the rank's heads, and the partial products sum over the
+    ranks here (a reduce point, ``distributed/sharding.py``): the route
+    chunk, a streamed chunk's absorbed attention and the latent decode
+    all end in it."""
     B, H, S, dv = attn.shape
-    return attn.transpose(1, 2).reshape(B, S, H * dv) @ params["wo"]
+    return tp_reduce(attn.transpose(1, 2).reshape(B, S, H * dv)
+                     @ params["wo"])
 
 
 def _w_uk_uv(params, cfg: ModelConfig):

@@ -87,10 +87,18 @@ def ffn_init(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
+def ffn_partial(params: Dict[str, torch.Tensor],
+                x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU without its reduce: under tensor parallelism the rank holds
+    a slice of the FFN width, and this is its partial product, which
+    ``ffn_apply`` (or an MoE layer's ``moe_ffn``, once with its routed
+    experts) sums over the ranks."""
+    h = F.silu(x @ params["gate"]) * (x @ params["up"])
+    return h @ params["down"]
+
+
 def ffn_apply(params: Dict[str, torch.Tensor],
               x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU. Under tensor parallelism the rank holds a slice of the FFN
-    width, and ``down``'s partial products sum over the ranks here (a
-    reduce point, ``distributed/sharding.py``)."""
-    h = F.silu(x @ params["gate"]) * (x @ params["up"])
-    return tp_reduce(h @ params["down"])
+    """SwiGLU, its partial products summed over the ranks here (a reduce
+    point, ``distributed/sharding.py``)."""
+    return tp_reduce(ffn_partial(params, x))

@@ -80,6 +80,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import modes as M
 from repro_torch.core import router as R
+from repro_torch.distributed.sharding import tp_reduce
 from repro_torch.kernels.decode_attention import decode_attention_bh
 from repro_torch.kernels.decode_attention_mla import decode_attention_mla_bh
 from repro_torch.kernels.decode_attention_pooled import \
@@ -188,9 +189,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     """Random weights at the JAX package's init scales, drawn from
     ``gen`` on the generator's device and placed on ``device`` (default
     cuda). The same generator seed gives the same weights. ``block_map``
-    maps each layer's dictionary as soon as it is drawn, before the next
-    one is (a tensor-parallel rank keeps its share only:
-    ``distributed.sharding.init_params_tp``)."""
+    maps each decoder and encoder layer's dictionary as soon as it is
+    drawn, before the next one is (a tensor-parallel rank keeps its
+    share only: ``distributed.sharding.init_params_tp``)."""
     device = resolve_device(device)
     check_supported(cfg)
     keep = block_map or (lambda bp: bp)
@@ -207,7 +208,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
                                      cfg.param_dtype)
     if cfg.num_encoder_layers:
         params["encoder"] = {
-            "layers": [_enc_block_init(gen, cfg)
+            "layers": [keep(_enc_block_init(gen, cfg))
                        for _ in range(cfg.num_encoder_layers)],
             "final_norm": rms_norm_init(cfg.d_model, cfg.param_dtype,
                                         gen.device),
@@ -259,14 +260,16 @@ def _cross_attention(p, cfg: ModelConfig, h: torch.Tensor,
     every key is visible (the softmax of ``M.attention(..,
     BIDIRECTIONAL)`` at Sq = 1; a flash call would fill 1 row of a 64-row
     tile). The keys and values are recomputed from ``enc_out`` at every
-    call, as the JAX package recomputes them."""
+    call, as the JAX package recomputes them. Under tensor parallelism a
+    rank attends with its heads and the ``wo`` partials sum over the
+    ranks here (a reduce point, ``distributed/sharding.py``)."""
     k, v = _cross_kv(p, cfg, enc_out)
     q = _heads(h @ p["wq"], cfg)
     if enc_positions is None:
         o = M.attention(q, k, v, M.BIDIRECTIONAL)
     else:
         o = _dot_decode(q, k, v, enc_positions, enc_out.shape[1] - 1)
-    return _merge_heads(o) @ p["wo"]
+    return tp_reduce(_merge_heads(o) @ p["wo"])
 
 
 def _cross_residual(bp, cfg: ModelConfig, h: torch.Tensor, enc_out,
@@ -387,7 +390,10 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     d), cast to ``cfg.dtype``: per layer RMSNorm, q / k / v without RoPE,
     attention over every frame (the flash kernel with ``causal=False``),
     the output projection, RMSNorm and SwiGLU; then the encoder's final
-    norm. Returns enc_out (B, E, d)."""
+    norm. Returns enc_out (B, E, d). Under tensor parallelism a rank
+    encodes with its heads and its slice of the FFN width, and each
+    layer reduces after ``wo`` and after its FFN, so every rank holds the
+    whole enc_out."""
     enc = params["encoder"]
     h = frames.to(cfg.dtype)
     for bp in enc["layers"]:
@@ -395,7 +401,7 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
         p = bp["attn"]
         o = M.attention(_heads(x @ p["wq"], cfg), _heads(x @ p["wk"], cfg),
                         _heads(x @ p["wv"], cfg), M.BIDIRECTIONAL)
-        h = h + _merge_heads(o) @ p["wo"]
+        h = h + tp_reduce(_merge_heads(o) @ p["wo"])
         x2 = rms_norm(bp["norm2"], h, cfg.norm_eps)
         h = h + ffn_apply(bp["ffn"], x2)
     return rms_norm(enc["final_norm"], h, cfg.norm_eps)

@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init, ffn_apply, ffn_init
+from repro_torch.distributed.sharding import tp_reduce
+from repro_torch.models.layers import dense_init, ffn_init, ffn_partial
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig) -> Dict:
@@ -119,6 +120,12 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor,
     """x (B, S, D) → (y (B, S, D) in x's dtype, its ``Dispatch``): the
     routed experts' weighted sum plus the shared experts.
 
+    Under tensor parallelism each rank holds a slice of every expert's
+    FFN width (and of the shared experts'): the dispatch, computed from
+    the replicated x, is the same on every rank, the rank's routed sum
+    and shared product are partial, and their sum is reduced over the
+    ranks once, here (``distributed/sharding.py``).
+
     The JAX package's (B, E, C, D) expert buffer is kept here as
     (E, B·C, D), slot (b, e, c) at row b·C + c of expert e, so the
     expert products are ``bmm`` over E with no transposed copy; every
@@ -150,8 +157,8 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor,
     y = (gathered.view(B, S * K, D) * w_flat[..., None].to(x.dtype)
          ).view(B, S, K, D).sum(dim=2)
     if "shared" in params:
-        y = y + ffn_apply(params["shared"], x)
-    return y, d
+        y = y + ffn_partial(params["shared"], x)
+    return tp_reduce(y), d
 
 
 def moe_aux(cfg: ModelConfig, d: Dispatch) -> Dict[str, torch.Tensor]:

@@ -55,10 +55,13 @@ memory ledger and routing-fidelity probes (``profiler_report``,
 kernels and device reads it runs without them.
 
 Tensor parallelism (``tp``, a ``distributed.group.TPGroup``; JAX's
-``mesh=``): one engine a rank, each holding 1/N of the heads, KV heads
-and FFN width (``distributed/sharding.py``; ``self.cfg`` stays the
-whole model's config, ``self.model_cfg`` is the rank's share) and slot
-pools whose k / v hold its KV heads (``distributed/pool_sharding.py``).
+``mesh=``): one engine a rank, each holding 1/N of the heads, KV heads,
+FFN width and expert FFN width (``distributed/sharding.py``; ``self.cfg``
+stays the whole model's config, ``self.model_cfg`` is the rank's share)
+and slot pools whose k / v hold its KV heads, with MLA's latent caches
+and Mamba's states whole on every rank (``distributed/
+pool_sharding.py``). An encoder runs under the group too: each rank
+encodes with its heads.
 Every model call runs under ``tensor_parallel(tp)``, so the reduce
 points sum over the ranks; every rank runs the same host code on the
 same submissions, the scheduler's clock is rank 0's, and each tick ends
@@ -1221,7 +1224,8 @@ class ServeEngine:
         dispatches = 0
         enc_out = None
         if self._encode is not None:
-            enc_out = self._encode(encoder_frames)
+            with SH.tensor_parallel(self.tp):  # each rank its heads
+                enc_out = self._encode(encoder_frames)
             dispatches += 1
             self._sync()
         t0 = time.perf_counter()

@@ -510,27 +510,27 @@ def test_digest_check_raises_on_a_different_submission(ranks):
 # The weight layout (no process group)
 # ---------------------------------------------------------------------------
 
-def _unshard(shards, cfg):
-    """The concatenation ``shard_params_tp`` undoes: columns and rows
-    back in rank order, ``enc_w``'s two halves each."""
-    def join(name, parts):
+def _unshard(shards):
+    """The concatenation ``shard_params_tp`` undoes: each sharded leaf's
+    pieces in rank order along its ``shard_axis``, ``enc_w``'s two
+    halves each; a replicated leaf is the one tensor every share holds."""
+    def join(parent, name, parts):
         t = parts[0]
+        if isinstance(t, dict):
+            return {k: join(name, k, [p[k] for p in parts]) for k in t}
         if not isinstance(t, torch.Tensor):
-            if isinstance(t, dict):
-                return {k: join(k, [p[k] for p in parts]) for k in t}
-            return [join(name, [p[i] for p in parts])
+            return [join(parent, name, [p[i] for p in parts])
                     for i in range(len(t))]
-        if name in SH.COLUMN_PARALLEL_NAMES:
-            return torch.cat(parts, dim=-1)
-        if name in SH.ROW_PARALLEL_NAMES:
-            return torch.cat(parts, dim=0)
+        axis = SH.shard_axis(parent, name)
+        if axis is None:
+            assert all(p is t for p in parts), name  # shared
+            return t
         if name in SH.ROUTER_ROW_NAMES:
             half = t.shape[0] // 2
             return torch.cat([p[:half] for p in parts]
                              + [p[half:] for p in parts])
-        assert all(p is t for p in parts), name  # replicated: shared
-        return t
-    return join("", shards)
+        return torch.cat(parts, dim=axis)
+    return join("", "", shards)
 
 
 def _leaves(tree, path=""):
@@ -555,7 +555,7 @@ def test_shard_then_concat_gives_params_back_bitwise(name, world):
     assert wq.shape == (cfg.d_model, lcfg.q_dim) and wq.is_contiguous()
     assert SH.params_are_local(shards[1], cfg, world)
     assert not SH.params_are_local(params, cfg, world)
-    back = dict(_leaves(_unshard(shards, cfg)))
+    back = dict(_leaves(_unshard(shards)))
     for path, t in _leaves(params):
         assert torch.equal(back[path], t), path
     assert SH.global_param_bytes(shards[0], world) == sum(
@@ -597,11 +597,6 @@ def _group(world):
 
 
 REFUSALS = {
-    "moe": ("granite-moe-3b-a800m", 2, {}),
-    "mla": ("deepseek-v2-236b", 2, {}),
-    "mamba": ("mamba2-780m", 2, {}),
-    "jamba": ("jamba-1.5-large-398b", 2, {}),
-    "encoder": ("whisper-tiny", 2, {}),
     "kv-replication": ("command-r-plus-104b", 4, {}),
     "duo": ("phi3-mini-3.8b", 2,
             dict(routing_override=("fa", ("duo", 1)))),

@@ -19,7 +19,17 @@ then:
   3. command-r-plus-104b at full width and depth (64 layers, 208 GB of
      bf16 weights, which no one card holds) on N ranks, the same load:
      finite logits, exact launches, a decode step's all-reduces 2 x
-     layers of (B, 1, d_model), per-rank peak memory and tok/s.
+     layers of (B, 1, d_model), per-rank peak memory and tok/s;
+  4. deepseek-v2-236b (MLA, 160 experts) at full width, DEEPSEEK_LAYERS
+     layers, as step 2: on card 0 alone and on N ranks (128 / N heads a
+     rank in the latent decode, which reads the whole latent cache that
+     every rank holds), the first decode step where the tokens part;
+  5. one full-width period of jamba-1.5-large-398b (8 layers: 7 Mamba
+     blocks, replicated, and one attention layer; MoE on the even layers;
+     90.3 GB of bf16 weights, which no one card holds) on N ranks, as
+     step 3: finite logits, exact launches, the reduce count by layer
+     (``chip_smoke.tp_reduces``: 9 a step), per-rank weight bytes, peak
+     memory and tok/s.
 Prints each card's name and power limit, one line a step, and one JSON
 line of the numbers; exits non-zero on any failure, in any rank.
 """
@@ -34,9 +44,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 TP_LONG, TP_LONG_GEN = 4096, 32
-SERVING_KERNELS = ("flash_attention", "streaming_attention",
-                   "block_sparse_attention", "decode_attention",
-                   "decode_attention_pooled")
 
 
 def parity_rank(tp, prompts):
@@ -97,20 +104,91 @@ def serve_long(dev, cfg, prompts, tp=None):
             MD.decode_many(eng.params, eng.model_cfg, job.logits,
                            job.caches, TP_LONG, n_steps=4)
         calls, nbytes = tp.reduce_calls, tp.reduce_bytes
-        assert calls == 2 * cfg.num_layers * 4, calls
+        assert calls == CS.tp_reduces(cfg) * 4, calls
         assert nbytes == calls * B * cfg.d_model * cfg.dtype.itemsize
         out["step_all_reduces"] = (calls // 4, nbytes // calls)
     return out
 
 
-def long_rank(tp, prompts, layers):
-    """Steps 2 (``layers`` > 0) and 3 (the whole depth) on one rank."""
-    import chip_smoke as CS
+def long_rank(tp, prompts, arch, layers):
+    """Steps 2-5 on one rank: ``arch`` at ``layers`` layers (0: its
+    whole depth)."""
     from repro_torch.configs import get_config
-    cfg = get_config(CS.COMMAND_R)
+    cfg = get_config(arch)
     if layers:
         cfg = cfg.replace(num_layers=layers)
     return serve_long(tp.device, cfg, prompts, tp)
+
+
+def one_and_ranks(dev, world, arch, layers, prompts):
+    """Steps 2 and 4: ``arch`` at ``layers`` layers on card 0 alone, then
+    on ``world`` ranks over nccl. Returns (report entry, one card's
+    results, rank 0's)."""
+    import chip_smoke as CS
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.group import launch
+    alone = serve_long(dev, get_config(arch).replace(num_layers=layers),
+                       prompts)
+    CS.free_card()
+    cut = launch(long_rank, world, "nccl", args=(prompts, arch, layers),
+                 device="cuda")
+    for r in cut:
+        assert np.array_equal(r["tokens"], cut[0]["tokens"])
+    diff = np.flatnonzero((alone["tokens"] != cut[0]["tokens"]).any(0))
+    return dict(
+        layers=layers, one_card={
+            k: v for k, v in alone.items() if k != "tokens"},
+        ranks=[{k: v for k, v in r.items() if k != "tokens"} for r in cut],
+        first_token_step_apart=int(diff[0]) if diff.size else None), \
+        alone, cut[0]
+
+
+def long_steps(dev, world, report):
+    """Steps 2-5 into ``report``: each model on ``world`` ranks over
+    nccl (steps 2 and 4 first on card 0 alone), 2 x TP_LONG tokens of
+    seeded prompts (step 2's and 3's alike), mixed routing."""
+    import chip_smoke as CS
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.group import launch
+    for step, arch, layers, key in (
+            (2, CS.COMMAND_R, CS.COMMAND_R_LAYERS, "command_r_cut"),
+            (3, CS.COMMAND_R, 0, "command_r_full"),
+            (4, CS.DEEPSEEK, CS.DEEPSEEK_LAYERS, "deepseek_cut"),
+            (5, CS.JAMBA, len(get_config(CS.JAMBA).layer_pattern),
+             "jamba_period")):
+        t0 = time.perf_counter()
+        seed = 12 if arch == CS.COMMAND_R else 12 + step
+        prompts = np.random.default_rng(seed).integers(
+            0, get_config(arch).vocab_size, (2, TP_LONG))
+        if step in (2, 4):
+            report[key], alone, cut = one_and_ranks(dev, world, arch,
+                                                    layers, prompts)
+            print(f"step {step}: {arch} {layers} layers bf16, 2 x "
+                  f"{TP_LONG} + {TP_LONG_GEN}: one card prefill "
+                  f"{alone['prefill_tok_s']:.0f} tok/s decode "
+                  f"{alone['decode_tok_s']:.1f} tok/s; {world} ranks "
+                  f"prefill {cut['prefill_tok_s']:.0f} decode "
+                  f"{cut['decode_tok_s']:.1f} (launches a rank "
+                  f"{cut['launches']}); tokens apart from step "
+                  f"{report[key]['first_token_step_apart']} "
+                  f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+            continue
+        full = launch(long_rank, world, "nccl", args=(prompts, arch, layers),
+                      device="cuda")
+        for r in full:
+            assert np.array_equal(r["tokens"], full[0]["tokens"])
+        report[key] = [{k: v for k, v in r.items() if k != "tokens"}
+                       for r in full]
+        print(f"step {step}: {arch} {layers or 'full depth'} layers bf16 "
+              f"on {world} ranks: "
+              + "; ".join(f"rank {i} weights {r['weights_bytes']} bytes "
+                          f"peak {r['peak_mem_bytes']} prefill "
+                          f"{r['prefill_tok_s']:.0f} tok/s decode "
+                          f"{r['decode_tok_s']:.1f} tok/s"
+                          for i, r in enumerate(full))
+              + f"; launches a rank {full[0]['launches']}; a decode "
+              f"step's all-reduces {full[0]['step_all_reduces']} "
+              f"[{time.perf_counter() - t0:.1f} s]", flush=True)
 
 
 def main(argv=None) -> int:
@@ -134,7 +212,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    print(f"built {_build.build(SERVING_KERNELS)}", flush=True)
+    print(f"built {_build.build(CS.SERVING_KERNELS)}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     report = {"world": world, "cards": smi.splitlines()}
@@ -170,47 +248,7 @@ def main(argv=None) -> int:
           f"routing and statuses equal, logits rel err {max(errs):.2e} "
           f"[{time.perf_counter() - t0:.1f} s]", flush=True)
 
-    rng = np.random.default_rng(12)
-    cfg = get_config(CS.COMMAND_R)
-    long_prompts = rng.integers(0, cfg.vocab_size, (2, TP_LONG))
-    t0 = time.perf_counter()
-    alone = serve_long(dev, cfg.replace(num_layers=CS.COMMAND_R_LAYERS),
-                       long_prompts)
-    CS.free_card()
-    cut = launch(long_rank, world, "nccl",
-                 args=(long_prompts, CS.COMMAND_R_LAYERS), device="cuda")
-    for r in cut:
-        assert np.array_equal(r["tokens"], cut[0]["tokens"])
-    diff = np.flatnonzero((alone["tokens"] != cut[0]["tokens"]).any(0))
-    report["command_r_cut"] = dict(
-        layers=CS.COMMAND_R_LAYERS, one_card={
-            k: v for k, v in alone.items() if k != "tokens"},
-        ranks=[{k: v for k, v in r.items() if k != "tokens"} for r in cut],
-        first_token_step_apart=int(diff[0]) if diff.size else None)
-    print(f"step 2: {CS.COMMAND_R} {CS.COMMAND_R_LAYERS} layers bf16, 2 x "
-          f"{TP_LONG} + {TP_LONG_GEN}: one card prefill "
-          f"{alone['prefill_tok_s']:.0f} tok/s decode "
-          f"{alone['decode_tok_s']:.1f} tok/s; {world} ranks prefill "
-          f"{cut[0]['prefill_tok_s']:.0f} decode "
-          f"{cut[0]['decode_tok_s']:.1f}; tokens apart from step "
-          f"{report['command_r_cut']['first_token_step_apart']} "
-          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
-
-    t0 = time.perf_counter()
-    full = launch(long_rank, world, "nccl", args=(long_prompts, 0),
-                  device="cuda")
-    for r in full:
-        assert np.array_equal(r["tokens"], full[0]["tokens"])
-    report["command_r_full"] = [{k: v for k, v in r.items()
-                                 if k != "tokens"} for r in full]
-    print(f"step 3: {CS.COMMAND_R} full depth bf16 on {world} ranks: "
-          + "; ".join(f"rank {i} weights {r['weights_bytes']} bytes peak "
-                      f"{r['peak_mem_bytes']} prefill "
-                      f"{r['prefill_tok_s']:.0f} tok/s decode "
-                      f"{r['decode_tok_s']:.1f} tok/s"
-                      for i, r in enumerate(full))
-          + f"; a decode step's all-reduces {full[0]['step_all_reduces']} "
-          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+    long_steps(dev, world, report)
     print(json.dumps(report, default=str), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     return 0
