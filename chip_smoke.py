@@ -19,8 +19,8 @@ falls back to the CPU):
      CUDA cores and the bf16 one on the tensor cores (its registers,
      spills, shared memory and SASS HGMMA / UTMALDG counts, which must be
      > 0);
-  2b. the stress phase (run after phase 30, beside phase 29's CPU side,
-     which the script would otherwise wait for): every bf16 wgmma instance
+  2b. the stress phase (run after phase 30, beside the parity worker):
+     every bf16 wgmma instance
      the main paths run (flash, streaming and block-sparse at D = 64, 96
      and 160 at granite's, phi3-mini's and stablelm's main shapes, flash
      and streaming at (192, 128), the latent decode over POOL_LENS and
@@ -85,7 +85,8 @@ falls back to the CPU):
      (POOL_LENS cycled); then the five kernels again at stablelm-12b's
      main shapes (D = 160, G = 4: 128 query rows over 32 KV rows);
   5. phi3-mini at full width, depth cut to 2 layers, fp32: the same
-     weights served on cuda (kernels) and on cpu (plain versions), a
+     weights (drawn on the card) served on cuda (kernels) and on cpu
+     (plain versions), a
      2304-token prompt > sink + local, chunk 512, 8 greedy tokens; routing
      and tokens identical, first-step logits within 2e-3;
   5b. the same 2-layer weights through the slot-pool scheduler on cuda
@@ -129,7 +130,7 @@ falls back to the CPU):
      layers, fp32, card against CPU as in phase 5; 9b. one such layer
      through the slot-pool scheduler as in phase 5b;
   10. the batch path of stablelm-12b at full width, depth cut to
-     STABLELM_LAYERS = 20 of its 40 layers, bf16, as phase 6 (phi3-mini's
+     STABLELM_LAYERS = 10 of its 40 layers, bf16, as phase 6 (phi3-mini's
      weights freed first);
   11. its continuous path, as phase 7;
   12. command-r-plus-104b (G = 12, tied embeddings) at full width, depth
@@ -230,7 +231,7 @@ block 16 must raise. Phase 4 times them at the main shapes beside their
 plain versions and SDPA's efficient backend under the equivalent
 boolean mask, with the plain-torch antidiagonal scoring's device time.
   19. phi3-mini at full width, 2 layers, fp32, card against CPU under the
-     paper's comparison set: ``generate`` of a 4096-token prompt under xa
+     paper's comparison set: ``generate`` of a 3072-token prompt under xa
      (published block, stride and threshold) and ta (chunk 2048),
      router-driven and mixed, a duo override (("duo", 16), "sa") and
      ``prefill(routing_ctx="head_split", head_split_n=16)``: routing,
@@ -239,10 +240,10 @@ boolean mask, with the plain-torch antidiagonal scoring's device time.
      whose smallest xa score gap at the keep-th place on the card
      exceeds XA_GAP); and a slot-pool drain under xa (XA_DRAIN: 4
      prompts, router-driven and mixed);
-  20. phi3-mini-3.8b at full width, depth cut to SA_MODES_LAYERS = 16 of
+  20. phi3-mini-3.8b at full width, depth cut to SA_MODES_LAYERS = 8 of
      its 32 layers, bf16, seeded weights: the batch path of phase 6 under
-     xa (router-driven and mixed) and with a duo override (8 layers split
-     at 16 of 32 KV heads) through
+     xa (router-driven and mixed) and with a duo override (the even
+     layers split at 16 of 32 KV heads) through
      ``generate``, ta on one prompt of 18,432 tokens (boundary 2048 at
      the published chunk), and the continuous path of phase 7 under xa:
      every logit finite, exact launch counts (block-sparse once per SA
@@ -336,32 +337,57 @@ each to the bf16 limit with rms per tensor, where the plain gradients
 with one V tile zeroed must break it on dk; fp32 within FP32_TOL at the
 unaligned G = 4 case at every head dim) at phi3-mini's and
 stablelm-12b's training shapes, gemma3's window and whisper's
-bidirectional encoder, and checks that xa and MLA's (192, 128) raise
-NotImplementedError under grad; phase 4 times it at every one of those
-main shapes and at the unaligned D = 128 causal case beside SDPA's
-forward + backward (and the parent's kernel with ``--parent``).
-  29. phi3-mini at 2 layers, fp32: three RouterTrainer steps, one
+bidirectional encoder; phase 4 times it at every one of those main
+shapes and at the unaligned D = 128 causal case beside SDPA's forward +
+backward (and the parent's kernel with ``--parent``).
+Slice 20 adds the backward at MLA's (Dk, Dv) = (192, 128) (deepseek-v2's
+route chunk in training, 2 x 128 heads x DEEPSEEK_TRAIN_S, causal and
+streaming, and the unaligned case) and the block-sparse backward
+(``csrc/block_sparse_backward.cu``, ``sparse_backward_cases``: xa's
+training shapes for phi3-mini and deepseek-v2 with the selection made on
+the card, and the unaligned case with G = 1, 2 and 4 and a selection that
+differs per head, at every head dim and (192, 128)) to phases 2 (both
+libraries' registers), 2b, 3 (bf16 and fp32, as above) and 4 (beside SDPA
+forward + backward under the same boolean mask, the backend named);
+phases 3 and 4 also hold and time the block-sparse forward at (192, 128)
+(``xa_case`` of deepseek-v2: one prompt of PROMPT tokens, 128 heads);
+``refusal_checks`` asserts that xa and flash / streaming at (192, 128)
+train on the card (one backward launch each, finite gradients) and that
+a decode kernel still refuses grad.
+  29. phi3-mini at 2 layers, fp32: one RouterTrainer step, one
      PretrainTrainer and one ContinuedTrainer step on the card and on
      the CPU from the same weights, batches and Gumbel noise: losses,
-     gradients and states within TRAIN_TOL (its card side runs before
-     phase 28, its CPU side in a thread beside phases 28, 30 and 2b,
-     and the comparison after them);
-  30. router training of phi3-mini-3.8b at full width and depth in bf16
+     gradients and states within TRAIN_TOL (last in the parity worker);
+     Slice 20 adds ``parity_cases``: PARITY_XA_STEPS router steps of
+     phi3-mini (2 layers) under xa and of phase 17's narrowed deepseek-v2
+     under ssa and xa, card against CPU within TRAIN_TOL;
+  30. router training of phi3-mini-3.8b at full width, depth cut to
+     TRAIN_LAYERS = 16 of 32 layers, in bf16
      through ``launch/train.py``'s code path: TRAIN_STEPS steps of
      TRAIN_B x TRAIN_S tokens, exact launch counts, one step under the
      profiler, the backbone bitwise unchanged, a checkpoint round trip
-     and one request served with the trained routers; after phase 29's
+     and one request served with the trained routers; then
+     TRAIN_CELL_STEPS steps of the same under xa (``train_cell``: the
+     block-sparse forward and backward at the SA layers, exact launches,
+     the device's busy share and the backward kernels' share of it, the
+     backbone bitwise unchanged); after phase 29's
      comparison, QUIET_STEPS more steps and one more profiled step, timed
-     with the host to the script alone.
-  31. tensor-parallel serving (slice 18), run after phase 27 and before
-     phase 29's CPU thread starts: TP_WORLD = 2 ranks (processes,
+     with the host to the script alone. 30b (run right after phase 18,
+     on its weights): deepseek-v2-236b at full width, DEEPSEEK_LAYERS
+     layers, TRAIN_CELL_STEPS router-training steps of TRAIN_B x
+     DEEPSEEK_TRAIN_S under ssa and under xa (``train_cell``: the
+     (192, 128) backward and the block-sparse one); phase 18 also serves
+     two prompts under xa (``deepseek_xa_serve``: the block-sparse kernel
+     at (192, 128) once an SA layer).
+  31. tensor-parallel serving (slice 18), run after phase 26:
+     TP_WORLD = 2 ranks (processes,
      ``distributed/group.py`` ``launch``) on the one card over gloo (NCCL
      refuses two ranks on one device), each holding half of the heads,
      KV heads and FFN width. (a) phi3-mini at full width, 2 layers,
      fp32: ``generate`` and a 4-request drain with a priority arrival
      that preempts, router-driven and mixed, on the ranks and on one
      device: tokens, routing and statuses equal, logits within 1e-4 of
-     the largest; (b) phi3-mini at full width, TP_LAYERS = 16 of 32
+     the largest; (b) phi3-mini at full width, TP_LAYERS = 8 of 32
      layers, in bf16: 2 x
      TP_PROMPT tokens through ``generate`` (TP_GEN steps, router-driven
      and mixed) and TP_REQUESTS requests on TP_SLOTS slots through the
@@ -390,6 +416,17 @@ forward + backward (and the parent's kernel with ``--parent``).
      memory and tok/s, labelled as phase 31's. Phases 3 and 4 hold and
      time the bf16 latent decode at a rank's head counts (MLA_TP_HEADS:
      64, 32 and 8) at the pool's shape.
+The phases run in this order: 1, 2, 3, the paths (6-8, 10-12, 14, 16,
+18, 30b, 20, 22, 23, 25's bf16 runs, 26, 31, 32, 28, 30) and 2b; beside
+them the card-against-CPU phases (5, 5b, 9, 9b, 13, 15, 17, 19, 21, 24,
+25's fp32 runs, 27, 29: ``parity_phases``) run in order in a spawned
+process of their own (``parity_worker``, started after phase 2), the
+host's cores shared
+(WORKER_THREADS, MAIN_THREADS) until the paths end and then all the
+worker's; once it has ended, phase 4 on the idle card and phase 30's
+quiet steps. The worker launches kernels only to
+compare them, in its own process, so the paths' launch counts (and the
+recorders' tallies) are the main process's alone.
 Then one JSON line of per-kernel numbers (phi3-mini's, and stablelm's,
 granite's and deepseek's under ``stablelm_12b``, ``granite_moe_3b_a800m``
 and ``deepseek_v2_236b``; the latent decode its own entry at deepseek's
@@ -410,8 +447,12 @@ entry with its launches from phase 30, its phase-2b counts and its rows:
 phi3-mini's causal as the entry's own, ``streaming``, ``stablelm_12b``,
 ``gemma3_12b_window``, ``whisper_encoder`` and ``unaligned``; phase 31's
 per-rank launches as ``tp2_rank0`` / ``tp2_rank1``, phase 32's as
-``tp2_archs_rank*`` (a) and ``tp2_deepseek_rank*`` (b)), the total
-seconds, and the last line ``{"ok": true, "device": {...}}``.
+``tp2_archs_rank*`` (a) and ``tp2_deepseek_rank*`` (b)); the
+block-sparse forward's (192, 128) row as ``xa_deepseek_v2_236b`` and
+the backward's as ``deepseek_v2_236b``; the block-sparse backward's
+entry (phi3-mini's xa row as its own, deepseek-v2's, its launches from
+phase 30 and 30b), the total seconds, and the last line ``{"ok": true,
+"device": {...}}``.
 """
 import collections
 import ctypes
@@ -450,15 +491,18 @@ GEMMA3_STORE_SNAPSHOTS = (3.5, 5.5, 6.5)
 # every layer kind and all five kernels kept, so that the whole script,
 # training phases 29-30 included, fits its time on a slower host
 GEMMA3_LAYERS = 6
-# the same, for phases 10-11 (stablelm-12b: 20 of 40 layers), 16
-# (granite-moe: 4 of 32), 20 (phi3-mini under xa / ta / duo: 16 of 32)
+# the same, for phases 10-11 (stablelm-12b: 10 of 40 layers), 16
+# (granite-moe: 4 of 32), 20 (phi3-mini under xa / ta / duo: 8 of 32)
 # and 26 (mamba2-780m: 6 of 48); each arch is uniform over depth. Phase
 # 9b's slot-pool parity runs stablelm at 1 layer (phase 9 keeps 2)
 STABLELM_LAYERS, GRANITE_LAYERS, SA_MODES_LAYERS, MAMBA2_LAYERS = \
-    20, 4, 16, 6
-# and, since phase 32 joined them, phase 14's guarded drains and phase
-# 31b's 2 ranks over gloo: phi3-mini at 16 of its 32 layers
-GUARD_LAYERS = TP_LAYERS = 16
+    10, 4, 8, 6
+# and, since phase 32 joined them, phase 14's guarded drains (phi3-mini
+# at 16 of its 32 layers) and phase 31b's 2 ranks over gloo (8 since
+# slice 20, whose phases 29, 30b and 2b grew the script); phase 30's
+# router training under ssa at TRAIN_LAYERS of 32 since slice 20 (its xa
+# cell keeps the full depth)
+GUARD_LAYERS, TP_LAYERS, TRAIN_LAYERS = 16, 8, 16
 # deepseek-v2 at 60 layers is 472 GB in bf16; 4 of them at full width
 # (1.05 B embedding and unembedding + 4 x 3.98 B = 16.97 B parameters,
 # ≈ 34 GB) fit
@@ -1176,22 +1220,31 @@ def stress_cases(dev):
     c = side_kernel_cases(dev)[name]
     cases.append((f"{name} {WHISPER} D=64 bidirectional 1500x1500",
                    "flash_attention", c[0], c[1], 1))
+    c = xa_case(dev, DEEPSEEK, B=1)
+    cases.append((c["label"], "block_sparse_attention", c["kern"],
+                   c["plain"], 1))
     return cases + backward_stress_cases(dev)
 
 
 def backward_stress_cases(dev):
     """``stress_cases``' bf16 backward instances (the limit's rms taken
     per gradient): phi3-mini's training shapes, causal and streaming,
-    whisper's encoder (1500 rows, not a multiple of 64), and the
-    unaligned G = 4 case, causal and the first streaming mask, at every
-    head dim."""
+    whisper's encoder (1500 rows, not a multiple of 64), deepseek-v2's
+    (192, 128) causal row, and the unaligned G = 4 case,
+    causal and the first streaming mask, at every head dim and at (192,
+    128); the block-sparse backward at both xa training shapes and at the
+    unaligned G = 4 case of every head dim and of (192, 128)."""
     main = backward_cases(dev, torch.bfloat16, True)
     small = [c for c in backward_cases(dev, torch.bfloat16, False)
              if "causal" in c["label"] or f"sink={BWD_SMALL_STREAM[0][0]} "
              f"local={BWD_SMALL_STREAM[0][1]} " in c["label"]]
-    return [(f"attention_backward {c['label']}", "attention_backward",
-             c["flat"], c["plain_flat"], c["sizes"])
-            for c in main[:2] + [main[-1]] + small]
+    sparse = sparse_backward_cases(dev, torch.bfloat16, True)
+    sparse += [c for c in sparse_backward_cases(dev, torch.bfloat16, False)
+               if " G=4 " in c["label"]]
+    cases = ([c for c in main if not c["label"].startswith(
+        (STABLELM, GEMMA3))] + small + sparse)
+    return [(f"{c['kernel']} {c['label']}", c["kernel"], c["flat"],
+             c["plain_flat"], c["sizes"]) for c in cases]
 
 
 def stress(dev, calls=STRESS_CALLS, cases=stress_cases):
@@ -1337,15 +1390,28 @@ def parent_mla(libs):
 def parent_backward(libs):
     """The backward entry of another tree (``libs`` as ``parent_mla``
     takes them): a callable taking ``attention_backward_bh``'s arguments
-    that launches that tree's ``attention_backward`` C entry through this
-    tree's ``attention_backward.launch`` (the C interface is unchanged)
+    (Dk = Dv) that launches that tree's ``attention_backward`` C entry,
+    bound with the C interface it had before slice 20 (no Dv argument),
     and returns (dq, dk, dv)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import attention_backward as AB
-    kernel = AB.KERNEL.of(libs["attention_backward"])
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    kernel = _build.CudaKernel("attention_backward", "attention_backward",
+                               [P] * 8 + [I] * 11 + [F],
+                               libs["attention_backward"])
 
-    def call(q, k, v, do, **kw):
+    def call(q, k, v, do, *, causal=True, sink=None, local=None,
+             q_offset=0, scale=None):
         grads = tuple(torch.empty_like(t) for t in (q, k, v))
-        AB.launch(kernel, q, k, v, do, grads, **kw)
+        BH, Sq, D = q.shape
+        stats = AB.check_stats("parent_backward", None, q)
+        kernel.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      do.data_ptr(), *(g.data_ptr() for g in grads),
+                      stats.data_ptr(), BH, k.shape[0], Sq, k.shape[1], D,
+                      _build.DTYPE_CODES[q.dtype],
+                      AB.FLASH if local is None else AB.STREAMING,
+                      int(causal), int(sink or 0), int(local or 1),
+                      int(q_offset), _build.default_scale(D, scale))
         return grads
     return call
 
@@ -1852,7 +1918,10 @@ def path_parity(dev, arch=ARCH, cfg=None, routings=("router", "mixed")):
     cfg = cfg or get_config(arch).replace(num_layers=2, dtype=torch.float32,
                                           param_dtype=torch.float32)
     routed = bool(cfg.flux.enabled and cfg.routable_layers())
-    params = MD.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    # drawn on the card (the CPU's generator takes ≈ 11 ns a parameter:
+    # 21 s for stablelm's 2 layers); each engine copies them to its device
+    params = MD.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
     S, N = 2304, 8
     assert S > cfg.flux.sink + cfg.flux.local
     engines = {d.type: ServeEngine(params, cfg, max_len=S + N,
@@ -1901,10 +1970,12 @@ def decode_launches(cfg, steps, pooled):
     n = steps * sum(k in ("attn", "local") for k in cfg.layer_kinds)
     if cfg.use_mla:
         return dict(decode_attention=0, decode_attention_pooled=0,
-                    decode_attention_mla=n, attention_backward=0)
+                    decode_attention_mla=n, attention_backward=0,
+                    block_sparse_backward=0)
     return dict(decode_attention=0 if pooled else n,
                 decode_attention_pooled=n if pooled else 0,
-                decode_attention_mla=0, attention_backward=0)
+                decode_attention_mla=0, attention_backward=0,
+                block_sparse_backward=0)
 
 
 def prefill_launches(cfg, admissions, repacks=()):
@@ -1994,7 +2065,8 @@ def pool_parity(dev, arch=ARCH, cfg=None, routings=("router", "mixed")):
     from repro_torch.serve.scheduler import STATUS_OK, ContinuousScheduler
     cfg = cfg or get_config(arch).replace(num_layers=2, dtype=torch.float32,
                                           param_dtype=torch.float32)
-    params = MD.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params = MD.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)  # on the card, as ``path_parity``'s
     lens, N = (2304, 1536, 1000, 700, 2304), 8
     engines = {name: ServeEngine(params, cfg, max_len=max(lens) + N,
                                  prefill_chunk=CHUNK, device=d)
@@ -3058,7 +3130,7 @@ def mla_prefix_hit(dev, params, cfg):
 # ---------------------------------------------------------------------------
 
 TA_PROMPT = 18432  # ta at the published chunk of 16384: boundary 2048
-PARITY_TA_CHUNK = 2048  # phase 19's ta chunk: boundary 2048 of 4096
+PARITY_TA_CHUNK = 2048  # phase 19's ta chunk: boundary 2048 of 3072
 DUO_HEADS = 16  # full-attention KV heads of a duo layer (of phi3's 32)
 # the smallest gap, on the card, between a (head, query block)'s keep-th
 # and (keep+1)-th finite xa score that a phase-19 seed may show: card and
@@ -3072,6 +3144,9 @@ XA_SEEDS = 256
 # ones of the short (keep = max(2, ceil(0.1 nkb))), so that two prompts,
 # not four, must clear XA_GAP
 XA_DRAIN = ((3072, None), (1536, None), (2816, "mixed"), (1024, "mixed"))
+# phase 19's generate prompt: 24 blocks of 128, so xa keeps 3 (one past
+# the two forced), and ta's chunk boundary at 2048 of it
+SA_PARITY_PROMPT = 3072
 PLAIN_ROWS = 4  # query rows a plain call takes at once at the long shapes
 
 
@@ -3079,6 +3154,8 @@ PLAIN_ROWS = 4  # query rows a plain call takes at once at the long shapes
 # phase-20 path whose launches the JSON line gives beside it
 SA_ROWS = {"xa": ("block_sparse_attention", "xa_batch"),
            "xa_stablelm_12b": ("block_sparse_attention", None),
+           "xa_deepseek_v2_236b": ("block_sparse_attention",
+                                   "deepseek_xa_batch"),
            "ta_streaming": ("streaming_attention", "ta"),
            "ta_flash": ("flash_attention", "ta")}
 
@@ -3132,9 +3209,10 @@ def gqa_sdpa(q, k, v, mask, backend=None):
         return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
 
 
-def xa_case(dev, arch=ARCH):
-    """Block-sparse at a real xa selection: REQUESTS prompts of PROMPT
-    tokens at ``arch``'s widths, random bf16 q / k / v, the selection
+def xa_case(dev, arch=ARCH, B=REQUESTS):
+    """Block-sparse at a real xa selection: B prompts of PROMPT tokens at
+    ``arch``'s widths (deepseek-v2's route chunk at (Dk, Dv) = (192, 128)
+    over its 128 heads, G = 1), random bf16 q / k / v, the selection
     built on the card by ``xa_selection`` at the published block 128,
     stride 16 and threshold 0.9 (4 of 32 blocks a query block) and
     expanded to the kernel's tiles. Returns a dict of calls (kernel,
@@ -3149,29 +3227,30 @@ def xa_case(dev, arch=ARCH):
         KERNEL_BLOCK, block_sparse_attention_bh)
     cfg = get_config(arch)
     mode = M.xa_mode(cfg.flux)
-    B, Hq, Hkv, D, S = (REQUESTS, cfg.num_heads, cfg.num_kv_heads,
-                        cfg.head_dim, PROMPT)
+    if cfg.use_mla:
+        Hq = Hkv = cfg.num_heads
+        D, Dv = MLA_DK, MLA_DV
+    else:
+        Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        Dv = D
+    S = PROMPT
     g = torch.Generator(device=dev).manual_seed(5)
     q = torch.randn(B, Hq, S, D, generator=g, device=dev).to(torch.bfloat16)
-    k, v = (torch.randn(B, Hkv, S, D, generator=g, device=dev)
-            .to(torch.bfloat16) for _ in range(2))
+    k = torch.randn(B, Hkv, S, D, generator=g, device=dev).to(
+        torch.bfloat16)
+    v = torch.randn(B, Hkv, S, Dv, generator=g, device=dev).to(
+        torch.bfloat16)
     scale = D ** -0.5
-    sel = M.xa_selection(q, k, mode, q_offset=0, scale=scale)
-    tiles = M.expand_selection(sel, mode.block, S, S, 0)
-    qf, kf, vf = (x.reshape(-1, S, D) for x in (q, k, v))
-    nt = -(-S // KERNEL_BLOCK)
-    blk = torch.zeros(B * Hq, nt, nt + 1, dtype=torch.bool, device=dev)
-    blk.scatter_(2, torch.where(tiles >= 0, tiles, nt).long(), True)
-    pos = torch.arange(S, device=dev)
-    mask = (blk[:, :, :nt].repeat_interleave(KERNEL_BLOCK, 1)
-            .repeat_interleave(KERNEL_BLOCK, 2)[:, :S, :S]
-            & (pos[None] <= pos[:, None])[None])
+    tiles, mask, keep = xa_tiles(q, k, mode)
+    qf, kf = (x.reshape(-1, S, D) for x in (q, k))
+    vf = v.reshape(-1, S, Dv)
     pairs = int(mask.sum())
-    del blk
+    it = 2
+    dims = f"D={D}" if Dv == D else f"(Dk, Dv)=({D}, {Dv})"
     return dict(
-        label=f"block_sparse xa {arch} D={D} G={Hq // Hkv} "
+        label=f"block_sparse xa {arch} {dims} G={Hq // Hkv} "
               f"{B}x{S} block={mode.block} stride={mode.stride} "
-              f"threshold={mode.threshold} keep={sel.shape[-1]} of "
+              f"threshold={mode.threshold} keep={keep} of "
               f"{-(-S // mode.block)}",
         kern=lambda **kw: block_sparse_attention_bh(qf, kf, vf, tiles, **kw),
         plain=lambda: rows_plain(ref.block_sparse_attention_ref, qf, kf, vf,
@@ -3182,8 +3261,9 @@ def xa_case(dev, arch=ARCH):
         lib=lambda: gqa_sdpa(qf, kf, vf, mask,
                              SDPBackend.EFFICIENT_ATTENTION),
         score=lambda: M.xa_selection(q, k, mode, q_offset=0, scale=scale),
-        work=attn_work(B * Hq, B * Hkv, S, D, S, pairs, 2),
-        keep=sel.shape[-1], blocks=-(-S // mode.block), pairs=pairs)
+        work=(it * (B * Hq * S * (D + Dv) + B * Hkv * S * (D + Dv)),
+              2 * (D + Dv) * pairs),
+        keep=keep, blocks=-(-S // mode.block), pairs=pairs)
 
 
 def ta_cases(dev):
@@ -3259,6 +3339,7 @@ def sa_mode_cases(dev):
     and the ta split's calls, small ("_small") and main."""
     yield "xa", xa_case(dev, ARCH)
     yield "xa_stablelm_12b", xa_case(dev, STABLELM)
+    yield "xa_deepseek_v2_236b", xa_case(dev, DEEPSEEK, B=1)
     for c in ta_cases(dev):
         yield (f"ta_{c['kernel'].split('_')[0]}"
                f"{'_small' if c['size'] == 'small' else ''}"), c
@@ -3402,7 +3483,8 @@ def xa_seed(engine, specs):
 
 def sa_mode_parity(dev):
     """Phase 19: phi3-mini at full width, 2 layers, fp32, the same weights
-    on the card and on the CPU: ``generate`` of a PROMPT-token prompt under
+    on the card and on the CPU: ``generate`` of a SA_PARITY_PROMPT-token
+    prompt under
     xa (published block 128, stride 16, threshold 0.9) and ta (chunk
     PARITY_TA_CHUNK), router-driven and mixed, and a duo override under
     ssa; ``prefill(routing_ctx="head_split", head_split_n=DUO_HEADS)``;
@@ -3421,20 +3503,20 @@ def sa_mode_parity(dev):
     mixed = routing_pattern(base, "mixed")
     cfgs = {"xa": sa_cfg(base, "xa"),
             "ta": sa_cfg(base, "ta", chunk=PARITY_TA_CHUNK), "ssa": base}
-    max_len = max(PROMPT, *(n for n, _ in XA_DRAIN)) + N
+    max_len = max(SA_PARITY_PROMPT, *(n for n, _ in XA_DRAIN)) + N
     devices = (("card", dev), ("cpu", torch.device("cpu")))
     eng = {(m, name): ServeEngine(params, c, max_len=max_len,
                                   prefill_chunk=CHUNK, device=d)
            for m, c in cfgs.items() for name, d in devices}
     seed, prompts, gap = xa_seed(eng["xa", "card"],
-                                 [(PROMPT, (None, mixed))])
+                                 [(SA_PARITY_PROMPT, (None, mixed))])
     toks = prompts[0][None]
     lines = [f"prompt_seed={seed} xa_min_gap={gap:.3e} (XA_GAP {XA_GAP:g})"]
     for mode, ov in (("xa", None), ("xa", mixed), ("ta", None),
                      ("ta", mixed), ("ssa", duo_pattern(2))):
         res, recs = {}, {}
         for d in ("card", "cpu"):
-            assert not eng[mode, d].chunked_eligible(PROMPT, ov)
+            assert not eng[mode, d].chunked_eligible(SA_PARITY_PROMPT, ov)
             with XaRecorder() as recs[d]:
                 res[d] = eng[mode, d].generate(toks, N, routing_override=ov)
         sels = {d: r.sels for d, r in recs.items()}
@@ -4381,29 +4463,38 @@ def gemma_cells(dev, params, cfg):
 # ---------------------------------------------------------------------------
 
 TRAIN_B, TRAIN_S = 2, 4096  # phase 30's batch and phase 4's shapes
+# deepseek-v2's training rows (phase 30b and phase 4's (192, 128) shapes)
+# and MLA's route-chunk widths: nope + rope = 192 over v = 128
+DEEPSEEK_TRAIN_S, MLA_DK, MLA_DV = 2048, 192, 128
 TRAIN_STEPS, TRAIN_SCHEDULE = 8, 300  # phase 30: 8 steps of a 300 schedule
-QUIET_STEPS = 2  # phase 30's steps timed again after phase 29's CPU side
+QUIET_STEPS = 2  # phase 30's steps timed again after the parity phases
 # phase 29 (card against CPU, 2 layers at full width, fp32): one row of
 # 3072 tokens, 896 past phi3-mini's sink + local (2176). Below that, FA
 # and SA agree and r's gradient, sum (o_fa - o_sa) . dL/do, is the
 # difference of two kernels' sums in different orders on the card and
 # an exact 0 on the CPU: at 2304 tokens (128 rows past) a router leaf
 # read 1.4e-4 of its largest value apart on an H100
-PARITY_B, PARITY_S, PARITY_ROUTER_STEPS = 1, 3072, 3
+PARITY_B, PARITY_S, PARITY_ROUTER_STEPS = 1, 3072, 1
 # the PretrainTrainer and ContinuedTrainer steps of phase 29: their
 # gradients reach every weight whatever the routing, so a shorter row
 # (the CPU's dense plain attention is quadratic in it)
 PARITY_BACKBONE_S = 512
 TRAIN_TOL = 1e-4  # phase 29: relative to each leaf's largest CPU value
+# phase 29's xa and deepseek cases (``parity_cases``): router steps each,
+# phi3-mini's xa row, deepseek's row and the flux window it runs under
+PARITY_XA_STEPS, PARITY_XA_S = 1, 1024
+PARITY_DS_S, PARITY_DS_SINK, PARITY_DS_LOCAL = 1024, 64, 448
 BWD_SMALL_STREAM = ((0, 48), (16, 48), (100, 130))  # (sink, local)
 
 
-def backward_work(BH, BHkv, Sq, Skv, D, pairs, itemsize):
+def backward_work(BH, BHkv, Sq, Skv, D, pairs, itemsize, Dv=None):
     """Bytes (q, k, v, dO read once, dq, dk, dv written once) and
-    operations (S = QKᵀ, dP = dO Vᵀ, dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K:
-    2·D for each visible (query, key) pair, each)."""
-    return (itemsize * (3 * BH * Sq * D + 4 * BHkv * Skv * D),
-            5 * 2 * D * pairs)
+    operations (S = QKᵀ, dQ = dS K and dK = dSᵀ Q over Dk; dP = dO Vᵀ and
+    dV = Pᵀ dO over Dv: 2·(3·Dk + 2·Dv) for each visible (query, key)
+    pair)."""
+    Dv = D if Dv is None else Dv
+    return (itemsize * (BH * Sq * (2 * D + Dv) + 2 * BHkv * Skv * (D + Dv)),
+            2 * (3 * D + 2 * Dv) * pairs)
 
 
 def backward_cases(dev, dtype, main):
@@ -4418,11 +4509,13 @@ def backward_cases(dev, dtype, main):
     ``main`` (bf16): phi3-mini's training shapes (2 x 32 heads, D = 96,
     4096 tokens: causal, and streaming at sink 128 / local 2048),
     stablelm-12b's (2 x 32 heads over 2 x 8, D = 160), gemma3-12b's
-    window (2 x 16 over 2 x 8, D = 256, sink 0, local 1024) and whisper's
-    bidirectional encoder (4 x 6 heads, D = 64, 1500 x 1500); else the
+    window (2 x 16 over 2 x 8, D = 256, sink 0, local 1024), whisper's
+    bidirectional encoder (4 x 6 heads, D = 64, 1500 x 1500) and
+    deepseek-v2's route chunk in training (2 x 128 heads, (Dk, Dv) =
+    (192, 128), DEEPSEEK_TRAIN_S tokens, causal); else the
     unaligned G = 4 case (200 queries at offset 100 over 300 keys) at
-    every head dim: flash causal and bidirectional, and streaming at
-    BWD_SMALL_STREAM."""
+    every head dim and at (192, 128): flash causal and bidirectional, and
+    streaming at BWD_SMALL_STREAM."""
     from repro_torch.configs import get_config
     from repro_torch.kernels._build import HEAD_DIMS
     from repro_torch.kernels.attention_backward import (
@@ -4436,7 +4529,8 @@ def backward_cases(dev, dtype, main):
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
-    shapes = []  # (label, B, H, Hkv, Sq, Skv, D, [(mode label, kw)])
+    # (label, B, H, Hkv, Sq, Skv, D, [(mode label, kw)][, Dv])
+    shapes = []
     if main:
         for arch in (ARCH, STABLELM):
             c = get_config(arch)
@@ -4455,6 +4549,12 @@ def backward_cases(dev, dtype, main):
         shapes.append((WHISPER, WHISPER_REQUESTS, c.num_heads, c.num_heads,
                        c.encoder_ctx, c.encoder_ctx, c.head_dim,
                        [("bidirectional", dict(causal=False))]))
+        # causal only: deepseek's sink + local (2176) covers its 2048
+        # training tokens, so its streaming mask is the causal one there
+        c = get_config(DEEPSEEK)
+        shapes.append((DEEPSEEK, TRAIN_B, c.num_heads, c.num_heads,
+                       DEEPSEEK_TRAIN_S, DEEPSEEK_TRAIN_S, MLA_DK,
+                       [("causal", dict(causal=True))], MLA_DV))
     else:
         modes = [("causal q_offset=100", dict(causal=True, q_offset=100)),
                  ("bidirectional", dict(causal=False))]
@@ -4463,11 +4563,14 @@ def backward_cases(dev, dtype, main):
                   for s, w in BWD_SMALL_STREAM]
         shapes = [(f"unaligned D={D}", 1, 8, 2, 200, 300, D, modes)
                   for D in HEAD_DIMS]
+        shapes.append((f"unaligned (Dk, Dv)=({MLA_DK}, {MLA_DV})", 1, 8, 2,
+                       200, 300, MLA_DK, modes, MLA_DV))
     cases = []
-    for label, B, H, Hkv, Sq, Skv, D, modes in shapes:
+    for label, B, H, Hkv, Sq, Skv, D, modes, *dv in shapes:
+        Dv = dv[0] if dv else D
         BH, BHkv = B * H, B * Hkv
-        q, k, v = rnd(BH, Sq, D), rnd(BHkv, Skv, D), rnd(BHkv, Skv, D)
-        do = rnd(BH, Sq, D)
+        q, k, v = rnd(BH, Sq, D), rnd(BHkv, Skv, D), rnd(BHkv, Skv, Dv)
+        do = rnd(BH, Sq, Dv)
         for mode, kw in modes:
             if "local" in kw:
                 pos = kw.get("q_offset", 0) + np.arange(Sq)
@@ -4479,9 +4582,12 @@ def backward_cases(dev, dtype, main):
                               if kw["causal"] else Sq * Skv)
             entry = streaming_attention_bh if "local" in kw \
                 else flash_attention_bh
-            n_bytes, flops = backward_work(BH, BHkv, Sq, Skv, D, pairs, it)
+            n_bytes, flops = backward_work(BH, BHkv, Sq, Skv, D, pairs, it,
+                                           Dv)
+            dims = f"D={D}" if Dv == D else f"(Dk, Dv)=({D}, {Dv})"
             cases.append(dict(
-                label=f"{label} {mode} BH={BH} G={H // Hkv} D={D} Sq={Sq} "
+                kernel="attention_backward",
+                label=f"{label} {mode} BH={BH} G={H // Hkv} {dims} Sq={Sq} "
                       f"Skv={Skv}",
                 kern=lambda q=q, k=k, v=v, do=do, kw=kw:
                     attention_backward_bh(q, k, v, do, **kw),
@@ -4501,6 +4607,133 @@ def backward_cases(dev, dtype, main):
                     attention_backward_plain, (q, k, v, do), kw),
                 sizes=(q.numel(), k.numel(), v.numel()),
                 bytes=n_bytes, flops=flops))
+    return cases
+
+
+def xa_tiles(q, k, mode, q_offset=0):
+    """XAttention's selection on the card (``xa_selection`` at ``mode``)
+    for q (B, Hq, Sq, Dk) over k (B, Hkv, Skv, Dk), in the block-sparse
+    kernels' 64-token tiles (``expand_selection``), and its dense
+    visibility (B·Hq, Sq, Skv) with the causal mask at ``q_offset``.
+    Returns (tiles, mask, keep)."""
+    from repro_torch.core import modes as M
+    from repro_torch.kernels.block_sparse_attention import KERNEL_BLOCK
+    B, Hq, Sq, D = q.shape
+    Skv = k.shape[2]
+    sel = M.xa_selection(q, k, mode, q_offset=q_offset, scale=D ** -0.5)
+    tiles = M.expand_selection(sel, mode.block, Sq, Skv, q_offset)
+    return (tiles, tile_mask(tiles, Sq, Skv, q_offset), sel.shape[-1])
+
+
+def tile_mask(tiles, Sq, Skv, q_offset):
+    """The dense visibility (BH, Sq, Skv) of a 64-token tile selection
+    under the causal mask at ``q_offset``: what
+    ``ref.block_sparse_attention_ref`` masks."""
+    T = 64
+    nqt, nkt = tiles.shape[1], -(-Skv // T)
+    blk = torch.zeros(tiles.shape[0], nqt, nkt + 1, dtype=torch.bool,
+                      device=tiles.device)
+    live = (tiles >= 0) & (tiles < nkt)
+    blk.scatter_(2, torch.where(live, tiles, nkt).long(), True)
+    pos = q_offset + torch.arange(Sq, device=tiles.device)
+    return (blk[:, :, :nkt].repeat_interleave(T, 1)
+            .repeat_interleave(T, 2)[:, :Sq, :Skv]
+            & (torch.arange(Skv, device=tiles.device)[None]
+               <= pos[:, None])[None])
+
+
+def small_selection(g, BH, Sq, Skv, K=5):
+    """A selection of the unaligned cases: per query head and 64-row
+    block, K tiles drawn from -1 to past Skv (repeats, holes, tiles past
+    the diagonal and past Skv), tile 1 (the zeroed tile's) first."""
+    nqt, nkt = -(-Sq // 64), -(-Skv // 64)
+    sel = torch.randint(-1, nkt + 1, (BH, nqt, K), generator=g,
+                        device=g.device, dtype=torch.int32)
+    sel[:, :, 0] = 1
+    return sel
+
+
+def sparse_backward_cases(dev, dtype, main):
+    """``backward_cases``' dicts for the block-sparse backward
+    (``block_sparse_backward_bh``; ``kernel`` "block_sparse_backward",
+    ``sdpa`` SDPA forward + backward under the same boolean mask).
+    ``main`` (bf16): the xa training shapes, the selection built on the
+    card by ``xa_tiles`` at the published block 128, stride 16, threshold
+    0.9: phi3-mini's (2 x 32 heads, D = 96, TRAIN_S tokens; 4 of 32
+    blocks a query block) and deepseek-v2's (2 x 128 heads, (192, 128),
+    DEEPSEEK_TRAIN_S tokens; 2 of 16); else the unaligned cases (200
+    queries at offset 100 over 300 keys, 2 KV heads of G = 1, 2 and 4
+    query heads, ``small_selection``, which differs per query head) at
+    every head dim and at (192, 128)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import modes as M
+    from repro_torch.kernels._build import HEAD_DIMS
+    from repro_torch.kernels.block_sparse_attention import \
+        block_sparse_attention_bh
+    from repro_torch.kernels.block_sparse_backward import (
+        block_sparse_backward_bh, block_sparse_backward_plain)
+    g = torch.Generator(device=dev).manual_seed(8)
+    it = torch.tensor([], dtype=dtype).element_size()
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    shapes = []  # (label, B, H, Hkv, Sq, Skv, q_offset, Dk, Dv, mode)
+    if main:
+        c = get_config(ARCH)
+        shapes.append((f"{ARCH} xa", TRAIN_B, c.num_heads, c.num_kv_heads,
+                       TRAIN_S, TRAIN_S, 0, c.head_dim, c.head_dim,
+                       M.xa_mode(c.flux)))
+        c = get_config(DEEPSEEK)
+        shapes.append((f"{DEEPSEEK} xa", TRAIN_B, c.num_heads, c.num_heads,
+                       DEEPSEEK_TRAIN_S, DEEPSEEK_TRAIN_S, 0, MLA_DK, MLA_DV,
+                       M.xa_mode(c.flux)))
+    else:
+        for D, Dv in [(D, D) for D in HEAD_DIMS] + [(MLA_DK, MLA_DV)]:
+            for G in (1, 2, 4):
+                shapes.append(("unaligned", 1, 2 * G, 2, 200, 300, 100, D,
+                               Dv, None))
+    cases = []
+    for label, B, H, Hkv, Sq, Skv, off, D, Dv, mode in shapes:
+        BH, BHkv = B * H, B * Hkv
+        q, k, v = rnd(BH, Sq, D), rnd(BHkv, Skv, D), rnd(BHkv, Skv, Dv)
+        do = rnd(BH, Sq, Dv)
+        if mode is None:
+            sel = small_selection(g, BH, Sq, Skv)
+            mask, extra = tile_mask(sel, Sq, Skv, off), ""
+        else:
+            sel, mask, keep = xa_tiles(q.view(B, H, Sq, D),
+                                       k.view(B, Hkv, Skv, D), mode)
+            extra = (f" block={mode.block} stride={mode.stride} "
+                     f"threshold={mode.threshold} keep={keep} of "
+                     f"{-(-Sq // mode.block)}")
+        pairs = int(mask.sum())
+        kw = dict(q_offset=off)
+        n_bytes, flops = backward_work(BH, BHkv, Sq, Skv, D, pairs, it, Dv)
+        dims = f"D={D}" if Dv == D else f"(Dk, Dv)=({D}, {Dv})"
+        cases.append(dict(
+            kernel="block_sparse_backward",
+            label=f"{label} block_sparse BH={BH} G={H // Hkv} {dims} "
+                  f"Sq={Sq} Skv={Skv} q_offset={off}{extra}",
+            kern=lambda q=q, k=k, v=v, do=do, sel=sel, kw=kw:
+                block_sparse_backward_bh(q, k, v, do, sel, **kw),
+            plain=lambda q=q, k=k, v=v, do=do, sel=sel, kw=kw:
+                block_sparse_backward_plain(q, k, v, do, sel, **kw),
+            mutant=lambda q=q, k=k, v=v, do=do, sel=sel, kw=kw:
+                block_sparse_backward_plain(q, k, zero_tile(v), do, sel,
+                                            **kw),
+            sdpa=sdpa_mask_train_call(q, k, v, do, mask),
+            fwd_bwd=lambda q=q, k=k, v=v, do=do, sel=sel, kw=kw:
+                fwd_bwd_call(block_sparse_attention_bh, q, k, v, do,
+                             dict(kw, sel=sel)),
+            flat=lambda out=None, q=q, k=k, v=v, do=do, sel=sel, kw=kw:
+                flat_grads(block_sparse_backward_bh, (q, k, v, do, sel), kw,
+                           out),
+            plain_flat=lambda q=q, k=k, v=v, do=do, sel=sel, kw=kw:
+                flat_grads(block_sparse_backward_plain, (q, k, v, do, sel),
+                           kw),
+            sizes=(q.numel(), k.numel(), v.numel()),
+            bytes=n_bytes, flops=flops, pairs=pairs))
     return cases
 
 
@@ -4524,7 +4757,8 @@ def flat_grads(entry, args, kw, out=None):
 def fwd_bwd_call(entry, q, k, v, do, kw):
     """The port's forward + backward: ``entry`` on copies of q, k, v that
     require grad (so it goes through the autograd function), then
-    ``torch.autograd.grad`` (the backward kernel)."""
+    ``torch.autograd.grad`` (the backward kernel). ``kw`` holds the
+    entry's keywords (a block-sparse selection as ``sel``)."""
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     return torch.autograd.grad(entry(q, k, v, **kw), (q, k, v), do)
 
@@ -4537,12 +4771,12 @@ def sdpa_train_call(q, k, v, do, B, H, Hkv, kw):
     (``repeat_interleave``; the backward sums them)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     F = torch.nn.functional
-    S, Skv, D = q.shape[1], k.shape[1], q.shape[2]
+    S, Skv, D, Dv = q.shape[1], k.shape[1], q.shape[2], v.shape[2]
     G = H // Hkv
     q4 = q.view(B, H, S, D).detach().requires_grad_()
     k4 = k.view(B, Hkv, Skv, D).detach().requires_grad_()
-    v4 = v.view(B, Hkv, Skv, D).detach().requires_grad_()
-    do4 = do.view(B, H, S, D)
+    v4 = v.view(B, Hkv, Skv, Dv).detach().requires_grad_()
+    do4 = do.view(B, H, S, Dv)
 
     def rep(x):
         return x.repeat_interleave(G, dim=1) if G > 1 else x
@@ -4563,81 +4797,144 @@ def sdpa_train_call(q, k, v, do, B, H, Hkv, kw):
         backend, args = SDPBackend.FLASH_ATTENTION, dict(
             is_causal=kw["causal"])
 
+    if D != Dv and backend == SDPBackend.FLASH_ATTENTION:
+        # the flash backend takes one head dim: a causal mask written out
+        # for the efficient one
+        pos = torch.arange(S, device=q.device)
+        mask = (pos[None] <= pos[:, None]) if kw["causal"] else None
+        backend, args = SDPBackend.EFFICIENT_ATTENTION, dict(attn_mask=mask)
+
     def call():
         with sdpa_kernel(backend):
             o = F.scaled_dot_product_attention(q4, rep(k4), rep(v4), **args)
         return torch.autograd.grad(o, (q4, k4, v4), do4)
+    call.backend = backend.name.lower()
+    return call
+
+
+def sdpa_mask_train_call(q, k, v, do, mask):
+    """SDPA forward + backward under a boolean mask (BH, Sq, Skv) of the
+    flattened (BH, S, D) q over (BHkv, S, D) k and (BHkv, S, Dv) v, the
+    yardstick of the block-sparse backward: the efficient backend, where
+    it takes the shapes, else the math one (``call.backend`` names the
+    one that served). KV heads repeated for G > 1."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    F = torch.nn.functional
+    G = q.shape[0] // k.shape[0]
+    q4 = q[None].detach().requires_grad_()
+    k4, v4 = (x[None].detach().requires_grad_() for x in (k, v))
+    do4, m4 = do[None], mask[None]
+
+    def rep(x):
+        return x.repeat_interleave(G, dim=1) if G > 1 else x
+
+    def run(backend):
+        with sdpa_kernel(backend):
+            o = F.scaled_dot_product_attention(q4, rep(k4), rep(v4),
+                                               attn_mask=m4)
+        return torch.autograd.grad(o, (q4, k4, v4), do4)
+
+    def call():
+        if call.backend is None:  # the first call picks the backend
+            try:
+                out = run(SDPBackend.EFFICIENT_ATTENTION)
+                call.backend = "efficient_attention"
+                return out
+            except RuntimeError:
+                call.backend = "math"
+        return run(SDPBackend.EFFICIENT_ATTENTION
+                   if call.backend == "efficient_attention"
+                   else SDPBackend.MATH)
+    call.backend = None
     return call
 
 
 def backward_report():
-    """One line per backward kernel instance: registers, spill bytes and
-    static shared memory from the compiler's report. The bf16 tensor-core
-    instances (``*_wgmma_kernel``, ``csrc/backward_wgmma.cuh``) also give
-    the dynamic shared memory a CTA asks for and their SASS's tensor-core
+    """One line per instance of both backward libraries (flash and
+    streaming's ``attention_backward``, ``block_sparse_backward``):
+    registers, spill bytes and static shared memory from the compiler's
+    report. The bf16 tensor-core instances (``*_wgmma_kernel``,
+    ``csrc/backward_wgmma.cuh``) also give the dynamic shared memory a
+    CTA asks for (the engine's ``Layout<Dk, Dv>``, as the flash library's
+    ``flux_backward_smem_bytes`` answers it) and their SASS's tensor-core
     (HGMMA) and TMA-load (UTMALDG) counts, which must be > 0, with no
-    spill; the fp32 ones ask for ``Tiles<D>``'s bytes (in the .cu)."""
+    spill; the fp32 ones ask for ``Tiles<Dk, Dv>``'s bytes
+    (``csrc/backward_fp32.cuh``)."""
     from repro_torch.kernels import _build
-    lib = _build.library_path("attention_backward")
-    report = compiler_report(lib, "bwd")
-    assert report, f"attention_backward: no compiler report at {lib.name}.log"
-    sass = sass_counts(lib)
-    smem = ctypes.CDLL(str(lib)).flux_backward_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
     lines = []
-    for name, r in sorted(report.items()):
-        kind = "dq" if "dq_" in name else "dkdv"
-        dims = re.findall(r"Li(\d+)E", name)
-        D = int(dims[0]) if dims else 0
-        pol = "streaming" if "Streaming" in name else "flash"
-        if "wgmma_kernel" not in name:
-            lines.append(f"attention_backward {kind} fp32 D={D} {pol}: "
+    smem = ctypes.CDLL(str(_build.library_path(
+        "attention_backward"))).flux_backward_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
+    for source in ("attention_backward", "block_sparse_backward"):
+        lib = _build.library_path(source)
+        report = compiler_report(lib, "bwd")
+        assert report, f"{source}: no compiler report at {lib.name}.log"
+        sass = sass_counts(lib)
+        for name, r in sorted(report.items()):
+            kind = "dq" if "dq_" in name else "dkdv"
+            dims = [int(d) for d in re.findall(r"Li(\d+)E", name)]
+            D, Dv = (dims + [0, 0])[:2]
+            pol = ("streaming" if "Streaming" in name else "block_sparse"
+                   if "Sparse" in name else "flash")
+            wd = f"D={D}" if Dv == D else f"(Dk, Dv)=({D}, {Dv})"
+            if "wgmma_kernel" not in name:
+                lines.append(f"{source} {kind} fp32 {wd} {pol}: "
+                             f"registers={r.get('registers')} "
+                             f"spill_stores/loads={r.get('spill')} bytes "
+                             f"static_smem={r.get('smem')}")
+                continue
+            hgmma, tma, shapes = sass.get(name, (0, 0, []))
+            assert hgmma > 0 and tma > 0, \
+                f"{name}: HGMMA={hgmma} UTMALDG={tma}, not on the tensor " \
+                f"cores"
+            assert r.get("spill") == "0/0", f"{name}: spills {r.get('spill')}"
+            lines.append(f"{source} {kind} bf16 wgmma {wd} {pol}: "
                          f"registers={r.get('registers')} "
                          f"spill_stores/loads={r.get('spill')} bytes "
-                         f"static_smem={r.get('smem')}")
-            continue
-        hgmma, tma, shapes = sass.get(name, (0, 0, []))
-        assert hgmma > 0 and tma > 0, \
-            f"{name}: HGMMA={hgmma} UTMALDG={tma}, not on the tensor cores"
-        assert r.get("spill") == "0/0", f"{name}: spills {r.get('spill')}"
-        lines.append(f"attention_backward {kind} bf16 wgmma D={D} {pol}: "
-                     f"registers={r.get('registers')} "
-                     f"spill_stores/loads={r.get('spill')} bytes "
-                     f"static_smem={r.get('smem')} dynamic_smem={smem(D, D)}"
-                     f" sass HGMMA={hgmma} {shapes} UTMALDG={tma}")
+                         f"static_smem={r.get('smem')} "
+                         f"dynamic_smem={smem(D, Dv)} sass HGMMA={hgmma} "
+                         f"{shapes} UTMALDG={tma}")
     return lines
 
 
+def all_backward_cases(dev, dtype, main):
+    """Both backward kernels' cases: ``backward_cases`` (flash and
+    streaming) and ``sparse_backward_cases`` (block-sparse)."""
+    return (backward_cases(dev, dtype, main)
+            + sparse_backward_cases(dev, dtype, main))
+
+
 def check_backward(dev):
-    """Phase 3: the backward kernel against the plain version's autograd:
-    dq, dk and dv each held to the bf16 limit (rms per tensor) at the
-    main shapes and the unaligned cases, where the plain gradients with
-    one 64-key V tile zeroed must break it on dk; fp32 within FP32_TOL at
-    the unaligned cases.
-    Then xa and MLA's (192, 128) with an operand that requires grad must
-    raise NotImplementedError on the card. Returns (lines, {label:
-    (max abs err, limit ratios, zeroed-tile ratio on dk)})."""
+    """Phase 3: both backward kernels (flash and streaming's, block-
+    sparse's) against their plain versions' autograd: dq, dk and dv each
+    held to the bf16 limit (rms per tensor) at the main shapes and the
+    unaligned cases, where the plain gradients with one 64-key V tile
+    zeroed must break it on dk; fp32 within FP32_TOL at the unaligned
+    cases. Then ``refusal_checks``. Returns (lines, {label: (max abs err,
+    limit ratios, zeroed-tile ratio on dk)})."""
     lines, errs = [], {}
-    for c in (backward_cases(dev, torch.bfloat16, True)
-              + backward_cases(dev, torch.bfloat16, False)):
-        label = c["label"]
-        got, want = c["kern"](), c["plain"]()
-        r = [bf16_ratios(a, b)[0] for a, b in zip(got, want)]
-        r_mut = bf16_ratios(c["mutant"]()[1], want[1])[0]
-        e = max(max_err(a, b) for a, b in zip(got, want))
-        assert max(r) < 1, f"backward {label}: dq/dk/dv at {r} of the limit"
-        assert r_mut > 1, f"backward {label}: a zeroed V tile is within " \
-            f"the limit on dk ({r_mut})"
-        errs[label] = (e, r, r_mut)
-        lines.append(f"attention_backward bfloat16 {label} max_abs_err="
-                     f"{e:.3e} limit_ratio dq/dk/dv={ratio_text(r)} "
-                     f"zeroed_tile_ratio(dk)={r_mut:.2f}")
-        del got, want
-        free_card()
-    for c in backward_cases(dev, torch.float32, False):
+    for main in (True, False):
+        for c in all_backward_cases(dev, torch.bfloat16, main):
+            label = c["label"]
+            got, want = c["kern"](), c["plain"]()
+            r = [bf16_ratios(a, b)[0] for a, b in zip(got, want)]
+            r_mut = bf16_ratios(c["mutant"]()[1], want[1])[0]
+            e = max(max_err(a, b) for a, b in zip(got, want))
+            assert max(r) < 1, \
+                f"{c['kernel']} {label}: dq/dk/dv at {r} of the limit"
+            assert r_mut > 1, f"{c['kernel']} {label}: a zeroed V tile " \
+                f"is within the limit on dk ({r_mut})"
+            errs[label] = (e, r, r_mut)
+            lines.append(f"{c['kernel']} bfloat16 {label} max_abs_err="
+                         f"{e:.3e} limit_ratio dq/dk/dv={ratio_text(r)} "
+                         f"zeroed_tile_ratio(dk)={r_mut:.2f}")
+            del got, want
+            free_card()
+    for c in all_backward_cases(dev, torch.float32, False):
         e = max(max_err(a, b) for a, b in zip(c["kern"](), c["plain"]()))
-        assert e < FP32_TOL, f"backward fp32 {c['label']}: max abs err {e}"
-        lines.append(f"attention_backward float32 {c['label']} max_abs_err="
+        assert e < FP32_TOL, f"{c['kernel']} fp32 {c['label']}: max abs " \
+            f"err {e}"
+        lines.append(f"{c['kernel']} float32 {c['label']} max_abs_err="
                      f"{e:.3e} tol={FP32_TOL}")
     lines += refusal_checks(dev)
     return lines, errs
@@ -4645,39 +4942,64 @@ def check_backward(dev):
 
 def refusal_checks(dev):
     """xa (``block_topk``) and flash / streaming at MLA's (192, 128) on the
-    card with operands that require grad raise NotImplementedError naming
-    ROADMAP item 15b; the same calls without grad run."""
+    card with operands that require grad train: each output is recorded
+    for autograd, ``torch.autograd.grad`` launches one backward kernel
+    (block-sparse's for xa, the flash and streaming one else) and gives
+    finite gradients; the same calls without grad launch no backward. A
+    decode kernel still refuses an operand that requires grad (no
+    training path runs one)."""
+    import repro_torch.kernels as KN
     from repro_torch.core import modes as M
+    from repro_torch.kernels.decode_attention import decode_attention_bh
     g = torch.Generator(device=dev).manual_seed(6)
     lines = []
-    q, k, v = (torch.randn(1, 2, 256, 96, generator=g, device=dev,
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev,
                            dtype=torch.bfloat16).requires_grad_()
-               for _ in range(3))
-    qm, km = (torch.randn(1, 2, 256, 192, generator=g, device=dev,
-                          dtype=torch.bfloat16).requires_grad_()
-              for _ in range(2))
-    vm = torch.randn(1, 2, 256, 128, generator=g, device=dev,
-                     dtype=torch.bfloat16).requires_grad_()
+
+    q, k, v = (rnd(1, 2, 512, 96) for _ in range(3))
+    qm, km, vm = rnd(1, 2, 256, MLA_DK), rnd(1, 2, 256, MLA_DK), \
+        rnd(1, 2, 256, MLA_DV)
     xa = M.AttnMode("block_topk", sink=16, local=64, block=128, stride=16,
                     threshold=0.5)
-    for label, call in (
-            ("xa (block_topk)", lambda: M.attention(q, k, v, xa)),
-            ("flash (192, 128)", lambda: M.attention(qm, km, vm, M.FULL)),
+    for label, call, bwd in (
+            ("xa (block_topk)", lambda: M.attention(q, k, v, xa),
+             "block_sparse_backward"),
+            ("xa (block_topk) at (192, 128)",
+             lambda: M.attention(qm, km, vm, xa), "block_sparse_backward"),
+            ("flash (192, 128)", lambda: M.attention(qm, km, vm, M.FULL),
+             "attention_backward"),
             ("streaming (192, 128)", lambda: M.attention(
-                qm, km, vm, M.AttnMode("streaming", sink=16, local=64)))):
-        try:
-            call()
-        except NotImplementedError as e:
-            assert "15b" in str(e), f"{label}: {e}"
-            with torch.no_grad():
-                out = call()
-            assert bool(torch.isfinite(out).all()), label
-            lines.append(f"{label} with requires_grad raises "
-                         f"NotImplementedError (item 15b); without grad "
-                         f"it runs")
-            continue
-        raise AssertionError(f"{label}: trained through a kernel with no "
-                             f"backward")
+                qm, km, vm, M.AttnMode("streaming", sink=16, local=64)),
+             "attention_backward")):
+        KN.reset_launch_counts()
+        with torch.no_grad():
+            assert bool(torch.isfinite(call()).all()), label
+        out = call()
+        ins = (qm, km, vm) if out.shape[-1] == MLA_DV else (q, k, v)
+        grads = torch.autograd.grad(out, ins, torch.ones_like(out))
+        counts = KN.launch_counts()
+        assert counts[bwd] == 1 and sum(
+            counts[n] for n in ("attention_backward",
+                                "block_sparse_backward")) == 1, counts
+        assert all(bool(torch.isfinite(x).all()) and bool(x.abs().max() > 0)
+                   for x in grads), label
+        lines.append(f"{label} with requires_grad trains: recorded for "
+                     f"autograd, one {bwd} launch, finite nonzero "
+                     f"gradients; without grad no backward")
+    try:
+        decode_attention_bh(q[0, :, :1].contiguous(),
+                            k[0].detach().contiguous(),
+                            v[0].detach().contiguous(),
+                            torch.arange(512, dtype=torch.int32,
+                                         device=dev), 9)
+    except NotImplementedError as e:
+        lines.append(f"the batch decode with requires_grad raises "
+                     f"NotImplementedError: {e}")
+    else:
+        raise AssertionError("decode_attention trained through a kernel "
+                             "with no backward")
     return lines
 
 
@@ -4694,7 +5016,7 @@ def time_backward(dev, parent=None):
     ``parent`` (a ``parent_backward`` callable), the other tree's kernel
     in the same process. Returns {label: row}."""
     rows = {}
-    cases = backward_cases(dev, torch.bfloat16, True) + [
+    cases = all_backward_cases(dev, torch.bfloat16, True) + [
         c for c in backward_cases(dev, torch.bfloat16, False)
         if c["label"].startswith(BWD_UNALIGNED_TIMED)]
     for c in cases:
@@ -4707,18 +5029,20 @@ def time_backward(dev, parent=None):
             fwd_bwd_ms=time_ms(c["fwd_bwd"], reps=3, rounds=3, warmup=1),
             plain_ms=time_ms(c["plain"], reps=1, rounds=3, warmup=1),
             library_ms=time_ms(c["sdpa"], reps=3, rounds=3, warmup=1),
+            library_backend=getattr(c["sdpa"], "backend", None),
             bound_ms=b_ms, bound_by=b_by)
-        if parent is not None:
+        if parent is not None and c["kernel"] == "attention_backward":
             got, want = c["other"](parent), c["plain"]()
             r["parent_limit_ratios"] = [bf16_ratios(a, b)[0]
                                         for a, b in zip(got, want)]
             del got, want
             r["parent_ms"] = time_ms(lambda: c["other"](parent), reps=1,
                                      rounds=3, warmup=1)
-        say(4, f"attention_backward {label} ms={r['ms']:.4f} "
+        say(4, f"{c['kernel']} {label} ms={r['ms']:.4f} "
                f"call_ms={r['call_ms']:.4f} fwd_bwd_ms={r['fwd_bwd_ms']:.4f}"
                f" plain_ms={r['plain_ms']:.4f} sdpa_fwd_bwd_ms="
-               f"{r['library_ms']:.4f} parent_ms={r.get('parent_ms')} "
+               f"{r['library_ms']:.4f} ({r['library_backend']}) "
+               f"parent_ms={r.get('parent_ms')} "
                f"bound_ms={b_ms:.4f} ({b_by}; {n_bytes} bytes, {flops} "
                f"flops) roofline_share={b_ms / r['ms']:.4f}")
         free_card()
@@ -4759,14 +5083,16 @@ def tree_rel(a, b):
     return worst
 
 
-def train_side(cfg, d, params, batches, noise):
-    """One device's side of phase 29 from ``params``: PARITY_ROUTER_STEPS
-    RouterTrainer steps (each step's metrics, router and λ gradients, the
-    metrics after the update and the state without its frozen weights),
-    then one PretrainTrainer and one ContinuedTrainer step from
-    ``params`` (loss, gradients, new state; the router checked bitwise
-    unchanged), and each part's seconds. The batches and noise are the
-    same on both sides."""
+def train_side(cfg, d, params, batches, noise, router_steps=None,
+               backbone=True):
+    """One device's side of phase 29 from ``params``: ``router_steps``
+    (PARITY_ROUTER_STEPS by default) RouterTrainer steps (each step's
+    metrics, router and λ gradients, the metrics after the update and the
+    state without its frozen weights), then, with ``backbone``, one
+    PretrainTrainer and one ContinuedTrainer step from ``params`` (loss,
+    gradients, new state; the router checked bitwise unchanged), and each
+    part's seconds. The batches and noise are the same on both sides."""
+    router_steps = router_steps or PARITY_ROUTER_STEPS
     from repro_torch.train import (ContinuedTrainer, PretrainTrainer,
                                    RouterTrainer)
     from repro_torch.train.optimizer import tree_leaves
@@ -4782,7 +5108,7 @@ def train_side(cfg, d, params, batches, noise):
     out = {"router": []}
     rt = RouterTrainer(cfg, total_steps=TRAIN_SCHEDULE)
     state = rt.init(params, torch.Generator().manual_seed(1))
-    for i in range(PARITY_ROUTER_STEPS):
+    for i in range(router_steps):
         t0 = time.perf_counter()
         _, m, gr, gl = rt.loss_and_grads(state, *on(batches[i]),
                                          gumbel=noise[i].to(d))
@@ -4791,6 +5117,8 @@ def train_side(cfg, d, params, batches, noise):
         out["router"].append((m, gr, gl, m2, {
             k: v for k, v in state.items() if k != "frozen"},
             time.perf_counter() - t0))
+    if not backbone:
+        return out
     for name, trainer in (("pretrain", PretrainTrainer(cfg, TRAIN_SCHEDULE)),
                           ("continued", ContinuedTrainer(cfg,
                                                          TRAIN_SCHEDULE))):
@@ -4846,22 +5174,93 @@ def state_rel(card, cpu, resolved):
     return worst, skipped / max(total, 1)
 
 
-def train_parity_start(dev):
+def router_step_lines(card, cpu, label=""):
+    """Phase 29's comparison of two ``train_side`` runs' router steps:
+    each step's loss, router and λ gradients and metrics, and the state
+    after it (``state_rel``), within TRAIN_TOL relative to each leaf's
+    largest CPU value. Returns the report lines."""
+    lines, resolved = [], None
+    for i, ((md, grd, gld, m2d, sd, td), (mc, grc, glc, m2c, sc, tc)) \
+            in enumerate(zip(card, cpu)):
+        mask = resolved_moments(sc["opt_router"].mu)
+        resolved = mask if resolved is None else {  # at every step
+            k: v & resolved[k] for k, v in mask.items()}
+        st_err, left_out = state_rel(sd, sc, resolved)
+        errs = dict(loss=leaf_rel(md["loss"], mc["loss"]),
+                    router_grad=tree_rel(grd, grc),
+                    lagrange_grad=tree_rel(gld, glc),
+                    metrics=max(leaf_rel(m2d[k], m2c[k]) for k in m2c),
+                    state=st_err)
+        lines.append(
+            f"{label}router step {i}: loss card={float(md['loss']):.6f} "
+            f"cpu={float(mc['loss']):.6f} rel_err " + " ".join(
+                f"{k}={v:.2e}" for k, v in errs.items())
+            + f" (router parameters compared where the CPU's first "
+              f"moment is resolved: {100 * left_out:.4f} % left out; "
+              f"cpu {tc:.1f} s, card {td:.1f} s)")
+        assert max(errs.values()) < TRAIN_TOL, lines[-1]
+    return lines
+
+
+def parity_cases(dev, cfg, p_dev):
+    """Phase 29's router-step cases past phi3-mini's ssa one, card side:
+    [(label, config, card params, batches, noise, card's ``train_side``
+    output)], PARITY_XA_STEPS RouterTrainer steps each, fp32: phi3-mini
+    (2 layers, ``p_dev``) under xa on PARITY_XA_S tokens, and phase 17's
+    narrowed deepseek-v2 (its real per-head widths, (Dk, Dv) = (192,
+    128)) under ssa and xa on PARITY_DS_S tokens, its flux window cut to
+    sink PARITY_DS_SINK and local PARITY_DS_LOCAL so that SA differs
+    from FA within them. xa runs at its published block 128 and
+    threshold 0.9, which below 21 blocks keeps 2 a query block: the sink
+    block and the diagonal one, which it forces. So no score decides the
+    selection, and a near tie between two scores cannot select another
+    block on the CPU (phase 19 holds the scored selection, card against
+    CPU, in serving)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import modes as M
+    from repro_torch.core.router import gumbel_noise
+    from repro_torch.data import mixture_iterator
+    from repro_torch.models.model import init_params, soft_layers
+    fp32 = dict(dtype=torch.float32, param_dtype=torch.float32)
+    ds = get_config(DEEPSEEK).replace(**DEEPSEEK_NARROW, **fp32)
+    ds = ds.replace(flux=ds.flux.replace(sink=PARITY_DS_SINK,
+                                         local=PARITY_DS_LOCAL))
+    p_ds = init_params(ds, torch.Generator(device=dev).manual_seed(0), dev)
+    out = []
+    for label, c, p, S in (
+            (f"{ARCH} xa ", sa_cfg(cfg, "xa"), p_dev, PARITY_XA_S),
+            (f"{DEEPSEEK} narrowed ssa ", ds, p_ds, PARITY_DS_S),
+            (f"{DEEPSEEK} narrowed xa ", sa_cfg(ds, "xa"), p_ds,
+             PARITY_DS_S)):
+        if c.flux.sa_mode == "xa":
+            nkb = -(-S // c.flux.block)
+            keep = M.xa_keep_blocks(nkb, c.flux.threshold)
+            assert keep == 2 < nkb, (label, keep, nkb)
+            label += f"(keeps {keep} of {nkb} blocks) "
+        data = mixture_iterator(c.vocab_size, PARITY_B, S, seed=0)
+        batches = [next(data) for _ in range(PARITY_XA_STEPS)]
+        noise_gen = torch.Generator().manual_seed(7)
+        noise = [gumbel_noise((len(soft_layers(c)), PARITY_B, 2),
+                              noise_gen) for _ in batches]
+        card = train_side(c, dev, p, batches, noise,
+                          router_steps=PARITY_XA_STEPS, backbone=False)
+        out.append((label + f"{S} tokens: ", c, p, batches, noise, card))
+    return out
+
+
+def train_parity(dev):
     """Phase 29: phi3-mini at full width with its depth cut to 2 layers, in
     fp32: the same weights, batches (``mixture_iterator``) and Gumbel
     noise (drawn once on the CPU) on the card and on the CPU
-    (``train_side``): three RouterTrainer steps on PARITY_S tokens, one
+    (``train_side``): PARITY_ROUTER_STEPS RouterTrainer steps on PARITY_S
+    tokens, one
     PretrainTrainer and one ContinuedTrainer step on PARITY_BACKBONE_S
-    tokens. The card's side runs now; the CPU's, which takes minutes
-    and launches no kernel, runs in a thread meanwhile, while phases
-    28, 30 and 2b run on the card. Returns ``finish``, which waits for it
-    and
-    compares: each
-    step's loss, router and λ gradients and metrics, and the state after
-    it (``state_rel``), the pretrain and continued steps' loss, every
-    weight gradient and the new state, each within TRAIN_TOL relative
-    to its leaf's largest CPU value; it returns the report lines."""
-    import threading
+    tokens; then ``parity_cases``' router steps (phi3-mini under xa,
+    deepseek-v2 narrowed under ssa and xa). Compares each step's loss,
+    router and λ gradients and metrics, and the state after it
+    (``state_rel``), the pretrain and continued steps' loss, every weight
+    gradient and the new state, each within TRAIN_TOL relative to its
+    leaf's largest CPU value; returns the report lines."""
     from repro_torch.configs import get_config
     from repro_torch.core.router import gumbel_noise
     from repro_torch.data import mixture_iterator
@@ -4879,60 +5278,26 @@ def train_parity_start(dev):
     noise = [gumbel_noise((len(soft_layers(cfg)), PARITY_B, 2), noise_gen)
              for _ in batches]
     card = train_side(cfg, dev, p_dev, batches, noise)
-    cpu, failed = {}, []
-
-    def cpu_side():
-        try:
-            cpu.update(train_side(cfg, torch.device("cpu"), p_cpu, batches,
-                                  noise))
-        except BaseException as e:  # re-raised by finish
-            failed.append(e)
-
-    thread = threading.Thread(target=cpu_side, name="phase29-cpu")
-    thread.start()
-
-    def finish():
-        t0 = time.perf_counter()
-        thread.join()
-        if failed:
-            raise failed[0]
-        lines, resolved = [], None
-        for i, ((md, grd, gld, m2d, sd, td), (mc, grc, glc, m2c, sc, tc)) \
-                in enumerate(zip(card["router"], cpu["router"])):
-            mask = resolved_moments(sc["opt_router"].mu)
-            resolved = mask if resolved is None else {  # at every step
-                k: v & resolved[k] for k, v in mask.items()}
-            st_err, left_out = state_rel(sd, sc, resolved)
-            errs = dict(loss=leaf_rel(md["loss"], mc["loss"]),
-                        router_grad=tree_rel(grd, grc),
-                        lagrange_grad=tree_rel(gld, glc),
-                        metrics=max(leaf_rel(m2d[k], m2c[k]) for k in m2c),
-                        state=st_err)
-            lines.append(
-                f"router step {i}: loss card={float(md['loss']):.6f} "
-                f"cpu={float(mc['loss']):.6f} rel_err " + " ".join(
-                    f"{k}={v:.2e}" for k, v in errs.items())
-                + f" (router parameters compared where the CPU's first "
-                  f"moment is resolved: {100 * left_out:.4f} % left out; "
-                  f"cpu {tc:.1f} s, card {td:.1f} s)")
-            assert max(errs.values()) < TRAIN_TOL, lines[-1]
-        for name in ("pretrain", "continued"):
-            (ld, gd, nd, td), (lc, gc, nc, tc) = card[name], cpu[name]
-            errs = dict(loss=leaf_rel(ld, lc), grad=tree_rel(gd, gc),
-                        state=tree_rel(nd, nc))
-            lines.append(f"{name} step: loss card={float(ld):.6f} rel_err "
-                         + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
-                         + (" router bitwise unchanged"
-                            if name == "continued" else "")
-                         + f" (cpu {tc:.1f} s, card {td:.1f} s)")
-            assert max(errs.values()) < TRAIN_TOL, lines[-1]
-        lines.append(f"the CPU side ran beside phases 28, 30 and 2b; waited "
-                     f"{time.perf_counter() - t0:.1f} s for it after")
-        card.clear()
-        cpu.clear()
-        return lines
-
-    return finish
+    extra = parity_cases(dev, cfg, p_dev)
+    cpu = train_side(cfg, torch.device("cpu"), p_cpu, batches, noise)
+    lines = router_step_lines(card["router"], cpu["router"])
+    for name in ("pretrain", "continued"):
+        (ld, gd, nd, td), (lc, gc, nc, tc) = card[name], cpu[name]
+        errs = dict(loss=leaf_rel(ld, lc), grad=tree_rel(gd, gc),
+                    state=tree_rel(nd, nc))
+        lines.append(f"{name} step: loss card={float(ld):.6f} rel_err "
+                     + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+                     + (" router bitwise unchanged"
+                        if name == "continued" else "")
+                     + f" (cpu {tc:.1f} s, card {td:.1f} s)")
+        assert max(errs.values()) < TRAIN_TOL, lines[-1]
+    for label, c, p, b, n, card_out in extra:
+        cpu_out = train_side(
+            c, torch.device("cpu"), p_cpu if p is p_dev else
+            params_to(p, torch.device("cpu")), b, n,
+            router_steps=PARITY_XA_STEPS, backbone=False)["router"]
+        lines += router_step_lines(card_out["router"], cpu_out, label)
+    return lines
 
 
 def device_kernels_profile(fn, dev, top=PROFILE_TOP_OPS):
@@ -4962,27 +5327,32 @@ def device_kernels_profile(fn, dev, top=PROFILE_TOP_OPS):
 
 def train_launches(cfg, n_steps):
     """The kernels' launches of ``n_steps`` router-training steps with
-    every layer recomputed (remat): at each routed layer the flash and
-    streaming forwards twice a step (the forward and its recompute) and
-    the backward kernel twice (FA and SA), but for the first routed
-    layer, whose q, k and v need no gradient (the embedding and the
-    backbone are frozen); at a local layer the window (streaming) twice;
-    no other kernel."""
+    every layer recomputed (remat): at each routed layer the flash and SA
+    forwards twice a step (the forward and its recompute; the SA one
+    streaming, or block-sparse under xa) and a backward kernel each for
+    FA and SA (attention_backward, or block_sparse_backward for xa's SA),
+    but for the first routed layer, whose q, k and v need no gradient
+    (the embedding and the backbone are frozen); at a local layer the
+    window (streaming) twice; no other kernel."""
+    import repro_torch.kernels as KN
     from repro_torch.models.model import soft_layers
     routed = soft_layers(cfg)
     n_local = sum(k == "local" for k in cfg.layer_kinds)
-    want = {k: 0 for k in ("flash_attention", "streaming_attention",
-                           "block_sparse_attention", "decode_attention",
-                           "decode_attention_pooled", "decode_attention_mla",
-                           "attention_backward")}
+    xa = cfg.flux.sa_mode == "xa"
+    want = dict.fromkeys(KN.KERNELS, 0)
     want["flash_attention"] = n_steps * 2 * len(routed)
-    want["streaming_attention"] = n_steps * 2 * (len(routed) + n_local)
-    want["attention_backward"] = n_steps * 2 * max(len(routed) - 1, 0)
+    want["block_sparse_attention" if xa else "streaming_attention"] += \
+        n_steps * 2 * len(routed)
+    want["streaming_attention"] += n_steps * 2 * n_local
+    n_bwd = n_steps * max(len(routed) - 1, 0)
+    want["attention_backward"] = n_bwd * (1 if xa else 2)
+    want["block_sparse_backward"] = n_bwd if xa else 0
     return want
 
 
 def train_path(dev, params, cfg):
-    """Phase 30: router training of phi3-mini-3.8b at full width and depth
+    """Phase 30: router training of phi3-mini-3.8b at full width (its depth
+    TRAIN_LAYERS as ``main`` gives ``cfg``)
     in bf16 through ``launch/train.py``'s code path (``router_training``:
     RouterTrainer, λ from a generator, Gumbel noise from the card's
     generator): TRAIN_STEPS steps of a TRAIN_SCHEDULE-step schedule over
@@ -4995,7 +5365,7 @@ def train_path(dev, params, cfg):
     saved and loaded back bitwise; one request served through
     ``ServeEngine.generate`` with the trained routers. Returns (launch
     counts, lines, ``quiet``: the call that times the steps again once
-    phase 29's CPU side has finished, giving its line)."""
+    the parity worker has finished, giving its line)."""
     import repro_torch.kernels as KN
     from repro_torch.data import mixture_iterator
     from repro_torch.launch.train import router_training
@@ -5115,8 +5485,8 @@ def train_path(dev, params, cfg):
 
     def quiet():
         """QUIET_STEPS more steps and one more profiled step's gradients,
-        for when nothing else runs on the host (phase 29's CPU side
-        shares it with the steps above): each step's wall s, and the
+        for when nothing else runs on the host (the parity worker shares
+        it with the steps above): each step's wall s, and the
         profiled step's wall and busy ms."""
         torch.cuda.synchronize(dev)
         marks = [time.perf_counter()]
@@ -5134,6 +5504,133 @@ def train_path(dev, params, cfg):
                 f"step's gradients profiled: wall_ms={wall:.1f} "
                 f"device_busy_ms={busy:.1f} busy_share={busy / wall:.3f}")
     return counts, lines, quiet
+
+
+TRAIN_CELL_STEPS = 3  # phase 30's xa and deepseek cells: steps each
+
+
+def backbone_copy(params):
+    """The frozen backbone's tensors on the host (a bitwise copy that
+    leaves the card's memory to training), and the router's leaf count."""
+    from repro_torch.models.model import router_param_filter
+    from repro_torch.train.optimizer import partition, tree_leaves
+    router, backbone = partition(params, router_param_filter(params))
+    return ([x.to("cpu") for x in tree_leaves(backbone)],
+            len(tree_leaves(router)))
+
+
+def backbone_unchanged(params, saved):
+    """Every backbone tensor of ``params`` bitwise equal to its host copy
+    (``backbone_copy``), compared one tensor at a time on the card."""
+    from repro_torch.models.model import router_param_filter
+    from repro_torch.train.optimizer import partition, tree_leaves
+    _, backbone = partition(params, router_param_filter(params))
+    leaves = tree_leaves(backbone)
+    return len(leaves) == len(saved) and all(
+        torch.equal(x, y.to(x.device)) for x, y in zip(leaves, saved))
+
+
+def train_cell(dev, params, cfg, label, steps, B, S, saved=None):
+    """Phase 30's router-training cells past phi3-mini's: phi3-mini under
+    xa, and deepseek-v2 at full width, DEEPSEEK_LAYERS layers, under ssa
+    and xa. ``steps`` steps of B x S tokens through ``launch.train``'s
+    ``router_training`` in bf16: each step's loss and wall, train tok/s
+    after the first step, peak memory, exact launches
+    (``train_launches``); one more step's gradients under the profiler
+    (finite, every routed layer's router gradient nonzero; wall, the
+    device's busy share, the backward kernels' device ms and their share
+    of it); the backbone bitwise unchanged (``backbone_copy`` and
+    ``backbone_unchanged``; given ``saved``, a copy the caller made, the
+    caller checks it after its last cell). Returns (launch counts,
+    lines)."""
+    import repro_torch.kernels as KN
+    from repro_torch.data import mixture_iterator
+    from repro_torch.launch.train import router_training
+    check = saved is None
+    saved, n_router = saved or backbone_copy(params)
+    data = mixture_iterator(cfg.vocab_size, B, S, seed=0)
+    stamps, lines = [time.perf_counter()], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    KN.reset_launch_counts()
+    rt, state, history = router_training(
+        cfg, params, data, steps=steps, total_steps=TRAIN_SCHEDULE,
+        log_every=1, log_fn=lambda msg: stamps.append(time.perf_counter()))
+    counts = KN.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    walls = np.diff(stamps)
+    want = train_launches(cfg, steps)
+    assert counts == want, (label, counts, want)
+    assert all(np.isfinite(r["loss"]) for r in history), label
+    tok = B * S
+    lines.append(
+        f"{label}: {steps} steps of {B} x {S}: loss="
+        + "/".join(f"{r['loss']:.4f}" for r in history)
+        + " wall_s=" + "/".join(f"{w:.3f}" for w in walls)
+        + f" train_tok_s={tok * (len(walls) - 1) / walls[1:].sum():.1f} "
+        f"(steps 1-{len(walls) - 1}) peak_mem_bytes={peak} launches="
+        + str({k: v for k, v in counts.items() if v}))
+    batch = next(data)
+    b = [torch.as_tensor(np.asarray(x), device=dev)
+         for x in (batch.tokens, batch.labels, batch.loss_mask,
+                   batch.task_type)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+
+    def one_step():
+        out["r"] = rt.loss_and_grads(state, *b, generator=gen)
+
+    KN.reset_launch_counts()
+    wall, busy, top = device_kernels_profile(one_step, dev, top=64)
+    assert KN.launch_counts() == train_launches(cfg, 1), label
+    loss, _, g_router, _ = out.pop("r")
+    assert bool(torch.isfinite(loss)), label
+    for i, layer in enumerate(g_router["layers"]):
+        if "router" in layer:
+            gs = list(layer["router"].values())
+            assert all(bool(torch.isfinite(x).all()) for x in gs), (label, i)
+            assert any(bool(x.abs().max() > 0) for x in gs), (label, i)
+    bwd_ms = sum(ms for k, _, ms in top if "bwd::" in k)
+    lines.append(
+        f"{label}: one step's gradients profiled: wall_ms={wall:.1f} "
+        f"device_busy_ms={busy:.1f} busy_share={busy / wall:.3f} "
+        f"backward_kernels_ms={bwd_ms:.1f} "
+        f"backward_share_of_busy={bwd_ms / max(busy, 1e-9):.3f} top_kernels="
+        + ", ".join(f"{k} x{c} {ms:.1f} ms" for k, c, ms in top[:6]))
+    if check:
+        assert backbone_unchanged(rt.params(state), saved), \
+            f"{label}: backbone moved"
+        lines.append(f"{label}: backbone ({len(saved)} tensors) bitwise "
+                     f"unchanged, {n_router} router leaves trained")
+    del rt, state, g_router
+    free_card()
+    return counts, lines
+
+
+def deepseek_xa_serve(dev, params, cfg):
+    """One bf16 ``generate`` of deepseek-v2 (DEEPSEEK_LAYERS layers) under
+    xa at the published block 128 (the monolithic prefill: flash at FA
+    layers and the block-sparse kernel at (192, 128) at SA layers, then
+    the latent decode), router-driven, 2 prompts of PROMPT tokens: every
+    logit finite, exact launches. Returns (launch counts, line)."""
+    from repro_torch.serve.engine import ServeEngine
+    xcfg = sa_cfg(cfg, "xa")
+    eng = ServeEngine(params, xcfg, max_len=PROMPT + GEN,
+                      prefill_chunk=CHUNK, device=dev)
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                                (2, PROMPT))
+    gen, delta = sa_batch(eng, prompts, ("sa",) * cfg.num_layers)
+    want = {**dict.fromkeys(delta, 0),
+            **prefill_launches(xcfg, [], [(gen.routing, PROMPT)]),
+            **decode_launches(xcfg, GEN, pooled=False)}
+    assert delta == want, (delta, want)
+    assert delta["block_sparse_attention"] == cfg.num_layers, delta
+    del eng
+    free_card()
+    return delta, (f"{DEEPSEEK} under xa (block 128, every layer SA), 2 x "
+                   f"{PROMPT} + {GEN}, bf16: " + gen_text(gen, 2, PROMPT)
+                   + " launches="
+                   + str({k: v for k, v in delta.items() if v}))
 
 
 def check_kernels(dev):
@@ -5853,6 +6350,119 @@ def tp_arch_phase(dev):
     return counts, lines
 
 
+# The host's cores while the paths run beside the parity worker: the
+# worker's CPU threads and the main process's. The paths' host work, the
+# card's driver and phase 31-32's ranks keep 2-3 cores busy, and an OpenMP
+# team with more threads than free cores waits on its slowest at every
+# barrier (a worker of 7 threads ran its phases at 46 % of their speed
+# alone). Once the paths have ended the worker takes every core.
+WORKER_THREADS, MAIN_THREADS = 5, 2
+
+
+def parity_phases(dev, free_card=free_card):
+    """Phases 5, 5b, 9, 9b, 13, 15, 17, 19, 21, 24, 25's card-against-CPU
+    runs, 27 and 29: each model's card run against its CPU run on the
+    same weights and inputs. They launch kernels only to compare them and
+    spend most of their time on the host, so ``parity_worker`` runs them
+    in a process of their own beside the main process's paths, whose
+    launch counts they do not touch. ``free_card`` runs after each."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch.serve import ROUTINGS
+    fp32 = dict(dtype=torch.float32, param_dtype=torch.float32)
+    t0 = time.perf_counter()
+    say(5, path_parity(dev), t0)
+    t0 = time.perf_counter()
+    say("5b", pool_parity(dev), t0)
+    free_card()
+    t0 = time.perf_counter()
+    say(9, path_parity(dev, STABLELM), t0)
+    free_card()
+    t0 = time.perf_counter()
+    say("9b", pool_parity(dev, STABLELM, cfg=get_config(STABLELM).replace(
+        num_layers=1, **fp32)), t0)
+    free_card()
+    t0 = time.perf_counter()
+    say(13, guarded_parity(dev), t0)
+    free_card()
+    t0 = time.perf_counter()
+    for line in moe_path_parity(dev):
+        say(15, line)
+    say(15, f"{GRANITE} card = cpu done", t0)
+    free_card()
+    t0 = time.perf_counter()
+    narrow = get_config(DEEPSEEK).replace(**DEEPSEEK_NARROW, **fp32)
+    for line in moe_path_parity(dev, narrow):
+        say(17, line)
+    say(17, f"{DEEPSEEK} (per-head widths kept, {DEEPSEEK_NARROW}) card = "
+            f"cpu done", t0)
+    free_card()
+    t0 = time.perf_counter()
+    for line in sa_mode_parity(dev):
+        say(19, line)
+    say(19, "xa, ta, duo and head-split card = cpu done", t0)
+    free_card()
+    t0 = time.perf_counter()
+    for line in side_parity(dev):
+        say(21, line)
+    say(21, f"{PHI3V} and {WHISPER} card = cpu done", t0)
+    free_card()
+    t0 = time.perf_counter()
+    for line in ssd_parity(dev):
+        say(24, line)
+    say(24, f"{MAMBA2} SSD pieces card = cpu done", t0)
+    free_card()
+    t0 = time.perf_counter()
+    cfg = get_config(MAMBA2).replace(num_layers=2, **fp32)
+    say(25, f"{MAMBA2} 2 layers: " + path_parity(dev, cfg=cfg,
+                                                 routings=("router",)))
+    say(25, f"{MAMBA2} 2 layers: " + pool_parity(dev, cfg=cfg,
+                                                 routings=("router",)))
+    cfg = smoke_variant(get_config(JAMBA))
+    say(25, f"{JAMBA} smoke: " + path_parity(dev, cfg=cfg,
+                                             routings=ROUTINGS))
+    say(25, f"{JAMBA} smoke: " + pool_parity(dev, cfg=cfg))
+    say(25, f"{MAMBA2} (2 layers) and {JAMBA} smoke card = cpu done", t0)
+    free_card()
+    t0 = time.perf_counter()
+    for line in gemma_parity(dev):
+        say(27, f"{GEMMA3} smoke " + line)
+    say(27, f"{GEMMA3} smoke card = cpu done", t0)
+    free_card()
+    t0 = time.perf_counter()
+    for line in train_parity(dev):
+        say(29, line)
+    say(29, f"{ARCH} (2 layers, fp32) router, pretrain and continued "
+            f"training card = cpu done", t0)
+    free_card()
+
+
+def parity_worker(paths_done):
+    """The spawned parity process: ``parity_phases`` on the card with
+    WORKER_THREADS CPU threads, and from the first phase after the main
+    process sets ``paths_done`` with every core. Its lines go to the
+    shared standard output; a failed check exits it non-zero, which
+    ``run`` raises."""
+    import os
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(WORKER_THREADS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    widened = []
+
+    def between():
+        free_card()
+        if paths_done.is_set() and not widened:
+            widened.append(len(os.sched_getaffinity(0)))
+            torch.set_num_threads(widened[0])
+            say("5-29", f"the paths have ended: the worker takes "
+                        f"{widened[0]} CPU threads")
+
+    t0 = time.perf_counter()
+    parity_phases(torch.device("cuda"), between)
+    say("5-29", f"parity worker ({WORKER_THREADS} CPU threads beside the "
+                f"paths) done", t0)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--parent"] and len(argv) == 2:
@@ -5865,6 +6475,20 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is False); it runs on an NVIDIA "
                          "GPU only")
+    import signal
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    procs = []  # the parity worker, stopped however the run ends
+    try:
+        return run(parent_src, procs)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+
+
+def run(parent_src, procs) -> int:
+    import multiprocessing as mp
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build  # fails outside the repo
     dev = torch.device("cuda")
@@ -5890,29 +6514,25 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the card-against-CPU phases run in a process of their own beside the
+    # paths below; phase 4 times the kernels once it has ended and the
+    # card is idle
+    t_parity = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    paths_done = ctx.Event()
+    worker = ctx.Process(target=parity_worker, args=(paths_done,),
+                         name="parity", daemon=True)
+    worker.start()
+    procs.append(worker)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(MAIN_THREADS)
+
     t0 = time.perf_counter()
     errs = check_kernels(dev)
     bwd_lines, bwd_errs = check_backward(dev)
     for line in bwd_lines:
         say(3, line)
     say(3, "kernels agree with their plain versions", t0)
-
-    t0 = time.perf_counter()
-    parent = None
-    if parent_src is not None:
-        from repro_torch.kernels.sass_diff import other_libraries
-        parent = other_libraries(Path(parent_src))
-    rows = time_kernels(dev, None if parent is None else parent_mla(parent))
-    free_card()
-    bwd_rows = time_backward(
-        dev, None if parent is None else parent_backward(parent))
-    free_card()
-    say(4, f"timed at {card}", t0)
-
-    t0 = time.perf_counter()
-    say(5, path_parity(dev), t0)
-    t0 = time.perf_counter()
-    say("5b", pool_parity(dev), t0)
     free_card()
 
     from repro_torch.configs import get_config
@@ -5941,14 +6561,6 @@ def main(argv=None) -> int:
         say(8, line)
     say(8, "prefix path done", t0)
     del params  # phi3-mini's 7.6 GB leave the card before stablelm's
-    free_card()
-
-    t0 = time.perf_counter()
-    say(9, path_parity(dev, STABLELM), t0)
-    free_card()
-    t0 = time.perf_counter()
-    say("9b", pool_parity(dev, STABLELM, cfg=get_config(STABLELM).replace(
-        num_layers=1, dtype=torch.float32, param_dtype=torch.float32)), t0)
     free_card()
 
     cfg = get_config(STABLELM).replace(num_layers=STABLELM_LAYERS)
@@ -5989,10 +6601,6 @@ def main(argv=None) -> int:
     del params
     free_card()
 
-    t0 = time.perf_counter()
-    say(13, guarded_parity(dev), t0)
-    free_card()
-
     # phi3-mini's seeded weights again (phases 6-8 dropped them for
     # stablelm's and command-r's), GUARD_LAYERS of them
     cfg = get_config(ARCH).replace(num_layers=GUARD_LAYERS)
@@ -6004,12 +6612,6 @@ def main(argv=None) -> int:
         say(14, line)
     say(14, "guarded path done", t0)
     del params
-    free_card()
-
-    t0 = time.perf_counter()
-    for line in moe_path_parity(dev):
-        say(15, line)
-    say(15, f"{GRANITE} card = cpu done", t0)
     free_card()
 
     cfg = get_config(GRANITE).replace(num_layers=GRANITE_LAYERS)
@@ -6034,15 +6636,6 @@ def main(argv=None) -> int:
     del params
     free_card()
 
-    t0 = time.perf_counter()
-    narrow = get_config(DEEPSEEK).replace(
-        **DEEPSEEK_NARROW, dtype=torch.float32, param_dtype=torch.float32)
-    for line in moe_path_parity(dev, narrow):
-        say(17, line)
-    say(17, f"{DEEPSEEK} (per-head widths kept, {DEEPSEEK_NARROW}) card = "
-            f"cpu done", t0)
-    free_card()
-
     cfg = get_config(DEEPSEEK).replace(num_layers=DEEPSEEK_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -6062,14 +6655,29 @@ def main(argv=None) -> int:
     for line in lines:
         say(18, "continuous " + line)
     say(18, mla_prefix_hit(dev, params, cfg))
-    say(18, f"{DEEPSEEK} batch, continuous and prefix paths done", t0)
-    del params
+    counts["deepseek_xa_batch"], line = deepseek_xa_serve(dev, params, cfg)
+    say(18, line)
+    say(18, f"{DEEPSEEK} batch, continuous, prefix and xa paths done", t0)
     free_card()
-
+    # phase 30b: router training of deepseek-v2 on phase 18's weights
     t0 = time.perf_counter()
-    for line in sa_mode_parity(dev):
-        say(19, line)
-    say(19, "xa, ta, duo and head-split card = cpu done", t0)
+    saved = backbone_copy(params)  # 34 GB to the host once, for both
+    for mode in ("ssa", "xa"):
+        c, lines = train_cell(dev, params, sa_cfg(cfg, mode),
+                              f"{DEEPSEEK} {mode}", TRAIN_CELL_STEPS,
+                              TRAIN_B, DEEPSEEK_TRAIN_S, saved)
+        counts[f"deepseek_train_{mode}"] = c
+        for line in lines:
+            say("30b", line)
+    # each cell trains its own router state over the backbone the two
+    # share, which must still be bitwise the one drawn
+    assert backbone_unchanged(params, saved[0]), "deepseek backbone moved"
+    say("30b", f"backbone ({len(saved[0])} tensors) bitwise unchanged "
+               f"after both cells, {saved[1]} router leaves trained")
+    del saved
+    say("30b", f"{DEEPSEEK} router training at full width, depth cut to "
+               f"{DEEPSEEK_LAYERS} layers, under ssa and xa done", t0)
+    del params
     free_card()
 
     cfg = get_config(ARCH).replace(num_layers=SA_MODES_LAYERS)
@@ -6082,12 +6690,6 @@ def main(argv=None) -> int:
         say(20, line)
     say(20, "xa, ta and duo paths done", t0)
     del params
-    free_card()
-
-    t0 = time.perf_counter()
-    for line in side_parity(dev):
-        say(21, line)
-    say(21, f"{PHI3V} and {WHISPER} card = cpu done", t0)
     free_card()
 
     cfg = get_config(PHI3V)
@@ -6126,29 +6728,13 @@ def main(argv=None) -> int:
     del params
     free_card()
 
-    t0 = time.perf_counter()
-    for line in ssd_parity(dev):
-        say(24, line)
-    say(24, f"{MAMBA2} SSD pieces card = cpu done", t0)
-    free_card()
-
     from repro_torch.configs import smoke_variant
     from repro_torch.launch.serve import ROUTINGS
     t0 = time.perf_counter()
-    fp32 = dict(dtype=torch.float32, param_dtype=torch.float32)
-    cfg = get_config(MAMBA2).replace(num_layers=2, **fp32)
-    say(25, f"{MAMBA2} 2 layers: " + path_parity(dev, cfg=cfg,
-                                                 routings=("router",)))
-    say(25, f"{MAMBA2} 2 layers: " + pool_parity(dev, cfg=cfg,
-                                                 routings=("router",)))
-    cfg = smoke_variant(get_config(JAMBA))
-    say(25, f"{JAMBA} smoke: " + path_parity(dev, cfg=cfg,
-                                             routings=ROUTINGS))
-    say(25, f"{JAMBA} smoke: " + pool_parity(dev, cfg=cfg))
-    free_card()
     # jamba's smoke variant in bf16 on the card: exact counts of the five
     # kernels (its attention layer) under every routing and in the pool
-    cfg = cfg.replace(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    cfg = smoke_variant(get_config(JAMBA)).replace(
+        dtype=torch.bfloat16, param_dtype=torch.bfloat16)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
     jamba_counts, lines = main_path(dev, params, cfg, routings=ROUTINGS)
@@ -6162,8 +6748,7 @@ def main(argv=None) -> int:
         "flash_attention", "streaming_attention", "block_sparse_attention",
         "decode_attention", "decode_attention_pooled"))
     del params
-    say(25, f"{MAMBA2} (2 layers) and {JAMBA} smoke card = cpu, and "
-            f"{JAMBA} smoke's launches, done", t0)
+    say(25, f"{JAMBA} smoke's launches done", t0)
     free_card()
 
     cfg = get_config(MAMBA2).replace(num_layers=MAMBA2_LAYERS)
@@ -6185,12 +6770,6 @@ def main(argv=None) -> int:
     free_card()
 
     t0 = time.perf_counter()
-    for line in gemma_parity(dev):
-        say(27, f"{GEMMA3} smoke " + line)
-    say(27, f"{GEMMA3} smoke card = cpu done", t0)
-    free_card()
-
-    t0 = time.perf_counter()
     tp_counts, lines = tp_phase(dev)
     counts.update(tp_counts)
     for line in lines:
@@ -6205,15 +6784,6 @@ def main(argv=None) -> int:
         say(32, line)
     say(32, f"tensor-parallel MoE, MLA, Mamba and encoder archs, "
             f"{TP_LABEL}, done", t0)
-    free_card()
-
-    # phase 29's card side runs here, and its CPU side (minutes of CPU
-    # work, no kernel launched) in a thread beside phases 28, 30 and 2b,
-    # which keep the card busy and the host's cores mostly free
-    t29 = time.perf_counter()
-    parity_finish = train_parity_start(dev)
-    say(29, f"{ARCH} (2 layers, fp32) card side done; its CPU side runs "
-            f"beside phases 28, 30 and 2b", t29)
     free_card()
 
     cfg = get_config(GEMMA3).replace(num_layers=GEMMA3_LAYERS)
@@ -6241,19 +6811,32 @@ def main(argv=None) -> int:
     del params
     free_card()
 
-    cfg = get_config(ARCH)
+    cfg = get_config(ARCH).replace(num_layers=TRAIN_LAYERS)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
     counts["train"], lines, train_quiet = train_path(dev, params, cfg)
     for line in lines:
         say(30, line)
-    say(30, f"{ARCH} router training at full width and depth "
-            f"({cfg.num_layers} layers, bf16, {TRAIN_STEPS} steps of "
-            f"{TRAIN_B} x {TRAIN_S}) done", t0)
+    say(30, f"{ARCH} router training at full width, depth cut to "
+            f"{cfg.num_layers} of {get_config(ARCH).num_layers} layers "
+            f"(bf16, {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S}) done",
+        t0)
     del params
     free_card()
-    # phase 2b's card work fills the wait for phase 29's CPU side
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    counts["train_xa"], lines = train_cell(
+        dev, params, sa_cfg(cfg, "xa"), f"{ARCH} xa", TRAIN_CELL_STEPS,
+        TRAIN_B, TRAIN_S)
+    for line in lines:
+        say(30, line)
+    say(30, f"{ARCH} router training under xa at full width and depth "
+            f"({cfg.num_layers} layers) done", t0)
+    del params
+    free_card()
     t0 = time.perf_counter()
     stressed, stress_kernel = stress(dev)
     for label, c in stressed.items():
@@ -6267,10 +6850,27 @@ def main(argv=None) -> int:
     say("2b", f"{len(stressed)} wgmma instances x {STRESS_CALLS} calls: no "
               f"non-finite output, no element past the limit", t0)
     free_card()
-    for line in parity_finish():
-        say(29, line)
-    say(29, f"{ARCH} (2 layers, fp32) router, pretrain and continued "
-            f"training card = cpu done", t29)
+    paths_done.set()
+    t0 = time.perf_counter()
+    worker.join()
+    if worker.exitcode != 0:
+        raise SystemExit(f"chip_smoke: the parity worker (phases 5-29) "
+                         f"failed with exit code {worker.exitcode}")
+    say("5-29", f"the paths waited {time.perf_counter() - t0:.1f} s for "
+                f"the parity worker", t_parity)
+    torch.set_num_threads(threads)
+
+    t0 = time.perf_counter()
+    parent = None
+    if parent_src is not None:
+        from repro_torch.kernels.sass_diff import other_libraries
+        parent = other_libraries(Path(parent_src))
+    rows = time_kernels(dev, None if parent is None else parent_mla(parent))
+    free_card()
+    bwd_rows = time_backward(
+        dev, None if parent is None else parent_backward(parent))
+    free_card()
+    say(4, f"timed at {card}", t0)
     t0 = time.perf_counter()
     say(30, train_quiet(), t0)
     del train_quiet
@@ -6381,9 +6981,30 @@ def main(argv=None) -> int:
                           streaming=bwd_row(f"{STABLELM} streaming")),
         gemma3_12b_window=bwd_row(f"{GEMMA3} window"),
         whisper_encoder=bwd_row(f"{WHISPER} bidirectional"),
+        deepseek_v2_236b=dict(
+            launches=counts["deepseek_train_ssa"]["attention_backward"],
+            **bwd_row(f"{DEEPSEEK} causal")),
         unaligned=bwd_row(BWD_UNALIGNED_TIMED),
         stress={k: c_ for k, c_ in stressed.items()
                 if stress_kernel[k] == "attention_backward"}))
+    kernels.append(dict(
+        name="block_sparse_backward", route="cuda",
+        source=str((_build.CSRC / "block_sparse_backward.cu").relative_to(
+            ROOT)),
+        bf16_engine=str((_build.CSRC / "backward_wgmma.cuh").relative_to(
+            ROOT)),
+        replaces="none: the gradient of block-sparse (the JAX package "
+                 "differentiates src/repro/core/modes.py:473 _block_topk "
+                 "by XLA's autodiff)",
+        launches=counts["train_xa"]["block_sparse_backward"],
+        launches_by_path={k: c_["block_sparse_backward"]
+                          for k, c_ in counts.items()},
+        **bwd_row(f"{ARCH} xa"),
+        deepseek_v2_236b=dict(
+            launches=counts["deepseek_train_xa"]["block_sparse_backward"],
+            **bwd_row(f"{DEEPSEEK} xa")),
+        stress={k: c_ for k, c_ in stressed.items()
+                if stress_kernel[k] == "block_sparse_backward"}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

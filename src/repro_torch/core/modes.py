@@ -16,12 +16,12 @@ those) and ``block_topk`` (XAttention, the ``xa`` mode: antidiagonal
 block scores in plain torch, as the JAX package scores them in XLA, and
 the block-sparse kernel over the per-query-head top-k selection).
 
-Training differentiates ``attention`` through ``full``, ``window``,
-``streaming`` and ``triangle``: on CUDA the flash and streaming entries
-record their launches for autograd with the backward kernel
-(``kernels/attention_backward.py``); on CPU every kind runs through its
-plain version's autograd. ``block_topk`` and MLA's (Dk, Dv) = (192, 128)
-raise on CUDA when an operand requires grad (ROADMAP item 15b).
+Training differentiates ``attention`` through every kind: on CUDA the
+flash and streaming entries record their launches for autograd with the
+backward kernel (``kernels/attention_backward.py``), the block-sparse
+entry with its own (``kernels/block_sparse_backward.py``), at every built
+head dim and at MLA's (Dk, Dv) = (192, 128); on CPU every kind runs
+through its plain version's autograd.
 """
 from __future__ import annotations
 
@@ -32,7 +32,6 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.attention_backward import refuse_grad
 from repro_torch.kernels.block_sparse_attention import (
     KERNEL_BLOCK, block_sparse_attention_bh)
 from repro_torch.kernels.flash_attention import flash_attention_bh
@@ -311,13 +310,15 @@ def _block_topk(q, k, v, mode: AttnMode, *, q_offset: int, scale: float):
     (query row r sees the selected keys <= ``q_offset + r``, as the JAX
     package masks ``pos <= q_pos``). A ``mode.block`` that is not a
     multiple of the kernel's 64-token tile runs the plain version at
-    that block on CPU tensors and raises on CUDA tensors. On CUDA
-    tensors that autograd would record it raises: the block-sparse
-    kernel has no backward yet (ROADMAP item 15b)."""
-    refuse_grad("attention(block_topk)", q, k, v)
+    that block on CPU tensors and raises on CUDA tensors. Under autograd
+    the selection is a constant (its indices carry no gradient, as
+    ``lax.top_k``'s do not), so it is made without a graph; the gradient
+    flows through the block-sparse call (on the card its backward
+    kernel)."""
     B, Hq, Sq, D = q.shape
     Skv = k.shape[2]
-    sel = xa_selection(q, k, mode, q_offset=q_offset, scale=scale)
+    with torch.no_grad():
+        sel = xa_selection(q, k, mode, q_offset=q_offset, scale=scale)
     if mode.block % KERNEL_BLOCK == 0:
         out = block_sparse_attention_bh(
             _flat(q), _flat(k), _flat(v),

@@ -4,13 +4,14 @@ Each kernel module holds one entry (``*_bh``, the flattened (B·H, S, D)
 layout of the JAX package's kernels), its plain PyTorch version and its
 ``KERNEL`` binding with a launch count. A CUDA tensor goes to the kernel
 or raises; a CPU tensor goes to the plain version. ``attention_backward``
-is the gradient of the flash and streaming kernels (no TPU counterpart:
-the JAX package trains through XLA's autodiff).
+is the gradient of the flash and streaming kernels and
+``block_sparse_backward`` that of the block-sparse kernel (no TPU
+counterparts: the JAX package trains through XLA's autodiff).
 """
 from typing import Dict
 
 from repro_torch.kernels import (attention_backward, block_sparse_attention,
-                                 decode_attention,
+                                 block_sparse_backward, decode_attention,
                                  decode_attention_mla,
                                  decode_attention_pooled, flash_attention,
                                  streaming_attention)
@@ -23,6 +24,7 @@ KERNELS = {
     "decode_attention_pooled": decode_attention_pooled.KERNEL,
     "decode_attention_mla": decode_attention_mla.KERNEL,
     "attention_backward": attention_backward.KERNEL,
+    "block_sparse_backward": block_sparse_backward.KERNEL,
 }
 
 

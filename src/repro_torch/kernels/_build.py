@@ -29,14 +29,16 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("flash_attention", "streaming_attention",
            "block_sparse_attention", "decode_attention",
-           "decode_attention_pooled", "attention_backward")
+           "decode_attention_pooled", "attention_backward",
+           "block_sparse_backward")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # dtype codes and head dims the kernels are instantiated for
 # (csrc/attention_common.cuh: kF32, kBF16, dispatch_head_dim), and the
-# (Dk, Dv) pairs with Dk != Dv of the flash and streaming kernels
-# (dispatch_head_dims): MLA's route chunk, nope + rope = 192 over v = 128
+# (Dk, Dv) pairs with Dk != Dv of the flash, streaming and block-sparse
+# kernels and of both backwards (dispatch_head_dims): MLA's route chunk,
+# nope + rope = 192 over v = 128
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 96, 128, 160, 256)
 SPLIT_HEAD_DIMS = ((192, 128),)

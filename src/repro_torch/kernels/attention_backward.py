@@ -16,10 +16,12 @@ passes the gradient straight through, with the row max a constant
 (``ref._masked_attention``).
 
 ``differentiable`` wraps one forward launch in a ``torch.autograd.Function``
-whose backward is that kernel. The flash and streaming entries take it
-only on CUDA tensors when grad is enabled and q, k or v requires grad;
-otherwise they launch exactly as before. ``ctx.needs_input_grad`` decides
-whether the backward launches at all.
+whose backward is that kernel (or, for the block-sparse entry,
+``block_sparse_backward.block_sparse_backward_bh``). The flash,
+streaming and block-sparse entries take it only on CUDA tensors when grad
+is enabled and q, k or v requires grad; otherwise they launch exactly as
+before. ``ctx.needs_input_grad`` decides whether the backward launches at
+all.
 """
 from __future__ import annotations
 
@@ -33,9 +35,9 @@ from repro_torch.kernels import ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # q, k, v, dout, dq, dk, dv, stats, BH, BHkv, Sq, Skv, D, dtype, kind,
-# causal, sink, local, q_offset, scale
+# causal, sink, local, q_offset, scale, Dv
 KERNEL = _build.CudaKernel("attention_backward", "attention_backward",
-                           [_P] * 8 + [_I] * 11 + [_F])
+                           [_P] * 8 + [_I] * 11 + [_F, _I])
 FLASH, STREAMING = 0, 1  # the C entry's kinds
 
 
@@ -45,14 +47,15 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
-    """Raise when a CUDA call of a kernel with no backward would be
-    recorded by autograd: its output would have no ``grad_fn``, so a loss
-    through it would be silently wrong."""
+    """Raise when a CUDA call of a kernel with no backward (the decode
+    kernels: no training path runs them) would be recorded by autograd:
+    its output would have no ``grad_fn``, so a loss through it would be
+    silently wrong."""
     if needs_grad(*tensors) and not _build.on_cpu(name, tensors[0]):
         raise NotImplementedError(
-            f"{name}: an operand requires grad, and this kernel has no "
-            f"backward kernel on the card (ROADMAP Queue 1 item 15b); "
-            f"training runs the flash and streaming kernels")
+            f"{name}: an operand requires grad, and this decode kernel has "
+            f"no backward kernel; training runs the flash, streaming and "
+            f"block-sparse kernels")
 
 
 def attention_backward_plain(q, k, v, dout, *, causal: bool = True,
@@ -85,8 +88,8 @@ def attention_backward_bh(q, k, v, dout, *, causal: bool = True,
     ``streaming_attention_bh`` (``sink`` / ``local``, ``q_offset``). The
     kernel recomputes each row's softmax statistics and D_i = dO_i · O_i
     itself, so it needs no forward output. Returns (dq, dk, dv) in the
-    operands' dtype. The card takes Dk = Dv in ``_build.HEAD_DIMS``;
-    (192, 128) raises ``NotImplementedError`` (ROADMAP item 15b). ``out``
+    operands' dtype. The card takes Dk = Dv in ``_build.HEAD_DIMS`` and
+    (Dk, Dv) in ``_build.SPLIT_HEAD_DIMS`` (v, dout (.., Dv)). ``out``
     (a test's hook): None or (dq, dk, dv), each checked as
     ``_build.check_out`` checks one, written in place and returned.
     ``stats`` (a test's hook, CUDA only): the kernels' scratch, as
@@ -114,13 +117,7 @@ def attention_backward_bh(q, k, v, dout, *, causal: bool = True,
         grads = attention_backward_plain(q, k, v, dout, **kw)
         return grads if out is None else tuple(
             _build.into(o, g) for o, g in zip(out, grads))
-    BH, Sq, D = q.shape
-    BHkv, Skv, Dv = v.shape
-    if Dv != D:
-        raise NotImplementedError(
-            f"{name}: head dims (Dk, Dv) = {(D, Dv)}: the backward kernel is "
-            f"built for Dk = Dv only (ROADMAP Queue 1 item 15b)")
-    _build.check_cuda(name, q, k, v, dout)
+    _build.check_cuda(name, q, k, v, dout, dims=(q.shape[2], v.shape[2]))
     if q.dtype == torch.bfloat16:
         _build.check_tma_aligned(name, q, k, v, dout)
     out = out or tuple(torch.empty_like(t) for t in (q, k, v))
@@ -134,22 +131,10 @@ def launch(kernel: _build.CudaKernel, q, k, v, dout, out, *,
            scale: Optional[float] = None, stats=None) -> None:
     """One launch of ``kernel`` (``KERNEL``, or its entry in another
     build, ``KERNEL.of``) on operands ``attention_backward_bh`` checked,
-    into ``out`` = (dq, dk, dv). ``stats``: the rows' m, l (or 1 / l) and
-    D, a (3, BH, Sq rounded up to 64) float32 scratch, so that each row
-    block's 64 rows are one 256-byte bulk copy of the bf16 engine; None
-    makes a fresh one."""
+    into ``out`` = (dq, dk, dv). ``stats`` as ``check_stats`` takes it."""
     BH, Sq, D = q.shape
-    BHkv, Skv = k.shape[:2]
-    want = (3, BH, -(-Sq // 64) * 64)
-    if stats is None:
-        stats = torch.empty(want, dtype=torch.float32, device=q.device)
-    elif (tuple(stats.shape) != want or stats.dtype != torch.float32
-          or stats.device != q.device or not stats.is_contiguous()
-          or stats.data_ptr() % 16):
-        raise ValueError(f"attention_backward: stats must be a contiguous "
-                         f"float32 {want} on {q.device}, 16-byte aligned; "
-                         f"got {stats.dtype} {tuple(stats.shape)} on "
-                         f"{stats.device}")
+    BHkv, Skv, Dv = v.shape
+    stats = check_stats("attention_backward", stats, q)
     dq, dk, dv = out
     kernel.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -157,17 +142,37 @@ def launch(kernel: _build.CudaKernel, q, k, v, dout, out, *,
                   _build.DTYPE_CODES[q.dtype],
                   FLASH if local is None else STREAMING, int(causal),
                   int(sink or 0), int(local or 1), int(q_offset),
-                  _build.default_scale(D, scale))
+                  _build.default_scale(D, scale), Dv)
+
+
+def check_stats(name: str, stats, q: torch.Tensor) -> torch.Tensor:
+    """The backward kernels' scratch: the rows' m, l (or 1 / l) and D, a
+    (3, BH, Sq rounded up to 64) float32 tensor, so that each row block's
+    64 rows are one 256-byte bulk copy of the bf16 engine. None makes a
+    fresh one; another tensor must be exactly that (a test's NaN-filled
+    scratch), or this raises."""
+    want = (3, q.shape[0], -(-q.shape[1] // 64) * 64)
+    if stats is None:
+        return torch.empty(want, dtype=torch.float32, device=q.device)
+    if (tuple(stats.shape) != want or stats.dtype != torch.float32
+            or stats.device != q.device or not stats.is_contiguous()
+            or stats.data_ptr() % 16):
+        raise ValueError(f"{name}: stats must be a contiguous float32 "
+                         f"{want} on {q.device}, 16-byte aligned; got "
+                         f"{stats.dtype} {tuple(stats.shape)} on "
+                         f"{stats.device}")
+    return stats
 
 
 class _Attention(torch.autograd.Function):
     """One forward kernel launch (``forward``, a closure over its mask)
-    with ``attention_backward_bh`` as its gradient."""
+    with ``backward(q, k, v, dout, **mask)`` as its gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, forward: Callable, mask: dict):
+    def forward(ctx, q, k, v, forward: Callable, backward: Callable,
+                mask: dict):
         ctx.save_for_backward(q, k, v)
-        ctx.mask = mask
+        ctx.backward_fn, ctx.mask = backward, mask
         return forward(q, k, v)
 
     @staticmethod
@@ -175,21 +180,18 @@ class _Attention(torch.autograd.Function):
         q, k, v = ctx.saved_tensors
         want = ctx.needs_input_grad[:3]
         if not any(want):
-            return None, None, None, None, None
-        grads = attention_backward_bh(q, k, v, dout.contiguous(),
-                                      **ctx.mask)
+            return None, None, None, None, None, None
+        grads = ctx.backward_fn(q, k, v, dout.contiguous(), **ctx.mask)
         return (*(g if w else None for g, w in zip(grads, want)), None,
-                None)
+                None, None)
 
 
-def differentiable(name: str, q, k, v, forward: Callable, **mask):
-    """``forward(q, k, v)`` (a CUDA launch of the flash or streaming kernel
-    under ``mask``, ``attention_backward_bh``'s keywords) recorded for
-    autograd, its backward on the backward kernel. (Dk, Dv) pairs the
-    backward kernel is not built for raise here, before the forward."""
-    D, Dv = q.shape[-1], v.shape[-1]
-    if Dv != D:
-        raise NotImplementedError(
-            f"{name}: training at head dims (Dk, Dv) = {(D, Dv)} (MLA) has "
-            f"no backward kernel on the card (ROADMAP Queue 1 item 15b)")
-    return _Attention.apply(q, k, v, forward, mask)
+def differentiable(q, k, v, forward: Callable,
+                   backward: Optional[Callable] = None, **mask):
+    """``forward(q, k, v)`` (a CUDA launch of the flash, streaming or
+    block-sparse kernel under ``mask``) recorded for autograd, its
+    backward ``backward(q, k, v, dout, **mask)`` on a backward kernel:
+    ``attention_backward_bh`` (flash and streaming, ``mask`` its
+    keywords) unless another is given."""
+    return _Attention.apply(q, k, v, forward,
+                            backward or attention_backward_bh, mask)

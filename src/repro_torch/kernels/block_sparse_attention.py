@@ -7,7 +7,11 @@ the entry launches the hand-written kernel
 tensor-core engine (``csrc/prefill_wgmma.cuh``, TMA + wgmma over the
 selection's live tiles; their bases must be 16-byte aligned), fp32
 operands on its CUDA-core loop. On CPU tensors it runs the plain version,
-the dense masked softmax of ``ref.block_sparse_attention_ref``.
+the dense masked softmax of ``ref.block_sparse_attention_ref``, which
+autograd differentiates. On CUDA tensors that autograd records (grad
+enabled, q, k or v requiring grad) the launch goes through
+``attention_backward.differentiable``, whose backward is the hand-written
+kernel ``csrc/block_sparse_backward.cu`` (``block_sparse_backward``).
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import attention_backward as AB
+from repro_torch.kernels import block_sparse_backward as BSB
 from repro_torch.kernels.ref import \
     block_sparse_attention_ref as block_sparse_attention_plain  # noqa: F401
 
@@ -25,11 +30,11 @@ from repro_torch.kernels.ref import \
 KERNEL_BLOCK = 64
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# q, k, v, sel, o, BH, BHkv, Sq, Skv, D, dtype, n_sel, q_offset, scale
+# q, k, v, sel, o, BH, BHkv, Sq, Skv, D, dtype, n_sel, q_offset, scale, Dv
 KERNEL = _build.CudaKernel("block_sparse_attention",
                            "block_sparse_attention_fwd",
                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _F])
+                            _I, _F, _I])
 
 
 def dedupe_selection(sel: torch.Tensor) -> torch.Tensor:
@@ -49,15 +54,18 @@ def block_sparse_attention_bh(q: torch.Tensor, k: torch.Tensor,
                               scale: Optional[float] = None,
                               out: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
-    """q (BH,Sq,D), k/v (BHkv,Skv,D), sel (BH, ceil(Sq/KERNEL_BLOCK), K)
-    int32 key-block indices per query block, -1 = skip
-    (``dedupe_selection`` first). Query and key blocks are KERNEL_BLOCK
-    tokens, the CUDA kernel's tile. Query row r attends keys
-    <= ``q_offset + r`` among the selected blocks. ``out`` as
-    ``flash_attention_bh`` takes it."""
+    """q (BH,Sq,D), k (BHkv,Skv,D), v (BHkv,Skv,Dv), sel (BH,
+    ceil(Sq/KERNEL_BLOCK), K) int32 key-block indices per query block, -1
+    = skip (``dedupe_selection`` first). Query and key blocks are
+    KERNEL_BLOCK tokens, the CUDA kernel's tile. Query row r attends keys
+    <= ``q_offset + r`` among the selected blocks. Returns (BH, Sq, Dv);
+    on the card Dv = D, or (D, Dv) one of ``_build.SPLIT_HEAD_DIMS``
+    (MLA's route chunk under xa). ``out`` as ``flash_attention_bh``
+    takes it."""
     name = "block_sparse_attention_bh"
-    _build.check_operands(name, q, k, v)
+    _build.check_operands(name, q, k, v, dv_free=True)
     BH, Sq, D = q.shape
+    Dv = v.shape[2]
     nqb = -(-Sq // KERNEL_BLOCK)
     if sel.dim() != 3 or sel.shape[:2] != (BH, nqb):
         raise ValueError(f"{name}: sel must be (BH, ceil(Sq/64), K) = "
@@ -67,20 +75,28 @@ def block_sparse_attention_bh(q: torch.Tensor, k: torch.Tensor,
                          f"{sel.dtype} on {sel.device}")
     if q_offset < 0:
         raise ValueError(f"{name}: q_offset={q_offset} must be >= 0")
-    out = _build.check_out(name, out, q.shape, q)
+    out = _build.check_out(name, out, (BH, Sq, Dv), q)
     if _build.on_cpu(name, q):
         return _build.into(out, block_sparse_attention_plain(
             q, k, v, sel, block=KERNEL_BLOCK, q_offset=q_offset,
             scale=scale))
-    AB.refuse_grad(name, q, k, v)
-    code = _build.check_cuda(name, q, k, v, sel)
+    code = _build.check_cuda(name, q, k, v, sel, dims=(D, Dv))
     if q.dtype == torch.bfloat16:
         _build.check_tma_aligned(name, q, k, v)
     BHkv, Skv = k.shape[0], k.shape[1]
-    if out is None:
-        out = torch.empty_like(q)
-    KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  sel.data_ptr(), out.data_ptr(), BH, BHkv, Sq, Skv, D,
-                  code, sel.shape[2], int(q_offset),
-                  _build.default_scale(D, scale))
-    return out
+
+    def launch(q, k, v, out=out):
+        if out is None:
+            out = torch.empty((BH, Sq, Dv), dtype=q.dtype, device=q.device)
+        KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      sel.data_ptr(), out.data_ptr(), BH, BHkv, Sq, Skv, D,
+                      code, sel.shape[2], int(q_offset),
+                      _build.default_scale(D, scale), Dv)
+        return out
+
+    if AB.needs_grad(q, k, v):
+        _build.check_no_out_with_grad(name, out)
+        return AB.differentiable(q, k, v, launch,
+                                 BSB.block_sparse_backward_bh, sel=sel,
+                                 q_offset=q_offset, scale=scale)
+    return launch(q, k, v)

@@ -4,9 +4,10 @@
 // fp32 scores and accumulators, the mask value -1e30 (not -inf), p rounded
 // to v's dtype before the PV product, and the final acc / max(l, 1e-20).
 // Inputs are fp32 or bf16 (one template instance each) with head dims 32,
-// 64, 96, 128, 160 and 256; the flash and streaming kernels also at (Dk, Dv) =
-// (192, 128), the route chunk of Multi-head Latent Attention (queries and
-// keys of nope + rope = 192 columns over values of 128). Kernels allocate
+// 64, 96, 128, 160 and 256; the flash, streaming and block-sparse kernels
+// and both backwards also at (Dk, Dv) = (192, 128), the route chunk of
+// Multi-head Latent Attention (queries and keys of nope + rope = 192
+// columns over values of 128). Kernels allocate
 // nothing and launch on the caller's stream; each C entry point returns
 // cudaGetLastError().
 #pragma once
@@ -260,9 +261,9 @@ int dispatch(int dtype, int D, A... a) {
   return dispatch_by_dtype<Launcher, Launcher>(dtype, D, a...);
 }
 
-// (Dk, Dv) dispatch of the flash and streaming kernels onto
-// Launcher<T, Dk, Dv>::run(args...): Dk = Dv at every head dim, and the
-// pairs with Dk != Dv (_build.SPLIT_HEAD_DIMS).
+// (Dk, Dv) dispatch of the flash, streaming and block-sparse kernels and
+// the backwards onto Launcher<T, Dk, Dv>::run(args...): Dk = Dv at every
+// head dim, and the pairs with Dk != Dv (_build.SPLIT_HEAD_DIMS).
 template <template <typename, int, int> class Launcher, typename T,
           typename... A>
 cudaError_t dispatch_head_dims(int Dk, int Dv, A... a) {

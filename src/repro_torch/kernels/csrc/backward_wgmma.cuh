@@ -74,8 +74,18 @@
 namespace flux {
 namespace bwd {
 
+// A policy gives the mask (visible, full) and both walks. A row block
+// (query head bh, rows from r0) walks `step`-key tiles: key_tiles sets
+// its count a1 + max(b1 - b0, 0), and its step w is tile key_step(bh,
+// r0, w, a1, b0). A key block (KV head bkv, keys from c0) walks the
+// `step`-row query tiles [t0, t1) of query_tiles: a range policy (kLists
+// false: flash, streaming) for each of the G heads in turn; a list
+// policy (SparsePolicy) once, step j being query head step_head(..) and
+// query tile step_tile(..).
+
 // Causal or bidirectional, query row r at position q_offset + r.
 struct FlashPolicy {
+  static constexpr bool kLists = false;  // walks ranges
   int causal, q_offset;
   __device__ bool visible(int r, int key) const {
     return !causal || key <= q_offset + r;
@@ -85,7 +95,7 @@ struct FlashPolicy {
     return !causal || k1 <= q_offset + r0;
   }
   // key tiles of `step` keys seen by rows [r0, r1]: [0, a1) and [b0, b1)
-  __device__ void key_tiles(int r0, int r1, int Skv, int step, int& a1,
+  __device__ void key_tiles(int, int r0, int r1, int Skv, int step, int& a1,
                             int& b0, int& b1) const {
     int n = (Skv + step - 1) / step;
     if (causal) n = min(n, (q_offset + r1) / step + 1);
@@ -93,16 +103,20 @@ struct FlashPolicy {
     b0 = b1 = 0;
   }
   // query tiles of `step` rows that see a key of [c0, c1]: [t0, t1)
-  __device__ void query_tiles(int c0, int c1, int Sq, int step, int& t0,
+  __device__ void query_tiles(int, int c0, int c1, int Sq, int step, int& t0,
                               int& t1) const {
     t1 = (Sq + step - 1) / step;
     t0 = causal ? max(c0 - q_offset, 0) / step : 0;
+  }
+  __device__ int key_step(int, int, int w, int a1, int b0) const {
+    return w < a1 ? w : b0 + (w - a1);
   }
 };
 
 // Sink + local: position p sees key c iff c <= p and (c < sink or
 // p - c < local).
 struct StreamingPolicy {
+  static constexpr bool kLists = false;
   int sink, local, q_offset;
   __device__ bool visible(int r, int key) const {
     const int p = q_offset + r;
@@ -112,7 +126,7 @@ struct StreamingPolicy {
     return k1 <= q_offset + r0 &&
            (k1 < sink || q_offset + r1 - k0 < local);
   }
-  __device__ void key_tiles(int r0, int r1, int Skv, int step, int& a1,
+  __device__ void key_tiles(int, int r0, int r1, int Skv, int step, int& a1,
                             int& b0, int& b1) const {
     const int n = (Skv + step - 1) / step;
     const int last = min(n - 1, (q_offset + r1) / step);  // causal bound
@@ -121,7 +135,7 @@ struct StreamingPolicy {
     b0 = max(w0, a1);
     b1 = last + 1;
   }
-  __device__ void query_tiles(int c0, int c1, int Sq, int step, int& t0,
+  __device__ void query_tiles(int, int c0, int c1, int Sq, int step, int& t0,
                               int& t1) const {
     t0 = max(c0 - q_offset, 0) / step;
     t1 = (Sq + step - 1) / step;
@@ -129,6 +143,58 @@ struct StreamingPolicy {
       const int hi = c1 + local - 1 - q_offset;
       t1 = hi < 0 ? 0 : min(t1, hi / step + 1);
     }
+  }
+  __device__ int key_step(int, int, int w, int a1, int b0) const {
+    return w < a1 ? w : b0 + (w - a1);
+  }
+};
+
+// Block-sparse (the gradient of block_sparse_attention.cu): query row r
+// sees key c iff c <= q_offset + r and c's 64-key tile is in its 64-row
+// block's selection. The walks are lists the caller builds on the device
+// (kernels/block_sparse_backward.py `walk_lists`): `rows` (BH, nqt, K),
+// each row block's live tiles ascending, `counts` (BH, nqt) of them; and
+// for key tile kt of KV head bkv the entries items[offs[bkv nkt + kt]
+// .. offs[bkv nkt + kt + 1]), g nqt + t for each (query head g of the
+// group, query tile t) whose selection names kt, in that order. kSub =
+// 64 / step: the fp32 kernels' 32-key and 32-row steps (Dk + Dv > 320)
+// walk each 64-wide tile as kSub steps.
+template <int kSub> struct SparsePolicy {
+  static constexpr bool kLists = true;
+  int q_offset, nqt, nkt, K;
+  const int* rows;
+  const int* counts;
+  const int* offs;
+  const int* items;
+  __device__ bool visible(int r, int key) const { return key <= q_offset + r; }
+  __device__ bool full(int r0, int, int, int k1) const {
+    return k1 <= q_offset + r0;
+  }
+  __device__ void key_tiles(int bh, int r0, int, int, int, int& a1, int& b0,
+                            int& b1) const {
+    a1 = counts[(size_t)bh * nqt + r0 / kBQ] * kSub;
+    b0 = b1 = 0;
+  }
+  __device__ void query_tiles(int bkv, int c0, int, int, int, int& t0,
+                              int& t1) const {
+    const int* o = offs + (size_t)bkv * nkt + c0 / kBK;
+    t0 = 0;
+    t1 = (o[1] - o[0]) * kSub;
+  }
+  __device__ int key_step(int bh, int r0, int w, int, int) const {
+    return rows[((size_t)bh * nqt + r0 / kBQ) * K + w / kSub] * kSub +
+           w % kSub;
+  }
+  // step j of key block (bkv, keys from c0): its list entry's query head
+  // and `step`-row query tile
+  __device__ int entry(int bkv, int c0, int j) const {
+    return items[offs[(size_t)bkv * nkt + c0 / kBK] + j / kSub];
+  }
+  __device__ int step_head(int bkv, int c0, int j, int G) const {
+    return bkv * G + entry(bkv, c0, j) / nqt;
+  }
+  __device__ int step_tile(int bkv, int c0, int j) const {
+    return entry(bkv, c0, j) % nqt * kSub + j % kSub;
   }
 };
 
@@ -309,7 +375,7 @@ template <int Dk, int Dv, class Policy> struct DqCta {
   float acc[kCols / 2];  // dQ / scale, this part's columns
 
   __device__ int kv0(int w) const {
-    return (w < a1 ? w : b0 + (w - a1)) * kBK;
+    return pol.key_step(bh, row0, w, a1, b0) * kBK;
   }
   __device__ int n_steps() const { return (2 + kParts) * n_walk; }
   // step j = pass * n_walk + w: key tile w's K, and its V from pass 2 on
@@ -542,8 +608,8 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   cta.scale_log2 = scale_log2;
   cta.pol = pol;
   int b1;
-  pol.key_tiles(cta.row0, min(cta.row0 + kBQ, Sq) - 1, Skv, kBK, cta.a1,
-                cta.b0, b1);
+  pol.key_tiles(cta.bh, cta.row0, min(cta.row0 + kBQ, Sq) - 1, Skv, kBK,
+                cta.a1, cta.b0, b1);
   cta.n_walk = cta.a1 + max(b1 - cta.b0, 0);
   cta.run(dq, stats, Sq_pad, scale);
 }
@@ -562,12 +628,27 @@ template <int Dk, int Dv, class Policy> struct DkdvCta {
   float scale_log2;
   Policy pol;
 
-  __device__ int n_steps() const { return G * nt; }
-  __device__ int rq0(int j) const { return (t0 + j % nt) * kBQ; }
-  // step j: query head bkv G + j / nt, query tile t0 + j % nt: its Q and
-  // dO rows and their m, 1 / l and D
+  // A range policy's walk is written out here, as it was before the
+  // policies gave walks: routed through the policy's methods, the same
+  // arithmetic compiled to other SASS for these kernels (the dq kernel's
+  // did not move).
+  __device__ int n_steps() const {
+    if constexpr (Policy::kLists) return nt;
+    return G * nt;
+  }
+  __device__ int rq0(int j) const {
+    if constexpr (Policy::kLists) return pol.step_tile(bkv, c0, j) * kBQ;
+    return (t0 + j % nt) * kBQ;
+  }
+  __device__ int head(int j) const {
+    if constexpr (Policy::kLists) return pol.step_head(bkv, c0, j, G);
+    return bkv * G + j / nt;
+  }
+  // step j: query head bkv G + j / nt, query tile t0 + j % nt (a range
+  // policy), or the policy's list entry j: its Q and dO rows and their m,
+  // 1 / l and D
   __device__ __forceinline__ void load(int j) const {
-    const int bh = bkv * G + j / nt, r0 = rq0(j);
+    const int bh = head(j), r0 = rq0(j);
     const uint32_t bar = ring.bar(1 + j % kStages);
     mbar_expect_tx(bar, L::kTileK + L::kTileV + kStatsBytes);
     load_panels<Panels::kPanels>(ring.x(j), qmap, bar, r0, bh);
@@ -740,7 +821,8 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   cta.scale_log2 = scale_log2;
   cta.pol = pol;
   int t1;
-  pol.query_tiles(cta.c0, min(cta.c0 + kBK, Skv) - 1, Sq, kBQ, cta.t0, t1);
+  pol.query_tiles(cta.bkv, cta.c0, min(cta.c0 + kBK, Skv) - 1, Sq, kBQ,
+                  cta.t0, t1);
   cta.nt = max(t1 - cta.t0, 0);
   if (threadIdx.x == 0 && cta.n_steps() > 0) {
     const uint32_t bar = cta.ring.bar(0);

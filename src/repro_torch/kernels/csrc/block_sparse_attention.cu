@@ -30,24 +30,27 @@
 // warpgroup (S, the softmax on the CUDA cores, P V), overlapped only with
 // the chains of the other CTAs on the SM, and every query block moves its
 // prefix from L2 to shared memory again.
+//
+// Values may be narrower than queries and keys, as in flash_attention.cu:
+// MLA's route chunk under xa runs at (Dk, Dv) = (192, 128).
 #include "attention_common.cuh"
 #include "prefill_wgmma.cuh"
 
 namespace flux {
 
-template <typename T, int D>
+template <typename T, int D, int Dv>
 __global__ void __launch_bounds__(kThreads)
 block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ sel,
                     T* __restrict__ o, int Sq, int Skv, int G, int n_sel,
                     int q_offset, float scale) {
   extern __shared__ float smem[];
-  PrefillBlock<T, D> blk;
+  PrefillBlock<T, D, Dv> blk;
   blk.init(smem);
   const int bh = blockIdx.y;
   const int row0 = blockIdx.x * kBQ;
   const T* kb = k + (size_t)(bh / G) * Skv * D;
-  const T* vb = v + (size_t)(bh / G) * Skv * D;
+  const T* vb = v + (size_t)(bh / G) * Skv * Dv;
   const int* row_sel = sel + ((size_t)bh * gridDim.x + blockIdx.x) * n_sel;
   blk.load_q(q + (size_t)bh * Sq * D, row0, Sq);
 
@@ -58,16 +61,16 @@ block_sparse_kernel(const T* __restrict__ q, const T* __restrict__ k,
       return key <= q_offset + row0 + r && key < Skv && row0 + r < Sq;
     });
   }
-  blk.store(o + (size_t)bh * Sq * D, row0, Sq);
+  blk.store(o + (size_t)bh * Sq * Dv, row0, Sq);
 }
 
-template <typename T, int D> struct BlockSparseLaunch {
+template <typename T, int D, int Dv> struct BlockSparseLaunch {
   static cudaError_t run(const void* q, const void* k, const void* v,
                          const void* sel, void* o, int BH, int BHkv, int Sq,
                          int Skv, int n_sel, int q_offset, float scale,
                          cudaStream_t stream) {
-    const size_t bytes = PrefillSmem<D>::kBytes;
-    auto kernel = block_sparse_kernel<T, D>;
+    const size_t bytes = PrefillSmem<D, Dv>::kBytes;
+    auto kernel = block_sparse_kernel<T, D, Dv>;
     cudaError_t e = allow_smem(kernel, bytes);
     if (e != cudaSuccess) return e;
     dim3 grid((Sq + kBQ - 1) / kBQ, BH);
@@ -79,7 +82,7 @@ template <typename T, int D> struct BlockSparseLaunch {
   }
 };
 
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(wgmma::kThreads)
 block_sparse_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
@@ -88,7 +91,7 @@ block_sparse_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           __nv_bfloat16* __restrict__ o, int Sq, int Skv,
                           int G, int n_sel, int q_offset, float scale_log2) {
   extern __shared__ __align__(1024) uint8_t wg_smem[];
-  wgmma::Engine<D> eng;
+  wgmma::Engine<D, Dv> eng;
   eng.init(wg_smem);
   const int bh = blockIdx.y;
   const int row0 = blockIdx.x * kBQ;
@@ -98,19 +101,19 @@ block_sparse_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   eng.run(&qmap, &kmap, &vmap, bh, bh / G, row0, n_live,
           [live](int j) { return live[j]; }, Skv, true, q_offset,
           scale_log2);
-  eng.store(o + (size_t)bh * Sq * D, row0, Sq);
+  eng.store(o + (size_t)bh * Sq * Dv, row0, Sq);
 }
 
-template <typename T, int D> struct BlockSparseWgmmaLaunch {
+template <typename T, int D, int Dv> struct BlockSparseWgmmaLaunch {
   static cudaError_t run(const void* q, const void* k, const void* v,
                          const void* sel, void* o, int BH, int BHkv, int Sq,
                          int Skv, int n_sel, int q_offset, float scale,
                          cudaStream_t stream) {
     wgmma::Maps maps;
-    cudaError_t e = maps.make(q, k, v, BH, BHkv, Sq, Skv, D, D);
+    cudaError_t e = maps.make(q, k, v, BH, BHkv, Sq, Skv, D, Dv);
     if (e != cudaSuccess) return e;
-    const size_t bytes = wgmma::Layout<D>::bytes(n_sel);
-    auto kernel = block_sparse_wgmma_kernel<D>;
+    const size_t bytes = wgmma::Layout<D, Dv>::bytes(n_sel);
+    auto kernel = block_sparse_wgmma_kernel<D, Dv>;
     e = allow_smem(kernel, bytes);
     if (e != cudaSuccess) return e;
     dim3 grid((Sq + kBQ - 1) / kBQ, BH);
@@ -124,17 +127,18 @@ template <typename T, int D> struct BlockSparseWgmmaLaunch {
 
 }  // namespace flux
 
-// q (BH, Sq, D), k / v (BHkv, Skv, D), sel (BH, ceil(Sq / 64), n_sel)
-// int32 tile indices (-1 = skip), o (BH, Sq, D); bf16 bases 16-byte
+// q (BH, Sq, D), k (BHkv, Skv, D), v (BHkv, Skv, Dv), sel (BH,
+// ceil(Sq / 64), n_sel) int32 tile indices (-1 = skip), o (BH, Sq, Dv);
+// (D, Dv) with D = Dv a built head dim, or (192, 128); bf16 bases 16-byte
 // aligned. Returns a cudaError_t.
 extern "C" int block_sparse_attention_fwd(const void* q, const void* k,
                                           const void* v, const void* sel,
                                           void* o, int BH, int BHkv, int Sq,
                                           int Skv, int D, int dtype,
                                           int n_sel, int q_offset,
-                                          float scale, void* stream) {
-  return flux::dispatch_by_dtype<flux::BlockSparseLaunch,
-                                 flux::BlockSparseWgmmaLaunch>(
-      dtype, D, q, k, v, sel, o, BH, BHkv, Sq, Skv, n_sel, q_offset, scale,
-      static_cast<cudaStream_t>(stream));
+                                          float scale, int Dv, void* stream) {
+  return flux::dispatch_pair_by_dtype<flux::BlockSparseLaunch,
+                                      flux::BlockSparseWgmmaLaunch>(
+      dtype, D, Dv, q, k, v, sel, o, BH, BHkv, Sq, Skv, n_sel, q_offset,
+      scale, static_cast<cudaStream_t>(stream));
 }

@@ -64,6 +64,6 @@ def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     if AB.needs_grad(q, k, v):
         _build.check_no_out_with_grad(name, out)
-        return AB.differentiable(name, q, k, v, launch, causal=causal,
+        return AB.differentiable(q, k, v, launch, causal=causal,
                                  q_offset=q_offset, scale=scale)
     return launch(q, k, v)

@@ -11,9 +11,10 @@ kernel symbol the two share is compared instruction by instruction,
 whitespace aside: ``cuobjdump`` pads its columns to the longest
 instruction of the whole library, so a new kernel instance with a longer
 mnemonic re-pads every other listing. A kernel template that gained a
-second head dim (the flash and streaming kernels' Dv beside D) is paired
-by its old name: ``<.., D, D>`` in this tree with ``<.., D>`` in the
-other (``old_name``). Prints one line per library (the shared, identical
+second head dim (the flash, streaming and block-sparse kernels' and
+the fp32 backward kernels' Dv beside D) is paired by its old name:
+``<.., D, D, ..>`` in this tree with ``<.., D, ..>`` in the other
+(``old_name``). Prints one line per library (the shared, identical
 and differing symbols, and the new ones) and exits 1 if any shared
 symbol differs. Runs on a machine with ``nvcc``.
 """
@@ -47,13 +48,25 @@ def sass(lib: Path) -> Dict[str, str]:
     return out
 
 
+def instance(name: str) -> str:
+    """A kernel symbol up to its template arguments (the void return type
+    and the parameters dropped: they follow from the arguments, and a
+    template that gained an argument renumbers its ``T<n>_``
+    references)."""
+    m = re.match(r"(.*?E)v", name)
+    return m.group(1) if m else name
+
+
 def old_name(name: str, old: Dict[str, str]) -> str:
-    """``name``'s symbol in the other tree: itself, or, where that tree
-    has no such symbol, the mangled name with a trailing repeated int
-    template argument dropped (``ILi96ELi96EE`` → ``ILi96EE``)."""
-    if name in old:
-        return name
-    return re.sub(r"Li(\d+)ELi\1EE", r"Li\1EE", name)
+    """``name``'s instance (``instance``) in the other tree, whose symbols
+    ``old`` holds by instance: itself, or, where that tree has no such
+    instance, with its first repeated int template argument dropped
+    (``ILi96ELi96EE`` → ``ILi96EE``, ``IfLi96ELi96ENS0_11FlashPolicyE``
+    → ``IfLi96ENS0_11FlashPolicyE``)."""
+    key = instance(name)
+    if key in old:
+        return key
+    return re.sub(r"Li(\d+)ELi\1E", r"Li\1E", key, count=1)
 
 
 def other_libraries(src: Path) -> Dict[str, Path]:
@@ -79,7 +92,7 @@ def main(argv=None) -> int:
         if name not in other:
             print(f"{name}: not in the other tree")
             continue
-        a = sass(other[name])
+        a = {instance(f): text for f, text in sass(other[name]).items()}
         b = {old_name(f, a): text
              for f, text in sass(_build.library_path(name)).items()}
         shared = sorted(set(a) & set(b))

@@ -67,6 +67,6 @@ def streaming_attention_bh(q: torch.Tensor, k: torch.Tensor,
 
     if AB.needs_grad(q, k, v):
         _build.check_no_out_with_grad(name, out)
-        return AB.differentiable(name, q, k, v, launch, sink=sink,
+        return AB.differentiable(q, k, v, launch, sink=sink,
                                  local=local, q_offset=q_offset, scale=scale)
     return launch(q, k, v)

@@ -6,9 +6,14 @@ Held:
 - ``repro_torch.core.modes.attention`` under autograd (the CPU path: the
   plain versions' autograd) against ``jax.vjp`` of
   ``repro.core.modes.attention`` for ``full`` (causal and bidirectional),
-  ``streaming``, ``window``, ``triangle`` and ``block_topk``, at G = 1
-  and 2 and with a query offset: dq, dk and dv within 1e-5 · max(1,
-  max |JAX|) (float32, summation order only);
+  ``streaming``, ``window``, ``triangle`` and ``block_topk`` (at block
+  16, and at block 64, the block-sparse entry, where it drops blocks), at
+  G = 1 and 2, with a query offset and at (Dk, Dv) = (48, 32): dq, dk and
+  dv within 1e-5 · max(1, max |JAX|) (float32, summation order only);
+- the block-sparse backward's plain version against ``jax.vjp`` of the
+  JAX package's ``kernels/ref.py`` ``block_sparse_attention_ref``, and a
+  model of ``walk_lists`` (every selected tile walked once from each
+  side);
 - ``attention_backward_plain`` against the same vjp, and the autograd
   function ``differentiable`` (the card's route, here with the plain
   forward) against the plain version's autograd bitwise,
@@ -20,12 +25,12 @@ Held:
   below) cover every visible (query, key) pair from both sides, at
   steps 64 and 32, unaligned sizes, offsets, sinks straddling a tile
   and windows narrower and wider than a tile;
-- with the device test answering "cuda": the flash and streaming
-  entries record their launch for autograd only when an operand
-  requires grad, launch exactly as before otherwise, and raise for
-  (Dk, Dv) = (192, 128) under grad; block-sparse, xa and the decode
-  kernels raise ``NotImplementedError`` naming ROADMAP item 15b under
-  grad; the backward entry launches once with the operands' pointers,
+- with the device test answering "cuda": the flash, streaming and
+  block-sparse entries (and xa) record their launch for autograd only
+  when an operand requires grad, launch exactly as before otherwise, and
+  launch their backward kernels, at (Dk, Dv) = (192, 128) too; the
+  decode kernels raise ``NotImplementedError`` under grad; the backward
+  entry launches once with the operands' pointers,
   bf16 with the dtype code of its tensor-core engine (and its TMA
   alignment checked), fp32 with the CUDA cores' code;
 - the bf16 engine's arithmetic (``ref.attention_backward_tiled_ref``:
@@ -63,18 +68,26 @@ MODES = {
     "triangle": dict(kind="triangle", sink=SINK, local=LOCAL, chunk=16),
     "block_topk": dict(kind="block_topk", sink=SINK, local=LOCAL, block=16,
                        stride=4, threshold=0.5),
+    # a multiple of the kernel's 64-token tile: the block-sparse entry
+    "block_topk64": dict(kind="block_topk", sink=SINK, local=LOCAL,
+                         block=64, stride=16, threshold=0.5),
 }
-# (B, Hq, Hkv, Sq, Skv, q_offset): G = 1 and 2, 80 > sink + local so SA
-# differs from FA, and a chunk of 48 queries at offset 32 over 80 keys
+# (B, Hq, Hkv, Sq, Skv, q_offset[, Dk, Dv]): G = 1 and 2, 80 > sink +
+# local so SA differs from FA, a chunk of 48 queries at offset 32 over 80
+# keys, 5 blocks of 64 where xa at block 64 keeps 3 (a chunk of 256 at
+# offset 64), and values narrower than queries and keys (MLA's route
+# chunk at the smoke widths)
 SHAPES = {"G1": (2, 4, 4, 80, 80, 0), "G2": (1, 4, 2, 80, 80, 0),
-          "offset": (1, 4, 2, 48, 80, 32)}
+          "offset": (1, 4, 2, 48, 80, 32), "long": (1, 4, 2, 256, 320, 64),
+          "split": (1, 4, 2, 80, 80, 0, 48, 32)}
 
 
-def _inputs(seed, B, Hq, Hkv, Sq, Skv, D=32):
+def _inputs(seed, B, Hq, Hkv, Sq, Skv, D=32, Dv=None):
     rng = np.random.default_rng(seed)
+    Dv = D if Dv is None else Dv
     return tuple(rng.normal(size=s).astype(np.float32)
                  for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
-                           (B, Hkv, Skv, D), (B, Hq, Sq, D)))
+                           (B, Hkv, Skv, Dv), (B, Hq, Sq, Dv)))
 
 
 def _jax_grads(q, k, v, do, mode, q_offset):
@@ -92,11 +105,21 @@ def _close(got, want):
             np.abs(g - w).max()
 
 
-@pytest.mark.parametrize("shape", sorted(SHAPES))
-@pytest.mark.parametrize("mode", sorted(MODES))
+# every mode at G1, G2 and offset but xa at block 64, which the long
+# shape holds; every mode at the split widths
+GRAD_CASES = ([(m, s) for s in ("G1", "G2", "offset") for m in sorted(MODES)
+               if m != "block_topk64"]
+              + [("block_topk64", "long")]
+              + [(m, "split") for m in sorted(MODES)])
+
+
+@pytest.mark.parametrize("mode,shape", GRAD_CASES,
+                         ids=[f"{m}-{s}" for m, s in GRAD_CASES])
 def test_attention_grads_match_jax(mode, shape):
-    B, Hq, Hkv, Sq, Skv, off = SHAPES[shape]
-    q, k, v, do = _inputs(len(mode) + Sq, B, Hq, Hkv, Sq, Skv)
+    B, Hq, Hkv, Sq, Skv, off, *dims = SHAPES[shape]
+    q, k, v, do = _inputs(len(mode) + Sq, B, Hq, Hkv, Sq, Skv, *dims)
+    if (mode, shape) == ("block_topk64", "long"):  # xa drops blocks
+        assert TM.xa_keep_blocks(Skv // 64, 0.5) < Skv // 64
     want = _jax_grads(q, k, v, do, MODES[mode], off)
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     out = TM.attention(tq, tk, tv, TM.AttnMode(**MODES[mode]), q_offset=off)
@@ -143,8 +166,7 @@ def test_autograd_function_matches_plain_autograd(need):
     kw = dict(sink=SINK, local=LOCAL, q_offset=32)
     ins = [t.clone().requires_grad_(n) for t, n in zip((q, k, v), need)]
     out = AB.differentiable(
-        "test", *ins, lambda a, b, c: ref.streaming_attention_ref(a, b, c,
-                                                                  **kw),
+        *ins, lambda a, b, c: ref.streaming_attention_ref(a, b, c, **kw),
         **kw)
     assert out.grad_fn is not None
     out.backward(do)
@@ -154,6 +176,89 @@ def test_autograd_function_matches_plain_autograd(need):
         assert (t.grad is not None) == n
         if n:
             assert torch.equal(t.grad, r.grad)
+
+
+# ---------------------------------------------------------------------------
+# The block-sparse gradient (kernels/block_sparse_backward.py)
+# ---------------------------------------------------------------------------
+
+def _selection(seed, BH, nqt, K, nkt):
+    """A selection of 64-key tiles per 64-row block that differs per query
+    head: repeats, -1 entries, tiles past the diagonal and past Skv."""
+    rng = np.random.default_rng(seed)
+    sel = rng.integers(-1, nkt + 1, size=(BH, nqt, K)).astype(np.int32)
+    sel[:, :, 0] = sel[:, :, 1]  # a repeat in every row
+    return sel
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_block_sparse_backward_plain_matches_jax(G):
+    """The block-sparse entry's plain gradient (what a CPU tensor runs),
+    in the kernels' flat layout, against ``jax.vjp`` of the JAX package's
+    ``kernels/ref.py`` ``block_sparse_attention_ref`` at block 64 (which
+    takes no query offset): 200 queries over 200 keys, a selection with
+    repeats and holes that differs per head."""
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import block_sparse_backward as BSB
+    BH, S, D = 4, 200, 32
+    q, k, v, do = (x.reshape(-1, S, D) for x in _inputs(9 + G, 1, BH,
+                                                        BH // G, S, S))
+    sel = _selection(G, BH, 4, 3, 4)
+    _, vjp = jax.vjp(lambda a, b, c: jref.block_sparse_attention_ref(
+        a, b, c, jnp.asarray(sel), block=64), *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    got = BSB.block_sparse_backward_bh(*map(torch.from_numpy, (q, k, v, do)),
+                                       torch.from_numpy(sel))
+    assert all(np.abs(w).max() > 0 for w in want)
+    _close(got, want)
+
+
+# (BH, G, Sq, Skv, K): G = 1, 2 and 4, ragged Sq and Skv, selections wider
+# than the key tiles
+LIST_CASES = [(4, 1, 200, 300, 3), (8, 2, 130, 130, 4), (8, 4, 64, 400, 7),
+              (16, 4, 1000, 700, 5)]
+
+
+@pytest.mark.parametrize("case", range(len(LIST_CASES)))
+def test_walk_lists_cover_every_selected_tile_once(case):
+    """``walk_lists`` (the kernel's two walks of a selection), modelled as
+    the CTAs read them: each dq CTA (query head, row block) walks its
+    ``counts`` first ``rows`` entries, each dk / dv CTA (KV head, key
+    tile) its ``items`` between two ``offs``, at steps of 64 and, as the
+    fp32 kernels walk at Dk + Dv > 320, of 32 (kSub = 2). Both visit every
+    (query head, query tile, key tile) of the deduplicated selection
+    (entries in [0, nkt)) exactly once, dq's in ascending key tiles and dk
+    / dv's by head then query tile."""
+    from repro_torch.kernels import block_sparse_backward as BSB
+    BH, G, Sq, Skv, K = LIST_CASES[case]
+    nqt, nkt = -(-Sq // 64), -(-Skv // 64)
+    sel = _selection(case, BH, nqt, K, nkt)
+    want = {(b, t, int(x)) for b in range(BH) for t in range(nqt)
+            for x in sel[b, t] if 0 <= x < nkt}
+    rows, counts, offs, items = (x.numpy() for x in BSB.walk_lists(
+        torch.from_numpy(sel), BH // G, Skv))
+    assert rows.dtype == counts.dtype == offs.dtype == items.dtype == np.int32
+    for sub in (1, 2):
+        by_dq = []
+        for b in range(BH):
+            for t in range(nqt):
+                tiles = [rows[b, t, w // sub] * sub + w % sub
+                         for w in range(counts[b, t] * sub)]
+                assert tiles == sorted(tiles)
+                by_dq += [(b, t, x // sub) for x in tiles[::sub]]
+                assert all(x // sub < nkt for x in tiles)
+        by_kv = []
+        for bkv in range(BH // G):
+            for kt in range(nkt):
+                o0, o1 = offs[bkv * nkt + kt], offs[bkv * nkt + kt + 1]
+                steps = [(bkv * G + items[o0 + j // sub] // nqt,
+                          items[o0 + j // sub] % nqt * sub + j % sub)
+                         for j in range((o1 - o0) * sub)]
+                assert steps == sorted(steps)
+                by_kv += [(h, r // sub, kt) for h, r in steps[::sub]]
+        assert len(by_dq) == len(set(by_dq)) and set(by_dq) == want
+        assert len(by_kv) == len(set(by_kv)) and set(by_kv) == want
+    assert offs[0] == 0 and offs[-1] == len(want)
 
 
 # ---------------------------------------------------------------------------
@@ -276,20 +381,31 @@ def test_entries_record_for_autograd_only_under_grad(fake_card):
     assert [n for n, _ in fake_card][2:] == ["streaming_attention"] * 2
     out.sum().backward()  # the backward entry launches (recorded)
     name, args = fake_card[-1]
-    assert name == "attention_backward" and len(args) == 20
+    assert name == "attention_backward" and len(args) == 21
     # q, k, v, dout, dq, dk, dv, stats, BH, BHkv, Sq, Skv, D, dtype, kind,
-    # causal, sink, local, q_offset, scale
+    # causal, sink, local, q_offset, scale, Dv
     assert args[0] == q.data_ptr() and args[8:14] == (4, 4, 64, 64, 32, 0)
     assert args[14] == AB.STREAMING and args[16:19] == (4, 8, 0)
-    with pytest.raises(NotImplementedError, match="15b"):
-        flash_attention_bh(torch.zeros((4, 64, 192)).requires_grad_(),
-                           torch.zeros((4, 64, 192)),
-                           torch.zeros((4, 64, 128)))
+    assert args[20] == 32
+    # MLA's (192, 128) records too, and its backward launches at (192, 128)
+    qm = torch.zeros((4, 64, 192)).requires_grad_()
+    out = flash_attention_bh(qm, torch.zeros((4, 64, 192)),
+                             torch.zeros((4, 64, 128)))
+    assert out.grad_fn is not None and out.shape == (4, 64, 128)
+    assert fake_card[-1][0] == "flash_attention"
+    out.sum().backward()
+    name, args = fake_card[-1]
+    assert name == "attention_backward" and (args[12], args[20]) == (192, 128)
     with pytest.raises(ValueError, match="out="):
         flash_attention_bh(qg, q, q, out=torch.empty_like(q))
 
 
 def test_kernels_without_backward_refuse_grad(fake_card):
+    """The decode kernels (no training path runs them) refuse an operand
+    that requires grad before any launch, and launch as before without
+    grad; block-sparse and xa (``block_topk``), which have a backward
+    kernel, launch as before without grad and under grad record their
+    launch for autograd and launch the block-sparse backward."""
     from repro_torch.kernels.block_sparse_attention import \
         block_sparse_attention_bh
     from repro_torch.kernels.decode_attention import decode_attention_bh
@@ -301,22 +417,39 @@ def test_kernels_without_backward_refuse_grad(fake_card):
     pos = torch.arange(64, dtype=torch.int32)
     lengths = torch.full((4,), 64, dtype=torch.int32)
     q4 = torch.zeros((1, 4, 128, 32))  # two 64-key blocks for xa's top-2
-    calls = [
-        lambda a: block_sparse_attention_bh(a, q, q, sel),
+    refusing = [
         lambda a: decode_attention_bh(a[:, :1].contiguous(), q, q, pos, 9),
         lambda a: decode_attention_pooled_bh(a[:, :1].contiguous(), q, q,
                                              None, lengths, n_heads=1),
-        lambda a: TM.attention(torch.cat([a, a], 1).reshape(1, 4, 128, 32),
-                               q4, q4, TM.AttnMode("block_topk", block=64,
-                                                   stride=4, threshold=0.5)),
     ]
-    for call in calls:
+    for call in refusing:
         n = len(fake_card)
-        with pytest.raises(NotImplementedError, match="15b"):
+        with pytest.raises(NotImplementedError, match="decode kernel"):
             call(qg)
         assert len(fake_card) == n, "launched before refusing"
         call(q)  # without grad: launched as before
         assert len(fake_card) > n
+    # (call, its BH, BHkv, Sq, Skv)
+    training = [
+        (lambda a: block_sparse_attention_bh(a, q, q, sel), (4, 4, 64, 64)),
+        (lambda a: TM.attention(torch.cat([a, a], 1).reshape(1, 4, 128, 32),
+                                q4, q4, TM.AttnMode("block_topk", block=64,
+                                                    stride=4,
+                                                    threshold=0.5)),
+         (4, 4, 128, 128)),
+    ]
+    for call, dims in training:
+        n = len(fake_card)
+        assert call(q).grad_fn is None  # without grad: launched as before
+        assert [k for k, _ in fake_card[n:]] == ["block_sparse_attention"]
+        out = call(qg)
+        assert out.grad_fn is not None
+        assert fake_card[-1][0] == "block_sparse_attention"
+        out.sum().backward()
+        name, args = fake_card[-1]
+        assert name == "block_sparse_backward" and len(args) == 22
+        # q .. items (12 pointers), BH, BHkv, Sq, Skv, Dk, Dv, dtype
+        assert args[12:16] == dims and args[16:19] == (32, 32, 0)
 
 
 def test_plain_bf16_gradient_is_straight_through():
@@ -478,7 +611,7 @@ def test_backward_entry_launches_by_dtype(fake_card):
     engine, so their bases must be 16-byte aligned: an unaligned dout
     raises before any launch); fp32 operands launch code 0 (the CUDA-core
     kernels, no alignment needed); ``out=`` hands the kernel its tensors;
-    (Dk, Dv) = (192, 128) raises NotImplementedError naming item 15b."""
+    (Dk, Dv) = (192, 128) launches with both widths."""
     q = torch.zeros((4, 100, 64), dtype=torch.bfloat16)
     k = torch.zeros((2, 130, 64), dtype=torch.bfloat16)
     outs = tuple(torch.empty_like(t) for t in (q, k, k))
@@ -500,11 +633,12 @@ def test_backward_entry_launches_by_dtype(fake_card):
                              causal=False)
     name, args = fake_card[-1]
     assert len(fake_card) == n + 1 and args[13:16] == (0, AB.FLASH, 0)
-    with pytest.raises(NotImplementedError, match="15b"):
-        AB.attention_backward_bh(torch.zeros((4, 64, 192)),
-                                 torch.zeros((4, 64, 192)),
-                                 torch.zeros((4, 64, 128)),
-                                 torch.zeros((4, 64, 128)))
+    AB.attention_backward_bh(torch.zeros((4, 64, 192)),
+                             torch.zeros((4, 64, 192)),
+                             torch.zeros((4, 64, 128)),
+                             torch.zeros((4, 64, 128)))
+    name, args = fake_card[-1]
+    assert len(fake_card) == n + 2 and (args[12], args[20]) == (192, 128)
 
 
 def test_backward_entry_takes_padded_stats(fake_card):

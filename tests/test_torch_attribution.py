@@ -206,7 +206,8 @@ def test_knobs_off_calls_each_kernel_as_the_path_needs(on_off):
     want.update(decode_attention=0, decode_attention_mla=0,
                 decode_attention_pooled=sum(
         p.steps for p in sched.pools.values()) * cfg.num_layers,
-                attention_backward=0)  # serving runs no backward
+                attention_backward=0,  # serving runs no backward
+                block_sparse_backward=0)
     assert calls == want
 
 

@@ -10,9 +10,10 @@ the same weights (``params_from_jax``), in float32:
   ``routing_head_split`` with MLA's ``ValueError``;
 - ``ServeEngine.generate`` with the ``xa`` and ``ta`` SA modes and with duo
   overrides: ``chunked_eligible`` False on both engines, identical
-  routing and greedy tokens, first logits within 1e-4; the slot-pool
-  drain under ``xa``; the scheduler's and the prefix store's duo
-  refusals;
+  routing and greedy tokens, first logits within 1e-4; deepseek-v2's
+  smoke variant under ``xa`` at block 64 (the block-sparse entry at Dk !=
+  Dv); the slot-pool drain under ``xa``; the scheduler's and the prefix
+  store's duo refusals;
 - every ``core/policies.py`` function, ``capture_hidden`` included.
 
 Tolerances: 1e-5 of max |JAX| on attention outputs, 1e-4 on logits (f32,
@@ -255,6 +256,27 @@ def test_generate_matches_jax(jax_runs, case):
     assert gen.msr == jgen.msr and gen.kv_bytes == jgen.kv_bytes
     assert np.array_equal(gen.tokens, np.asarray(jgen.tokens))
     assert float(np.abs(gen.logits.numpy() - jlogits).max()) < TOL
+
+
+def test_deepseek_xa_generate_matches_jax():
+    """MLA under xa at block 64 (deepseek-v2's smoke variant, every layer
+    SA over 320 tokens): the route chunk's block-sparse call runs at
+    (Dk, Dv) = (48, 32), values narrower than queries and keys, through
+    the expanded selection and the block-sparse entry; tokens, routing
+    and first logits equal JAX's."""
+    jcfg, tcfg, jparams, tparams = _models("deepseek-v2-236b", "xa64")
+    n, ov = VARIANTS["xa64"][2], ("sa",) * tcfg.num_layers
+    assert tcfg.qk_nope_head_dim + tcfg.qk_rope_head_dim != tcfg.v_head_dim
+    toks = _tokens(n)
+    jeng = JaxEngine(jparams, jcfg, max_len=n + 32)
+    jgen = jeng.generate(toks, N, routing_override=ov)
+    jlogits = jeng.prefill_route_repack(jnp.asarray(toks), ov)[0].logits
+    gen = ServeEngine(tparams, tcfg, max_len=n + 32, device="cpu").generate(
+        toks, N, routing_override=ov)
+    assert gen.routing == jgen.routing == ov
+    assert np.array_equal(gen.tokens, np.asarray(jgen.tokens))
+    assert float(np.abs(gen.logits.numpy() - np.asarray(jlogits)).max()) \
+        < TOL
 
 
 def test_duo_prefill_runs_full_attention_as_jax(monkeypatch):

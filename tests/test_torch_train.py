@@ -13,7 +13,9 @@ Held:
   remat on;
 - RouterTrainer's router and λ gradients (``jax.value_and_grad`` of the
   JAX step's loss) per leaf within 1e-4 of max |JAX grad| on phi3-mini,
-  stablelm-12b, gemma3-12b and granite-moe (Adam's first step is
+  stablelm-12b, gemma3-12b, granite-moe, deepseek-v2 (MLA: the route
+  chunk at Dk != Dv) and phi3-mini under xa at block 64 over 320 tokens
+  (the block-sparse entry and its gradient) (Adam's first step is
   ±lr whatever the gradient, so the gradients are held before any
   state); three steps' metrics and the state after them within 1e-5;
   mamba2's unrouted branch (soft_msr NaN, nothing to route);
@@ -53,11 +55,29 @@ FWD_TOL = 1e-5   # relative to max(1, max |JAX|): f32, summation order
 GRAD_TOL = 1e-4  # relative to each leaf's max |JAX grad|
 STATE_TOL = 1e-5
 GRAD_ARCHS = ("phi3-mini-3.8b", "stablelm-12b", "gemma3-12b",
-              "granite-moe-3b-a800m")
+              "granite-moe-3b-a800m", "deepseek-v2-236b",
+              "phi3-mini-3.8b xa64")
+# a GRAD_ARCHS case past its arch: its SA mode's flux fields and its
+# sequence length (xa at the kernel's 64-token tile over 5 blocks, of
+# which it keeps 3, so the block-sparse entry and its gradient run)
+VARIANTS = {"xa64": (dict(sa_mode="xa", block=64, stride=16,
+                          threshold=0.5), 320)}
 
 
 def _configs(arch):
-    return jax_smoke(jax_get_config(arch)), smoke_variant(get_config(arch))
+    name, *variant = arch.split()
+    jc, tc = jax_smoke(jax_get_config(name)), smoke_variant(get_config(name))
+    if variant:
+        kw = VARIANTS[variant[0]][0]
+        jc = jc.replace(flux=jc.flux.replace(**kw))
+        tc = tc.replace(flux=tc.flux.replace(**kw))
+    return jc, tc
+
+
+def _seq(arch):
+    """The case's sequence length: S, or its variant's."""
+    variant = arch.split()[1:]
+    return VARIANTS[variant[0]][1] if variant else S
 
 
 def _gumbel(jc, tc, key, batch=B):
@@ -72,11 +92,11 @@ def _gumbel(jc, tc, key, batch=B):
         (batch, 2), jnp.float32)) for i in routed]))
 
 
-def _batch(seed, cfg):
+def _batch(seed, cfg, seq=S):
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-    labels = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-    mask = (rng.random((B, S)) < 0.8).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab_size, (B, seq)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (B, seq)).astype(np.int32)
+    mask = (rng.random((B, seq)) < 0.8).astype(np.float32)
     task = np.array([0, 1], np.int32)
     return toks, labels, mask, task
 
@@ -219,7 +239,7 @@ def router_runs():
         js = jrt.init(JMD.init_params(jax.random.key(0), jc),
                       jax.random.key(1))
         key = jax.random.key(10)
-        batch = _batch(3, tc)
+        batch = _batch(3, tc, _seq(arch))
         loss, grads = _jax_router_loss(jrt, js, *map(jnp.asarray, batch),
                                        key)
         runs[arch] = (jrt, js, TTL.RouterTrainer(tc, total_steps=3),
