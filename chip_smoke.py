@@ -415,7 +415,18 @@ a decode kernel still refuses grad.
      all-reduces 2 x layers of (B, 1, 5120), per-rank weight bytes, peak
      memory and tok/s, labelled as phase 31's. Phases 3 and 4 hold and
      time the bf16 latent decode at a rank's head counts (MLA_TP_HEADS:
-     64, 32 and 8) at the pool's shape.
+     64, 32 and 8) at the pool's shape. (c) since slice 21, fp32, in the
+     same spawn (``tp_case_runs``): phi3-mini's smoke variant through
+     ``generate`` under TP_DUO at every layer (4 KV heads, 2 a rank: the
+     split inside rank 1) and a 4-request drain with the fidelity probe
+     on every admission; command-r's smoke variant narrowed to one KV
+     head, which both ranks hold, through ``generate`` router-driven and
+     mixed and a drain; against the one-device card run on the same
+     weights: routing, tokens and statuses equal, logits within 1e-4 of
+     the largest, every coverage within 1e-5, each run's launches exact
+     on every rank, the probe's all-reduces 2 a layer and 1 a routed
+     layer a probe, the shared KV head's caches bitwise equal on both
+     ranks. (a)'s and (c)'s launches are the ``tp2_archs_rank*`` counts.
 The phases run in this order: 1, 2, 3, the paths (6-8, 10-12, 14, 16,
 18, 30b, 20, 22, 23, 25's bf16 runs, 26, 31, 32, 28, 30) and 2b; beside
 them the card-against-CPU phases (5, 5b, 9, 9b, 13, 15, 17, 19, 21, 24,
@@ -525,6 +536,9 @@ TP_DRAIN_LENS = (2048, 1024, 1536, 512)
 # phase 32a: the parity prompts of the MoE, MLA and Mamba archs (whisper's
 # one prompt of TP_WHISPER_LEN tokens over 1500 frames, as phase 23's)
 TP_ARCH_LENS, TP_WHISPER_LEN = (1536, 1024, 700, 400, 1536), 384
+# phase 32c: the duo override over phi3-mini's smoke variant (4 KV heads,
+# 2 a rank: 3 on full attention puts the split inside rank 1)
+TP_DUO = ("duo", 3)
 REQUESTS, PROMPT, GEN, CHUNK = 4, 4096, 32, 512
 POOL_LENS = (4112, 2080, 1400, 1)  # live lengths of the timed slot pool
 PREAMBLE = 3072  # phase 8 batch: A and B share it, 1024-token tails
@@ -2522,8 +2536,8 @@ def probe_log(eng):
     """Record every fidelity probe's per-layer coverage, in order."""
     log, probe = [], eng._maybe_fidelity_probe
 
-    def logged(tokens, pattern):
-        cov = probe(tokens, pattern)
+    def logged(*args, **kw):
+        cov = probe(*args, **kw)
         if cov is not None:
             log.append(cov)
         return cov
@@ -6267,11 +6281,12 @@ def tp_arch_seed(dev, params, cfg, lens):
                          f"> 1e-3 and top-k gaps > {MOE_GAP}")
 
 
-def tp_arch_rank(tp, parity, prompts, drain_prompts):
+def tp_arch_rank(tp, parity, prompts, drain_prompts, case_prompts):
     """Phase 32 on one rank (a spawned process): (a) each of
     ``tp_arch_configs``' models drawn as the rank's share and run as on
-    one device, then (b) deepseek at full width. Returns ((a)'s results
-    by arch, its launches, (b)'s results)."""
+    one device, (c) the cases of ``tp_case_runs``, then (b) deepseek at
+    full width. Returns ((a)'s results by arch, the launches of (a) and
+    (c), (b)'s results, (c)'s results)."""
     import repro_torch.kernels as KN
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import init_params_tp
@@ -6287,21 +6302,193 @@ def tp_arch_rank(tp, parity, prompts, drain_prompts):
         out[arch] = tp_parity_runs(dev, params, cfg, toks, tp, frames)
         del params
         free_card()
+    cases = tp_case_runs(dev, case_prompts, tp)
     counts = KN.launch_counts()
     return out, counts, tp_full_runs(
         dev, get_config(DEEPSEEK).replace(num_layers=DEEPSEEK_LAYERS),
-        prompts, drain_prompts, tp)
+        prompts, drain_prompts, tp), cases
+
+
+def tp_case_configs():
+    """Phase 32c's models, fp32 (smoke variants): phi3-mini's (4 heads
+    over 4 KV heads, 2 layers) for the duo override and the probe drain,
+    and command-r-plus's narrowed to one KV head, which the 2 ranks
+    replicate (each holds it whole beside its 2 query heads)."""
+    from repro_torch.configs import get_config, smoke_variant
+    return {ARCH: smoke_variant(get_config(ARCH)),
+            COMMAND_R: smoke_variant(get_config(COMMAND_R)).replace(
+                num_kv_heads=1)}
+
+
+def tp_case_runs(dev, prompts, tp=None):
+    """Phase 32c on one engine set (``tp`` a rank's group, or None on
+    one device), each model drawn from the seed of every phase: phi3's
+    ``generate`` of prompts[ARCH][0] under ``TP_DUO`` at every layer
+    (its prefill full attention, its decode the masked head split in
+    plain torch: flash once a layer and no decode kernel) and a drain of
+    its first 4 prompts into 2 slots with the fidelity probe on every
+    admission (one flash a layer a probe besides the admissions'
+    kernels); command-r's ``generate`` router-driven and mixed and the
+    same drain (no probe). Each run's launches beside the exact counts
+    it must give. Returns host results by run."""
+    import repro_torch.kernels as KN
+    from repro_torch.distributed.group import digest
+    from repro_torch.distributed.sharding import init_params_tp
+    from repro_torch.launch.serve import (PREFILL_CHUNKS_PER_TICK,
+                                          routing_pattern)
+    from repro_torch.models import model as MD
+    from repro_torch.serve import kv_cache as KC
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import ContinuousScheduler
+    N = TP_PARITY_N
+    out = {}
+
+    def delta(before):
+        return {k: v - before[k] for k, v in KN.launch_counts().items()}
+
+    def drain(eng, cfg, toks, probe):
+        sched = ContinuousScheduler(
+            eng, slots_per_bucket=2, chunk=4,
+            prefill_chunks_per_tick=PREFILL_CHUNKS_PER_TICK)
+        before = KN.launch_counts()
+        for rid in range(4):
+            eng.submit(Request(rid=rid, tokens=toks[rid], n_steps=N))
+        done = eng.drain()
+        want = prefill_launches(cfg, sched.admissions)
+        want.update(decode_launches(cfg, sum(
+            p.steps for p in sched.pools.values()), pooled=True))
+        n_attn = sum(k in ("attn", "local") for k in cfg.layer_kinds)
+        want["flash_attention"] += eng._probe_admissions * n_attn
+        kv = [t.cpu().numpy().tobytes() for pool in sched.pools.values()
+              for c in pool.caches if isinstance(c, (KC.FullKV, KC.RingKV))
+              for t in (c.k, c.v)]
+        return dict(
+            done={rid: (f.status, f.tokens.tolist(), f.routing,
+                        f.metrics.preemptions) for rid, f in done.items()},
+            fidelity={rid: (f.metrics.fidelity, f.metrics.fidelity_sa_min)
+                      for rid, f in done.items()},
+            probes=eng._probe_admissions, launches=delta(before),
+            want=want, kv_digest=digest(*kv),
+            probe_calls=None if tp is None else tp.probe_calls)
+
+    for arch, cfg in tp_case_configs().items():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = (MD.init_params(cfg, gen, dev) if tp is None else
+                  init_params_tp(cfg, gen, tp.rank, tp.world, dev))
+        toks = prompts[arch]
+        probe = arch == ARCH
+        eng = ServeEngine(params, cfg, max_len=max(map(len, toks)) + N,
+                          prefill_chunk=CHUNK, device=dev, tp=tp,
+                          fidelity_probe_every=int(probe))
+        runs = (("duo", (TP_DUO,) * cfg.num_layers),) if probe else tuple(
+            (n, routing_pattern(cfg, n)) for n in ("router", "mixed"))
+        for name, ov in runs:
+            before = KN.launch_counts()
+            g = eng.generate(toks[0][None], N, routing_override=ov)
+            if name == "duo":  # the repack's prefill: full attention
+                want = prefill_launches(cfg, [], repacks=[(
+                    ("fa",) * cfg.num_layers, len(toks[0]))])
+                want.update(decode_launches(cfg, 0, pooled=False))
+            else:
+                want = prefill_launches(cfg, [(g.routing, len(toks[0]),
+                                               0)])
+                want.update(decode_launches(cfg, N, pooled=False))
+            out[arch, name] = dict(
+                tokens=g.tokens, routing=g.routing,
+                logits=g.logits.float().cpu().numpy(),
+                final=g.final_logits.float().cpu().numpy(),
+                launches=delta(before), want=want)
+        if tp is not None:
+            tp.reset_counts()
+        out[arch, "drain"] = drain(eng, cfg, toks, probe)
+        del params, eng
+        free_card()
+    return out
+
+
+def tp_case_check(one, ranks):
+    """Phase 32c's comparison of each rank's ``tp_case_runs`` with the
+    one-device runs: routing, tokens and statuses equal, logits within
+    FP32_TOL of the largest, every request's coverage within 1e-5, each
+    run's launches exact on every rank and on one device, the probe's
+    reduces 2 a layer and one a routed layer a probe, and the replicated
+    KV head's caches bitwise equal on both ranks. Returns the report
+    lines."""
+    from repro_torch.launch.serve import routing_letters
+    cfgs = tp_case_configs()
+    lines = []
+    for key, want in one.items():
+        arch, name = key
+        cfg = cfgs[arch]
+        assert want["launches"] == want["want"], (key, want)
+        errs, cov = [0.0], [0.0]
+        for r, res in enumerate(ranks):
+            got = res[key]
+            assert got["launches"] == got["want"] == want["want"], \
+                (key, r, got["launches"], got["want"])
+            if name != "drain":
+                assert got["routing"] == want["routing"], (key, r)
+                assert np.array_equal(got["tokens"], want["tokens"]), \
+                    (key, r)
+                errs += [float(np.abs(got[k] - want[k]).max()
+                               / np.abs(want[k]).max())
+                         for k in ("logits", "final")]
+                continue
+            assert got["done"] == want["done"], (key, r)
+            assert all(v[0] == "ok" for v in got["done"].values())
+            assert got["probes"] == want["probes"], (key, r)
+            for rid, (fid, sa_min) in want["fidelity"].items():
+                gf, gs = got["fidelity"][rid]
+                assert (gf is None) == (fid is None), (key, r, rid)
+                if fid is not None:
+                    cov.append(abs(gf - fid))
+                if sa_min is not None:
+                    cov.append(abs(gs - sa_min))
+            if got["probes"]:
+                assert got["probe_calls"] == got["probes"] * (
+                    2 * cfg.num_layers + len(cfg.routable_layers())), \
+                    (key, r, got["probe_calls"])
+            assert got["fidelity"] == ranks[0][key]["fidelity"], (key, r)
+        assert max(errs) < FP32_TOL, (key, errs)
+        assert max(cov) < 1e-5, (key, cov)
+        head = (f"(c) {arch} smoke ({cfg.num_heads} heads over "
+                f"{cfg.num_kv_heads} KV heads, fp32) {name}: ")
+        if name != "drain":
+            lines.append(head + (
+                f"routing={routing_letters(want['routing'])} tokens equal "
+                f"on the ranks and one device, logits rel err "
+                f"{max(errs):.2e} (limit {FP32_TOL}), launches exact "
+                f"{want['launches']}"))
+            continue
+        fids = [f for f, _ in want["fidelity"].values() if f is not None]
+        line = (f"drain of 4 on 2 slots: statuses and tokens equal, "
+                f"launches exact {want['launches']}")
+        if want["probes"]:
+            assert fids and min(fids) < 1 - 1e-3, fids
+            line += (f"; {want['probes']} probes, coverage "
+                     f"{min(fids):.4f}-{max(fids):.4f}, max diff "
+                     f"{max(cov):.2e} (limit 1e-5), probe all-reduces "
+                     f"{ranks[0][key]['probe_calls']} a rank")
+        else:  # one KV head, held whole by both ranks
+            assert all(res[key]["kv_digest"] == ranks[0][key]["kv_digest"]
+                       for res in ranks), key
+            line += "; both ranks' caches of the one KV head bitwise equal"
+        lines.append(head + line)
+    return lines
 
 
 def tp_arch_phase(dev):
     """Phase 32: TP_WORLD ranks on the one card over gloo, spawned once:
     (a) the MoE, MLA, Mamba and encoder archs of ``tp_arch_configs`` in
-    fp32 against the one-device port on the same weights; (b)
-    deepseek-v2-236b at full width, DEEPSEEK_LAYERS layers, bf16.
-    Returns (each rank's launches, report lines)."""
+    fp32 against the one-device port on the same weights; (c) the duo
+    head split, the fidelity probe and KV replication (``tp_case_runs``)
+    against the one-device port; (b) deepseek-v2-236b at full width,
+    DEEPSEEK_LAYERS layers, bf16. Returns (each rank's launches, report
+    lines)."""
     from repro_torch.configs import get_config
     from repro_torch.distributed.group import launch
     from repro_torch.models import model as MD
+    from repro_torch.serve.engine import ServeEngine
     parity, ones, lines = {}, {}, []
     for arch, cfg in tp_arch_configs().items():
         t0 = time.perf_counter()
@@ -6321,6 +6508,20 @@ def tp_arch_phase(dev):
                      f"[{time.perf_counter() - t0:.1f} s]")
         del params
         free_card()
+    case_prompts = {}
+    for arch, cfg in tp_case_configs().items():
+        t0 = time.perf_counter()
+        eng = ServeEngine(MD.init_params(cfg, torch.Generator(
+            device=dev).manual_seed(0), dev), cfg,
+            max_len=max(TP_ARCH_LENS), prefill_chunk=CHUNK, device=dev)
+        seed, case_prompts[arch], margin = router_margin_seed(
+            eng, TP_ARCH_LENS)
+        lines.append(f"(c) {arch} smoke: prompt_seed={seed} "
+                     f"router_min_margin={margin:.2e} "
+                     f"[{time.perf_counter() - t0:.1f} s]")
+        del eng
+        free_card()
+    case_one = tp_case_runs(dev, case_prompts)
     cfg = get_config(DEEPSEEK).replace(num_layers=DEEPSEEK_LAYERS)
     rng = np.random.default_rng(32)
     prompts = rng.integers(0, cfg.vocab_size, (2, TP_PROMPT))
@@ -6328,19 +6529,21 @@ def tp_arch_phase(dev):
                      for n in TP_DRAIN_LENS]
     t0 = time.perf_counter()
     ranks = launch(tp_arch_rank, TP_WORLD, "gloo",
-                   args=(parity, prompts, drain_prompts), device=dev.type)
+                   args=(parity, prompts, drain_prompts, case_prompts),
+                   device=dev.type)
     wall = time.perf_counter() - t0
     for arch, cfg_a in tp_arch_configs().items():
         lines += [f"(a) {arch}: {line}" for line in tp_parity_check(
-            arch, ones[arch], [a[arch] for a, _, _ in ranks],
+            arch, ones[arch], [a[arch] for a, _, _, _ in ranks],
             drains=not cfg_a.num_encoder_layers)]
+    lines += tp_case_check(case_one, [c for _, _, _, c in ranks])
     counts = {}
-    for r, (_, served, _) in enumerate(ranks):
+    for r, (_, served, _, _) in enumerate(ranks):
         for k in SERVING_KERNELS + ("decode_attention_mla",):
             assert served[k] > 0, f"(a) rank {r}: {k} never launched"
         counts[f"tp{TP_WORLD}_archs_rank{r}"] = served
     served, full_lines = tp_full_check(
-        cfg, [full for _, _, full in ranks], prompts.shape[0],
+        cfg, [full for _, _, full, _ in ranks], prompts.shape[0],
         ("flash_attention", "streaming_attention", "decode_attention_mla"))
     counts.update({f"tp{TP_WORLD}_deepseek_rank{r}": c
                    for r, c in enumerate(served)})

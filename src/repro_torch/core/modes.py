@@ -342,23 +342,31 @@ def _block_topk(q, k, v, mode: AttnMode, *, q_offset: int, scale: float):
 
 def head_split_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          n_fa_kv: int, sa: AttnMode, *,
-                         q_offset: int = 0) -> torch.Tensor:
-    """Static head-level hybrid: the first ``n_fa_kv`` KV heads and their
-    query groups run full attention, the rest run ``sa``. The head slices
-    are copied contiguous (they are strided when B > 1)."""
+                         q_offset: int = 0, kv_first: int = 0
+                         ) -> torch.Tensor:
+    """Static head-level hybrid: the first ``n_fa_kv`` KV heads of the
+    model and their query groups run full attention, the rest run
+    ``sa``. ``k`` / ``v`` hold the KV heads from global index
+    ``kv_first`` on (a tensor-parallel rank's share), so FA runs on
+    their first clamp(n_fa_kv - kv_first, 0, Hkv) heads; either part may
+    be empty. The head slices are copied contiguous (they are strided
+    when B > 1)."""
     Hkv = k.shape[1]
-    n_fa_q = n_fa_kv * (q.shape[1] // Hkv)
+    n_fa = min(max(n_fa_kv - kv_first, 0), Hkv)
+    n_fa_q = n_fa * (q.shape[1] // Hkv)
 
     def heads(x, a, b):
         return x[:, a:b].contiguous()
 
-    o_fa = attention(heads(q, 0, n_fa_q), heads(k, 0, n_fa_kv),
-                     heads(v, 0, n_fa_kv), FULL, q_offset=q_offset)
-    if n_fa_kv == Hkv:
-        return o_fa
-    o_sa = attention(heads(q, n_fa_q, None), heads(k, n_fa_kv, None),
-                     heads(v, n_fa_kv, None), sa, q_offset=q_offset)
-    return torch.cat([o_fa, o_sa], dim=1)
+    parts = []
+    if n_fa:
+        parts.append(attention(heads(q, 0, n_fa_q), heads(k, 0, n_fa),
+                               heads(v, 0, n_fa), FULL, q_offset=q_offset))
+    if n_fa < Hkv:
+        parts.append(attention(heads(q, n_fa_q, None), heads(k, n_fa, None),
+                               heads(v, n_fa, None), sa,
+                               q_offset=q_offset))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 # ---------------------------------------------------------------------------

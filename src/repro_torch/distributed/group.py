@@ -11,8 +11,8 @@ A ``world == 1`` group is the identity and touches no process group.
 
 The device collective is ``all_reduce_sum``, the model's reduce points'
 one operation (``distributed/sharding.py`` ``tp_reduce``); it counts its
-calls and bytes. The host ones keep every rank's scheduler in step:
-``broadcast_host`` and ``host_clock`` hand rank 0's object or clock
+calls and bytes, the fidelity probe's (``probing``) apart. The host ones
+keep every rank's scheduler in step: ``broadcast_host`` and ``host_clock`` hand rank 0's object or clock
 reading to every rank, and ``check_agree`` compares a digest across the
 ranks with one MIN and one MAX all-reduce, raising ``TPDivergence`` on a
 mismatch rather than leaving the ranks to hang in the next collective.
@@ -35,6 +35,7 @@ import queue as queue_mod
 import shutil
 import tempfile
 import traceback
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
@@ -65,18 +66,35 @@ class TPGroup:
     cpu_group: Any = None  # gloo, host decisions (None when world == 1)
     reduce_calls: int = 0  # all_reduce_sum calls since reset_counts
     reduce_bytes: int = 0  # and the bytes they reduced
+    probe_calls: int = 0   # the fidelity probe's calls (``probing``),
+    probe_bytes: int = 0   # counted apart from the two above
+    _probing: bool = False
 
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum ``x`` over the ranks, in place; ``x`` itself at world 1."""
         if self.world == 1:
             return x
-        self.reduce_calls += 1
-        self.reduce_bytes += x.numel() * x.element_size()
+        if self._probing:
+            self.probe_calls += 1
+            self.probe_bytes += x.numel() * x.element_size()
+        else:
+            self.reduce_calls += 1
+            self.reduce_bytes += x.numel() * x.element_size()
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
         return x
 
+    @contextmanager
+    def probing(self):
+        """Count the reduces inside the block as the fidelity probe's."""
+        prev, self._probing = self._probing, True
+        try:
+            yield
+        finally:
+            self._probing = prev
+
     def reset_counts(self) -> None:
         self.reduce_calls = self.reduce_bytes = 0
+        self.probe_calls = self.probe_bytes = 0
 
     def broadcast_host(self, obj: Any) -> Any:
         """Rank 0's ``obj`` on every rank (a picklable host object)."""

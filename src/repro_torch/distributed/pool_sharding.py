@@ -2,9 +2,11 @@
 ``repro/distributed/pool_sharding.py``).
 
 Head sharding: a rank's ``FullKV`` / ``RingKV`` ``k`` / ``v`` (slots or
-B, Hkv / world, S, D) hold the KV heads of its query heads, so each
-rank's attention over its cache is complete for its heads and the cache
-never moves; the only per-step collectives are the reduce points'
+B, Hkv / world, S, D; under KV replication (slots or B, 1, S, D), the
+one KV head its query heads read, the same on the world / Hkv ranks
+that share it) hold the KV heads of its query heads, so each rank's
+attention over its cache is complete for its heads and the cache never
+moves; the only per-step collectives are the reduce points'
 activation sums (``distributed/sharding.py``). Every other buffer is
 replicated, the same on every rank: MLA's ``LatentKV`` / ``RingLatentKV``
 (``ckv`` has no head axis; its R is the score product's contraction, so
@@ -17,11 +19,13 @@ caches (``serve/kv_cache.py`` ``init_decode_caches`` under
 ``sharding.tp_config``) are built in the local shape.
 
 The byte counts here are JAX's: a committed sharded ``jax.Array``
-reports its global size, so the global figure counts a head-sharded
-buffer ``world`` times and a replicated one once, and the shard figure is
-what one rank holds. The memory ledger and the prefix store's budget
-count the global bytes, so the same budget keeps the same snapshots as
-on one device.
+reports its global size, the logical array's, so the global figure
+counts a head-sharded buffer once a distinct piece (``world`` times, or
+Hkv times under KV replication, where world / Hkv ranks hold copies of
+each piece) and a replicated one once, and the shard figure is what one
+rank holds. The memory ledger and the prefix store's budget count the
+global bytes, so the same budget keeps the same snapshots as on one
+device.
 """
 from __future__ import annotations
 
@@ -51,13 +55,17 @@ def head_sharded_bytes(caches: Sequence) -> int:
                for f in HEAD_SHARDED_FIELDS)
 
 
-def cache_bytes(caches: Sequence, world: int = 1) -> CacheBytes:
-    """``CacheBytes`` of one rank's ``caches`` in a ``world``-way group:
-    the head-sharded buffers count ``world`` times in the global figures,
-    everything else once; at world 1 global equals shard."""
+def cache_bytes(caches: Sequence, world: int = 1,
+                kv_replicas: int = 1) -> CacheBytes:
+    """``CacheBytes`` of one rank's ``caches`` in a ``world``-way group
+    whose KV heads are each held by ``kv_replicas`` ranks
+    (``sharding.kv_replicas``): the global figures are the logical
+    pool's, each KV head once (the head-sharded buffers world /
+    kv_replicas times), everything else once; the shard figures are the
+    bytes the rank holds. At world 1 global equals shard."""
     payload = KC.kv_cache_bytes(caches)
     total = sum(t.nbytes for c in caches for t in KC.cache_fields(c))
-    extra = (world - 1) * head_sharded_bytes(caches)
+    extra = (world // kv_replicas - 1) * head_sharded_bytes(caches)
     return CacheBytes(payload=payload + extra, overhead=total - payload,
                       payload_shard=payload,
                       overhead_shard=total - payload)

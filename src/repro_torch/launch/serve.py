@@ -93,9 +93,16 @@ ranks (``distributed/group.py`` ``launch``, one process a rank) over
 the seeded weights layer by layer and keeps its share
 (``init_params_tp``); on the card rank 0 builds the kernels before the
 others load them. Only rank 0 prints and writes files; a rank that fails
-fails the run. Every arch the one-device path serves serves here; a GQA
-model whose KV heads do not divide by N (KV replication), a duo override
-and ``--fidelity-probe-every`` refuse (item 16c).
+fails the run. Every arch the one-device path serves serves here, with
+``--routing duo`` and ``--fidelity-probe-every`` too; a GQA model whose
+KV heads N divides is served with each KV head replicated on N / Hkv
+ranks (``distributed/sharding.py``), and one whose KV heads neither
+divide by N nor divide N is refused (ValueError naming both counts).
+
+``--routing duo`` is the DuoAttention baseline: ``("duo", n)`` at every
+attention layer, the first ``--duo-heads`` n KV heads of the model on
+full attention in the decode and the rest on sink + local (the batch
+path only: the slot pool refuses head splits).
 """
 from __future__ import annotations
 
@@ -121,23 +128,30 @@ from repro_torch.serve.slo import (SHED_POLICIES, SHED_REJECT_NEWEST,
                                    STATUS_OK, SLOConfig)
 
 ROUTINGS = ("router", "fa", "sa", "mixed")
+# ``--routing``'s choices: the routings above and the DuoAttention head
+# split, which the slot pool refuses
+ROUTING_CHOICES = ROUTINGS + ("duo",)
 
 
-def routing_pattern(cfg, routing: str):
+def routing_pattern(cfg, routing: str, duo_heads: int = 1):
     """The routing override of a ``--routing`` choice: None lets the
-    router decide; "mixed" alternates FA and SA over the layers."""
+    router decide; "mixed" alternates FA and SA over the layers; "duo"
+    is ``("duo", duo_heads)`` at every layer."""
     if routing == "router":
         return None
     if routing == "mixed":
         return tuple("fa" if i % 2 == 0 else "sa"
                      for i in range(cfg.num_layers))
+    if routing == "duo":
+        return (("duo", int(duo_heads)),) * cfg.num_layers
     return (routing,) * cfg.num_layers
 
 
 def routing_letters(pattern) -> str:
     """A routing pattern as one letter a layer: f(a), s(a), d(uo), or
     "-" at a layer that is not routed (a Mamba layer)."""
-    return "".join("-" if p is None else p[0] for p in pattern)
+    return "".join("-" if p is None else p[0] if isinstance(p, str)
+                   else p[0][0] for p in pattern)
 
 
 # operators --profile lists, most time first: enough to reach a kernel of
@@ -300,8 +314,12 @@ def main(argv=None) -> None:
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=512,
                     help="largest prefill chunk; 0 = monolithic prefill")
-    ap.add_argument("--routing", choices=ROUTINGS, default="router",
-                    help="router-driven, or a forced FA/SA/mixed pattern")
+    ap.add_argument("--routing", choices=ROUTING_CHOICES, default="router",
+                    help="router-driven, or a forced FA/SA/mixed pattern, "
+                         "or the DuoAttention head split (duo)")
+    ap.add_argument("--duo-heads", type=int, default=1,
+                    help="--routing duo: the model's KV heads on full "
+                         "attention at every layer")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--continuous", action="store_true",
@@ -431,7 +449,7 @@ def serve(args, tp=None) -> None:
     rng = np.random.default_rng(0)
     shared = np.random.default_rng(2).integers(0, cfg.vocab_size,
                                                args.shared_prefix)
-    override = routing_pattern(cfg, args.routing)
+    override = routing_pattern(cfg, args.routing, args.duo_heads)
     lens = [args.prompt_len // (1 + i % 3) if args.continuous
             else args.prompt_len for i in range(args.requests)]
     reqs = [Request(rid=i, tokens=np.concatenate(

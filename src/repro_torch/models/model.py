@@ -80,7 +80,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import modes as M
 from repro_torch.core import router as R
-from repro_torch.distributed.sharding import tp_reduce
+from repro_torch.distributed.sharding import (kv_head_range, tp_reduce,
+                                              tp_world)
 from repro_torch.kernels.decode_attention import decode_attention_bh
 from repro_torch.kernels.decode_attention_mla import decode_attention_mla_bh
 from repro_torch.kernels.decode_attention_pooled import \
@@ -300,9 +301,10 @@ def _route_and_attend(bp, cfg: ModelConfig, q, k, v, x_q, ctx,
         return rb * o_fa + (1 - rb) * o_sa, r
     if kind == "fa_only":
         return M.attention(q, k, v, M.FULL, q_offset=q_offset), None
-    if kind == "head_split":
+    if kind == "head_split":  # ctx[1] counts the whole model's KV heads
         return M.head_split_attention(q, k, v, ctx[1], sa_mode(cfg),
-                                      q_offset=q_offset), None
+                                      q_offset=q_offset,
+                                      kv_first=kv_head_range(cfg)[0]), None
     if kind in ("hard", "hard_prefix"):
         pooling = "prefix" if kind == "hard_prefix" else "prefix_suffix"
         _, p_fa = R.hard_route(bp["router"], x_q, cfg.flux, pooling)
@@ -728,14 +730,18 @@ def _decode_attn_ring(bp, cfg, x, pos, rope_pos, cache, sink: int,
 def _decode_attn_headsplit(bp, cfg, x, pos, rope_pos, cache, n_fa_kv: int):
     """DuoAttention-style decode over a full-shape cache (ragged per-head
     histories are unrepresentable: the paper's §2.3 point). The first
-    ``n_fa_kv`` KV heads see every slot <= pos, the rest sink + local;
-    a per-KV-head validity mask in plain torch, as the JAX package
-    computes it in XLA, outside the decode kernels."""
+    ``n_fa_kv`` KV heads of the whole model see every slot <= pos, the
+    rest sink + local (a tensor-parallel rank's heads start at its first
+    global KV head, ``kv_head_range``); a per-KV-head validity mask in
+    plain torch, as the JAX package computes it in XLA, outside the
+    decode kernels."""
     q, k, v, _ = A.gqa_qkv(bp["attn"], cfg, x, rope_pos)
     cache = KC.full_insert(cache, k, v, pos)
     L = cache.k.shape[2]
     idx = torch.arange(L, device=x.device)
-    head_is_full = torch.arange(cfg.num_kv_heads, device=x.device) < n_fa_kv
+    first, _ = kv_head_range(cfg)
+    head_is_full = (torch.arange(cfg.num_kv_heads, device=x.device)
+                    + first) < n_fa_kv
     sink, local = cfg.flux.sink, cfg.flux.local
     if isinstance(pos, torch.Tensor):  # per row → (B, Hkv, L)
         full_valid = idx[None, :] <= pos[:, None]
@@ -816,8 +822,11 @@ def routing_head_split(cfg: ModelConfig, routing):
     """A routing pattern ("fa" | "sa" | ("duo", n) | None per layer) as
     (fa_heads, duo_layers): the per-layer full-attention KV-head counts
     (a tuple of ints) and the tuple of duo layer indices, or (None,
-    None) when no entry is a head split. Raises ValueError for an MLA
-    model, whose heads share one latent."""
+    None) when no entry is a head split. The counts are the whole
+    model's: ``cfg`` is the whole config (the engine's ``cfg``, not a
+    rank's ``model_cfg``), and a rank's decode offsets them by its first
+    global KV head. Raises ValueError for an MLA model, whose heads
+    share one latent."""
     duo = tuple(i for i, r in enumerate(routing)
                 if isinstance(r, tuple) and r[0] == "duo")
     if not duo:
@@ -1043,8 +1052,11 @@ def attention_mass_coverage(params, cfg: ModelConfig, tokens: torch.Tensor,
     the MoE layers that capacity, so the port's coverage is the JAX
     engine's. Side inputs as ``prefill`` takes them: the last query is
     the prompt's last token, and the prefix counts among its keys.
-    Returns (n_routed,) float32 on the CPU, in ``cfg.routable_layers()``
-    order."""
+    Under tensor parallelism (``cfg`` a rank's share, inside
+    ``tensor_parallel``) each rank sums its heads' coverage and one
+    reduce a routed layer gives every rank the mean over the whole
+    model's heads. Returns (n_routed,) float32 on the CPU, in
+    ``cfg.routable_layers()`` order."""
     enc_out = encode_side_input(params, cfg, encoder_frames)
     h = embed_tokens(params, cfg, tokens, prefix_embeddings)
     S = h.shape[1]
@@ -1068,13 +1080,16 @@ def attention_mass_coverage(params, cfg: ModelConfig, tokens: torch.Tensor,
                 k, _ = A.mla_expand_kv(bp["attn"], cfg, ckv, kr)
             else:
                 q, k, _, _ = A.gqa_qkv(bp["attn"], cfg, x, positions)
-            G = q.shape[1] // k.shape[1]
+            G = q.shape[1] // k.shape[1]  # the rank's G under TP
             if G > 1:  # kv-major head order: head j reads kv head j // G
                 k = k.repeat_interleave(G, dim=1)
             s = torch.einsum("bhd,bhsd->bhs", q[:, :, q_idx].float(),
                              k.float()) * (q.shape[-1] ** -0.5)
             p = torch.softmax(s, dim=-1)
-            covs.append((p * vis).sum(dim=-1).mean())
+            # the mean over (B, every head of the model): each rank sums
+            # its heads and the ranks sum their sums
+            kept = tp_reduce((p * vis).sum(dim=-1).sum().reshape(1))
+            covs.append(kept[0] / (p.shape[0] * p.shape[1] * tp_world()))
         h, _, _ = block_apply(bp, cfg, i, h, positions, ("fa_only",),
                               capacity_len=capacity_len, enc_out=enc_out)
     if not covs:

@@ -110,10 +110,14 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     # --- intra-chunk (quadratic) ---
     CB = Cc @ Bc.transpose(-1, -2)      # (B, nc, Q, Q) f32
-    # exp overflows above the diagonal: masked by a select, since a 0/1
-    # multiply would make 0·inf = NaN
-    decay = torch.exp(cum[..., :, None] - cum[..., None, :])  # (B,nc,H,Q,Q)
+    # above the diagonal cum_i - cum_j > 0 and its exp may overflow: the
+    # exponent is set to -inf there before the exp, so the backward meets
+    # exp's derivative 0 rather than inf (the select's zero cotangent
+    # times inf was NaN, as it still is in the JAX package); the select
+    # below keeps the forward bitwise as it was
     causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp((cum[..., :, None] - cum[..., None, :])
+                      .masked_fill(~causal, float("-inf")))  # (B,nc,H,Q,Q)
     scores = torch.where(causal, CB[:, :, None] * decay,
                          torch.zeros((), device=x.device))
     xbar = xc * dtc[..., None].to(dtype)  # dt enters as an input scale

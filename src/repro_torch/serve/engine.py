@@ -55,14 +55,16 @@ memory ledger and routing-fidelity probes (``profiler_report``,
 kernels and device reads it runs without them.
 
 Tensor parallelism (``tp``, a ``distributed.group.TPGroup``; JAX's
-``mesh=``): one engine a rank, each holding 1/N of the heads, KV heads,
+``mesh=``): one engine a rank, each holding 1/N of the heads, KV heads
+(or, where N divides by the KV heads, the one its query heads read),
 FFN width and expert FFN width (``distributed/sharding.py``; ``self.cfg``
-stays the whole model's config, ``self.model_cfg`` is the rank's share)
+stays the whole model's config, ``self.model_cfg`` is the rank's share;
+a duo override counts the whole model's KV heads)
 and slot pools whose k / v hold its KV heads, with MLA's latent caches
 and Mamba's states whole on every rank (``distributed/
 pool_sharding.py``). An encoder runs under the group too: each rank
 encodes with its heads.
-Every model call runs under ``tensor_parallel(tp)``, so the reduce
+Every model call runs under ``tensor_parallel(tp)`` (``parallel``), so the reduce
 points sum over the ranks; every rank runs the same host code on the
 same submissions, the scheduler's clock is rank 0's, and each tick ends
 with a digest check of the ranks' decisions. The byte figures (the
@@ -74,6 +76,7 @@ from __future__ import annotations
 
 import time
 import warnings
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from functools import partial
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -259,11 +262,13 @@ class KVStats:
         return self.payload_bytes + self.overhead_bytes
 
 
-def kv_cache_stats(caches, prefix_store=None, world: int = 1) -> KVStats:
+def kv_cache_stats(caches, prefix_store=None, world: int = 1,
+                   kv_replicas: int = 1) -> KVStats:
     """``KVStats`` of a list of caches (of one request or several pools)
     and of the prefix store's tiers; ``world`` the tensor-parallel ranks
-    the caches are one rank's share of."""
-    b = PSH.cache_bytes(caches, world)
+    the caches are one rank's share of, ``kv_replicas`` the ranks that
+    hold each KV head (``PSH.cache_bytes``)."""
+    b = PSH.cache_bytes(caches, world, kv_replicas)
     return KVStats(
         payload_bytes=b.payload, overhead_bytes=b.overhead,
         prefix_device_bytes=(prefix_store.device_bytes
@@ -331,7 +336,7 @@ class ChunkedPrefill:
         if self.idx == 0:
             self._route_chunk(chunk)
         else:
-            with SH.tensor_parallel(eng.tp):
+            with eng.parallel():
                 self.logits, self.caches = MD.prefill_chunk(
                     eng.params, eng.model_cfg, chunk, self.caches, start)
             self.dispatches += 1
@@ -342,7 +347,7 @@ class ChunkedPrefill:
     def _route_chunk(self, chunk: torch.Tensor) -> None:
         eng, cfg = self.engine, self.engine.model_cfg
         routing_ctx, fixed = eng._routing_ctx(self.override)
-        with SH.tensor_parallel(eng.tp):
+        with eng.parallel():
             pf = MD.prefill(eng.params, cfg, chunk, routing_ctx=routing_ctx,
                             fixed_pattern=fixed,
                             fa_threshold=eng._rung_threshold(self.sa_level,
@@ -398,7 +403,8 @@ class ServeEngine:
     ``tp``: this rank's ``TPGroup`` for tensor-parallel serving (see the
     module's docstring); ``params`` are the whole model's (sharded here)
     or already the rank's share, and ``device`` defaults to the group's.
-    Unsupported configs raise ``NotImplementedError`` (ROADMAP item 16c).
+    A config the ranks cannot divide raises ValueError
+    (``SH.check_tp_supported``).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_len: int = 4096,
@@ -425,9 +431,9 @@ class ServeEngine:
         MD.check_supported(cfg)
         self.tp = tp
         self.world = 1 if tp is None else tp.world
-        SH.check_tp_supported(cfg, self.world,
-                              routing_override=routing_override,
-                              fidelity_probe_every=fidelity_probe_every)
+        SH.check_tp_supported(cfg, self.world)
+        # the ranks that hold each KV head (1 unless KV is replicated)
+        self.kv_replicas = SH.kv_replicas(cfg, self.world)
         self.device = resolve_device(
             tp.device if device is None and tp is not None else device)
         if not SH.params_are_local(params, cfg, self.world):
@@ -472,7 +478,7 @@ class ServeEngine:
                              else None)
         self.ledger = (TM.MemoryLedger(params_bytes=(
             self._params_cost()[1] if self.world == 1
-            else SH.global_param_bytes(self.params, self.world)))
+            else SH.global_param_bytes(self.params, cfg, self.world)))
                        if memory_ledger else None)
         # off, every instrumented path is one ``is not None`` test, so the
         # engine launches and reads exactly what it does without telemetry
@@ -810,7 +816,7 @@ class ServeEngine:
             "kernel_decline": attn["kernel_decline"],
         }
 
-    def _maybe_fidelity_probe(self, tokens_1d, pattern
+    def _maybe_fidelity_probe(self, tokens_1d, pattern, agree=None
                               ) -> Optional[np.ndarray]:
         """Every ``fidelity_probe_every``-th admission is a probe: one
         extra FA-only forward (``MD.attention_mass_coverage``; flash at
@@ -819,20 +825,30 @@ class ServeEngine:
         window keeps. With the dial at 0 this is one int test. The JAX
         engine pads the prompt to its power-of-two bucket; the port runs
         it unpadded and gives MoE layers the bucket's capacity, which is
-        the same result."""
+        the same result. Under tensor parallelism the forward runs on the
+        rank's share and every rank reads the same coverage; ``agree``
+        (the scheduler's digest check) is told whether this admission is
+        probed before the probe's first reduce, so a rank that would skip
+        it fails loudly instead of leaving the others in that reduce. The
+        probe's reduces count apart from the serving ones
+        (``TPGroup.probe_calls``)."""
         if not self.fidelity_probe_every:
             return None
         self._probe_admissions += 1
-        if (self._probe_admissions - 1) % self.fidelity_probe_every:
-            return None
         routed = self.cfg.routable_layers()
         toks = np.asarray(tokens_1d).reshape(-1)
-        if not routed or toks.size < 1:
+        due = (not (self._probe_admissions - 1) % self.fidelity_probe_every
+               and bool(routed) and toks.size >= 1)
+        if agree is not None:
+            agree(due)
+        if not due:
             return None
         bucket = 1 << (toks.size - 1).bit_length()
-        cov = MD.attention_mass_coverage(self.params, self.cfg,
-                                         self._tokens(toks[None]),
-                                         capacity_len=bucket).numpy()
+        with self.parallel(), (self.tp.probing() if self.tp is not None
+                               else nullcontext()):
+            cov = MD.attention_mass_coverage(self.params, self.model_cfg,
+                                             self._tokens(toks[None]),
+                                             capacity_len=bucket).numpy()
         self.dispatch_count += 1
         reg = self.telemetry
         for j, i in enumerate(routed):
@@ -840,6 +856,12 @@ class ServeEngine:
                 reg.histogram("flux_fidelity_coverage", layer=str(i),
                               decision=pattern[i]).observe(float(cov[j]))
         return cov
+
+    def parallel(self):
+        """The ambient group of this engine's model calls
+        (``SH.tensor_parallel``): the rank's group, with the whole
+        model's KV heads for ``SH.kv_head_range``; a no-op at tp=None."""
+        return SH.tensor_parallel(self.tp, kv_heads=self.cfg.num_kv_heads)
 
     def mesh_shape(self) -> Optional[Tuple[int, int]]:
         """The serving mesh JAX's engine would report, (1, world), for
@@ -863,7 +885,8 @@ class ServeEngine:
                 else self.ledger.last())
         pools = list(sched.pools.values()) if sched is not None else []
         stats = kv_cache_stats([c for p in pools for c in p.caches],
-                               self.prefix_store, self.world)
+                               self.prefix_store, self.world,
+                               self.kv_replicas)
         mesh = self.mesh_shape()
         out: Dict[str, Any] = {
             "snapshot": snap.as_dict() if snap is not None else None,
@@ -917,7 +940,9 @@ class ServeEngine:
 
     def _check_override(self, override) -> None:
         """Raise on a malformed routing override: each layer's entry must
-        be "fa", "sa", None or ("duo", n) with 0 <= n <= num_kv_heads."""
+        be "fa", "sa", None or ("duo", n) with 0 <= n <= num_kv_heads,
+        the whole model's (under tensor parallelism each rank runs FA on
+        its share of the first n global KV heads)."""
         cfg = self.cfg
         if override is None:
             return
@@ -932,7 +957,6 @@ class ServeEngine:
                 f"routing override must give 'fa', 'sa' or ('duo', n) with "
                 f"0 <= n <= {cfg.num_kv_heads} for each of "
                 f"{cfg.num_layers} layers; got {override!r}")
-        SH.check_tp_supported(cfg, self.world, routing_override=override)
 
     def chunked_eligible(self, seq_len: int, override=None, *,
                          prefix_embeddings=None,
@@ -1124,7 +1148,8 @@ class ServeEngine:
         key = PXC.routing_key(override, sa_level)
         if store.covered(toks, boundary, key):
             return False  # already published (LRU slot bumped)
-        nbytes = PXC.state_bytes(caches, logits, self.world)
+        nbytes = PXC.state_bytes(caches, logits, self.world,
+                                  self.kv_replicas)
         whole = store.budget_bytes + store.host_budget_bytes
         if nbytes > whole:
             geom = KC.cache_geometry(caches)
@@ -1157,7 +1182,7 @@ class ServeEngine:
                     else self.routing_override)
         self._check_override(override)
         routing_ctx, fixed = self._routing_ctx(override)
-        with SH.tensor_parallel(self.tp):
+        with self.parallel():
             pf = MD.prefill(self.params, self.model_cfg, tokens,
                             routing_ctx=routing_ctx, fixed_pattern=fixed,
                             prefix_embeddings=prefix_embeddings,
@@ -1224,7 +1249,7 @@ class ServeEngine:
         dispatches = 0
         enc_out = None
         if self._encode is not None:
-            with SH.tensor_parallel(self.tp):  # each rank its heads
+            with self.parallel():  # each rank its heads
                 enc_out = self._encode(encoder_frames)
             dispatches += 1
             self._sync()
@@ -1253,11 +1278,12 @@ class ServeEngine:
                 f"generate: prompt ({seq_len}) + n_steps ({n_steps}) = "
                 f"{seq_len + n_steps} exceeds the cache capacity "
                 f"max_len={self.max_len} of the full-cache layers")
-        kv_bytes = PSH.cache_bytes(caches, self.world).payload
+        kv_bytes = PSH.cache_bytes(caches, self.world,
+                                   self.kv_replicas).payload
         self._sync()
         t1 = time.perf_counter()
         fa_heads, duo_layers = MD.routing_head_split(self.cfg, pattern)
-        with SH.tensor_parallel(self.tp):
+        with self.parallel():
             toks, final, _ = MD.decode_many(
                 self.params, self.model_cfg, logits, caches, seq_len,
                 n_steps=n_steps, greedy=greedy,
@@ -1336,7 +1362,8 @@ class ServeEngine:
         sched = self._scheduler
         pools = list(sched.pools.values()) if sched is not None else []
         stats = kv_cache_stats([c for p in pools for c in p.caches],
-                               self.prefix_store, self.world)
+                               self.prefix_store, self.world,
+                               self.kv_replicas)
         prompt_tokens = sum(m.prompt_len for m in ms)
         hit_tokens = sum(m.prefix_hit_tokens for m in ms)
         fid = [m.fidelity for m in ms if m.fidelity is not None]

@@ -67,12 +67,14 @@ def routing_key(override, sa_level: int = 0) -> Tuple:
     return ("router", int(sa_level))
 
 
-def state_bytes(caches, logits: torch.Tensor, world: int = 1) -> int:
+def state_bytes(caches, logits: torch.Tensor, world: int = 1,
+                kv_replicas: int = 1) -> int:
     """Bytes of one boundary state (every cache buffer and the logits).
     Under ``world``-way tensor parallelism ``caches`` are one rank's
-    share and the count is global, as a sharded JAX array reports it, so
-    the same budget keeps the same snapshots as on one device."""
-    b = PSH.cache_bytes(caches, world)
+    share and the count is global, as a sharded JAX array reports it
+    (each KV head once, ``PSH.cache_bytes``), so the same budget keeps
+    the same snapshots as on one device."""
+    b = PSH.cache_bytes(caches, world, kv_replicas)
     return b.payload + b.overhead + logits.nbytes
 
 

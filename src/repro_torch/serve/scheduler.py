@@ -574,8 +574,15 @@ class ContinuousScheduler:
         self._note("admit", inf.req.rid, slot, seq_len, hit)
         self.admissions.append((pattern, seq_len, hit))
         if eng.fidelity_probe_every:
-            cov = eng._maybe_fidelity_probe(self._prefill_tokens(inf),
-                                            pattern)
+            rid = inf.req.rid
+
+            def agree(due):
+                # the ranks agree on the probe before its reduces
+                self._note("probe", rid, bool(due))
+                self._check_decisions(f"the fidelity probe of request {rid}")
+            cov = eng._maybe_fidelity_probe(
+                self._prefill_tokens(inf), pattern,
+                agree=agree if eng.tp is not None else None)
             if cov is not None and cov.size:
                 inf.metrics.fidelity = float(np.mean(cov))
                 sa = [float(cov[j]) for j, i in
@@ -690,7 +697,7 @@ class ContinuousScheduler:
             if not pool.active:
                 continue
             t_decode = self.clock() if tm_on else 0.0
-            with SH.tensor_parallel(eng.tp):
+            with eng.parallel():
                 toks, pool.logits, pool.caches = MD.decode_many(
                     eng.params, eng.model_cfg, pool.logits, pool.caches,
                     pool.pos, n_steps=self.chunk)

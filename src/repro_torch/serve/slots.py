@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import pool_sharding as PSH
-from repro_torch.distributed.sharding import tp_config
+from repro_torch.distributed.sharding import kv_replicas, tp_config
 from repro_torch.serve import kv_cache as KC
 
 
@@ -73,7 +73,7 @@ class SlotPool:
         # every buffer's leading axis is ``capacity``, so the division is
         # exact: the ledger's slot bytes reconcile with kv_cache_stats to
         # the byte at any occupancy
-        b = PSH.cache_bytes(caches, world)
+        b = PSH.cache_bytes(caches, world, kv_replicas(cfg, world))
         return cls(
             caches=caches, logits=logits, pos=pos,
             pattern=pattern, capacity=capacity,

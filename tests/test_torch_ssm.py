@@ -26,9 +26,14 @@ magnitude (the chunked form sums in another order than XLA's einsums);
   ``capture_hidden`` and ``attention_mass_coverage``.
 
 The JAX engines' runs are shared through the module-scoped ``jax_runs``
-fixture (their compiles are most of this file's time).
+fixture (their compiles are most of this file's time; mamba2's run in a
+spawned worker beside jamba's).
 """
 import functools
+import inspect
+import multiprocessing as mp
+from concurrent.futures import ProcessPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -230,6 +235,148 @@ def test_ssd_chunked_matches_jax(S_, h0):
     _close(th, jh)
 
 
+# the exponent before its mask, as ``ssd_chunked`` computed it until the
+# mask moved ahead of the exp (its backward was NaN where exp overflowed)
+_MASKED_DECAY = """torch.exp((cum[..., :, None] - cum[..., None, :])
+                      .masked_fill(~causal, float("-inf")))"""
+_OLD_DECAY = "torch.exp(cum[..., :, None] - cum[..., None, :])"
+
+
+def _old_ssd_chunked():
+    src = inspect.getsource(TS.ssd_chunked)
+    assert src.count(_MASKED_DECAY) == 1
+    scope = dict(vars(TS))
+    exec(src.replace(_MASKED_DECAY, _OLD_DECAY), scope)
+    return scope["ssd_chunked"]
+
+
+# the smoke variants' SSD: mamba2's 16 heads of 32 over a 16-wide state,
+# chunk 16, S = 45 (two whole chunks and a ragged one)
+SMOKE_SSD = dict(H=16, P=32, Nst=16)
+
+
+def _grad_inputs(S_, seed, smoke):
+    """(inputs, cotangents) of an SSD gradient check at the smoke shape:
+    ``smoke`` with A down to -16, where exp(cum_i - cum_j) above the
+    diagonal overflows float32; else A / 32 (-1/32 to -1/2), which keeps
+    every exponent finite."""
+    x, dt, A, Bm, Cm, hh = _ssd_inputs(S_, True, seed=seed, **SMOKE_SSD)
+    if not smoke:
+        A = (A / 32).astype(np.float32)
+    rng = np.random.default_rng(seed + 100)
+    wy = rng.standard_normal(x.shape).astype(np.float32)
+    wh = rng.standard_normal(hh.shape).astype(np.float32)
+    return (x, dt, A, Bm, Cm, hh), (wy, wh)
+
+
+def _port_vjp(inputs, cots):
+    ts = [torch.tensor(a, requires_grad=True) for a in inputs]
+    y, h = TS.ssd_chunked(*ts[:5], 16, ts[5])
+    ((y * torch.tensor(cots[0])).sum()
+     + (h * torch.tensor(cots[1])).sum()).backward()
+    return [t.grad.numpy() for t in ts]
+
+
+def _jax_vjp(inputs, cots):
+    (y, h), pull = jax.vjp(lambda *a: JS.ssd_chunked(*a[:5], 16, a[5]),
+                           *map(jnp.asarray, inputs))
+    return [np.asarray(g) for g in pull((jnp.asarray(cots[0]),
+                                         jnp.asarray(cots[1])))]
+
+
+def _scan64(x, dt, A, Bm, Cm, h0):
+    """The SSD's recurrence step by step in float64 (no exponent is ever
+    positive): h_t = exp(dt_t A) h_{t-1} + dt_t x_t ⊗ B_t, y_t = h_t C_t."""
+    h = h0.astype(np.float64)
+    ys = []
+    for t in range(x.shape[1]):
+        da = np.exp(dt[:, t] * A)                             # (B, H)
+        h = (h * da[..., None, None] + (dt[:, t, :, None] * x[:, t])
+             [..., None] * Bm[:, t, None, None, :])
+        ys.append(np.einsum("bhpn,bn->bhp", h, Cm[:, t]))
+    return np.stack(ys, axis=1), h
+
+
+def test_ssd_forward_is_bitwise_the_unmasked_formula():
+    """The mask ahead of the exp changes no output bit, at the smoke
+    shape where the unmasked exponent overflows."""
+    old = _old_ssd_chunked()
+    for S_ in (45, 64, 10):
+        inputs, _ = _grad_inputs(S_, 3, smoke=True)
+        args = list(map(torch.tensor, inputs))
+        y, h = TS.ssd_chunked(*args[:5], 16, args[5])
+        y0, h0 = old(*args[:5], 16, args[5])
+        assert torch.equal(y, y0) and torch.equal(h, h0)
+
+
+def test_ssd_gradient_matches_jax_where_finite():
+    inputs, cots = _grad_inputs(45, 4, smoke=False)
+    got, want = _port_vjp(inputs, cots), _jax_vjp(inputs, cots)
+    for name, g, w in zip("x dt A B C h0".split(), got, want):
+        assert np.isfinite(w).all(), name
+        err = float(np.abs(g - w).max() / np.abs(w).max())
+        assert err < SSD_TOL, (name, err)
+
+
+def test_ssd_gradient_is_finite_where_exp_overflows():
+    """At the smoke shape the unmasked exponent overflows (JAX's
+    gradient is NaN there); the port's is finite and, along a random
+    direction of each input, within 1e-4 of the float64 recurrence's
+    central difference."""
+    inputs, cots = _grad_inputs(45, 5, smoke=True)
+    assert not all(np.isfinite(g).all() for g in _jax_vjp(inputs, cots))
+    got = _port_vjp(inputs, cots)
+    f64 = [a.astype(np.float64) for a in inputs]
+
+    def loss(args):
+        y, h = _scan64(*args)
+        return float((y * cots[0]).sum() + (h * cots[1]).sum())
+
+    rng = np.random.default_rng(6)
+    eps = 1e-4
+    for i, name in enumerate("x dt A B C h0".split()):
+        assert np.isfinite(got[i]).all(), name
+        u = rng.standard_normal(f64[i].shape)
+        lo, hi = list(f64), list(f64)
+        lo[i], hi[i] = f64[i] - eps * u, f64[i] + eps * u
+        fd = (loss(hi) - loss(lo)) / (2 * eps)
+        ad = float((got[i].astype(np.float64) * u).sum())
+        assert abs(ad - fd) <= 1e-4 * abs(fd), (name, ad, fd)
+
+
+@pytest.mark.parametrize("arch", [MAMBA, JAMBA])
+def test_training_gradients_through_mamba_blocks_are_finite(arch):
+    """Every parameter's gradient of a soft-routed training loss is
+    finite (each Mamba block's was NaN before the mask moved ahead of
+    the exp)."""
+    _, tcfg, _, tparams, toks = _models(arch)
+    leaves = []
+
+    def grad_leaf(t):
+        t = t.detach().clone().requires_grad_(True)
+        leaves.append(t)
+        return t
+
+    def walk(tree):
+        if isinstance(tree, torch.Tensor):
+            return grad_leaf(tree)
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        return [walk(v) for v in tree]
+
+    params = walk(tparams)
+    tokens = torch.tensor(toks, dtype=torch.long)
+    out = TMD.forward_train(params, tcfg, tokens, remat=False,
+                            generator=torch.Generator().manual_seed(0))
+    logp = torch.log_softmax(out.logits[:, :-1].float(), dim=-1)
+    loss = -logp.gather(-1, tokens[:, 1:, None]).mean()
+    loss.backward()
+    bad = [i for i, t in enumerate(leaves)
+           if t.grad is not None and not torch.isfinite(t.grad).all()]
+    assert not bad, f"{len(bad)} of {len(leaves)} leaves non-finite"
+    assert sum(t.grad is not None for t in leaves) > len(leaves) // 2
+
+
 def test_softplus_and_conv_follow_jax():
     """softplus is logaddexp(x, 0) past torch's threshold of 20, and the
     causal conv sums its taps in order."""
@@ -324,23 +471,40 @@ def test_mamba_cache_layout_matches_jax():
 # generate
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def jax_runs():
-    """JAX generate results, first-step logits and decode geometries per
-    (arch, routing, batch) of ``RUNS``, one engine per arch."""
-    out, engines = {}, {}
-    for arch, routing, b in RUNS:
-        jcfg, _, jparams, _, toks = _models(arch)
-        if arch not in engines:
-            engines[arch] = JaxEngine(jparams, jcfg, max_len=MAX_LEN,
-                                      prefill_chunk=CH)
-        eng = engines[arch]
+def _jax_runs_of(arch):
+    """``arch``'s JAX generate results (host values only: mamba2's are
+    made in a worker process), first-step logits and decode geometries
+    per (routing, batch) of ``RUNS``, one engine."""
+    jax.config.update("jax_default_matmul_precision", "highest")
+    jcfg, _, jparams, _, toks = _models(arch)
+    eng = JaxEngine(jparams, jcfg, max_len=MAX_LEN, prefill_chunk=CH)
+    out = {}
+    for a, routing, b in RUNS:
+        if a != arch:
+            continue
         ov = ROUTINGS[routing] if arch == JAMBA else None
         p = toks[:b]
         gen = eng.generate(p, N, routing_override=ov)
         job = eng.prefill_chunked(jnp.asarray(p), ov, reuse=False)
-        out[arch, routing, b] = (gen, np.asarray(job.logits),
+        host = SimpleNamespace(
+            tokens=np.asarray(gen.tokens), routing=gen.routing,
+            p_fa=None if gen.p_fa is None else np.asarray(gen.p_fa),
+            kv_bytes=gen.kv_bytes, dispatches=gen.dispatches)
+        out[arch, routing, b] = (host, np.asarray(job.logits),
                                  JKC.cache_geometry(job.caches))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """JAX generate results, first-step logits and decode geometries per
+    (arch, routing, batch) of ``RUNS``: mamba2's in a spawned worker
+    while this process makes jamba's."""
+    with ProcessPoolExecutor(
+            1, mp_context=mp.get_context("spawn")) as pool:
+        mamba = pool.submit(_jax_runs_of, MAMBA)
+        out = _jax_runs_of(JAMBA)
+        out.update(mamba.result())
     return out
 
 

@@ -18,6 +18,17 @@ engine, which is the reference here. Held:
 - the same at TP = 4 on a widened phi3-mini (8 heads over 4 KV heads, G
   = 2, ``replace`` on both sides), and the ``xa`` and ``ta`` SA modes at
   TP = 2 (the monolithic repack path);
+- KV replication: command-r-plus's smoke variant (4 heads over 2 KV
+  heads) at TP = 4, each KV head on 2 ranks, router-driven and mixed,
+  and a drain, as JAX's; the ranks that share a KV head hold bitwise
+  equal caches, and the ledger counts each KV head once;
+- phi3-mini at TP = 2 under a duo override of 3 KV heads (the split
+  falls inside rank 1) and of 1, as JAX's ``generate`` under the same
+  override;
+- a drain with the fidelity probe on every admission at TP = 2 (phi3-
+  mini at local 16, so the drain's prompts reach past sink + local):
+  each request's ``fidelity`` within 1e-5 of JAX's, the same on every
+  rank;
 - a warm prefix admission bitwise equal to the cold one and to JAX's
   tokens, and the store's stats (bytes, evictions) equal to the
   single-device store's under the same budget;
@@ -29,7 +40,9 @@ engine, which is the reference here. Held:
 - the memory ledger's reconciliation at TP = 2, its global bytes the
   shard's times 2 for k / v and equal for the rest;
 - a rank fed a different submission raises ``TPDivergence``;
-- every unsupported case raises ``NotImplementedError`` naming item 16c;
+- KV replication's layout (shard then concatenate, ``init_params_tp``,
+  ``global_param_bytes``), and KV heads that neither divide nor are
+  divided by the ranks raise ValueError naming both counts;
 - a world-1 group is the identity, and the CLI's ``--mesh-model 2``.
 
 The ranks are spawned once per world size (``tp_runs``): each runs every
@@ -58,6 +71,7 @@ from repro_torch.distributed import sharding as SH  # noqa: E402
 from repro_torch.distributed import pool_sharding as PSH  # noqa: E402
 from repro_torch.models import attention as TA  # noqa: E402
 from repro_torch.models import model as TMD  # noqa: E402
+from repro_torch.serve import kv_cache as TKC  # noqa: E402
 from repro_torch.serve import prefix_cache as TPXC  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.slo import STATUS_OK  # noqa: E402
@@ -73,12 +87,20 @@ VARIANTS = {
     "wide": ("phi3", dict(num_heads=8, num_kv_heads=4), {}),
     "xa": ("phi3", {}, dict(sa_mode="xa")),
     "ta": ("phi3", {}, dict(sa_mode="ta")),
+    # the drain with the fidelity probe: sink + local 24, so most of
+    # the drain's prompts reach past the SA window
+    "probe": ("phi3", {}, dict(local=16)),
 }
 # (variant, routing) of each world's generate runs, and its drains
 GEN_RUNS = {2: [(v, r) for v in ("phi3", "command_r", "gemma3")
-                for r in ROUTINGS] + [("xa", "mixed"), ("ta", "mixed")],
-            4: [("wide", r) for r in ROUTINGS]}
-DRAINS = {2: ("phi3", "command_r", "gemma3"), 4: ("wide",)}
+                for r in ROUTINGS] + [("xa", "mixed"), ("ta", "mixed"),
+                                      ("phi3", "duo3"), ("phi3", "duo1")],
+            4: [("wide", r) for r in ROUTINGS]
+            + [("command_r", r) for r in ("router", "mixed")]}
+DRAINS = {2: ("phi3", "command_r", "gemma3", "probe"),
+          4: ("wide", "command_r")}
+# the engines' fidelity probe dial of each drain variant
+PROBE_EVERY = {"probe": 1}
 B, S, N, CH, MAX_LEN = 2, 40, 12, 16, 64
 SA_MODE_S = 100  # past ta's dense chunk (64) and xa's blocks (16)
 DRAIN_LENS = (20, 28, 9, 24)
@@ -91,6 +113,8 @@ TIMEOUT = 60.0  # a diverged rank fails a collective instead of hanging
 def _override(cfg, routing):
     if routing == "router":
         return None
+    if routing.startswith("duo"):  # ("duo", n) at every layer
+        return (("duo", int(routing[3:])),) * cfg.num_layers
     if routing == "mixed":
         return tuple("fa" if i % 2 == 0 else "sa"
                      for i in range(cfg.num_layers))
@@ -167,20 +191,27 @@ def _drain(engine, cfg, prompts, req_cls):
     return engine.drain(), sched
 
 
-def _port_drain(cfg, params, prompts, tp):
+def _port_drain(cfg, params, prompts, tp, probe_every=0):
     eng = ServeEngine(params, cfg, max_len=MAX_LEN, prefill_chunk=CH,
-                      device="cpu", memory_ledger=True, tp=tp)
+                      device="cpu", memory_ledger=True, tp=tp,
+                      fidelity_probe_every=probe_every)
     out, sched = _drain(eng, cfg, prompts, Request)
     rep = eng.ledger_report()
     (pool,) = sched.pools.values()
     return dict(
         done={rid: (f.status, f.tokens.tolist(), f.metrics.preemptions)
               for rid, f in out.items()},
+        fidelity={rid: (f.metrics.fidelity, f.metrics.fidelity_sa_min)
+                  for rid, f in out.items()},
+        kv=[(c.k.numpy().copy(), c.v.numpy().copy()) for c in pool.caches
+            if isinstance(c, (TKC.FullKV, TKC.RingKV))],
         ledger={k: rep[k] for k in ("kv_cache_stats", "mesh",
                                     "reconciliation", "aux_bytes")},
         slot_bytes=(pool.slot_payload_bytes, pool.slot_overhead_bytes),
         head_shard_bytes=PSH.head_sharded_bytes(pool.caches),
-        mesh=eng.flight_recorder.last().mesh)
+        mesh=eng.flight_recorder.last().mesh,
+        probes=(eng._probe_admissions,
+                None if tp is None else (tp.probe_calls, tp.reduce_calls)))
 
 
 def _prefix(cfg, params, prompts, tp):
@@ -259,7 +290,7 @@ def _rank_scenarios(group, inputs):
     for name in DRAINS[group.world]:
         cfg, params, prompts = inputs[name]
         out["drain", name] = _port_drain(cfg, params, prompts["drain"],
-                                         group)
+                                         group, PROBE_EVERY.get(name, 0))
     name = "phi3" if group.world == 2 else "wide"
     cfg, params, prompts = inputs[name]
     out["collectives"] = _collectives(cfg, params, prompts["gen"], group)
@@ -270,33 +301,38 @@ def _rank_scenarios(group, inputs):
     return out
 
 
-def _jax_runs_of(name):
-    """One variant's JAX single-device results (in a worker process):
-    each generate run's (tokens, routing, p_fa), the drain's {rid:
-    (status, tokens, preemptions)} and phi3's B = 1 prefix prompt's
-    tokens, one engine per variant."""
+def _jax_runs_of(name, part):
+    """One variant's JAX single-device results (in a worker process),
+    by ``part``: "gen" each generate run's (tokens, routing, p_fa), one
+    engine; "drain" the drain's {rid: (status, tokens, preemptions)} and
+    its probes' {rid: (fidelity, fidelity_sa_min)}; "prefix" phi3's B = 1
+    prefix prompt's tokens."""
     import jax
     jax.config.update("jax_default_matmul_precision", "highest")
     from repro.serve import Request as JaxRequest
     from repro.serve import ServeEngine as JaxEngine
     jcfg, _, jparams, _, prompts = _variant(name)
-    eng = JaxEngine(jparams, jcfg, max_len=SA_MODE_S + N, prefill_chunk=CH)
     out = {}
-    for runs in GEN_RUNS.values():
-        for n, routing in runs:
-            if n == name:
-                g = eng.generate(prompts["gen"], N, routing_override=(
-                    _override(jcfg, routing)))
-                out["gen", n, routing] = (np.asarray(g.tokens), g.routing,
-                                          g.p_fa)
-    if any(name in d for d in DRAINS.values()):
-        done, _ = _drain(JaxEngine(jparams, jcfg, max_len=MAX_LEN,
-                                   prefill_chunk=CH), jcfg,
-                         prompts["drain"], JaxRequest)
+    if part == "gen":
+        eng = JaxEngine(jparams, jcfg, max_len=SA_MODE_S + N,
+                        prefill_chunk=CH)
+        for routing in _routings(name):  # once, whatever the worlds
+            g = eng.generate(prompts["gen"], N, routing_override=(
+                _override(jcfg, routing)))
+            out["gen", name, routing] = (np.asarray(g.tokens), g.routing,
+                                         g.p_fa)
+    elif part == "drain":
+        done, _ = _drain(JaxEngine(
+            jparams, jcfg, max_len=MAX_LEN, prefill_chunk=CH,
+            fidelity_probe_every=PROBE_EVERY.get(name, 0)), jcfg,
+            prompts["drain"], JaxRequest)
         out["drain", name] = {
             rid: (f.status, np.asarray(f.tokens).tolist(),
                   f.metrics.preemptions) for rid, f in done.items()}
-    if name == "phi3":
+        out["fidelity", name] = {
+            rid: (f.metrics.fidelity, f.metrics.fidelity_sa_min)
+            for rid, f in done.items()}
+    else:
         eng = JaxEngine(jparams, jcfg, max_len=MAX_LEN, prefill_chunk=CH,
                         routing_override=_override(jcfg, "mixed"))
         out["prefix"] = np.asarray(eng.generate(prompts["prefix"],
@@ -304,16 +340,22 @@ def _jax_runs_of(name):
     return out
 
 
+def _routings(name):
+    """A variant's generate routings over both worlds, each once."""
+    return sorted({r for runs in GEN_RUNS.values() for n, r in runs
+                   if n == name})
+
+
 def _single_runs():
     """The port's single-device (tp=None) results of the same runs."""
     out = {}
-    for runs in GEN_RUNS.values():
-        for name, routing in runs:
-            _, cfg, _, params, prompts = _variant(name)
+    for name in sorted({n for runs in GEN_RUNS.values() for n, _ in runs}):
+        _, cfg, _, params, prompts = _variant(name)
+        for routing in _routings(name):
             out["gen", name, routing] = _generate(cfg, params,
                                                   prompts["gen"], routing,
                                                   None)
-    for name in ("phi3", "wide"):
+    for name in ("phi3", "wide", "command_r"):
         _, cfg, _, params, prompts = _variant(name)
         out["drain", name] = _port_drain(cfg, params, prompts["drain"],
                                          None)
@@ -322,18 +364,31 @@ def _single_runs():
     return out
 
 
-# the JAX variants, costliest first, over two worker processes
-JAX_ORDER = ("gemma3", "phi3", "command_r", "wide", "xa", "ta")
+# the JAX runs (variant, part), costliest first, over three worker
+# processes: each part builds its own engine, so a variant's generate
+# runs and its drain can run side by side
+JAX_ORDER = (("gemma3", "gen"), ("phi3", "gen"), ("gemma3", "drain"),
+             ("command_r", "gen"), ("phi3", "drain"),
+             ("command_r", "drain"), ("wide", "gen"), ("wide", "drain"),
+             ("probe", "drain"), ("phi3", "prefix"), ("xa", "gen"),
+             ("ta", "gen"))
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """{"tp": {world: [each rank's results]}, "jax": ..., "single": ...}.
     The ranks are spawned once per world size over gloo (from a thread),
-    the JAX runs go to two worker processes, and this process makes the
+    the JAX runs go to three worker processes, and this process makes the
     single-device runs meanwhile."""
     inputs = {n: (_variant(n)[1], _variant(n)[3], _variant(n)[4])
-              for runs_ in GEN_RUNS.values() for n, _ in runs_}
+              for n in {n for runs_ in GEN_RUNS.values() for n, _ in runs_}
+              | {n for names in DRAINS.values() for n in names}}
+    # the launch pickles the params for the spawned ranks by moving
+    # their storage to shared memory, in place: done here, before the
+    # thread starts, so no single-device run reads a storage mid-move
+    for _, params, _ in inputs.values():
+        for _, t in _leaves(params):
+            t.share_memory_()
     root = tmp_path_factory.mktemp("tp")
     ranks, errors = {}, []
 
@@ -351,8 +406,8 @@ def runs(tmp_path_factory):
     thread.start()
     try:
         with ProcessPoolExecutor(
-                2, mp_context=mp.get_context("spawn")) as pool:
-            futures = [pool.submit(_jax_runs_of, n) for n in JAX_ORDER]
+                3, mp_context=mp.get_context("spawn")) as pool:
+            futures = [pool.submit(_jax_runs_of, *t) for t in JAX_ORDER]
             single = _single_runs()
             jax_out = {}
             for f in futures:
@@ -456,6 +511,63 @@ def test_ledger_reconciles_with_global_and_shard_bytes(ranks, single_runs,
         assert one["ledger"]["mesh"] is None and one["mesh"] is None
 
 
+def test_fidelity_probe_matches_jax_on_every_rank(ranks, jax_runs):
+    """Every admission probed at TP = 2: each request's coverage (mean
+    and SA minimum) within 1e-5 of JAX's engine and bitwise the same on
+    both ranks; the probe's reduces counted apart, 2 a layer and one a
+    routed layer for each probe."""
+    want = jax_runs["fidelity", "probe"]
+    assert any(f < 1 - 1e-3 for f, _ in want.values()), want
+    cfg = _variant("probe")[1]
+    first = ranks[2][0]["drain", "probe"]
+    for res in ranks[2]:
+        got = res["drain", "probe"]
+        assert got["fidelity"] == first["fidelity"]
+        assert sorted(got["fidelity"]) == sorted(want)
+        for rid, (fid, sa_min) in want.items():
+            gf, gs = got["fidelity"][rid]
+            assert abs(gf - fid) < 1e-5, (rid, gf, fid)
+            assert (gs is None) == (sa_min is None), rid
+            if sa_min is not None:
+                assert abs(gs - sa_min) < 1e-5, (rid, gs, sa_min)
+        probes, (probe_calls, _) = got["probes"]
+        assert probes >= len(want)  # a preempted request is probed again
+        assert probe_calls == probes * (2 * cfg.num_layers
+                                        + len(cfg.routable_layers()))
+
+
+def test_replicated_kv_caches_are_bitwise_equal_on_sharing_ranks(ranks):
+    """Command-r's 2 KV heads at TP = 4: ranks 0 and 1 hold KV head 0,
+    ranks 2 and 3 KV head 1, and each pair's pool caches are bitwise
+    equal after the drain."""
+    kv = [res["drain", "command_r"]["kv"] for res in ranks[4]]
+    assert kv[0] and all(k.shape[1] == 1 for k, _ in kv[0])
+    for a, b in ((0, 1), (2, 3)):
+        for (ka, va), (kb, vb) in zip(kv[a], kv[b]):
+            assert np.array_equal(ka, kb) and np.array_equal(va, vb)
+    assert not all(np.array_equal(k0, k2)
+                   for (k0, _), (k2, _) in zip(kv[0], kv[2]))
+
+
+def test_ledger_counts_each_replicated_kv_head_once(ranks, single_runs):
+    """Under KV replication the global bytes are the one-device pool's
+    (each KV head once, not once a rank), and a rank holds one KV head
+    of the two."""
+    one = single_runs["drain", "command_r"]
+    Hkv = _variant("command_r")[1].num_kv_heads
+    for res in ranks[4]:
+        got = res["drain", "command_r"]
+        assert got["ledger"]["reconciliation"] == \
+            one["ledger"]["reconciliation"]
+        assert got["slot_bytes"] == one["slot_bytes"]
+        st, st1 = got["ledger"]["kv_cache_stats"], \
+            one["ledger"]["kv_cache_stats"]
+        assert st["payload_bytes"] == st1["payload_bytes"]
+        assert st["payload_shard_bytes"] * Hkv == st["payload_bytes"]
+        assert got["head_shard_bytes"] * Hkv == one["head_shard_bytes"]
+        assert got["ledger"]["mesh"] == [1, 4]
+
+
 # ---------------------------------------------------------------------------
 # The prefix store, the collectives, the router and the digest
 # ---------------------------------------------------------------------------
@@ -510,10 +622,12 @@ def test_digest_check_raises_on_a_different_submission(ranks):
 # The weight layout (no process group)
 # ---------------------------------------------------------------------------
 
-def _unshard(shards):
+def _unshard(shards, kv_reps=1):
     """The concatenation ``shard_params_tp`` undoes: each sharded leaf's
     pieces in rank order along its ``shard_axis``, ``enc_w``'s two
-    halves each; a replicated leaf is the one tensor every share holds."""
+    halves each, a replicated KV projection's pieces once a KV head
+    (the ``kv_reps`` ranks that share one hold equal pieces); a
+    replicated leaf is the one tensor every share holds."""
     def join(parent, name, parts):
         t = parts[0]
         if isinstance(t, dict):
@@ -529,6 +643,10 @@ def _unshard(shards):
             half = t.shape[0] // 2
             return torch.cat([p[:half] for p in parts]
                              + [p[half:] for p in parts])
+        if kv_reps > 1 and SH.is_kv_leaf(parent, name):
+            for i, p in enumerate(parts):
+                assert torch.equal(p, parts[i - i % kv_reps]), (name, i)
+            parts = parts[::kv_reps]
         return torch.cat(parts, dim=axis)
     return join("", "", shards)
 
@@ -558,8 +676,74 @@ def test_shard_then_concat_gives_params_back_bitwise(name, world):
     back = dict(_leaves(_unshard(shards)))
     for path, t in _leaves(params):
         assert torch.equal(back[path], t), path
-    assert SH.global_param_bytes(shards[0], world) == sum(
+    assert SH.global_param_bytes(shards[0], cfg, world) == sum(
         t.nbytes for _, t in _leaves(params))
+
+
+def test_kv_replication_shard_then_concat_gives_params_back_bitwise():
+    """Command-r's 2 KV heads over 4 ranks: rank r keeps KV head r // 2,
+    the one its query head reads; each rank's config is 1 head over 1
+    KV head; concatenating one share a KV head gives the params back,
+    and ``global_param_bytes`` counts each KV head once."""
+    _, cfg, _, params, _ = _variant("command_r")
+    world, reps = 4, SH.kv_replicas(cfg, 4)
+    assert (cfg.num_heads, cfg.num_kv_heads, reps) == (4, 2, 2)
+    shards = [SH.shard_params_tp(params, cfg, r, world)
+              for r in range(world)]
+    lcfg = SH.tp_config(cfg, world)
+    assert (lcfg.num_heads, lcfg.num_kv_heads) == (1, 1)
+    hd = cfg.head_dim
+    for r, share in enumerate(shards):
+        a, whole = share["layers"][0]["attn"], params["layers"][0]["attn"]
+        assert a["wk"].shape == (cfg.d_model, hd) and a["wk"].is_contiguous()
+        kv = r // reps
+        assert torch.equal(a["wk"], whole["wk"][:, kv * hd:(kv + 1) * hd])
+        assert torch.equal(a["wv"], whole["wv"][:, kv * hd:(kv + 1) * hd])
+        assert a["wq"].shape == (cfg.d_model, lcfg.q_dim)
+        assert SH.params_are_local(share, cfg, world)
+    back = dict(_leaves(_unshard(shards, reps)))
+    for path, t in _leaves(params):
+        assert torch.equal(back[path], t), path
+    assert SH.global_param_bytes(shards[0], cfg, world) == sum(
+        t.nbytes for _, t in _leaves(params))
+
+
+def test_init_params_tp_draws_replicated_kv_shares():
+    cfg = smoke_variant(get_config(ARCHS["command_r"]))
+    full = TMD.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for r in range(4):
+        share = SH.init_params_tp(cfg, torch.Generator().manual_seed(0),
+                                  r, 4, "cpu")
+        want = dict(_leaves(SH.shard_params_tp(full, cfg, r, 4)))
+        got = dict(_leaves(share))
+        assert sorted(got) == sorted(want)
+        for path, t in want.items():
+            assert torch.equal(got[path], t), path
+
+
+def _group(world):
+    """A rank of a ``world``-way group with no process group behind it:
+    enough for the checks that run before any collective."""
+    return G.TPGroup(rank=0, world=world, backend="gloo",
+                     device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("world", [3, 6])
+def test_uneven_kv_heads_raise_naming_both_counts(world):
+    """command-r's 8 KV heads over 3 or 6 ranks: a rank's query heads
+    would read parts of two KV heads (JAX replicates the whole KV
+    there); the heads and the FFN width divide, the KV heads refuse."""
+    cfg = get_config(ARCHS["command_r"])
+    assert cfg.num_heads % world == 0 and cfg.d_ff % world == 0
+    match = f"{cfg.num_kv_heads} KV heads over {world}"
+    with pytest.raises(ValueError, match=match):
+        SH.check_tp_supported(cfg, world)
+    with pytest.raises(ValueError, match=match):
+        SH.tp_config(cfg, world)
+    params = {"layers": [{"attn": {"wq": torch.zeros(1, 1)}}]}
+    with pytest.raises(ValueError, match=match):
+        ServeEngine(params, cfg, max_len=MAX_LEN, device="cpu",
+                    tp=_group(world))
 
 
 def test_init_params_tp_draws_the_shares_of_init_params():
@@ -586,44 +770,8 @@ def test_tp_config_divides_heads_and_ffn():
 
 
 # ---------------------------------------------------------------------------
-# Refusals, the identity group and the CLI
+# The identity group and the CLI
 # ---------------------------------------------------------------------------
-
-def _group(world):
-    """A rank of a ``world``-way group with no process group behind it:
-    enough for the checks that run before any collective."""
-    return G.TPGroup(rank=0, world=world, backend="gloo",
-                     device=torch.device("cpu"))
-
-
-REFUSALS = {
-    "kv-replication": ("command-r-plus-104b", 4, {}),
-    "duo": ("phi3-mini-3.8b", 2,
-            dict(routing_override=("fa", ("duo", 1)))),
-    "fidelity-probe": ("phi3-mini-3.8b", 2,
-                       dict(fidelity_probe_every=1)),
-}
-
-
-@pytest.mark.parametrize("case", sorted(REFUSALS))
-def test_unsupported_configs_raise_naming_item_16c(case):
-    arch, world, kw = REFUSALS[case]
-    cfg = smoke_variant(get_config(arch))
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        SH.check_tp_supported(cfg, world, **kw)
-    params = {"layers": [{"attn": {"wq": torch.zeros(1, 1)}}]}
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        ServeEngine(params, cfg, max_len=MAX_LEN, device="cpu",
-                    tp=_group(world), **kw)
-
-
-def test_a_per_request_duo_override_raises_under_tp():
-    _, cfg, _, params, prompts = _variant("phi3")
-    eng = ServeEngine(SH.shard_params_tp(params, cfg, 0, 2), cfg,
-                      max_len=MAX_LEN, device="cpu", tp=_group(2))
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        eng.generate(prompts["gen"], N, routing_override=("fa", ("duo", 1)))
-
 
 def test_world_one_group_is_the_identity():
     _, cfg, _, params, prompts = _variant("gemma3")

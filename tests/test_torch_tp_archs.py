@@ -466,7 +466,7 @@ def test_shard_then_concat_gives_params_back_bitwise(name, world):
     back = dict(_leaves(_unshard(shards)))
     for path, t in _leaves(params):
         assert torch.equal(back[path], t), path
-    assert SH.global_param_bytes(shards[0], world) == sum(
+    assert SH.global_param_bytes(shards[0], cfg, world) == sum(
         t.nbytes for _, t in _leaves(params))
 
 
@@ -506,6 +506,8 @@ def test_mla_needs_no_kv_heads_and_whisper_6_heads_at_4_raise():
                           .replace(num_kv_heads=1), 2)
     with pytest.raises(ValueError, match="6 heads"):
         SH.check_tp_supported(get_config(ARCHS["whisper"]), 4)
-    # jamba's 8 KV heads over 16 ranks would need KV replication
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        SH.check_tp_supported(get_config(ARCHS["jamba"]), 16)
+    # jamba's 8 KV heads over 16 ranks: each KV head on 2 ranks
+    jamba = get_config(ARCHS["jamba"])
+    SH.check_tp_supported(jamba, 16)
+    assert SH.kv_replicas(jamba, 16) == 2
+    assert SH.tp_config(jamba, 16).num_kv_heads == 1

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Tensor-parallel serving over NCCL, one card a rank.
 
-    python3 tp_smoke.py [--world N]
+    python3 tp_smoke.py [--world N] [--out report.json]
 
 Needs N cards of one host (default 4; ``chip_smoke.py`` phase 31 runs 2
 ranks on one card over gloo instead). Builds the five serving kernels,
@@ -15,11 +15,20 @@ then:
      through ``generate`` on card 0 alone and on N ranks, their prefill
      and decode tok/s side by side, each rank's launches exact, and the
      first decode step where the two runs' tokens part (their bf16 sums
-     are added in another order);
+     are added in another order); then the same prompts under a duo
+     override of ``chip_smoke.TP_DUO`` (3 of the 8 KV heads on full
+     attention at every layer: at 4 ranks, 2 KV heads a rank, the split
+     falls inside rank 1), the step where its tokens part, and a drain
+     of the 2 prompts with the fidelity probe on every admission, each
+     routed layer's coverage on one card and on the ranks side by side;
   3. command-r-plus-104b at full width and depth (64 layers, 208 GB of
      bf16 weights, which no one card holds) on N ranks, the same load:
      finite logits, exact launches, a decode step's all-reduces 2 x
-     layers of (B, 1, d_model), per-rank peak memory and tok/s;
+     layers of (B, 1, d_model), per-rank peak memory and tok/s; then the
+     drain without the probe and with it on every admission, twice each
+     in turn (coverage finite and in [0, 1], the probe's all-reduces
+     counted apart from the serving ones), tok/s and the time in the
+     probes of each;
   4. deepseek-v2-236b (MLA, 160 experts) at full width, DEEPSEEK_LAYERS
      layers, as step 2: on card 0 alone and on N ranks (128 / N heads a
      rank in the latent decode, which reads the whole latent cache that
@@ -31,8 +40,10 @@ then:
      (``chip_smoke.tp_reduces``: 9 a step), per-rank weight bytes, peak
      memory and tok/s.
 Prints each card's name and power limit, one line a step, and one JSON
-line of the numbers; exits non-zero on any failure, in any rank.
+line of the numbers (without the per-layer coverage lists, which go to
+``--out`` with the rest); exits non-zero on any failure, in any rank.
 """
+import argparse
 import json
 import subprocess
 import sys
@@ -59,10 +70,86 @@ def parity_rank(tp, prompts):
     return CS.tp_parity_runs(tp.device, params, cfg, prompts, tp)
 
 
-def serve_long(dev, cfg, prompts, tp=None):
+def extras(arch, layers):
+    """What steps 2 and 3 add to ``serve_long`` for command-r: the duo
+    run (step 2) and the drains by probe dial (step 2: on; step 3: on
+    and off)."""
+    import chip_smoke as CS
+    if arch != CS.COMMAND_R:
+        return dict(duo=False, drains=())
+    return (dict(duo=True, drains=(1,)) if layers
+            else dict(duo=False, drains=(0, 1, 0, 1)))
+
+
+def probe_drain(eng, cfg, prompts, every, tp):
+    """A drain of ``prompts`` (B, TP_LONG) as B requests of TP_LONG_GEN
+    steps into B slots under the mixed routing, on an engine over
+    ``eng``'s weights with the fidelity probe on every ``every``-th
+    admission (0: off). Exact launches (the probe adds one flash a layer
+    a probe); the probe's all-reduces counted apart (2 a layer and one a
+    routed layer a probe). Returns host results: tok/s, each probe's
+    per-layer coverage, the reduce counts."""
+    import chip_smoke as CS
+    import repro_torch.kernels as KN
+    from repro_torch.launch.serve import routing_pattern
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import ContinuousScheduler
+    B = prompts.shape[0]
+    eng = ServeEngine(eng.params, cfg, max_len=eng.max_len,
+                      prefill_chunk=CS.CHUNK, device=eng.device, tp=tp,
+                      fidelity_probe_every=every)
+    covs, probe_s = [], [0.0]
+    probe = eng._maybe_fidelity_probe
+
+    def recorded(*a, **k):  # each probe's per-layer coverage and time
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cov = probe(*a, **k)  # its coverage is read back: a sync
+        probe_s[0] += time.perf_counter() - t
+        if cov is not None:
+            covs.append(cov.tolist())
+        return cov
+    eng._maybe_fidelity_probe = recorded
+    sched = ContinuousScheduler(eng, slots_per_bucket=B, chunk=8,
+                                prefill_chunks_per_tick=2)
+    mixed = routing_pattern(cfg, "mixed")
+    if tp is not None:
+        tp.reset_counts()
+    KN.reset_launch_counts()
+    t0 = time.perf_counter()
+    for rid in range(B):
+        eng.submit(Request(rid=rid, tokens=prompts[rid],
+                           n_steps=TP_LONG_GEN, routing_override=mixed))
+    done = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert all(f.status == "ok" for f in done.values()), done
+    want = CS.prefill_launches(cfg, sched.admissions)
+    want.update(CS.decode_launches(cfg, sum(
+        p.steps for p in sched.pools.values()), pooled=True))
+    want["flash_attention"] += len(covs) * cfg.num_layers
+    counts = KN.launch_counts()
+    assert counts == want, (counts, want)
+    assert len(covs) == (len(sched.admissions) if every else 0)
+    for cov in covs:
+        assert all(0.0 <= c <= 1.0 for c in cov), cov  # and finite
+    out = dict(probe_every=every, wall_s=wall, probe_s=probe_s[0],
+               tok_s=B * TP_LONG_GEN / wall, coverage=covs,
+               tokens=[done[r].tokens.tolist() for r in range(B)])
+    if tp is not None:
+        per = 2 * cfg.num_layers + len(cfg.routable_layers())
+        assert tp.probe_calls == len(covs) * per, tp.probe_calls
+        out["all_reduces"] = dict(serving=tp.reduce_calls,
+                                  probe=tp.probe_calls, probe_each=per)
+    return out
+
+
+def serve_long(dev, cfg, prompts, tp=None, duo=False, drains=()):
     """Steps 2 and 3: ``cfg``'s seeded weights (a rank's share under
-    ``tp``), then ``generate`` of ``prompts`` under the mixed routing.
-    Returns host results."""
+    ``tp``), then ``generate`` of ``prompts`` under the mixed routing;
+    with ``duo``, again under ``chip_smoke.TP_DUO`` at every layer; then
+    a ``probe_drain`` at each dial of ``drains``. Returns host
+    results."""
     import chip_smoke as CS
     import repro_torch.kernels as KN
     from repro_torch.distributed.sharding import (init_params_tp,
@@ -97,6 +184,20 @@ def serve_long(dev, cfg, prompts, tp=None):
                prefill_tok_s=B * TP_LONG / g.prefill_s,
                decode_tok_s=B * TP_LONG_GEN / g.decode_s,
                tokens=g.tokens, launches=counts, kv_bytes=g.kv_bytes)
+    if duo:
+        KN.reset_launch_counts()
+        d = eng.generate(prompts, TP_LONG_GEN,
+                         routing_override=(CS.TP_DUO,) * cfg.num_layers)
+        assert bool(torch.isfinite(d.final_logits).all()), "duo logits"
+        counts = KN.launch_counts()
+        # the repack's prefill runs full attention; the decode's head
+        # split is plain torch
+        want = CS.prefill_launches(cfg, [], repacks=[(
+            ("fa",) * cfg.num_layers, TP_LONG)])
+        want.update(CS.decode_launches(cfg, 0, pooled=False))
+        assert counts == want, (counts, want)
+        out["duo"] = dict(tokens=d.tokens, launches=counts,
+                          decode_tok_s=B * TP_LONG_GEN / d.decode_s)
     if tp is not None:
         job = eng.prefill_chunked(prompts, mixed)
         tp.reset_counts()
@@ -107,6 +208,10 @@ def serve_long(dev, cfg, prompts, tp=None):
         assert calls == CS.tp_reduces(cfg) * 4, calls
         assert nbytes == calls * B * cfg.d_model * cfg.dtype.itemsize
         out["step_all_reduces"] = (calls // 4, nbytes // calls)
+        del job
+    out["drains"] = [probe_drain(eng, cfg, prompts, every, tp)
+                     for every in drains]
+    out["peak_mem_bytes_all"] = torch.cuda.max_memory_allocated(dev)
     return out
 
 
@@ -117,7 +222,34 @@ def long_rank(tp, prompts, arch, layers):
     cfg = get_config(arch)
     if layers:
         cfg = cfg.replace(num_layers=layers)
-    return serve_long(tp.device, cfg, prompts, tp)
+    return serve_long(tp.device, cfg, prompts, tp, **extras(arch, layers))
+
+
+def _report(r):
+    """A rank's or the one card's results without their tokens."""
+    out = {k: v for k, v in r.items() if k != "tokens"}
+    if "duo" in r:
+        out["duo"] = {k: v for k, v in r["duo"].items() if k != "tokens"}
+    out["drains"] = [{k: v for k, v in d.items() if k != "tokens"}
+                     for d in r["drains"]]
+    return out
+
+
+def _without_coverage(tree):
+    """``tree`` with every "coverage" list and per-layer pair list
+    dropped (they run to a value a routed layer a probe)."""
+    if isinstance(tree, dict):
+        return {k: _without_coverage(v) for k, v in tree.items()
+                if k not in ("coverage", "coverage_one_card_vs_ranks")}
+    if isinstance(tree, list):
+        return [_without_coverage(v) for v in tree]
+    return tree
+
+
+def _apart(a, b):
+    """The first decode step where two (B, steps) token arrays part."""
+    diff = np.flatnonzero((np.asarray(a) != np.asarray(b)).any(0))
+    return int(diff[0]) if diff.size else None
 
 
 def one_and_ranks(dev, world, arch, layers, prompts):
@@ -128,19 +260,34 @@ def one_and_ranks(dev, world, arch, layers, prompts):
     from repro_torch.configs import get_config
     from repro_torch.distributed.group import launch
     alone = serve_long(dev, get_config(arch).replace(num_layers=layers),
-                       prompts)
+                       prompts, **extras(arch, layers))
     CS.free_card()
     cut = launch(long_rank, world, "nccl", args=(prompts, arch, layers),
                  device="cuda")
     for r in cut:
         assert np.array_equal(r["tokens"], cut[0]["tokens"])
-    diff = np.flatnonzero((alone["tokens"] != cut[0]["tokens"]).any(0))
-    return dict(
-        layers=layers, one_card={
-            k: v for k, v in alone.items() if k != "tokens"},
-        ranks=[{k: v for k, v in r.items() if k != "tokens"} for r in cut],
-        first_token_step_apart=int(diff[0]) if diff.size else None), \
-        alone, cut[0]
+        if "duo" in r:
+            assert np.array_equal(r["duo"]["tokens"],
+                                  cut[0]["duo"]["tokens"])
+        for d, d0 in zip(r["drains"], cut[0]["drains"]):
+            assert d["tokens"] == d0["tokens"]
+            assert d["coverage"] == d0["coverage"]  # every rank reads it
+    entry = dict(layers=layers, one_card=_report(alone),
+                 ranks=[_report(r) for r in cut],
+                 first_token_step_apart=_apart(alone["tokens"],
+                                               cut[0]["tokens"]))
+    if "duo" in alone:
+        entry["duo_first_token_step_apart"] = _apart(
+            alone["duo"]["tokens"], cut[0]["duo"]["tokens"])
+    for d1, dn in zip(alone["drains"], cut[0]["drains"]):
+        if d1["coverage"]:
+            entry["coverage_one_card_vs_ranks"] = [
+                list(zip(a, b)) for a, b in zip(d1["coverage"],
+                                                dn["coverage"])]
+            entry["coverage_max_abs_diff"] = max(
+                abs(x - y) for a, b in zip(d1["coverage"], dn["coverage"])
+                for x, y in zip(a, b))
+    return entry, alone, cut[0]
 
 
 def long_steps(dev, world, report):
@@ -163,37 +310,68 @@ def long_steps(dev, world, report):
         if step in (2, 4):
             report[key], alone, cut = one_and_ranks(dev, world, arch,
                                                     layers, prompts)
-            print(f"step {step}: {arch} {layers} layers bf16, 2 x "
-                  f"{TP_LONG} + {TP_LONG_GEN}: one card prefill "
-                  f"{alone['prefill_tok_s']:.0f} tok/s decode "
-                  f"{alone['decode_tok_s']:.1f} tok/s; {world} ranks "
-                  f"prefill {cut['prefill_tok_s']:.0f} decode "
-                  f"{cut['decode_tok_s']:.1f} (launches a rank "
-                  f"{cut['launches']}); tokens apart from step "
-                  f"{report[key]['first_token_step_apart']} "
-                  f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+            line = (f"step {step}: {arch} {layers} layers bf16, 2 x "
+                    f"{TP_LONG} + {TP_LONG_GEN}: one card prefill "
+                    f"{alone['prefill_tok_s']:.0f} tok/s decode "
+                    f"{alone['decode_tok_s']:.1f} tok/s; {world} ranks "
+                    f"prefill {cut['prefill_tok_s']:.0f} decode "
+                    f"{cut['decode_tok_s']:.1f} (launches a rank "
+                    f"{cut['launches']}); tokens apart from step "
+                    f"{report[key]['first_token_step_apart']}")
+            if "duo" in cut:
+                line += (f"; duo {CS.TP_DUO}: decode one card "
+                         f"{alone['duo']['decode_tok_s']:.1f} tok/s, "
+                         f"{world} ranks {cut['duo']['decode_tok_s']:.1f}"
+                         f", tokens apart from step "
+                         f"{report[key]['duo_first_token_step_apart']}")
+            if "coverage_one_card_vs_ranks" in report[key]:
+                line += (f"; probe drain: coverage by routed layer (one "
+                         f"card, ranks) "
+                         f"{report[key]['coverage_one_card_vs_ranks']}, "
+                         f"max diff "
+                         f"{report[key]['coverage_max_abs_diff']:.2e}, "
+                         f"probe all-reduces a rank "
+                         f"{cut['drains'][0]['all_reduces']}")
+            print(line + f" [{time.perf_counter() - t0:.1f} s]",
+                  flush=True)
             continue
         full = launch(long_rank, world, "nccl", args=(prompts, arch, layers),
                       device="cuda")
         for r in full:
             assert np.array_equal(r["tokens"], full[0]["tokens"])
-        report[key] = [{k: v for k, v in r.items() if k != "tokens"}
-                       for r in full]
+            for d, d0 in zip(r["drains"], full[0]["drains"]):
+                assert d["tokens"] == d0["tokens"]
+                assert d["coverage"] == d0["coverage"]
+        report[key] = [_report(r) for r in full]
+        drains = "".join(
+            f"; drain probe_every={d['probe_every']} tok/s "
+            f"{d['tok_s']:.2f} (wall {d['wall_s']:.2f} s, in the probes "
+            f"{d['probe_s']:.2f} s, all-reduces {d['all_reduces']}" + (
+                f", coverage {min(map(min, d['coverage'])):.4f}-"
+                f"{max(map(max, d['coverage'])):.4f} over "
+                f"{len(d['coverage'])} probes" if d["coverage"] else "")
+            + ")" for d in full[0]["drains"])
         print(f"step {step}: {arch} {layers or 'full depth'} layers bf16 "
               f"on {world} ranks: "
               + "; ".join(f"rank {i} weights {r['weights_bytes']} bytes "
-                          f"peak {r['peak_mem_bytes']} prefill "
+                          f"peak {r['peak_mem_bytes']} (with the drains "
+                          f"{r['peak_mem_bytes_all']}) prefill "
                           f"{r['prefill_tok_s']:.0f} tok/s decode "
                           f"{r['decode_tok_s']:.1f} tok/s"
                           for i, r in enumerate(full))
               + f"; launches a rank {full[0]['launches']}; a decode "
-              f"step's all-reduces {full[0]['step_all_reduces']} "
+              f"step's all-reduces {full[0]['step_all_reduces']}{drains} "
               f"[{time.perf_counter() - t0:.1f} s]", flush=True)
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    world = int(argv[1]) if argv[:1] == ["--world"] else 4
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--world", type=int, default=4)
+    ap.add_argument("--out", default=None,
+                    help="write the whole report, coverage lists included, "
+                         "here as JSON")
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    world = args.world
     if not torch.cuda.is_available():
         raise SystemExit("tp_smoke: no CUDA device")
     if torch.cuda.device_count() < world:
@@ -249,7 +427,10 @@ def main(argv=None) -> int:
           f"[{time.perf_counter() - t0:.1f} s]", flush=True)
 
     long_steps(dev, world, report)
-    print(json.dumps(report, default=str), flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(report, default=str))
+    print(json.dumps(_without_coverage(report), default=str), flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     return 0
 
