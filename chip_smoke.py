@@ -427,8 +427,30 @@ a decode kernel still refuses grad.
      on every rank, the probe's all-reduces 2 a layer and 1 a routed
      layer a probe, the shared KV head's caches bitwise equal on both
      ranks. (a)'s and (c)'s launches are the ``tp2_archs_rank*`` counts.
+  33. sequence-sharded FA caches (slice 22), in phase 32's spawn after
+     (b) (``seq_runs``): phi3-mini at full width, 2 layers, fp32, whole
+     weights on both ranks, FA caches of SEQ_MAX_LEN slots cut in two
+     from SEQ_MIN_SEQ on, a SEQ_PROMPT-token prompt (past the shard
+     boundary) and TP_PARITY_N steps at chunk 512, ``generate``
+     router-driven and mixed against the one-device card run: routing
+     and tokens equal, logits within 1e-4 of the largest, each rank's
+     launches exact (the partial decode and the rank merge once a FA
+     layer a step, the batch decode at the SA layers), one gather of
+     B·Hq·(D + 1) fp32 a FA layer a step, the prefill's broadcasts, no
+     all-reduce, the global KV bytes one device's and a rank's FA bytes
+     half of them (``seq_check``; launches as ``seq2_rank*``). Phase 3
+     holds the partial decode and the rank merge against their plain
+     versions (``seq_kernel_checks``: phi3-mini's decode shape over 4
+     shards of 65,536 keys, the last with no live key, one long_500k
+     shard of 131,072 keys, every head dim at G = 1 and 4 in bf16 and
+     fp32; the merged kernels against the whole cache's decode) and
+     block-sparse at the long_500k prefill's 524,288 keys
+     (``long_block_sparse_check``: offsets past 2^31 bytes); phase 4
+     times the partial decode on one of 4 shards of 65,536 keys beside
+     ``decode_attention_bh`` over the whole cache, and the merge
+     (``seq_kernel_times``).
 The phases run in this order: 1, 2, 3, the paths (6-8, 10-12, 14, 16,
-18, 30b, 20, 22, 23, 25's bf16 runs, 26, 31, 32, 28, 30) and 2b; beside
+18, 30b, 20, 22, 23, 25's bf16 runs, 26, 31, 32 with 33, 28, 30) and 2b; beside
 them the card-against-CPU phases (5, 5b, 9, 9b, 13, 15, 17, 19, 21, 24,
 25's fp32 runs, 27, 29: ``parity_phases``) run in order in a spawned
 process of their own (``parity_worker``, started after phase 2), the
@@ -462,7 +484,9 @@ per-rank launches as ``tp2_rank0`` / ``tp2_rank1``, phase 32's as
 block-sparse forward's (192, 128) row as ``xa_deepseek_v2_236b`` and
 the backward's as ``deepseek_v2_236b``; the block-sparse backward's
 entry (phi3-mini's xa row as its own, deepseek-v2's, its launches from
-phase 30 and 30b), the total seconds, and the last line ``{"ok": true,
+phase 30 and 30b), the partial decode's and the rank merge's entries
+(phase 3's main-shape errors, phase 4's rows, phase 33's rank-0
+launches), the total seconds, and the last line ``{"ok": true,
 "device": {...}}``.
 """
 import collections
@@ -539,6 +563,11 @@ TP_ARCH_LENS, TP_WHISPER_LEN = (1536, 1024, 700, 400, 1536), 384
 # phase 32c: the duo override over phi3-mini's smoke variant (4 KV heads,
 # 2 a rank: 3 on full attention puts the split inside rank 1)
 TP_DUO = ("duo", 3)
+# phase 33: sequence-sharded FA caches over the same ranks (phi3-mini, 2
+# layers, fp32): a SEQ_PROMPT-token prompt in a SEQ_MAX_LEN cache, cut
+# from SEQ_MIN_SEQ slots on, so the prompt crosses the shard boundary and
+# the decode runs on rank 1's shard with rank 0's whole
+SEQ_PROMPT, SEQ_MAX_LEN, SEQ_MIN_SEQ = 3000, 3072, 1024
 REQUESTS, PROMPT, GEN, CHUNK = 4, 4096, 32, 512
 POOL_LENS = (4112, 2080, 1400, 1)  # live lengths of the timed slot pool
 PREAMBLE = 3072  # phase 8 batch: A and B share it, 1024-token tails
@@ -557,6 +586,11 @@ REPLACES = {  # kernel → the Pallas TPU kernel it replaces
     "decode_attention_pooled": "src/repro/kernels/decode_attention.py:202",
     # the pooled kernel's instance at MLA's absorbed decode
     "decode_attention_mla": "src/repro/kernels/decode_attention.py:202",
+    # the sequence-sharded decode: the decode kernel over one shard, and
+    # the cross-device combine of lse_combine_decode (pmax and psum in
+    # XLA, no pallas_call of its own)
+    "decode_attention_partial": "src/repro/kernels/decode_attention.py:107",
+    "decode_merge_ranks": "src/repro/distributed/decode.py:43",
 }
 BF16_ATOL_RMS = 0.05  # bf16 limit's absolute part, as a share of rms(plain)
 BF16_RTOL = 2.0 ** -7  # one bf16 ulp: kernel and plain round their outputs
@@ -1154,11 +1188,16 @@ def decode_report():
                     f" (R 512, rope 64, 16 heads a CTA): {r.get('registers')}"
                     f" regs spill {r.get('spill')} stack {r.get('stack')}")
                 continue
-            kind = "split" if "split_kernel" in name else "merge"
+            kind = ("partial_split" if "split_kernel" in name
+                    and "Lb1E" in name else
+                    "split" if "split_kernel" in name else
+                    "partial_merge" if "merge_kernel" in name
+                    and "Lb1E" in name else
+                    "merge_ranks" if "merge_ranks" in name else "merge")
             args = [int(x) for x in re.findall(r"Li(\d+)E", name)]
             dtype = "bf16" if "bfloat16" in name else "fp32"
             key = f"{prefix}_{kind} {dtype}" + (f" kG={args[1]}"
-                                                if kind == "split" else "")
+                                                if "split" in kind else "")
             groups.setdefault(key, []).append(
                 (args[0], f"D={args[0]}: {r.get('registers')} regs "
                           f"spill {r.get('spill')} stack {r.get('stack')}"))
@@ -1719,6 +1758,267 @@ def decode_split_cases(dev):
     return cases
 
 
+# the sequence-sharded decode (phases 3, 4 and 33): one of SEQ_SHARDS
+# shards of a SEQ_CAPACITY-key cache at phi3-mini's decode shape (32 rows,
+# D = 96), and one rank's shard of the long_500k cache (524,288 / 4 keys)
+SEQ_SHARDS, SEQ_CAPACITY, SEQ_LONG_SHARD = 4, 65536, 131072
+SEQ_SMALL_L = 1200  # the small cases' cache: 4 shards of 300 keys
+LSE_TOL = 1e-3  # a partial state's base-2 log-sum-exp, both dtypes
+# the block-sparse prefill's keys at the long_500k shape: 64 queries at
+# the end of 524,288 keys (one layer's K 3.2 GB, past 2^31 bytes)
+LONG_SKV, LONG_SQ = 524288, 64
+
+
+def seq_inputs(dev, dtype, BH, G, L, D, seed):
+    """Random q (BH, 1, D), k / v (BH / G, L, D) and positions arange(L)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(n, s, D, generator=g, device=dev).to(dtype)
+               for n, s in ((BH, 1), (BH // G, L), (BH // G, L)))
+    return q, k, v, torch.arange(L, dtype=torch.int32, device=dev)
+
+
+def seq_run(q, k, v, pos, cur, n, partial, merge):
+    """The sequence-sharded decode of q over k / v cut into n shards:
+    ``partial`` on each shard, ``merge`` over their stacked states.
+    Returns ([(o, lse)] by shard, o_parts, lse_parts, merged)."""
+    S = k.shape[1] // n
+    parts = [partial(q, k[:, r * S:(r + 1) * S].contiguous(),
+                     v[:, r * S:(r + 1) * S].contiguous(),
+                     pos[r * S:(r + 1) * S].contiguous(), cur)
+             for r in range(n)]
+    o = torch.stack([o for o, _ in parts])
+    lse = torch.stack([lse for _, lse in parts])
+    return parts, o, lse, merge(o, lse, q.dtype)
+
+
+def seq_kernel_checks(dev):
+    """Phase 3: the partial decode (``decode_attention_partial_bh``) and
+    the rank merge (``decode_merge_ranks_bh``) against their plain
+    versions: at phi3-mini's decode shape over SEQ_SHARDS shards of
+    SEQ_CAPACITY keys in bf16 with cur_pos in the third shard (the fourth
+    holds no live key), at one rank's shard of the long_500k cache
+    (SEQ_LONG_SHARD keys, 2048 tiles: at least 8 splits), and at every
+    built head dim with G = 1 and 4, bf16 and fp32, over 4 shards of 300
+    keys with the last one dead. Each shard's o is held to the bf16 limit
+    (its zeroed tile above it on a live shard) or FP32_TOL, its lse
+    within LSE_TOL; the merge kernel over the plain states and the merged
+    kernels over the whole cache (``decode_attention_ref``) likewise.
+    Returns ({kernel: max abs err at the main shape}, report lines)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels._build import HEAD_DIMS
+    from repro_torch.kernels.decode_attention import (decode_split_plan,
+                                                      sm_count)
+    from repro_torch.kernels.decode_attention_partial import \
+        decode_attention_partial_bh as partial
+    from repro_torch.kernels.decode_merge_ranks import \
+        decode_merge_ranks_bh as merge
+    sms = sm_count(dev.index or 0)
+    cfg_d, rows = 96, 32
+    cases = [("bf16 main shapes", torch.bfloat16, rows, 1, SEQ_CAPACITY,
+              cfg_d, SEQ_SHARDS, 3 * SEQ_CAPACITY // SEQ_SHARDS - 17),
+             ("bf16 long_500k shard", torch.bfloat16, rows, 1,
+              SEQ_LONG_SHARD, cfg_d, 1, SEQ_LONG_SHARD - 1)]
+    cases += [(f"{'bf16' if t == torch.bfloat16 else 'fp32'} G={G} D={D}",
+               t, 8, G, SEQ_SMALL_L, D, 4, 700)
+              for t in (torch.bfloat16, torch.float32) for D in HEAD_DIMS
+              for G in (1, 4)]
+    errs, lines = {}, []
+
+    def hold(label, out, want, mutant=None, tol=None):
+        e = max_err(out, want)
+        if tol is not None:
+            assert e < tol, f"{label}: max abs err {e} >= {tol}"
+            return e, f"max_abs_err={e:.3e} tol={tol}"
+        r = bf16_ratios(out, want)
+        assert max(r) < 1, f"{label}: error {r} of the limit"
+        text = f"max_abs_err={e:.3e} limit_ratio={ratio_text(r)}"
+        if mutant is not None:
+            r_mut = bf16_ratios(mutant, want)
+            assert min(r_mut) > 1, f"{label}: a zeroed tile is within " \
+                f"the limit {r_mut}"
+            text += f" zeroed_tile_ratio={ratio_text(r_mut)}"
+        return e, text
+
+    for label, dtype, BH, G, L, D, n, cur in cases:
+        q, k, v, pos = seq_inputs(dev, dtype, BH, G, L, D, 33)
+        tol = FP32_TOL if dtype == torch.float32 else None
+        kparts, _, _, got = seq_run(q, k, v, pos, cur, n, partial, merge)
+        pparts, po, plse, _ = seq_run(
+            q, k, v, pos, cur, n, ref.decode_attention_partial_ref,
+            ref.decode_merge_ranks_ref)
+        S = L // n
+        e_o = e_lse = 0.0
+        texts = []
+        for r, ((ko, kl), (wo, wl)) in enumerate(zip(kparts, pparts)):
+            live = max(0, min(S, cur + 1 - r * S))
+            mut = None
+            if tol is None and live == S:  # a live shard's zeroed tile
+                mut = ref.decode_attention_partial_ref(
+                    q, k[:, r * S:(r + 1) * S],
+                    zero_tile(v[:, r * S:(r + 1) * S]),
+                    pos[r * S:(r + 1) * S], cur)[0]
+            e, text = hold(f"decode_attention_partial {label} shard {r}",
+                           ko, wo, mut, tol)
+            e_lse_r = max_err(kl, wl)
+            assert e_lse_r < LSE_TOL, (label, r, e_lse_r)
+            if live == 0:  # no live key: lse -1e30 on both sides
+                assert bool((kl == -1e30).all() and (wl == -1e30).all()), \
+                    (label, r)
+            e_o, e_lse = max(e_o, e), max(e_lse, e_lse_r)
+            texts.append(f"shard {r} ({live} live keys) {text} "
+                         f"lse_err={e_lse_r:.2e}")
+        e_m, text_m = hold(f"decode_merge_ranks {label}",
+                           merge(po, plse, dtype),
+                           ref.decode_merge_ranks_ref(po, plse, dtype),
+                           tol=tol)
+        whole = ref.decode_attention_ref(q, k, v, pos, cur)[:, 0]
+        mut = (None if tol is not None else
+               ref.decode_attention_ref(q, k, zero_tile(v), pos, cur)[:, 0])
+        e_w, text_w = hold(f"sharded decode {label}", got, whole, mut, tol)
+        if label == "bf16 main shapes":
+            errs = {"decode_attention_partial": e_o,
+                    "decode_merge_ranks": e_m}
+        splits = decode_split_plan(BH // G, G, S, sms, dtype, D)
+        lines.append(f"decode_attention_partial {label} rows={BH} L={L} "
+                     f"over {n} shard(s) of {S} keys ({splits} splits "
+                     f"each), cur_pos={cur}: "
+                     + "; ".join(texts))
+        lines.append(f"decode_merge_ranks {label} {n} ranks: {text_m}; the "
+                     f"merged kernels against the whole cache's decode: "
+                     f"{text_w}")
+        del q, k, v, kparts, pparts, po, plse, got, whole, mut
+    free_card()
+    return errs, lines
+
+
+def long_block_sparse_check(dev):
+    """Phase 3: block-sparse bf16 at the long_500k prefill's key count,
+    phi3-mini's 32 heads at D = 96: LONG_SQ queries at the end of LONG_SKV
+    keys under the causal selection (one layer's K and V 3.2 GB each, so
+    the offsets past 2^31 bytes are read), against the plain version a
+    few rows at a time. Returns the report line."""
+    from repro_torch.core.modes import causal_selection
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_sparse_attention import (
+        KERNEL_BLOCK, block_sparse_attention_bh)
+    H, D = 32, 96
+    g = torch.Generator(device=dev).manual_seed(34)
+    q = torch.randn(H, LONG_SQ, D, generator=g, device=dev).bfloat16()
+    k = torch.randn(H, LONG_SKV, D, generator=g, device=dev).bfloat16()
+    v = torch.randn(H, LONG_SKV, D, generator=g, device=dev).bfloat16()
+    start = LONG_SKV - LONG_SQ
+    sel = causal_selection(start, LONG_SQ, LONG_SKV, H, dev)
+    out = block_sparse_attention_bh(q, k, v, sel, q_offset=start)
+    kw = dict(block=KERNEL_BLOCK, q_offset=start)
+    want = rows_plain(ref.block_sparse_attention_ref, q, k, v, sel, **kw)
+    e, r = max_err(out, want), bf16_ratios(out, want)
+    v[:, LONG_SKV - 2 * LONG_SQ:LONG_SKV - LONG_SQ] = 0  # a late tile
+    r_mut = bf16_ratios(rows_plain(ref.block_sparse_attention_ref, q, k, v,
+                                   sel, **kw), want)
+    assert max(r) < 1, f"long block-sparse: error {r} of the limit"
+    assert min(r_mut) > 1, f"long block-sparse: a zeroed tile {r_mut}"
+    del q, k, v, out, want
+    free_card()
+    return (f"block_sparse_attention bfloat16 long_500k keys Skv={LONG_SKV} "
+            f"Sq={LONG_SQ} H={H} D={D} (K {H * LONG_SKV * D * 2} bytes) "
+            f"max_abs_err={e:.3e} limit_ratio={ratio_text(r)} "
+            f"zeroed_tile_ratio={ratio_text(r_mut)}")
+
+
+def lse_library(q, k, v):
+    """The PyTorch calls that compute the partial decode's function on q
+    (BH, 1, D) over every key of k / v (BH, L, D): aten's flash and
+    memory-efficient SDPA entries each return the output and its
+    log-sum-exp in one call. Returns {backend: call}, each call giving
+    (o (BH, D), lse (BH,) in log2 units; aten's is natural)."""
+    q4, k4, v4 = q[None], k[None], v[None]  # (1, BH, L, D)
+    aten = torch.ops.aten
+    log2e = 1 / float(np.log(2))
+
+    def out(o, lse):
+        return o[0, :, 0], lse[0, :, 0] * log2e
+
+    return {
+        "flash": lambda: out(*aten._scaled_dot_product_flash_attention(
+            q4, k4, v4)[:2]),
+        "efficient": lambda: out(
+            *aten._scaled_dot_product_efficient_attention(
+                q4, k4, v4, None, True)[:2])}
+
+
+def seq_kernel_times(dev):
+    """Phase 4: the partial decode at one of SEQ_SHARDS shards of
+    SEQ_CAPACITY keys (32 rows, D = 96, bf16, every key live) beside the
+    library's calls that compute the same function (``lse_library``; the
+    faster is ``library_ms``, each backend's time and its error against
+    the kernel in the row) and ``decode_attention_bh`` over the whole
+    cache, and the rank merge of SEQ_SHARDS ranks' states at 32 rows
+    (no one PyTorch call computes it). Each with its plain version and
+    its bound (bytes at 3.35 TB/s). Returns ({kernel: row}, report
+    lines)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_bh
+    from repro_torch.kernels.decode_attention_partial import \
+        decode_attention_partial_bh as partial
+    from repro_torch.kernels.decode_merge_ranks import \
+        decode_merge_ranks_bh as merge
+    BH, D, L = 32, 96, SEQ_CAPACITY
+    S = L // SEQ_SHARDS
+    q, k, v, pos = seq_inputs(dev, torch.bfloat16, BH, 1, L, D, 35)
+    cur = L - 1
+    ks, vs, ps = k[:, :S].contiguous(), v[:, :S].contiguous(), pos[:S]
+    n_bytes = 2 * BH * S * D * 2 + BH * D * 2 + BH * (D + 1) * 4 + S * 4
+    b_ms, b_by = bound(n_bytes, 4 * D * BH * S)
+    want_o, want_lse = partial(q, ks, vs, ps, cur)
+    lib = {}
+    for backend, call in lse_library(q, ks, vs).items():
+        try:
+            o, lse = call()
+        except RuntimeError as exc:  # the backend refuses the shapes
+            lib[backend] = dict(ms=None, refused=str(exc).split("\n")[0])
+            continue
+        lib[backend] = dict(ms=time_ms(call), o_err=max_err(o, want_o),
+                            lse_err=max_err(lse, want_lse))
+    timed = [(r["ms"], b) for b, r in lib.items() if r["ms"] is not None]
+    lib_ms, lib_backend = min(timed) if timed else (None, None)
+    rows = {"decode_attention_partial": dict(
+        ms=time_ms(lambda: partial(q, ks, vs, ps, cur)),
+        call_ms=call_ms(lambda: partial(q, ks, vs, ps, cur)),
+        plain_ms=time_ms(lambda: ref.decode_attention_partial_ref(
+            q, ks, vs, ps, cur)),
+        library_ms=lib_ms, library_backend=lib_backend, library=lib,
+        bound_ms=b_ms, bound_by=b_by,
+        whole_cache_decode_ms=time_ms(
+            lambda: decode_attention_bh(q, k, v, pos, cur)),
+        shape=f"{BH} rows D={D} shard of {S} of {L} keys")}
+    o = torch.randn(SEQ_SHARDS, BH, D, device=dev)
+    lse = 10 * torch.randn(SEQ_SHARDS, BH, device=dev)
+    n_bytes = SEQ_SHARDS * BH * (D + 1) * 4 + BH * D * 2
+    b_ms, b_by = bound(n_bytes, 3 * SEQ_SHARDS * BH * D)
+    rows["decode_merge_ranks"] = dict(
+        ms=time_ms(lambda: merge(o, lse, torch.bfloat16)),
+        call_ms=call_ms(lambda: merge(o, lse, torch.bfloat16)),
+        plain_ms=time_ms(lambda: ref.decode_merge_ranks_ref(
+            o, lse, torch.bfloat16)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        shape=f"{SEQ_SHARDS} ranks x {BH} rows D={D}")
+    lines = []
+    for name, r in rows.items():
+        extra = ""
+        if "whole_cache_decode_ms" in r:
+            extra = (f" ({r['library_backend']}; {json.dumps(r['library'])})"
+                     f" whole_cache_decode_ms="
+                     f"{r['whole_cache_decode_ms']:.4f}")
+        lines.append(f"{name} {r['shape']} ms={r['ms']:.4f} "
+                     f"call_ms={r['call_ms']:.4f} plain_ms="
+                     f"{r['plain_ms']:.4f} library_ms={r['library_ms']} "
+                     f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                     f"roofline_share={r['bound_ms'] / r['ms']:.3f}{extra}")
+    del q, k, v, ks, vs
+    free_card()
+    return rows, lines
+
+
 RING_POOL_LENS = (4112, 2080, 1400, 100)  # depths of the timed ring pool
 # a tensor-parallel rank's heads of deepseek's 128: 64 at TP 2, 32 at TP
 # 4, and 8 at TP 2 of phase 17's narrowing (16 heads); below 64 the bf16
@@ -1975,21 +2275,26 @@ def path_parity(dev, arch=ARCH, cfg=None, routings=("router", "mixed")):
     return "; ".join(out)
 
 
-def decode_launches(cfg, steps, pooled):
+def decode_launches(cfg, steps, pooled, seq_sharded=0):
     """The decode kernels' launches for ``steps`` decode steps of every
     attention layer, global or local (a Mamba layer launches none): an
     MLA model's latent decode on both frontends, else the batch kernel
-    (an int pos) or the pooled one (a (B,) pos); and no launch of the
-    backward kernel, which serving never runs."""
+    (an int pos) or the pooled one (a (B,) pos), but at the
+    ``seq_sharded`` layers whose cache is a sequence shard the partial
+    decode and the rank merge; and no launch of the backward kernel,
+    which serving never runs."""
     n = steps * sum(k in ("attn", "local") for k in cfg.layer_kinds)
+    sharded = steps * seq_sharded
     if cfg.use_mla:
         return dict(decode_attention=0, decode_attention_pooled=0,
                     decode_attention_mla=n, attention_backward=0,
-                    block_sparse_backward=0)
-    return dict(decode_attention=0 if pooled else n,
+                    block_sparse_backward=0, decode_attention_partial=0,
+                    decode_merge_ranks=0)
+    return dict(decode_attention=0 if pooled else n - sharded,
                 decode_attention_pooled=n if pooled else 0,
                 decode_attention_mla=0, attention_backward=0,
-                block_sparse_backward=0)
+                block_sparse_backward=0, decode_attention_partial=sharded,
+                decode_merge_ranks=sharded)
 
 
 def prefill_launches(cfg, admissions, repacks=()):
@@ -5787,6 +6092,9 @@ def check_kernels(dev):
     errs[WHISPER], lines = side_kernel_checks(dev)
     for line in lines:
         say(3, line)
+    errs["seq"], lines = seq_kernel_checks(dev)
+    for line in lines + [long_block_sparse_check(dev)]:
+        say(3, line)
     return errs
 
 
@@ -5927,6 +6235,9 @@ def time_kernels(dev, parent=None):
     out["sa_modes"] = sa_mode_times(dev)
     free_card()
     out[WHISPER], lines = side_kernel_times(dev)
+    for line in lines:
+        say(4, line)
+    out["seq"], lines = seq_kernel_times(dev)
     for line in lines:
         say(4, line)
     return out
@@ -6281,12 +6592,15 @@ def tp_arch_seed(dev, params, cfg, lens):
                          f"> 1e-3 and top-k gaps > {MOE_GAP}")
 
 
-def tp_arch_rank(tp, parity, prompts, drain_prompts, case_prompts):
+def tp_arch_rank(tp, parity, prompts, drain_prompts, case_prompts,
+                 seq_prompt):
     """Phase 32 on one rank (a spawned process): (a) each of
     ``tp_arch_configs``' models drawn as the rank's share and run as on
     one device, (c) the cases of ``tp_case_runs``, then (b) deepseek at
-    full width. Returns ((a)'s results by arch, the launches of (a) and
-    (c), (b)'s results, (c)'s results)."""
+    full width, and phase 33 (``seq_runs``: the same ranks as a
+    sequence-sharding group). Returns ((a)'s results by arch, the
+    launches of (a) and (c), (b)'s results, (c)'s results, phase 33's
+    results)."""
     import repro_torch.kernels as KN
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import init_params_tp
@@ -6304,9 +6618,11 @@ def tp_arch_rank(tp, parity, prompts, drain_prompts, case_prompts):
         free_card()
     cases = tp_case_runs(dev, case_prompts, tp)
     counts = KN.launch_counts()
-    return out, counts, tp_full_runs(
+    full = tp_full_runs(
         dev, get_config(DEEPSEEK).replace(num_layers=DEEPSEEK_LAYERS),
-        prompts, drain_prompts, tp), cases
+        prompts, drain_prompts, tp)
+    free_card()
+    return out, counts, full, cases, seq_runs(dev, seq_prompt, tp)
 
 
 def tp_case_configs():
@@ -6477,14 +6793,138 @@ def tp_case_check(one, ranks):
     return lines
 
 
+def seq_config():
+    """Phase 33's model: phi3-mini at full width, 2 layers, fp32."""
+    from repro_torch.configs import get_config
+    return get_config(ARCH).replace(num_layers=2, dtype=torch.float32,
+                                    param_dtype=torch.float32)
+
+
+def seq_gathers(cfg, pattern, n_prompt, steps, shard, chunk=None):
+    """A ``generate``'s collectives with sequence-sharded FA caches of
+    ``shard`` slots a rank: (gathers, their bytes a rank, broadcasts):
+    one gather of B·Hq·(D + 1) fp32 a FA layer a decode step; on each
+    prefill chunk past the first, a broadcast of k and one of v a FA
+    layer from each rank holding part of the live prefix."""
+    from repro_torch.serve.engine import chunk_plan
+    n_fa = sum(p == "fa" for p in pattern)
+    bcasts = sum(2 * n_fa * -(-start // shard)
+                 for start, _ in chunk_plan(n_prompt, chunk or CHUNK)[1:])
+    calls = steps * n_fa
+    return calls, calls * cfg.num_heads * (cfg.head_dim + 1) * 4, bcasts
+
+
+def seq_runs(dev, prompt, tp=None):
+    """Phase 33 on one engine: ``generate`` of ``prompt`` (SEQ_PROMPT
+    tokens, TP_PARITY_N steps, chunk CHUNK) router-driven and mixed on
+    phi3-mini's 2 layers in fp32 (whole weights from the seed of every
+    phase), with ``tp`` (a rank's group) the FA caches cut along the
+    sequence over the ranks from SEQ_MIN_SEQ slots on. Each run's
+    launches beside the exact counts, its KV bytes and (``tp``) its
+    collectives. Returns host results."""
+    import repro_torch.kernels as KN
+    from repro_torch.launch.serve import routing_pattern
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import ServeEngine
+    N = TP_PARITY_N
+    cfg = seq_config()
+    params = MD.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    eng = ServeEngine(params, cfg, max_len=SEQ_MAX_LEN, prefill_chunk=CHUNK,
+                      device=dev, seq_shard=tp, min_seq=SEQ_MIN_SEQ)
+    out = {}
+    for name in ("router", "mixed"):
+        before = KN.launch_counts()
+        if tp is not None:
+            tp.reset_counts()
+        g = eng.generate(prompt[None], N,
+                         routing_override=routing_pattern(cfg, name))
+        n_fa = 0 if tp is None else sum(p == "fa" for p in g.routing)
+        want = prefill_launches(cfg, [(g.routing, len(prompt), 0)])
+        want.update(decode_launches(cfg, N, pooled=False,
+                                    seq_sharded=n_fa))
+        out[name] = dict(
+            tokens=g.tokens, routing=g.routing,
+            logits=g.logits.float().cpu().numpy(),
+            final=g.final_logits.float().cpu().numpy(),
+            launches={k: v - before[k]
+                      for k, v in KN.launch_counts().items()},
+            want=want, kv_bytes=g.kv_bytes, kv_shard_bytes=g.kv_shard_bytes,
+            collectives=None if tp is None else (
+                tp.gather_calls, tp.gather_bytes, tp.bcast_calls,
+                tp.bcast_bytes, tp.reduce_calls))
+    del eng, params
+    free_card()
+    return out
+
+
+def seq_check(one, ranks, prompt_seed, margin):
+    """Phase 33's comparison of each rank's ``seq_runs`` with the
+    one-device run: routing and tokens equal, logits within FP32_TOL of
+    the largest, each run's launches exact (the partial decode and the
+    rank merge once a FA layer a step on each rank, the batch decode at
+    the SA layers only), one gather a FA layer a step of B·Hq·(D + 1)
+    fp32 and the prefill's broadcasts, no all-reduce, the global KV bytes
+    one device's and each rank's FA bytes half of them. Returns (each
+    rank's launches, report lines)."""
+    from repro_torch.launch.serve import routing_letters
+    cfg = seq_config()
+    world = len(ranks)
+    shard = SEQ_MAX_LEN // world
+    lines = [f"(33) {ARCH} 2 layers fp32, FA caches of {SEQ_MAX_LEN} slots "
+             f"cut in {world} shards of {shard} (min_seq {SEQ_MIN_SEQ}), "
+             f"prompt {SEQ_PROMPT} tokens (seed {prompt_seed}, router "
+             f"margin {margin:.2e}), {TP_PARITY_N} steps, chunk {CHUNK}"]
+    counts = [collections.Counter() for _ in ranks]
+    for name in ("router", "mixed"):
+        want = one[name]
+        assert want["launches"] == want["want"], (name, want["launches"])
+        errs = []
+        for r, res in enumerate(ranks):
+            got = res[name]
+            assert got["routing"] == want["routing"], (r, name)
+            assert np.array_equal(got["tokens"], want["tokens"]), (r, name)
+            assert got["launches"] == got["want"], (r, name, got)
+            assert got["kv_bytes"] == want["kv_bytes"], (r, name)
+            errs += [float(np.abs(got[k] - want[k]).max()
+                           / np.abs(want[k]).max())
+                     for k in ("logits", "final")]
+            calls, nbytes, bcasts = seq_gathers(
+                cfg, got["routing"], SEQ_PROMPT, TP_PARITY_N, shard)
+            g_calls, g_bytes, b_calls, b_bytes, reduces = got["collectives"]
+            assert (g_calls, g_bytes, b_calls, reduces) == \
+                (calls, nbytes, bcasts, 0), (r, name, got["collectives"])
+            n_fa = sum(p == "fa" for p in got["routing"])
+            fa_bytes = n_fa * 2 * SEQ_MAX_LEN * cfg.num_kv_heads * \
+                cfg.head_dim * 4
+            assert got["kv_shard_bytes"] == want["kv_bytes"] - fa_bytes \
+                + fa_bytes // world, (r, name, got["kv_shard_bytes"])
+            counts[r].update(got["launches"])
+        assert max(errs) < FP32_TOL, (name, errs)
+        first = ranks[0][name]
+        lines.append(
+            f"(33) {name}: routing={routing_letters(want['routing'])} tokens "
+            f"equal on the {world} ranks and one device, logits rel err "
+            f"{max(errs):.2e} (limit {FP32_TOL}); launches exact on each "
+            f"rank {first['launches']}; a rank's collectives: "
+            f"{first['collectives'][0]} gathers of "
+            f"{first['collectives'][1] // max(first['collectives'][0], 1)} "
+            f"bytes, {first['collectives'][2]} prefill broadcasts of "
+            f"{first['collectives'][3]} bytes in all, 0 all-reduces; "
+            f"kv_bytes {first['kv_bytes']} global, {first['kv_shard_bytes']} "
+            f"a rank")
+    return [dict(c) for c in counts], lines
+
+
 def tp_arch_phase(dev):
     """Phase 32: TP_WORLD ranks on the one card over gloo, spawned once:
     (a) the MoE, MLA, Mamba and encoder archs of ``tp_arch_configs`` in
     fp32 against the one-device port on the same weights; (c) the duo
     head split, the fidelity probe and KV replication (``tp_case_runs``)
     against the one-device port; (b) deepseek-v2-236b at full width,
-    DEEPSEEK_LAYERS layers, bf16. Returns (each rank's launches, report
-    lines)."""
+    DEEPSEEK_LAYERS layers, bf16; and phase 33, sequence-sharded FA
+    caches (``seq_runs``) against the one-device port. Returns (each
+    rank's launches, report lines, phase 33's lines)."""
     from repro_torch.configs import get_config
     from repro_torch.distributed.group import launch
     from repro_torch.models import model as MD
@@ -6522,6 +6962,17 @@ def tp_arch_phase(dev):
         del eng
         free_card()
     case_one = tp_case_runs(dev, case_prompts)
+    t0 = time.perf_counter()
+    eng = ServeEngine(MD.init_params(seq_config(), torch.Generator(
+        device=dev).manual_seed(0), dev), seq_config(),
+        max_len=SEQ_MAX_LEN, prefill_chunk=CHUNK, device=dev)
+    seq_seed, (seq_prompt,), seq_margin = router_margin_seed(
+        eng, (SEQ_PROMPT,))
+    del eng
+    free_card()
+    seq_one = seq_runs(dev, seq_prompt)
+    seq_lines = [f"(33) one device: prompt_seed={seq_seed} "
+                 f"[{time.perf_counter() - t0:.1f} s]"]
     cfg = get_config(DEEPSEEK).replace(num_layers=DEEPSEEK_LAYERS)
     rng = np.random.default_rng(32)
     prompts = rng.integers(0, cfg.vocab_size, (2, TP_PROMPT))
@@ -6529,28 +6980,32 @@ def tp_arch_phase(dev):
                      for n in TP_DRAIN_LENS]
     t0 = time.perf_counter()
     ranks = launch(tp_arch_rank, TP_WORLD, "gloo",
-                   args=(parity, prompts, drain_prompts, case_prompts),
+                   args=(parity, prompts, drain_prompts, case_prompts,
+                         seq_prompt),
                    device=dev.type)
     wall = time.perf_counter() - t0
     for arch, cfg_a in tp_arch_configs().items():
         lines += [f"(a) {arch}: {line}" for line in tp_parity_check(
-            arch, ones[arch], [a[arch] for a, _, _, _ in ranks],
+            arch, ones[arch], [a[arch] for a, *_ in ranks],
             drains=not cfg_a.num_encoder_layers)]
-    lines += tp_case_check(case_one, [c for _, _, _, c in ranks])
-    counts = {}
-    for r, (_, served, _, _) in enumerate(ranks):
+    lines += tp_case_check(case_one, [c for _, _, _, c, _ in ranks])
+    seq_counts, more = seq_check(seq_one, [q for *_, q in ranks], seq_seed,
+                                 seq_margin)
+    seq_lines += more
+    counts = {f"seq{TP_WORLD}_rank{r}": c for r, c in enumerate(seq_counts)}
+    for r, (_, served, *_) in enumerate(ranks):
         for k in SERVING_KERNELS + ("decode_attention_mla",):
             assert served[k] > 0, f"(a) rank {r}: {k} never launched"
         counts[f"tp{TP_WORLD}_archs_rank{r}"] = served
     served, full_lines = tp_full_check(
-        cfg, [full for _, _, full, _ in ranks], prompts.shape[0],
+        cfg, [full for _, _, full, *_ in ranks], prompts.shape[0],
         ("flash_attention", "streaming_attention", "decode_attention_mla"))
     counts.update({f"tp{TP_WORLD}_deepseek_rank{r}": c
                    for r, c in enumerate(served)})
     lines += full_lines
     lines.append(f"{TP_LABEL}: launch of {TP_WORLD} ranks {wall:.1f} s; "
                  f"these rates say nothing of TP speed over several cards")
-    return counts, lines
+    return counts, lines, seq_lines
 
 
 # The host's cores while the paths run beside the parity worker: the
@@ -6981,12 +7436,17 @@ def run(parent_src, procs) -> int:
     free_card()
 
     t0 = time.perf_counter()
-    tp_counts, lines = tp_arch_phase(dev)
+    tp_counts, lines, seq_lines = tp_arch_phase(dev)
     counts.update(tp_counts)
     for line in lines:
         say(32, line)
-    say(32, f"tensor-parallel MoE, MLA, Mamba and encoder archs, "
-            f"{TP_LABEL}, done", t0)
+    for line in seq_lines:
+        say(33, line)
+    for r in range(TP_WORLD):
+        for k in ("decode_attention_partial", "decode_merge_ranks"):
+            assert counts[f"seq{TP_WORLD}_rank{r}"][k] > 0, (r, k)
+    say(32, f"tensor-parallel MoE, MLA, Mamba and encoder archs and (33) "
+            f"sequence-sharded FA caches, {TP_LABEL}, done", t0)
     free_card()
 
     cfg = get_config(GEMMA3).replace(num_layers=GEMMA3_LAYERS)
@@ -7101,6 +7561,16 @@ def run(parent_src, procs) -> int:
                     for H in MLA_TP_HEADS},
                 long_context=mla["long_context"],
                 high_batch=mla["high_batch"], stress=stress_counts))
+            continue
+        if name in rows["seq"]:  # phase 33's ranks: rank 0's launches
+            kernels.append(dict(
+                name=name, route="cuda", source=str(src.relative_to(ROOT)),
+                replaces=replaces,
+                launches=counts[f"seq{TP_WORLD}_rank0"][name],
+                launches_by_path={k: c.get(name, 0)
+                                  for k, c in counts.items()},
+                max_abs_err=errs["seq"][name], **rows["seq"][name],
+                stress={}))
             continue
         # each kernel's count from the path it was ported for: the batch
         # path for the first four, the slot pool for the pooled decode

@@ -9,9 +9,13 @@ rank) or ``"gloo"`` (the CPU, or several ranks on one card, where NCCL
 refuses a second rank on a device); nothing picks it from what it finds.
 A ``world == 1`` group is the identity and touches no process group.
 
-The device collective is ``all_reduce_sum``, the model's reduce points'
-one operation (``distributed/sharding.py`` ``tp_reduce``); it counts its
-calls and bytes, the fidelity probe's (``probing``) apart. The host ones
+The device collectives are ``all_reduce_sum``, the model's reduce points'
+one operation (``distributed/sharding.py`` ``tp_reduce``), and, for a
+sequence-sharded cache (``distributed/decode.py``), ``all_gather`` (a
+decode step's partial states) and ``broadcast`` (a shard's live prefix
+for the chunked prefill). Each counts its calls and bytes apart, the
+fidelity probe's reduces (``probing``) apart as well. On gloo the
+gather goes through the host: gloo gathers CPU tensors only. The host ones
 keep every rank's scheduler in step: ``broadcast_host`` and ``host_clock`` hand rank 0's object or clock
 reading to every rank, and ``check_agree`` compares a digest across the
 ranks with one MIN and one MAX all-reduce, raising ``TPDivergence`` on a
@@ -68,6 +72,10 @@ class TPGroup:
     reduce_bytes: int = 0  # and the bytes they reduced
     probe_calls: int = 0   # the fidelity probe's calls (``probing``),
     probe_bytes: int = 0   # counted apart from the two above
+    gather_calls: int = 0  # all_gather calls since reset_counts
+    gather_bytes: int = 0  # and the bytes each rank sent
+    bcast_calls: int = 0   # broadcast calls since reset_counts
+    bcast_bytes: int = 0   # and the bytes they carried
     _probing: bool = False
 
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -83,6 +91,36 @@ class TPGroup:
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
         return x
 
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` stacked in rank order, (world, *x.shape) on
+        x's device; ``x[None]`` at world 1. One collective of
+        ``x.nbytes`` a rank."""
+        if self.world == 1:
+            return x[None]
+        self.gather_calls += 1
+        self.gather_bytes += x.numel() * x.element_size()
+        x = x.contiguous()
+        if self.backend == "gloo":  # gloo gathers host tensors only
+            src = x.cpu()
+            parts = [torch.empty_like(src) for _ in range(self.world)]
+            dist.all_gather(parts, src, group=self.group)
+            return torch.stack(parts).to(x.device)
+        out = torch.empty((self.world, *x.shape), dtype=x.dtype,
+                          device=x.device)
+        dist.all_gather_into_tensor(out, x, group=self.group)
+        return out
+
+    def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """Rank ``src``'s ``x`` into every rank's ``x`` (contiguous, of
+        the same shape and dtype everywhere), in place; ``x`` itself at
+        world 1."""
+        if self.world == 1:
+            return x
+        self.bcast_calls += 1
+        self.bcast_bytes += x.numel() * x.element_size()
+        dist.broadcast(x, src=src, group=self.group)
+        return x
+
     @contextmanager
     def probing(self):
         """Count the reduces inside the block as the fidelity probe's."""
@@ -95,6 +133,8 @@ class TPGroup:
     def reset_counts(self) -> None:
         self.reduce_calls = self.reduce_bytes = 0
         self.probe_calls = self.probe_bytes = 0
+        self.gather_calls = self.gather_bytes = 0
+        self.bcast_calls = self.bcast_bytes = 0
 
     def broadcast_host(self, obj: Any) -> Any:
         """Rank 0's ``obj`` on every rank (a picklable host object)."""

@@ -18,6 +18,10 @@ A slot pool (``serve/slots.py`` ``SlotPool.create``) and a request's
 caches (``serve/kv_cache.py`` ``init_decode_caches`` under
 ``sharding.tp_config``) are built in the local shape.
 
+Sequence sharding (``distributed/decode.py``): a ``SeqShardKV``'s k, v
+and positions hold 1/N of the whole cache's slots on each of its N
+ranks, so the global figure counts them N times, each slot once.
+
 The byte counts here are JAX's: a committed sharded ``jax.Array``
 reports its global size, the logical array's, so the global figure
 counts a head-sharded buffer once a distinct piece (``world`` times, or
@@ -66,7 +70,13 @@ def cache_bytes(caches: Sequence, world: int = 1,
     payload = KC.kv_cache_bytes(caches)
     total = sum(t.nbytes for c in caches for t in KC.cache_fields(c))
     extra = (world // kv_replicas - 1) * head_sharded_bytes(caches)
-    return CacheBytes(payload=payload + extra, overhead=total - payload,
+    # the other ranks' sequence shards: their slots, counted once each
+    seq = [c for c in caches if isinstance(c, KC.SeqShardKV)]
+    extra += sum((c.group.world - 1) * (c.k.nbytes + c.v.nbytes)
+                 for c in seq)
+    over = sum((c.group.world - 1) * c.positions.nbytes for c in seq)
+    return CacheBytes(payload=payload + extra,
+                      overhead=total - payload + over,
                       payload_shard=payload,
                       overhead_shard=total - payload)
 

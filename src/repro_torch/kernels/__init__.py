@@ -7,14 +7,19 @@ or raises; a CPU tensor goes to the plain version. ``attention_backward``
 is the gradient of the flash and streaming kernels and
 ``block_sparse_backward`` that of the block-sparse kernel (no TPU
 counterparts: the JAX package trains through XLA's autodiff).
+``decode_attention_partial`` and ``decode_merge_ranks`` are the two
+halves of the sequence-sharded decode (``distributed/decode.py``): one
+rank's partial state and the merge of the ranks' states, both entries of
+the batch decode kernel's library.
 """
 from typing import Dict
 
 from repro_torch.kernels import (attention_backward, block_sparse_attention,
                                  block_sparse_backward, decode_attention,
                                  decode_attention_mla,
-                                 decode_attention_pooled, flash_attention,
-                                 streaming_attention)
+                                 decode_attention_partial,
+                                 decode_attention_pooled, decode_merge_ranks,
+                                 flash_attention, streaming_attention)
 
 KERNELS = {
     "flash_attention": flash_attention.KERNEL,
@@ -25,6 +30,8 @@ KERNELS = {
     "decode_attention_mla": decode_attention_mla.KERNEL,
     "attention_backward": attention_backward.KERNEL,
     "block_sparse_backward": block_sparse_backward.KERNEL,
+    "decode_attention_partial": decode_attention_partial.KERNEL,
+    "decode_merge_ranks": decode_merge_ranks.KERNEL,
 }
 
 

@@ -46,6 +46,20 @@
 //   version's dense softmax gives. Keys past L count for nothing.
 // The tile plan, loads and reductions: decode_split.cuh, shared with the
 // slot pool's decode kernel (decode_attention_pooled.cu).
+//
+// Sequence-sharded decode (distributed/decode.py) adds two C entries: the
+// partial state of one rank's keys, and a merge of the ranks' states.
+// - decode_attention_partial_fwd runs the split kernel with kPartial set
+//   (every split writes its (acc, m, l), at n_split = 1 too) and then
+//   decode_merge_kernel with kPartial, which writes the rank's normalized
+//   fp32 output o = sum_s w_s acc_s / sum_s w_s l_s and its log-sum-exp
+//   lse = max_s m_s + log2(sum_s w_s l_s), in log2 units as m is.
+// - decode_merge_ranks_fwd (decode_merge_ranks_kernel) takes the N ranks'
+//   (o_r, lse_r) and writes sum_r w_r o_r / max(sum_r w_r, 1e-20),
+//   w_r = exp2(lse_r - max_r lse_r): decode_merge_kernel's arithmetic with
+//   l = 1. A rank with no live key has lse = -1e30 + log2(n) = -1e30 and
+//   weight 0 beside any rank with one, as an all-masked split has.
+// The instances without kPartial compile to the code they had before it.
 #include "decode_split.cuh"
 
 namespace flux {
@@ -53,8 +67,9 @@ namespace split {
 
 // One CTA: the keys of tiles [t0, t0 + n) of KV row blockIdx.x for query
 // rows b = blockIdx.x * G + g0 + g (g < n_g). Its walk is 2 n chunks:
-// K tile j for chunk j < n, V tile j - n for chunk j >= n.
-template <typename T, int D, int kG>
+// K tile j for chunk j < n, V tile j - n for chunk j >= n. kPartial: the
+// split's (acc, m, l) go to the scratch whatever n_split is.
+template <typename T, int D, int kG, bool kPartial = false>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ positions,
@@ -225,7 +240,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float a = 0.f;
 #pragma unroll
       for (int r = 0; r < P::kGroups; ++r) a += area[r * D + d];
-      if (n_split == 1) {
+      if (!kPartial && n_split == 1) {
         o[b * D + d] = from_float<T>(a / fmaxf(l[g], 1e-20f));
       } else {
         const size_t bs = b * n_split + split;
@@ -240,13 +255,15 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// o[b] from the n_split partial states of row b = blockIdx.x.
-template <typename T, int D>
+// o[b] from the n_split partial states of row b = blockIdx.x. kPartial
+// (T = float): o[b] normalized and lse[b] = max_s m_s + log2(sum_s w_s l_s)
+// too; without it lse is unused.
+template <typename T, int D, bool kPartial = false>
 __global__ void __launch_bounds__(merge_threads<D>())
 decode_merge_kernel(const float* __restrict__ part_acc,
                     const float* __restrict__ part_m,
                     const float* __restrict__ part_l, T* __restrict__ o,
-                    int n_split) {
+                    int n_split, float* __restrict__ lse) {
   const size_t b = blockIdx.x;
   const int d = threadIdx.x;
   if (d >= D) return;
@@ -260,10 +277,37 @@ decode_merge_kernel(const float* __restrict__ part_acc,
     sum = fmaf(wt, pl[s], sum);
     a = fmaf(wt, part_acc[(b * n_split + s) * D + d], a);
   }
+  sum = fmaxf(sum, 1e-20f);
+  o[b * D + d] = from_float<T>(a / sum);
+  if constexpr (kPartial)
+    if (d == 0) lse[b] = mx + log2f(sum);
+}
+
+// o[b] for row b = blockIdx.x from the n_ranks ranks' (o_r, lse_r): rank
+// r's row b at o_parts[r * o_stride + b * D] and lse_parts[r * lse_stride
+// + b] (on the serving path both are views of one gathered buffer).
+template <typename T, int D>
+__global__ void __launch_bounds__(merge_threads<D>())
+decode_merge_ranks_kernel(const float* __restrict__ o_parts,
+                          const float* __restrict__ lse_parts,
+                          T* __restrict__ o, int n_ranks, int o_stride,
+                          int lse_stride) {
+  const size_t b = blockIdx.x;
+  const int d = threadIdx.x;
+  if (d >= D) return;
+  float mx = kNegInf;
+  for (int r = 0; r < n_ranks; ++r)
+    mx = fmaxf(mx, lse_parts[(size_t)r * lse_stride + b]);
+  float a = 0.f, sum = 0.f;
+  for (int r = 0; r < n_ranks; ++r) {
+    const float wt = fast_exp2(lse_parts[(size_t)r * lse_stride + b] - mx);
+    sum += wt;
+    a = fmaf(wt, o_parts[(size_t)r * o_stride + b * D + d], a);
+  }
   o[b * D + d] = from_float<T>(a / fmaxf(sum, 1e-20f));
 }
 
-template <typename T, int D, int kG>
+template <typename T, int D, int kG, bool kPartial = false>
 cudaError_t launch_split(dim3 grid, int tiles, const void* q, const void* k,
                          const void* v, const void* positions, void* o,
                          void* part_acc, void* part_m, void* part_l, int L,
@@ -271,7 +315,7 @@ cudaError_t launch_split(dim3 grid, int tiles, const void* q, const void* k,
                          cudaStream_t stream) {
   if (tiles > Plan<T, D, kG>::kMaxTiles) return cudaErrorInvalidValue;
   const size_t bytes = Plan<T, D, kG>::bytes(tiles);
-  auto kernel = decode_split_kernel<T, D, kG>;
+  auto kernel = decode_split_kernel<T, D, kG, kPartial>;
   cudaError_t e = allow_smem(kernel, bytes);
   if (e != cudaSuccess) return e;
   kernel<<<grid, kThreads, bytes, stream>>>(
@@ -310,7 +354,52 @@ template <typename T, int D> struct DecodeLaunch {
         <<<BH, split::merge_threads<D>(), 0, stream>>>(
         static_cast<const float*>(part_acc),
         static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-        static_cast<T*>(o), n_split);
+        static_cast<T*>(o), n_split, nullptr);
+    return cudaGetLastError();
+  }
+};
+
+template <typename T, int D> struct PartialLaunch {
+  static cudaError_t run(const void* q, const void* k, const void* v,
+                         const void* positions, void* o, void* lse,
+                         void* part_acc, void* part_m, void* part_l, int BH,
+                         int BHkv, int L, int n_split, int cur_pos,
+                         float scale, cudaStream_t stream) {
+    const int G = BH / BHkv;
+    const int n_tiles = (L + split::kKeys - 1) / split::kKeys;
+    if (n_split < 1 || n_split > n_tiles) return cudaErrorInvalidValue;
+    const int tiles = (n_tiles + n_split - 1) / n_split;
+    const float scale_log2 = scale * kLog2e;
+    const int kG = G == 1 ? 1 : split::kMaxG;
+    const dim3 grid(BHkv, n_split, (G + kG - 1) / kG);
+    cudaError_t e =
+        G == 1 ? split::launch_split<T, D, 1, true>(
+                     grid, tiles, q, k, v, positions, nullptr, part_acc,
+                     part_m, part_l, L, G, cur_pos, scale_log2, stream)
+               : split::launch_split<T, D, split::kMaxG, true>(
+                     grid, tiles, q, k, v, positions, nullptr, part_acc,
+                     part_m, part_l, L, G, cur_pos, scale_log2, stream);
+    if (e != cudaSuccess) return e;
+    split::decode_merge_kernel<float, D, true>
+        <<<BH, split::merge_threads<D>(), 0, stream>>>(
+        static_cast<const float*>(part_acc),
+        static_cast<const float*>(part_m), static_cast<const float*>(part_l),
+        static_cast<float*>(o), n_split, static_cast<float*>(lse));
+    return cudaGetLastError();
+  }
+};
+
+template <typename T, int D> struct MergeRanksLaunch {
+  static cudaError_t run(const void* o_parts, const void* lse_parts, void* o,
+                         int BH, int n_ranks, int o_stride, int lse_stride,
+                         cudaStream_t stream) {
+    if (n_ranks < 1 || o_stride < BH * D || lse_stride < BH)
+      return cudaErrorInvalidValue;
+    split::decode_merge_ranks_kernel<T, D>
+        <<<BH, split::merge_threads<D>(), 0, stream>>>(
+        static_cast<const float*>(o_parts),
+        static_cast<const float*>(lse_parts), static_cast<T*>(o), n_ranks,
+        o_stride, lse_stride);
     return cudaGetLastError();
   }
 };
@@ -331,4 +420,32 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
   return flux::dispatch<flux::DecodeLaunch>(
       dtype, D, q, k, v, positions, o, part_acc, part_m, part_l, BH, BHkv,
       L, n_split, cur_pos, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The partial state of this rank's keys: q, k, v, positions as
+// decode_attention_fwd takes them; o (BH, D) and lse (BH,) fp32; the fp32
+// scratch part_acc (BH, n_split, D), part_m and part_l (BH, n_split) at
+// every n_split in [1, ceil(L / 64)].
+extern "C" int decode_attention_partial_fwd(
+    const void* q, const void* k, const void* v, const void* positions,
+    void* o, void* lse, void* part_acc, void* part_m, void* part_l, int BH,
+    int BHkv, int L, int D, int dtype, int n_split, int cur_pos, float scale,
+    void* stream) {
+  return flux::dispatch<flux::PartialLaunch>(
+      dtype, D, q, k, v, positions, o, lse, part_acc, part_m, part_l, BH,
+      BHkv, L, n_split, cur_pos, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The ranks' merge: o_parts (n_ranks, BH, D) and lse_parts (n_ranks, BH)
+// fp32, each rank's rows o_stride (>= BH·D) and lse_stride (>= BH)
+// elements after the previous rank's (the serving path's are views of one
+// gathered (n_ranks, BH·(D + 1)) buffer, o then lse); o (BH, D) in dtype.
+extern "C" int decode_merge_ranks_fwd(const void* o_parts,
+                                      const void* lse_parts, void* o, int BH,
+                                      int D, int dtype, int n_ranks,
+                                      int o_stride, int lse_stride,
+                                      void* stream) {
+  return flux::dispatch<flux::MergeRanksLaunch>(
+      dtype, D, o_parts, lse_parts, o, BH, n_ranks, o_stride, lse_stride,
+      static_cast<cudaStream_t>(stream));
 }

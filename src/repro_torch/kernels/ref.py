@@ -112,6 +112,44 @@ def decode_attention_split_ref(q, k, v, positions, cur_pos, n_split,
     return o.reshape(BH, 1, v.shape[-1]).to(q.dtype)
 
 
+LOG2E = 1.4426950408889634  # log2(e): the decode kernels' score units
+
+
+def decode_attention_partial_ref(q, k, v, positions, cur_pos, scale=None):
+    """The partial state of one sequence shard's keys, the arithmetic of
+    ``decode_attention_split_ref`` over one range in the kernel's log2
+    units: scores scaled by scale·log2(e), the -1e30 mask after the
+    scaling, p = exp2(s - m) rounded to v's dtype before PV, l summing
+    the unrounded p. q (BH,1,D); k/v (BHkv,L,D); positions (L,). Returns
+    (o (BH, Dv) fp32, normalized; lse (BH,) fp32 = m + log2(l), a base-2
+    log-sum-exp). A row with no visible key has m = -1e30, lse = -1e30
+    in fp32 and o the mean of V, as an all-masked split has."""
+    BH, _, D = q.shape
+    BHkv = k.shape[0]
+    G = BH // BHkv
+    scale = D ** -0.5 if scale is None else scale
+    qf = q.reshape(BHkv, G, D).float()
+    valid = (positions >= 0) & (positions <= cur_pos)
+    s = torch.einsum("hgd,hkd->hgk", qf, k.float()) * (scale * LOG2E)
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp2(s - m[..., None])
+    l = p.sum(-1)
+    acc = torch.einsum("hgk,hkd->hgd", p.to(v.dtype).float(), v.float())
+    o = acc / torch.clamp(l, min=1e-20)[..., None]
+    return o.reshape(BH, v.shape[-1]), (m + torch.log2(l)).reshape(BH)
+
+
+def decode_merge_ranks_ref(o_parts, lse_parts, dtype):
+    """The ranks' partial states merged: o_parts (N, BH, D), lse_parts
+    (N, BH) fp32 (base-2, as ``decode_attention_partial_ref`` gives
+    them). Returns Σ w_r o_r / max(Σ w_r, 1e-20) in ``dtype``, w_r =
+    exp2(lse_r - max_r lse_r)."""
+    w = torch.exp2(lse_parts - lse_parts.amax(0))
+    o = (w[..., None] * o_parts).sum(0)
+    return (o / torch.clamp(w.sum(0), min=1e-20)[..., None]).to(dtype)
+
+
 def block_sparse_attention_ref(q, k, v, sel, *, block, q_offset=0,
                                scale=None):
     """sel (BH, nqb, K) expanded to a dense mask. ``q_offset`` shifts the

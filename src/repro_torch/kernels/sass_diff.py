@@ -14,7 +14,10 @@ mnemonic re-pads every other listing. A kernel template that gained a
 second head dim (the flash, streaming and block-sparse kernels' and
 the fp32 backward kernels' Dv beside D) is paired by its old name:
 ``<.., D, D, ..>`` in this tree with ``<.., D, ..>`` in the other
-(``old_name``). Prints one line per library (the shared, identical
+(``old_name``), and so is one that gained a last ``bool`` argument
+whose ``false`` keeps the old code (the batch decode's
+``decode_split_kernel<.., kPartial>``): ``<.., false>`` in this tree
+with ``<..>`` in the other. Prints one line per library (the shared, identical
 and differing symbols, and the new ones) and exits 1 if any shared
 symbol differs. Runs on a machine with ``nvcc``.
 """
@@ -60,12 +63,16 @@ def instance(name: str) -> str:
 def old_name(name: str, old: Dict[str, str]) -> str:
     """``name``'s instance (``instance``) in the other tree, whose symbols
     ``old`` holds by instance: itself, or, where that tree has no such
-    instance, with its first repeated int template argument dropped
-    (``ILi96ELi96EE`` → ``ILi96EE``, ``IfLi96ELi96ENS0_11FlashPolicyE``
-    → ``IfLi96ENS0_11FlashPolicyE``)."""
+    instance, with a last ``false`` template argument dropped
+    (``IfLi96ELi1ELb0EE`` → ``IfLi96ELi1EE``) or else its first repeated
+    int template argument dropped (``ILi96ELi96EE`` → ``ILi96EE``,
+    ``IfLi96ELi96ENS0_11FlashPolicyE`` → ``IfLi96ENS0_11FlashPolicyE``)."""
     key = instance(name)
     if key in old:
         return key
+    no_flag = re.sub(r"Lb0E(?=E)", "", key, count=1)
+    if no_flag in old:
+        return no_flag
     return re.sub(r"Li(\d+)ELi\1E", r"Li\1E", key, count=1)
 
 

@@ -66,6 +66,12 @@ RoPE, on the flash kernel with ``causal=False``), and every decoder
 layer adds cross attention over ``enc_out`` after its self attention:
 flash with ``causal=False`` over the S prompt rows at prefill, the batch
 decode kernel with every one of the E keys visible at a decode step.
+
+A FA layer's cache may be one rank's shard of a sequence-sharded cache
+(``KC.SeqShardKV``, ``distributed/decode.py``): a decode step attends
+it with the decode kernel's partial state and merges the ranks' states
+(``lse_combine_decode``); a prefill chunk inserts into the shards and
+runs the block-sparse kernel over the gathered live prefix.
 """
 from __future__ import annotations
 
@@ -80,6 +86,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import modes as M
 from repro_torch.core import router as R
+from repro_torch.distributed import decode as DD
 from repro_torch.distributed.sharding import (kv_head_range, tp_reduce,
                                               tp_world)
 from repro_torch.kernels.decode_attention import decode_attention_bh
@@ -686,6 +693,10 @@ def _decode_attn_full(bp, cfg, x, pos, rope_pos, cache, slot_positions):
         return (_mla_decode(bp, cfg, x, rope_pos, cache, None,
                             cache.length), cache)
     q, k, v, _ = A.gqa_qkv(bp["attn"], cfg, x, rope_pos)
+    if isinstance(cache, KC.SeqShardKV):  # this rank's shard of the cache
+        cache = DD.sharded_seq_insert(cache, k, v, pos)
+        return (A.gqa_out(bp["attn"], cfg,
+                          DD.lse_combine_decode(q, cache, pos)), cache)
     cache = KC.full_insert(cache, k, v, pos)
     if isinstance(pos, torch.Tensor):
         # per row: slots [0, length) are live and slot j holds position j
@@ -957,6 +968,11 @@ def _chunk_attn_full(bp, cfg: ModelConfig, x, positions, start: int,
                                   valid)
         return y, cache
     q, k_new, v_new, _ = A.gqa_qkv(bp["attn"], cfg, x, positions)
+    if isinstance(cache, KC.SeqShardKV):  # over the gathered live prefix
+        cache = DD.sharded_seq_insert_chunk(cache, k_new, v_new, start)
+        k, v = DD.gather_prefix(cache, start, k_new, v_new)
+        o = M.chunk_causal_attention(q, k, v, start)
+        return A.gqa_out(bp["attn"], cfg, o), cache
     cache = KC.full_insert_chunk(cache, k_new, v_new, start)
     o = M.chunk_causal_attention(q, cache.k, cache.v, start)
     return A.gqa_out(bp["attn"], cfg, o), cache

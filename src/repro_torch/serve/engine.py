@@ -71,6 +71,20 @@ with a digest check of the ranks' decisions. The byte figures (the
 prefix store's budget, ``kv_bytes``, the ledger) count global bytes, as
 JAX's sharded arrays report them, with per-rank figures beside them.
 ``tp=None`` runs exactly as a single-device engine.
+
+Sequence sharding (``seq_shard``, a ``TPGroup``; JAX's ``distributed_kv``
+at B = 1): every rank holds the whole weights and runs the whole model
+on the same tokens, and each FA layer's cache of at least ``min_seq``
+slots that the ranks divide is cut along its sequence axis
+(``KC.SeqShardKV``), so the longest context is bounded by the ranks'
+memory together. A decode step gathers the ranks' partial attention
+states once a sharded layer; a prefill chunk gathers the layer's live
+prefix (``distributed/decode.py``). ``generate`` serves it, B >= 1 at
+uniform positions, through the chunked prefill only: a request that
+would take the monolithic repack path (xa, ta, duo, side inputs), the
+slot pool and a prefix store raise ValueError, as ``tp=`` beside it does
+(the 2-D head x sequence layout is not ported). ``kv_bytes`` counts the
+whole cache once, the rank's share beside it.
 """
 from __future__ import annotations
 
@@ -88,8 +102,10 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import router as RT
+from repro_torch.distributed import decode as DD
 from repro_torch.distributed import pool_sharding as PSH
 from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.group import digest
 from repro_torch.kernels import launch_counts
 from repro_torch.launch import hlo_costs as HL
 from repro_torch.models import model as MD
@@ -140,12 +156,16 @@ def chunk_plan(seq_len: int, chunk: int) -> List[Tuple[int, int]]:
 # ---------------------------------------------------------------------------
 
 def seed_caches(cfg: ModelConfig, prefill_caches, pattern, batch: int,
-                max_len: int, device) -> List:
+                max_len: int, device, seq_shard=None,
+                min_seq: int = KC.MIN_SEQ) -> List:
     """Decode-geometry caches for ``pattern``, seeded with a routing
     chunk's per-layer (k, v), an MLA model's (ckv, kr) or a Mamba
     layer's (SSD state, conv tail), at position 0. A ring's sink is its
-    layer's (``MD.ring_sink``: none at a local layer)."""
-    caches = KC.init_decode_caches(cfg, pattern, batch, max_len, device)
+    layer's (``MD.ring_sink``: none at a local layer). ``seq_shard`` /
+    ``min_seq``: the FA caches this rank holds a sequence shard of
+    (``KC.init_decode_caches``)."""
+    caches = KC.init_decode_caches(cfg, pattern, batch, max_len, device,
+                                   seq_shard=seq_shard, min_seq=min_seq)
     for i, (kv, dec) in enumerate(zip(prefill_caches, caches)):
         if isinstance(dec, KC.MambaCache):
             KC.mamba_update(dec, *kv)
@@ -158,6 +178,8 @@ def seed_caches(cfg: ModelConfig, prefill_caches, pattern, batch: int,
             KC.latent_insert_chunk(dec, *kv, 0)
         elif isinstance(dec, KC.RingKV):
             KC.ring_insert_chunk(dec, *kv, 0, sink, local)
+        elif isinstance(dec, KC.SeqShardKV):
+            DD.sharded_seq_insert_chunk(dec, *kv, 0)
         else:
             KC.full_insert_chunk(dec, *kv, 0)
     return caches
@@ -358,7 +380,9 @@ class ChunkedPrefill:
         self.p_fa = None if pf.p_fa is None else pf.p_fa.numpy()
         eng._record_routing(self.pattern, self.p_fa, self.sa_level)
         self.caches = seed_caches(cfg, pf.caches, self.pattern,
-                                  chunk.shape[0], eng.max_len, eng.device)
+                                  chunk.shape[0], eng.max_len, eng.device,
+                                  seq_shard=eng.seq_shard,
+                                  min_seq=eng.min_seq)
         self.logits = pf.logits
         self.dispatches += 2  # routing prefill + the seed insert
 
@@ -368,7 +392,7 @@ class GenerationResult:
     tokens: np.ndarray            # (B, n_steps)
     routing: Tuple[Any, ...]      # per-layer decode pattern
     msr: float                    # SA fraction over routed layers
-    kv_bytes: int                 # decode-cache KV payload
+    kv_bytes: int                 # decode-cache KV payload, global
     p_fa: Optional[np.ndarray] = None
     logits: Optional[torch.Tensor] = None  # (B, V) first-step logits
     final_logits: Optional[torch.Tensor] = None  # (B, V) after the last step
@@ -377,6 +401,7 @@ class GenerationResult:
     prefix_hit_tokens: int = 0    # prompt tokens served from a warm prefix
     dispatches: int = 0           # engine calls, as the JAX engine counts
     encode_s: float = 0.0         # host clock, the encoder (whisper)
+    kv_shard_bytes: int = 0       # the payload this rank holds
 
 
 class ServeEngine:
@@ -405,6 +430,10 @@ class ServeEngine:
     or already the rank's share, and ``device`` defaults to the group's.
     A config the ranks cannot divide raises ValueError
     (``SH.check_tp_supported``).
+
+    ``seq_shard``: this rank's ``TPGroup`` for sequence-sharded FA
+    caches of at least ``min_seq`` slots (see the module's docstring);
+    the weights stay whole, and ``device`` defaults to the group's.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_len: int = 4096,
@@ -418,7 +447,8 @@ class ServeEngine:
                  flight_recorder_ticks: int = 512,
                  profile_every: int = 0,
                  fidelity_probe_every: int = 0,
-                 memory_ledger: bool = False, device=None, tp=None):
+                 memory_ledger: bool = False, device=None, tp=None,
+                 seq_shard=None, min_seq: int = KC.MIN_SEQ):
         if routing_pooling not in ("prefix", "prefix_suffix"):
             raise ValueError(
                 f"routing_pooling={routing_pooling!r}: expected 'prefix' "
@@ -429,6 +459,20 @@ class ServeEngine:
                 f"profile_every={profile_every} / fidelity_probe_every="
                 f"{fidelity_probe_every} must be >= 0 (0 disables)")
         MD.check_supported(cfg)
+        if seq_shard is not None and tp is not None:
+            raise ValueError(
+                "seq_shard with tp: sequence-sharded caches beside "
+                "head-sharded weights (JAX's decode_tp with "
+                "distributed_kv) are not ported; pass one of the two")
+        if seq_shard is not None and prefix_cache_mb:
+            raise ValueError(
+                "seq_shard with a prefix store (prefix_cache_mb): a "
+                "snapshot would hold one rank's shards of the caches; "
+                "drop prefix_cache_mb")
+        self.seq_shard = seq_shard
+        self.min_seq = int(min_seq)
+        if device is None and seq_shard is not None:
+            device = seq_shard.device
         self.tp = tp
         self.world = 1 if tp is None else tp.world
         SH.check_tp_supported(cfg, self.world)
@@ -962,35 +1006,50 @@ class ServeEngine:
                          prefix_embeddings=None,
                          encoder_frames=None) -> bool:
         """True when the chunked cache-resident admission can serve this
-        request; False routes it to the monolithic repack fallback (duo
-        head splits, the xa / ta SA modes and modality side inputs among
-        others, as in the JAX engine)."""
+        request; False routes it to the monolithic repack fallback
+        (``repack_reason`` says why)."""
+        return self.repack_reason(
+            seq_len, override, prefix_embeddings=prefix_embeddings,
+            encoder_frames=encoder_frames) is None
+
+    def repack_reason(self, seq_len: int, override=None, *,
+                      prefix_embeddings=None,
+                      encoder_frames=None) -> Optional[str]:
+        """Why this request takes the monolithic repack fallback, in words
+        (duo head splits, the xa / ta SA modes and modality side inputs
+        among others, as in the JAX engine), or None where the chunked
+        cache-resident admission serves it."""
         cfg = self.cfg
         override = (override if override is not None
                     else self.routing_override)
         self._check_override(override)
-        if not self.prefill_chunk or seq_len <= 0:
-            return False
+        if not self.prefill_chunk:
+            return "prefill_chunk unset"
+        if seq_len <= 0:
+            return "an empty prompt"
         if (prefix_embeddings is not None or encoder_frames is not None
                 or cfg.num_encoder_layers or cfg.num_prefix_tokens):
-            return False  # modality side inputs ride the monolithic path
+            return "a modality side input"
         if override is not None and any(isinstance(p, tuple)
                                         for p in override):
-            return False  # duo head splits keep the repack path
+            return "a duo head-split override"
         routable = bool(cfg.flux.enabled and cfg.routable_layers())
         if routable and override is None:
             if not self.sparse_decode:
-                return False  # decisions would diverge from geometry
+                # decisions would diverge from geometry
+                return "router-driven routing with sparse_decode off"
             if self.routing_pooling != "prefix":
-                return False  # paper pooling needs the full sequence
+                return (f"{self.routing_pooling} routing pooling, which "
+                        f"needs the full sequence")
             if (chunk_plan(seq_len, self.prefill_chunk)[0][1]
                     < min(cfg.flux.pool_size, seq_len)):
-                return False  # first chunk can't cover the router pool
+                return "a first chunk shorter than the router's pool"
         needs_sa = routable and (override is None
                                  or any(p == "sa" for p in override))
         if needs_sa and cfg.flux.sa_mode != "ssa":
-            return False  # xa/ta prefill has no ring-resident equivalent
-        return True
+            # xa/ta prefill has no ring-resident equivalent
+            return f"the {cfg.flux.sa_mode} SA mode"
+        return None
 
     def _tokens(self, tokens) -> torch.Tensor:
         if isinstance(tokens, torch.Tensor):
@@ -1255,9 +1314,15 @@ class ServeEngine:
             self._sync()
         t0 = time.perf_counter()
         prefix_hit = 0
-        if self.chunked_eligible(seq_len, routing_override,
+        why = self.repack_reason(seq_len, routing_override,
                                  prefix_embeddings=prefix_embeddings,
-                                 encoder_frames=encoder_frames):
+                                 encoder_frames=encoder_frames)
+        chunked = why is None
+        if self.seq_shard is not None and not chunked:
+            raise ValueError(
+                f"generate: seq_shard serves the chunked prefill only, and "
+                f"this request takes the monolithic repack path ({why})")
+        if chunked:
             job = self.prefill_chunked(tokens, routing_override,
                                        reuse=prefix_reuse)
             pattern, caches = job.pattern, job.caches
@@ -1272,14 +1337,16 @@ class ServeEngine:
             p_fa = None if pf.p_fa is None else pf.p_fa.numpy()
             dispatches += 2  # prefill + the repack
         if (seq_len + n_steps > self.max_len
-                and any(isinstance(c, (KC.FullKV, KC.LatentKV))
-                        for c in caches)):
+                and any(isinstance(c, (KC.FullKV, KC.LatentKV,
+                                       KC.SeqShardKV)) for c in caches)):
             raise ValueError(
                 f"generate: prompt ({seq_len}) + n_steps ({n_steps}) = "
                 f"{seq_len + n_steps} exceeds the cache capacity "
                 f"max_len={self.max_len} of the full-cache layers")
-        kv_bytes = PSH.cache_bytes(caches, self.world,
-                                   self.kv_replicas).payload
+        if self.seq_shard is not None:  # every rank routed alike
+            self.seq_shard.check_agree(digest(pattern, tuple(tokens.shape)),
+                                       "generate: the routing")
+        kv = PSH.cache_bytes(caches, self.world, self.kv_replicas)
         self._sync()
         t1 = time.perf_counter()
         fa_heads, duo_layers = MD.routing_head_split(self.cfg, pattern)
@@ -1297,13 +1364,14 @@ class ServeEngine:
         msr = (sum(p == "sa" for p in routed) / len(routed)
                if routed else float("nan"))
         return GenerationResult(tokens=toks, routing=pattern, msr=msr,
-                                kv_bytes=kv_bytes, p_fa=p_fa,
+                                kv_bytes=kv.payload, p_fa=p_fa,
                                 logits=logits, final_logits=final,
                                 prefill_s=t1 - t0,
                                 decode_s=t2 - t1,
                                 prefix_hit_tokens=prefix_hit,
                                 dispatches=dispatches,
-                                encode_s=t0 - t_enc)
+                                encode_s=t0 - t_enc,
+                                kv_shard_bytes=kv.payload_shard)
 
     # -- continuous-batching frontend --------------------------------------
     def scheduler(self, **kw):

@@ -18,11 +18,21 @@ step itself. A single-token insert takes its position as a Python int
 (every row at one position) or, in the continuous-batching slot pool, as
 a (B,) int32 device tensor (one position per row, written by a scatter
 at (arange(B), slot)). Neither reads the device.
+
+A FA layer's cache can also be cut along its sequence axis over the
+ranks of a group (``SeqShardKV``, JAX's ``cache_shardings`` at B = 1 with
+``distributed_kv``): rank r holds slots [r·S/N, (r+1)·S/N) of the
+capacity S, so no rank ever holds the whole cache. Its inserts and its
+decode are in ``distributed/decode.py``. Only a GQA ``FullKV`` of at
+least ``min_seq`` slots whose capacity the N ranks divide is cut
+(``seq_shardable``, JAX's rule); rings, latents and Mamba states stay
+whole on every rank.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, List, Sequence, Tuple
 
 import torch
 
@@ -35,6 +45,20 @@ class FullKV:
     k: torch.Tensor  # (B, Hkv, Smax, D)
     v: torch.Tensor  # (B, Hkv, Smax, D)
     length: torch.Tensor  # (B,) int32 — tokens currently valid
+
+
+@dataclass
+class SeqShardKV:
+    """One rank's shard of a FullKV cut along the sequence axis over the
+    ``group.world`` ranks of ``group``: slots [start, start + shard) of
+    the capacity shard·world, ``positions`` their absolute positions (the
+    decode kernel's (L,) vector). ``length`` is the whole cache's."""
+    k: torch.Tensor  # (B, Hkv, shard, D)
+    v: torch.Tensor  # (B, Hkv, shard, D)
+    positions: torch.Tensor  # (shard,) int32: arange(start, start + shard)
+    length: torch.Tensor  # (B,) int32 — tokens valid in the whole cache
+    start: int = 0
+    group: Any = field(default=None, repr=False, compare=False)
 
 
 @dataclass
@@ -287,6 +311,7 @@ def latent_insert_chunk(cache: LatentKV, ckv_new: torch.Tensor,
 # a cache type's buffer names in the JAX package's leaf order (its
 # constructor takes them in this order)
 _FIELDS = {FullKV: ("k", "v", "length"),
+           SeqShardKV: ("k", "v", "positions", "length"),
            RingKV: ("k", "v", "positions", "length"),
            LatentKV: ("ckv", "kr", "length"),
            RingLatentKV: ("ckv", "kr", "positions", "length"),
@@ -314,14 +339,18 @@ def capacity(cache) -> int:
                         "not token slots")
     if is_ring(cache):
         return cache.positions.shape[1]
+    if isinstance(cache, SeqShardKV):  # the whole cache's
+        return cache.k.shape[2] * cache.group.world
     return (cache.k.shape[2] if isinstance(cache, FullKV)
             else cache.ckv.shape[1])
 
 
 def map_buffers(caches: Sequence, fn) -> List:
-    """A new cache list whose every buffer is ``fn`` of the old one."""
-    # a cache's constructor takes its fields in cache_fields order
-    return [type(c)(*(fn(t) for t in cache_fields(c))) for c in caches]
+    """A new cache list whose every buffer is ``fn`` of the old one (a
+    shard keeps its place and group)."""
+    return [dataclasses.replace(c, **{f: fn(getattr(c, f))
+                                      for f in _FIELDS[type(c)]})
+            for c in caches]
 
 
 def cache_geometry(caches: Sequence, lead: int = 0) -> Tuple:
@@ -366,13 +395,38 @@ def sa_ring(flux: FluxConfig, max_len: int) -> Tuple[int, int]:
     return ring, flux.sink
 
 
+# the shortest cache JAX's distributed decode shards (its adapters'
+# ``min_seq``): shorter ones, rings among them, stay whole on every rank
+MIN_SEQ = 8192
+
+
+def seq_shardable(capacity: int, world: int, min_seq: int = MIN_SEQ) -> bool:
+    """Whether a full cache of ``capacity`` slots is cut over ``world``
+    ranks: more than one rank, at least ``min_seq`` slots, and a capacity
+    the ranks divide (``repro/launch/shardings.py`` ``cache_shardings``)."""
+    return world > 1 and capacity >= min_seq and capacity % world == 0
+
+
+def seq_shard_range(capacity: int, world: int, rank: int) -> Tuple[int, int]:
+    """[start, end) of the slots rank ``rank`` of ``world`` holds of a
+    ``capacity``-slot cache cut along its sequence axis."""
+    if world < 1 or capacity % world or not 0 <= rank < world:
+        raise ValueError(f"seq_shard_range: {capacity} slots over {world} "
+                         f"ranks (rank {rank}): the ranks must divide them")
+    shard = capacity // world
+    return rank * shard, (rank + 1) * shard
+
+
 def init_layer_cache(cfg: ModelConfig, kind: str, mode: str, batch: int,
-                     max_len: int, device, dtype=None):
+                     max_len: int, device, dtype=None, seq_shard=None,
+                     min_seq: int = MIN_SEQ):
     """Fresh (empty) cache for one layer; mode ∈ {"fa", "sa"} for an
     attention layer (not read for a local or a Mamba layer). An MLA
     model's layers cache latents (``LatentKV`` / ``RingLatentKV``), a
     local layer a ``RingKV`` of min(sliding_window, max_len) slots with
-    no sink, a Mamba layer a zero ``MambaCache``."""
+    no sink, a Mamba layer a zero ``MambaCache``. With ``seq_shard`` (a
+    ``TPGroup``), a GQA FA layer's cache that ``seq_shardable`` admits is
+    this rank's ``SeqShardKV``."""
     if max_len <= 0:
         raise ValueError(f"init_layer_cache: max_len={max_len} must be "
                          f"positive")
@@ -418,6 +472,18 @@ def init_layer_cache(cfg: ModelConfig, kind: str, mode: str, batch: int,
             positions=torch.full((batch, L), -1, dtype=torch.int32,
                                  device=device),
             length=length)
+    if seq_shard is not None and seq_shardable(max_len, seq_shard.world,
+                                               min_seq):
+        start, end = seq_shard_range(max_len, seq_shard.world,
+                                     seq_shard.rank)
+        return SeqShardKV(
+            k=torch.zeros((batch, H, end - start, D), dtype=dtype,
+                          device=device),
+            v=torch.zeros((batch, H, end - start, D), dtype=dtype,
+                          device=device),
+            positions=torch.arange(start, end, dtype=torch.int32,
+                                   device=device),
+            length=length, start=start, group=seq_shard)
     return FullKV(
         k=torch.zeros((batch, H, max_len, D), dtype=dtype, device=device),
         v=torch.zeros((batch, H, max_len, D), dtype=dtype, device=device),
@@ -425,9 +491,12 @@ def init_layer_cache(cfg: ModelConfig, kind: str, mode: str, batch: int,
 
 
 def init_decode_caches(cfg: ModelConfig, routing: Tuple[str, ...],
-                       batch: int, max_len: int, device) -> List:
+                       batch: int, max_len: int, device, seq_shard=None,
+                       min_seq: int = MIN_SEQ) -> List:
     """Per-layer cache list for a static routing pattern
     (routing[i] ∈ {"fa", "sa"} at an attention layer; a local or a Mamba
-    layer's entry is not read)."""
-    return [init_layer_cache(cfg, kind, routing[i], batch, max_len, device)
+    layer's entry is not read); ``seq_shard`` / ``min_seq`` as
+    ``init_layer_cache`` takes them."""
+    return [init_layer_cache(cfg, kind, routing[i], batch, max_len, device,
+                             seq_shard=seq_shard, min_seq=min_seq)
             for i, kind in enumerate(cfg.layer_kinds)]

@@ -180,6 +180,12 @@ class ContinuousScheduler:
                 "continuous batching supports decoder-only text requests; "
                 "encoder/prefix modalities carry per-request side inputs "
                 "the slot pool does not hold yet")
+        if getattr(engine, "seq_shard", None) is not None:
+            raise ValueError(
+                "continuous batching conflicts with seq_shard: the slot "
+                "pool batches short requests on per-slot positions and "
+                "never shards a cache's sequence; serve seq_shard "
+                "requests through generate")
         if slots_per_bucket < 1:
             raise ValueError(
                 f"slots_per_bucket={slots_per_bucket} must be >= 1: a "

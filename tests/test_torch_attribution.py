@@ -207,7 +207,9 @@ def test_knobs_off_calls_each_kernel_as_the_path_needs(on_off):
                 decode_attention_pooled=sum(
         p.steps for p in sched.pools.values()) * cfg.num_layers,
                 attention_backward=0,  # serving runs no backward
-                block_sparse_backward=0)
+                block_sparse_backward=0,
+                # nor, on one device, the sequence-sharded decode
+                decode_attention_partial=0, decode_merge_ranks=0)
     assert calls == want
 
 

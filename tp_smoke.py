@@ -38,7 +38,22 @@ then:
      90.3 GB of bf16 weights, which no one card holds) on N ranks, as
      step 3: finite logits, exact launches, the reduce count by layer
      (``chip_smoke.tp_reduces``: 9 a step), per-rank weight bytes, peak
-     memory and tok/s.
+     memory and tok/s;
+  6. sequence-sharded long-context decode (``ServeEngine(seq_shard=)``):
+     phi3-mini-3.8b at full width and depth, bf16, mixed routing (16 FA
+     and 16 SA layers), B = 1, chunk SEQ_CHUNK, whole weights on every
+     rank and each FA cache cut along its sequence over the N ranks.
+     (a) capacity SEQ_A[0], a SEQ_A[1]-token prompt and SEQ_GEN steps on
+     card 0 alone (whole caches) and on N ranks: prefill and decode
+     tok/s, the step where their tokens part, per-rank FA KV bytes (1/N
+     of one card's); (b) the long_500k shape, capacity SEQ_B[0], a
+     SEQ_B[1]-token prompt, on N ranks only (its FA caches, 103 GB, fit
+     no card beside the weights): finite logits, exact launches (the
+     partial decode and the rank merge once a FA layer a step), a decode
+     step's gathers (one a FA layer of B·Hq·(D + 1) fp32) and no
+     all-reduce, the prefill's broadcasts, per-rank weight, KV and peak
+     bytes, prefill and decode tok/s.
+``--steps`` picks the steps to run (default all).
 Prints each card's name and power limit, one line a step, and one JSON
 line of the numbers (without the per-layer coverage lists, which go to
 ``--out`` with the rest); exits non-zero on any failure, in any rank.
@@ -55,6 +70,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 TP_LONG, TP_LONG_GEN = 4096, 32
+# step 6: (capacity, prompt tokens) of (a) and of (b), the long_500k
+# shape (repro/configs/base.py), its prefill chunk and decode steps
+SEQ_A, SEQ_B, SEQ_CHUNK, SEQ_GEN = (65536, 65472), (524288, 524256), 8192, 32
+SEQ_MIN_SEQ = 8192  # the shortest cache cut (JAX's min_seq)
 
 
 def parity_rank(tp, prompts):
@@ -290,10 +309,11 @@ def one_and_ranks(dev, world, arch, layers, prompts):
     return entry, alone, cut[0]
 
 
-def long_steps(dev, world, report):
-    """Steps 2-5 into ``report``: each model on ``world`` ranks over
-    nccl (steps 2 and 4 first on card 0 alone), 2 x TP_LONG tokens of
-    seeded prompts (step 2's and 3's alike), mixed routing."""
+def long_steps(dev, world, report, steps=(2, 3, 4, 5)):
+    """Steps 2-5 (those in ``steps``) into ``report``: each model on
+    ``world`` ranks over nccl (steps 2 and 4 first on card 0 alone), 2 x
+    TP_LONG tokens of seeded prompts (step 2's and 3's alike), mixed
+    routing."""
     import chip_smoke as CS
     from repro_torch.configs import get_config
     from repro_torch.distributed.group import launch
@@ -303,6 +323,8 @@ def long_steps(dev, world, report):
             (4, CS.DEEPSEEK, CS.DEEPSEEK_LAYERS, "deepseek_cut"),
             (5, CS.JAMBA, len(get_config(CS.JAMBA).layer_pattern),
              "jamba_period")):
+        if step not in steps:
+            continue
         t0 = time.perf_counter()
         seed = 12 if arch == CS.COMMAND_R else 12 + step
         prompts = np.random.default_rng(seed).integers(
@@ -364,14 +386,151 @@ def long_steps(dev, world, report):
               f"[{time.perf_counter() - t0:.1f} s]", flush=True)
 
 
+def seq_serve(dev, capacity, prompt, tp=None):
+    """Step 6 on one card or one rank: phi3-mini at full width and depth
+    (seeded weights, whole on every rank), ``generate`` of ``prompt`` (1,
+    n) under the mixed routing, chunk SEQ_CHUNK, SEQ_GEN steps, with
+    ``tp`` (a rank's group) its FA caches of ``capacity`` slots cut along
+    the sequence over the ranks. Exact launches, and on the ranks exact
+    collectives. Returns host results."""
+    import chip_smoke as CS
+    import repro_torch.kernels as KN
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import routing_pattern
+    from repro_torch.models import model as MD
+    from repro_torch.serve import kv_cache as KC
+    from repro_torch.serve.engine import ServeEngine, chunk_plan
+    cfg = get_config(CS.ARCH)
+    t0 = time.perf_counter()
+    params = MD.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    torch.cuda.synchronize()
+    init_s, weights = time.perf_counter() - t0, torch.cuda.memory_allocated(
+        dev)
+    eng = ServeEngine(params, cfg, max_len=capacity, prefill_chunk=SEQ_CHUNK,
+                      device=dev, seq_shard=tp, min_seq=SEQ_MIN_SEQ)
+    mixed = routing_pattern(cfg, "mixed")
+    eng.generate(prompt[:, :SEQ_CHUNK], 2, routing_override=mixed)  # warm
+    CS.free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    KN.reset_launch_counts()
+    if tp is not None:
+        tp.reset_counts()
+    n = prompt.shape[1]
+    g = eng.generate(prompt, SEQ_GEN, routing_override=mixed)
+    assert bool(torch.isfinite(g.logits).all()), "first logits"
+    assert bool(torch.isfinite(g.final_logits).all()), "last logits"
+    counts = KN.launch_counts()
+    n_fa = sum(p == "fa" for p in g.routing)
+    want = {"flash_attention": n_fa,
+            "streaming_attention": sum(p == "sa" for p in g.routing),
+            "block_sparse_attention": n_fa * (len(chunk_plan(
+                n, SEQ_CHUNK)) - 1)}
+    want.update(CS.decode_launches(cfg, SEQ_GEN, pooled=False,
+                                   seq_sharded=0 if tp is None else n_fa))
+    assert counts == want, (counts, want)
+    fa_whole = n_fa * 2 * capacity * cfg.num_kv_heads * cfg.head_dim * \
+        cfg.dtype.itemsize
+    out = dict(init_s=init_s, weights_bytes=weights,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+               prefill_s=g.prefill_s, decode_s=g.decode_s,
+               prefill_tok_s=n / g.prefill_s,
+               decode_tok_s=SEQ_GEN / g.decode_s, tokens=g.tokens,
+               launches=counts, kv_bytes=g.kv_bytes,
+               kv_shard_bytes=g.kv_shard_bytes, fa_kv_bytes=fa_whole,
+               fa_kv_shard_bytes=fa_whole)
+    if tp is not None:
+        shard = capacity // tp.world
+        calls, nbytes, bcasts = CS.seq_gathers(cfg, g.routing, n, SEQ_GEN,
+                                               shard, SEQ_CHUNK)
+        got = (tp.gather_calls, tp.gather_bytes, tp.bcast_calls,
+               tp.reduce_calls)
+        assert got == (calls, nbytes, bcasts, 0), (got, calls, nbytes,
+                                                    bcasts)
+        assert KC.seq_shardable(capacity, tp.world, SEQ_MIN_SEQ)
+        # the rank holds 1/world of every FA cache and the whole rings
+        out["fa_kv_shard_bytes"] = fa_whole // tp.world
+        assert g.kv_bytes - g.kv_shard_bytes == \
+            fa_whole - out["fa_kv_shard_bytes"], (g.kv_bytes,
+                                                  g.kv_shard_bytes)
+        out["collectives"] = dict(
+            gathers_a_step=calls // SEQ_GEN, gather_bytes=nbytes // calls,
+            all_reduces=tp.reduce_calls, prefill_broadcasts=tp.bcast_calls,
+            prefill_broadcast_bytes=tp.bcast_bytes)
+    return out
+
+
+def seq_rank(tp, prompt, capacity):
+    """Step 6 on one rank."""
+    return seq_serve(tp.device, capacity, prompt, tp)
+
+
+def seq_steps(dev, world, report):
+    """Step 6 into ``report``: (a) on card 0 alone and on ``world`` ranks,
+    (b) on the ranks only."""
+    import chip_smoke as CS
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.group import launch
+    vocab = get_config(CS.ARCH).vocab_size
+    for part, (capacity, n) in (("a", SEQ_A), ("b", SEQ_B)):
+        t0 = time.perf_counter()
+        prompt = np.random.default_rng(60).integers(0, vocab, (1, n))
+        alone = None
+        if part == "a":
+            alone = seq_serve(dev, capacity, prompt)
+            CS.free_card()
+        cut = launch(seq_rank, world, "nccl", args=(prompt, capacity),
+                     device="cuda")
+        for r in cut:
+            assert np.array_equal(r["tokens"], cut[0]["tokens"])
+        entry = dict(capacity=capacity, prompt=n, chunk=SEQ_CHUNK,
+                     steps=SEQ_GEN, ranks=[_report_seq(r) for r in cut])
+        line = (f"step 6{part}: {CS.ARCH} full width and depth bf16 mixed, "
+                f"capacity {capacity}, prompt {n} + {SEQ_GEN}, chunk "
+                f"{SEQ_CHUNK}: ")
+        if alone is not None:
+            entry["one_card"] = _report_seq(alone)
+            entry["first_token_step_apart"] = _apart(alone["tokens"],
+                                                     cut[0]["tokens"])
+            line += (f"one card prefill {alone['prefill_tok_s']:.0f} tok/s "
+                     f"decode {alone['decode_tok_s']:.2f} tok/s, FA KV "
+                     f"{alone['fa_kv_bytes']} bytes, peak "
+                     f"{alone['peak_mem_bytes']}; ")
+        c = cut[0]["collectives"]
+        line += (f"{world} ranks: " + "; ".join(
+            f"rank {i} prefill {r['prefill_tok_s']:.0f} tok/s decode "
+            f"{r['decode_tok_s']:.2f} tok/s weights {r['weights_bytes']} "
+            f"KV {r['kv_shard_bytes']} (FA {r['fa_kv_shard_bytes']} of "
+            f"{r['fa_kv_bytes']}) peak {r['peak_mem_bytes']}"
+            for i, r in enumerate(cut))
+            + f"; launches a rank {cut[0]['launches']}; a decode step: "
+            f"{c['gathers_a_step']} gathers of {c['gather_bytes']} bytes, "
+            f"{c['all_reduces']} all-reduces; the prefill: "
+            f"{c['prefill_broadcasts']} broadcasts of "
+            f"{c['prefill_broadcast_bytes']} bytes a rank")
+        if alone is not None:
+            line += (f"; tokens apart from step "
+                     f"{entry['first_token_step_apart']}")
+        report[f"seq_{part}"] = entry
+        print(line + f" [{time.perf_counter() - t0:.1f} s]", flush=True)
+        CS.free_card()
+
+
+def _report_seq(r):
+    return {k: v for k, v in r.items() if k != "tokens"}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--world", type=int, default=4)
+    ap.add_argument("--steps", default="1,2,3,4,5,6",
+                    help="the steps to run, comma-separated")
     ap.add_argument("--out", default=None,
                     help="write the whole report, coverage lists included, "
                          "here as JSON")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     world = args.world
+    steps = {int(x) for x in args.steps.split(",")}
     if not torch.cuda.is_available():
         raise SystemExit("tp_smoke: no CUDA device")
     if torch.cuda.device_count() < world:
@@ -380,11 +539,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "src"))
     import chip_smoke as CS
-    from repro_torch.configs import get_config
-    from repro_torch.distributed.group import launch
     from repro_torch.kernels import _build
-    from repro_torch.models import model as MD
-    from repro_torch.serve.engine import ServeEngine
     t_all = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -395,6 +550,26 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     report = {"world": world, "cards": smi.splitlines()}
 
+    if 1 in steps:
+        parity_step(dev, world, report)
+    long_steps(dev, world, report, steps)
+    if 6 in steps:
+        seq_steps(dev, world, report)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(report, default=str))
+    print(json.dumps(_without_coverage(report), default=str), flush=True)
+    print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
+    return 0
+
+
+def parity_step(dev, world, report):
+    """Step 1 into ``report``."""
+    import chip_smoke as CS
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.group import launch
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import ServeEngine
     t0 = time.perf_counter()
     cfg2 = get_config(CS.ARCH).replace(num_layers=2, dtype=torch.float32,
                                        param_dtype=torch.float32)
@@ -425,14 +600,6 @@ def main(argv=None) -> int:
           f"one card (prompt seed {seed}, margin {margin:.2e}): tokens, "
           f"routing and statuses equal, logits rel err {max(errs):.2e} "
           f"[{time.perf_counter() - t0:.1f} s]", flush=True)
-
-    long_steps(dev, world, report)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(report, default=str))
-    print(json.dumps(_without_coverage(report), default=str), flush=True)
-    print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
-    return 0
 
 
 if __name__ == "__main__":
